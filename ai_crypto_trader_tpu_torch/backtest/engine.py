@@ -4,9 +4,12 @@ Port of `ai_crypto_trader_tpu/backtest/engine.py`.  The JAX package scans
 `replay_step` over candles and vmaps it over strategies; here `replay_step`
 is the same transition on tensors whose leading shape is the population
 (or nothing, for one strategy), and `run_backtest` is a plain Python loop
-over T.  That loop is the plain version of the replay kernel:
-`sweep` on a CUDA tensor launches `ops.replay.sweep_kernel` (the port of
-the Pallas kernel `ops/pallas_backtest.py:sweep_pallas`) instead.
+over T.  That loop is the plain version of the replay kernel: on a CUDA
+device `sweep`, and `run_backtest` in ``use_param_sl_tp`` mode without
+``sell_exits`` over one candle series, launch `ops.replay.sweep_kernel`
+(the port of the Pallas kernel `ops/pallas_backtest.py:sweep_pallas`)
+instead.  The other modes of `run_backtest` run the loop on either device,
+as the JAX package has no kernel for them either.
 
 Parity contract (as the JAX engine's, strategy_tester.py:190-300 of the
 reference): the first `warmup` candles are skipped; SL/TP are checked on
@@ -293,19 +296,36 @@ def run_backtest(inputs: BacktestInputs, params: StrategyParams | None = None, *
                  reference_quirks: bool = False, use_param_sl_tp: bool = False,
                  return_curve: bool = False, sell_exits: bool = False,
                  device=None):
-    """One backtest (or a broadcast batch) through the plain loop, on
-    ``device`` (default: the CUDA card).  With ``use_param_sl_tp`` the
-    StrategyParams stop_loss / take_profit (percent) override the sizer's
-    volatility ladder; ``sell_exits`` adds an explicit SELL-signal close."""
+    """One backtest (or a broadcast batch) on ``device`` (default: the CUDA
+    card).  With ``use_param_sl_tp`` the StrategyParams stop_loss /
+    take_profit (percent) override the sizer's volatility ladder;
+    ``sell_exits`` adds an explicit SELL-signal close.  On CUDA the
+    ``use_param_sl_tp`` mode without ``sell_exits`` over one candle series
+    runs the replay kernel over the params' broadcast shape
+    (``reference_quirks`` changes nothing there); every other mode, a batch
+    of series, and the CPU run the plain loop."""
     dev = resolve_device(device)
     inputs = _on(inputs, dev)
     params = None if params is None else _on(params, dev)
-    return replay(inputs, params, initial_balance=initial_balance,
-                  ai_confidence_threshold=ai_confidence_threshold,
-                  min_signal_strength=min_signal_strength, warmup=warmup,
-                  reference_quirks=reference_quirks,
+    kw = dict(initial_balance=initial_balance,
+              ai_confidence_threshold=ai_confidence_threshold,
+              min_signal_strength=min_signal_strength, warmup=warmup)
+    if dev.type == "cuda" and use_param_sl_tp and not sell_exits and inputs.close.ndim == 1:
+        if params is None:
+            raise ValueError("use_param_sl_tp needs StrategyParams")
+        # imported here: ops.replay imports this module
+        from ai_crypto_trader_tpu_torch.ops.replay import sweep_kernel
+
+        shape = torch.broadcast_shapes(params.stop_loss.shape, params.take_profit.shape)
+        flat = params._replace(stop_loss=params.stop_loss.expand(shape).reshape(-1),
+                               take_profit=params.take_profit.expand(shape).reshape(-1))
+        out = sweep_kernel(inputs, flat, return_curve=return_curve, device=dev, **kw)
+        stats, curve = out if return_curve else (out, None)
+        stats = BacktestStats(*(v.reshape(shape) for v in stats))
+        return (stats, curve.reshape(shape + curve.shape[-1:])) if return_curve else stats
+    return replay(inputs, params, reference_quirks=reference_quirks,
                   use_param_sl_tp=use_param_sl_tp, return_curve=return_curve,
-                  sell_exits=sell_exits)
+                  sell_exits=sell_exits, **kw)
 
 
 def sweep(inputs: BacktestInputs, params: StrategyParams,
@@ -317,28 +337,22 @@ def sweep(inputs: BacktestInputs, params: StrategyParams,
     """The population sweep: every strategy of a stacked StrategyParams
     [B] over the same candles, in ``use_param_sl_tp`` mode.
 
-    On CUDA it launches the replay kernel (`ops.replay.sweep_kernel`);
-    ``return_curve=True`` is not implemented there and raises.  On the CPU
-    it runs the plain loop.  ``inputs`` must carry NaN sl_pct/tp_pct
-    columns for the genomes' stops to matter (as `prepare_inputs` builds
-    them)."""
+    On CUDA it launches the replay kernel (`ops.replay.sweep_kernel`), on
+    the CPU it runs the plain loop; with ``return_curve`` either returns
+    ``(stats, curve)``, the curve [B, T].  ``inputs`` must carry NaN
+    sl_pct/tp_pct columns for the genomes' stops to matter (as
+    `prepare_inputs` builds them)."""
     dev = resolve_device(device)
     inputs = _on(inputs, dev)
     params = _on(params, dev)
+    kw = dict(initial_balance=initial_balance,
+              ai_confidence_threshold=ai_confidence_threshold,
+              min_signal_strength=min_signal_strength, warmup=warmup,
+              return_curve=return_curve)
     if dev.type == "cuda":
-        if return_curve:
-            raise NotImplementedError(
-                "sweep(return_curve=True) has no CUDA kernel yet; run it "
-                "with device='cpu' or use run_backtest")
         # imported here: ops.replay imports this module
         from ai_crypto_trader_tpu_torch.ops.replay import sweep_kernel
 
-        return sweep_kernel(inputs, params, initial_balance=initial_balance,
-                            ai_confidence_threshold=ai_confidence_threshold,
-                            min_signal_strength=min_signal_strength,
-                            warmup=warmup, device=dev)
-    return replay(inputs, params, initial_balance=initial_balance,
-                  ai_confidence_threshold=ai_confidence_threshold,
-                  min_signal_strength=min_signal_strength, warmup=warmup,
-                  reference_quirks=reference_quirks, use_param_sl_tp=True,
-                  return_curve=return_curve)
+        return sweep_kernel(inputs, params, device=dev, **kw)
+    return replay(inputs, params, reference_quirks=reference_quirks,
+                  use_param_sl_tp=True, **kw)

@@ -1,47 +1,73 @@
-// replay_sweep.cu — the population replay backtest, one thread per strategy.
+// replay_sweep.cu — the population replay backtest as an event walk, one
+// warp per strategy.
 //
 // Replaces the TPU kernel ai_crypto_trader_tpu/ops/pallas_backtest.py
 // sweep_pallas (pl.pallas_call at :259; kernel body from _make_kernel,
 // :87-196): engine.sweep's use_param_sl_tp replay, no reference quirks, no
-// sell exits.  Per candle and strategy: an SL/TP check on pnl% and the close
+// sell exits, and optionally the [B, T] equity curve.  Per candle and
+// strategy the reference does an SL/TP check on pnl% and the close
 // bookkeeping (_book_close), the entry gate (confidence >= threshold,
 // strength >= minimum, signal == decision == BUY), the position sizer
 // (signals.position_size) and the equity point, drawdown and return
 // moments; at the end the open position closes at close[T-1] and 15 stats
-// are written.  Operands keep replay_step's order (engine.py:240-315):
-// (close - entry) / entry_safe * 100, dd / max_eq * 100, size / close.
+// are written.
+//
+// What bounds it on this card: neither bytes nor the arithmetic rate, but
+// the walk's latency.  The streams are 9·T·4 bytes (18.9 MB at T = 525,600)
+// and stay in the 50 MB L2; the exit test is a handful of float32
+// operations per in-position candle and strategy.  Each strategy is a
+// serial chain of events (an entry, then the first candle whose pnl% hits
+// SL or TP, then the next entry), and the card is only busy when enough
+// strategies walk at once to hide each chain's load and division latency.
+//
+// What the design does about it.  Out of a position nothing but the entry
+// gate can happen, and the gate depends on the candles alone; in a position
+// nothing but the exit can happen, and the exit depends only on the entry.
+// So the kernel jumps from event to event instead of stepping every candle,
+// and gives the candles in between to the 32 lanes of a warp:
+//   * a pre-pass (replay_gate_kernel) evaluates the gate once per candle,
+//     not once per strategy, into a bitmask of ceil(T/32) words;
+//   * out of a position each lane tests one word of the mask, and
+//     __ballot_sync/__ffs find the next gate bit, 1,024 candles a step;
+//   * in a position each lane tests 4 consecutive candles of close (one
+//     16-byte load) with the exact pnl% test of replay_step, and a ballot
+//     finds the first candle that hits, 128 candles a step;
+//   * the event bookkeeping (book_close, position_size, the equity point)
+//     runs once per event with replay_step's operands in replay_step's
+//     order, on a carry that every lane of the warp holds alike.
+// That skipping keeps every bit: out of a position a candle books r = (b -
+// b)/b, which adds nothing to the sums and leaves max_equity and the
+// drawdown as they were, so a run of such candles is booked once and
+// counted into n_r; in a position a candle that does not close books
+// nothing at all.  A close on candle x books its equity point at x and may
+// re-open at x, as the reference runs the gate after _book_close.  Which of
+// SL and TP hit does not matter: both close at close[x].
+// One warp per strategy puts 4,096 warps on the card at B = 4096 (~31 per
+// SM); __launch_bounds__ caps registers at 64 a thread so all are resident.
 // Built with --fmad=false, so no product is fused into a sum: the plain
 // PyTorch loop rounds each step the same way, and a one-ulp shift in pnl%
 // would flip `pnl_pct <= -sl` on a borderline candle and change the trade.
 // volume / 50000 is a multiply by the float32 reciprocal, as the compiled
-// JAX engine and the port's sizer compute it.
-//
-// What bounds it on this card: neither bytes nor the arithmetic rate.  The
-// nine [T] candle streams are 9·T·4 bytes (18.9 MB at T = 525,600), read
-// once from device memory; the arithmetic is some 60 float32 operations per
-// candle and strategy (1.3e11 at B = 4096), two milliseconds at the card's
-// float32 rate.  The limit is each strategy's serial chain of dependent
-// operations across T candles: the carry of candle t feeds candle t+1.
-//
-// What the design does about it: the whole carry (21 values, counters as
-// int as in engine.py) lives in registers of the strategy's thread, so a
-// candle costs no memory traffic for the state.  Each block of kBlock = 32
-// strategies stages kStage candles of the nine streams into shared memory
-// once, and all its threads read them from there as broadcasts; at B = 4096
-// that is 128 blocks, one warp on most of the 132 SMs (128 threads per
-// block would leave 100 SMs idle).  Ragged T and B are masked in the
-// kernel: no padding pass, and the end-of-test close reads close[T-1].
-// The TPU kernel's sequential grid carry over time chunks becomes a loop
-// inside the block.
+// JAX engine and the port's sizer compute it.  Ragged T and B are masked in
+// the kernels: no padding pass, and the end-of-test close reads close[T-1].
+// The curve variant (a template flag, so the stats-only walk carries no
+// curve code) writes the balance after each candle, which changes only at
+// closes, as runs between closes; each warp writes its own row.
 
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cmath>
+#include <cstdint>
 
 namespace {
 
-constexpr int kBlock = 32;
-constexpr int kStage = 1024;
+constexpr int kWarps = 4;                 // strategies per block
+constexpr int kThreads = 32 * kWarps;
+constexpr int kMinBlocks = 8;             // 32 warps an SM: <= 64 registers
+constexpr int kPerLane = 4;               // candles a lane tests per step
+constexpr int kGateThreads = 256;
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float min_nan(float a, float b) {
   return (isnan(a) || isnan(b)) ? NAN : (b < a ? b : a);
@@ -95,29 +121,129 @@ __device__ __forceinline__ void book_close(Carry& c, float price) {
   c.max_loss = max(c.max_loss, c.cur_loss);
 }
 
-__global__ void __launch_bounds__(kBlock)
-    replay_sweep_kernel(const float* __restrict__ close,
-                        const int* __restrict__ signal,
-                        const float* __restrict__ strength,
-                        const float* __restrict__ volatility,
-                        const float* __restrict__ volume,
-                        const float* __restrict__ confidence,
-                        const int* __restrict__ decision,
-                        const float* __restrict__ sl_override,
-                        const float* __restrict__ tp_override,
-                        const float* __restrict__ stop_loss,
-                        const float* __restrict__ take_profit,
-                        float* __restrict__ out_f, int* __restrict__ out_i,
-                        int B, long long T, int warmup, float initial_balance,
-                        float conf_thr, float min_strength) {
-  __shared__ float s_close[kStage], s_strength[kStage], s_vol[kStage],
-      s_volume[kStage], s_conf[kStage], s_slo[kStage], s_tpo[kStage];
-  __shared__ int s_signal[kStage], s_decision[kStage];
+// replay_step's equity point on a booked candle whose balance was
+// `prev_balance` before it.  Applying it twice with prev_balance ==
+// c.balance changes nothing but n_r: max_nan is idempotent, the drawdown
+// test fails the second time, and r = (b - b)/b is a zero (or the NaN the
+// first application already added).
+__device__ __forceinline__ void equity_point(Carry& c, float prev_balance) {
+  const float equity = c.balance;
+  c.max_equity = max_nan(c.max_equity, equity);
+  const float dd = c.max_equity - equity;
+  if (dd > c.max_dd) {
+    c.max_dd = dd;
+    c.max_dd_pct = dd / c.max_equity * 100.f;
+  }
+  const float r = (equity - prev_balance) / prev_balance;
+  c.sum_r = c.sum_r + r;
+  c.sum_r2 = c.sum_r2 + r * r;
+  if (r < 0.f) c.sum_neg_r2 = c.sum_neg_r2 + r * r;
+  c.n_r += 1;
+}
 
-  const int j = blockIdx.x * kBlock + threadIdx.x;
-  const bool live = j < B;
-  const float psl = live ? stop_loss[j] : 0.f;
-  const float ptp = live ? take_profit[j] : 0.f;
+// The first candle >= t whose gate bit is set, or T.  Lane l tests word
+// (t/32 + l) of each step; the bits of the mask past T are 0.
+__device__ __forceinline__ int next_gate(const unsigned* __restrict__ mask,
+                                         int nwords, int t, int T, int lane) {
+  const int w0 = t >> 5;
+  for (int w = w0; w < nwords; w += 32) {
+    const int mine = w + lane;
+    unsigned word = mine < nwords ? __ldg(mask + mine) : 0u;
+    if (mine == w0) word &= ~0u << (t & 31);
+    const unsigned any = __ballot_sync(kFull, word != 0u);
+    if (any) {
+      const int f = __ffs(any) - 1;
+      const unsigned hit = __shfl_sync(kFull, word, f);
+      return ((w + f) << 5) + __ffs(hit) - 1;
+    }
+  }
+  return T;
+}
+
+// The first candle >= t whose close hits the position's SL or TP, or T.
+// The test is replay_step's: (close - entry) / entry_safe * 100 against
+// -sl and tp.  Lane l tests candles base + 4l .. base + 4l + 3 (base
+// aligned to 4, so one 16-byte load); candles before t or from T on are
+// masked.
+__device__ __forceinline__ int next_exit(const float* __restrict__ close,
+                                         int T, int t, float entry,
+                                         float entry_safe, float neg_sl,
+                                         float tp, int lane) {
+  for (int base = t & ~(kPerLane - 1); base < T; base += kPerLane * 32) {
+    const int i0 = base + kPerLane * lane;
+    float v[kPerLane];
+    if (i0 + kPerLane <= T) {
+#pragma unroll
+      for (int q = 0; q < kPerLane / 4; ++q) {
+        const float4 f4 = __ldg(reinterpret_cast<const float4*>(close + i0) + q);
+        v[4 * q] = f4.x, v[4 * q + 1] = f4.y, v[4 * q + 2] = f4.z, v[4 * q + 3] = f4.w;
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < kPerLane; ++k)
+        v[k] = i0 + k < T ? __ldg(close + i0 + k) : 0.f;
+    }
+    unsigned hits = 0u;
+#pragma unroll
+    for (int k = 0; k < kPerLane; ++k) {
+      const float pnl_pct = (v[k] - entry) / entry_safe * 100.f;
+      const bool hit = pnl_pct <= neg_sl || pnl_pct >= tp;
+      const int i = i0 + k;
+      if (hit && i >= t && i < T) hits |= 1u << k;
+    }
+    const unsigned any = __ballot_sync(kFull, hits != 0u);
+    if (any) {
+      const int f = __ffs(any) - 1;
+      const unsigned hit = __shfl_sync(kFull, hits, f);
+      return base + kPerLane * f + __ffs(hit) - 1;
+    }
+  }
+  return T;
+}
+
+// row[from:to] = v, the warp's lanes on consecutive addresses.
+__device__ __forceinline__ void fill(float* __restrict__ row, int from, int to,
+                                     float v, int lane) {
+  for (int i = from + lane; i < to; i += 32) row[i] = v;
+}
+
+__global__ void __launch_bounds__(kGateThreads)
+    replay_gate_kernel(const float* __restrict__ confidence,
+                       const float* __restrict__ strength,
+                       const int* __restrict__ signal,
+                       const int* __restrict__ decision,
+                       unsigned* __restrict__ mask, int T, int warmup,
+                       float conf_thr, float min_strength) {
+  const int t = blockIdx.x * kGateThreads + threadIdx.x;
+  bool gate = false;
+  if (t < T && t >= warmup) {
+    const int dec = decision[t];
+    gate = confidence[t] >= conf_thr && strength[t] >= min_strength &&
+           signal[t] == dec && dec == 1;
+  }
+  const unsigned bits = __ballot_sync(kFull, gate);
+  if ((threadIdx.x & 31) == 0 && t < T) mask[t >> 5] = bits;
+}
+
+template <bool kCurve>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    replay_walk_kernel(const float* __restrict__ close,
+                       const float* __restrict__ volatility,
+                       const float* __restrict__ volume,
+                       const float* __restrict__ sl_override,
+                       const float* __restrict__ tp_override,
+                       const unsigned* __restrict__ mask,
+                       const float* __restrict__ stop_loss,
+                       const float* __restrict__ take_profit,
+                       float* __restrict__ out_f, int* __restrict__ out_i,
+                       float* __restrict__ curve, int B, int T, int warmup,
+                       float initial_balance) {
+  const int lane = threadIdx.x & 31;
+  const int j = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (j >= B) return;  // the whole warp
+  const float psl = stop_loss[j], ptp = take_profit[j];
+  const int nwords = (T + 31) >> 5;
+  float* row = kCurve ? curve + static_cast<long long>(j) * T : nullptr;
 
   Carry c;
   c.balance = initial_balance;
@@ -131,71 +257,48 @@ __global__ void __launch_bounds__(kBlock)
   c.n_r = 1;  // the reference's initial zero-return equity point
   c.cur_win = c.cur_loss = c.max_win = c.max_loss = 0;
 
-  for (long long t0 = 0; t0 < T; t0 += kStage) {
-    const int n = static_cast<int>(T - t0 < kStage ? T - t0 : kStage);
-    __syncthreads();  // the previous stage is fully consumed
-    for (int i = threadIdx.x; i < n; i += kBlock) {
-      s_close[i] = close[t0 + i];
-      s_signal[i] = signal[t0 + i];
-      s_strength[i] = strength[t0 + i];
-      s_vol[i] = volatility[t0 + i];
-      s_volume[i] = volume[t0 + i];
-      s_conf[i] = confidence[t0 + i];
-      s_decision[i] = decision[t0 + i];
-      s_slo[i] = sl_override[t0 + i];
-      s_tpo[i] = tp_override[t0 + i];
+  int booked = warmup > 0 ? warmup : 0;  // first candle not yet booked
+  int curve_from = 0;                    // first curve column not written
+  int t = booked;                        // where the gate search starts
+  while (t < T) {
+    // out of a position: candles booked..g book r = 0 (g the entry)
+    const int g = next_gate(mask, nwords, t, T, lane);
+    const int count = (g < T ? g + 1 : T) - booked;
+    if (count > 0) {
+      equity_point(c, c.balance);
+      c.n_r += count - 1;
     }
-    __syncthreads();
+    if (g >= T) break;
 
-    for (int i = 0; i < n; ++i) {
-      const bool active = t0 + i >= warmup;
-      const float price = s_close[i];
-      const float prev_balance = c.balance;
+    const float price = __ldg(close + g);
+    const float size =
+        position_size(c.balance, __ldg(volatility + g), __ldg(volume + g));
+    const float slo = __ldg(sl_override + g), tpo = __ldg(tp_override + g);
+    c.in_pos = true;
+    c.entry = price;
+    c.qty = size / price;
+    c.sl = isnan(slo) ? psl : slo;
+    c.tp = isnan(tpo) ? ptp : tpo;
 
-      // --- SL/TP check on the open position ---
-      const float entry_safe = c.entry == 0.f ? 1.f : c.entry;
-      const float pnl_pct = (price - c.entry) / entry_safe * 100.f;
-      const bool open = active && c.in_pos;
-      const bool hit_sl = open && pnl_pct <= -c.sl;
-      const bool hit_tp = open && !hit_sl && pnl_pct >= c.tp;
-      const bool closing = hit_sl || hit_tp;
-      const bool survived = c.in_pos && !closing;
-      if (closing) book_close(c, price);
-
-      // --- entry gate ---
-      const int sig = s_signal[i], dec = s_decision[i];
-      const bool gate = active && !c.in_pos && s_conf[i] >= conf_thr &&
-                        s_strength[i] >= min_strength && sig == dec && dec == 1;
-      if (gate) {
-        const float size = position_size(c.balance, s_vol[i], s_volume[i]);
-        const float slo = s_slo[i], tpo = s_tpo[i];
-        c.in_pos = true;
-        c.entry = price;
-        c.qty = size / price;
-        c.sl = isnan(slo) ? psl : slo;
-        c.tp = isnan(tpo) ? ptp : tpo;
-      }
-
-      // --- equity point + drawdown on candles the reference reaches ---
-      if (active && !survived) {
-        const float equity = c.balance;
-        c.max_equity = max_nan(c.max_equity, equity);
-        const float dd = c.max_equity - equity;
-        if (dd > c.max_dd) {
-          c.max_dd = dd;
-          c.max_dd_pct = dd / c.max_equity * 100.f;
-        }
-        const float r = (equity - prev_balance) / prev_balance;
-        c.sum_r = c.sum_r + r;
-        c.sum_r2 = c.sum_r2 + r * r;
-        if (r < 0.f) c.sum_neg_r2 = c.sum_neg_r2 + r * r;
-        c.n_r += 1;
-      }
+    // in a position: candles g+1..x-1 survive and book nothing
+    const float entry_safe = c.entry == 0.f ? 1.f : c.entry;
+    const int x = next_exit(close, T, g + 1, c.entry, entry_safe, -c.sl, c.tp,
+                            lane);
+    if (x >= T) break;
+    const float prev_balance = c.balance;
+    if (kCurve) {
+      fill(row, curve_from, x, prev_balance, lane);
+      curve_from = x;
     }
+    book_close(c, __ldg(close + x));
+    equity_point(c, prev_balance);
+    booked = x + 1;
+    t = x;  // the gate runs after the close: re-entry at x is possible
   }
+  if (kCurve) fill(row, curve_from, T, c.balance, lane);
 
-  if (!live) return;
-  if (c.in_pos) book_close(c, close[T - 1]);  // "End of Test"
+  if (c.in_pos) book_close(c, __ldg(close + T - 1));  // "End of Test"
+  if (lane != 0) return;
   out_f[0 * B + j] = c.balance;
   out_f[1 * B + j] = c.total_profit;
   out_f[2 * B + j] = c.total_loss;
@@ -212,27 +315,56 @@ __global__ void __launch_bounds__(kBlock)
   out_i[5 * B + j] = c.max_loss;
 }
 
+// T is carried as an int inside the kernels (and B·T as 64 bits).
+bool bad_length(long long T) { return T < 1 || T > INT_MAX - 32 * kPerLane * 32; }
+
 }  // namespace
 
 extern "C" const char* replay_sweep_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Nine [T] streams (signal and decision int32, the rest f32), stop_loss and
-// take_profit [B] f32; out_f [8, B] f32 and out_i [6, B] int32 (row order
-// in ops/replay.py).
-extern "C" int replay_sweep_launch(
-    const float* close, const int* signal, const float* strength,
-    const float* volatility, const float* volume, const float* confidence,
-    const int* decision, const float* sl_override, const float* tp_override,
+// The entry gate of every candle into mask [ceil(T/32)] (bit t % 32 of word
+// t / 32).  confidence and strength f32, signal and decision int32, all [T].
+extern "C" int replay_gate_launch(const float* confidence,
+                                  const float* strength, const int* signal,
+                                  const int* decision, unsigned* mask,
+                                  long long T, int warmup, float conf_thr,
+                                  float min_strength, void* stream) {
+  if (bad_length(T)) return static_cast<int>(cudaErrorInvalidValue);
+  const int n = static_cast<int>(T);
+  const int blocks = (n + kGateThreads - 1) / kGateThreads;
+  replay_gate_kernel<<<blocks, kGateThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      confidence, strength, signal, decision, mask, n, warmup, conf_thr,
+      min_strength);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The walk over the gate mask.  close (16-byte aligned), volatility, volume,
+// sl_override, tp_override [T] f32; stop_loss and take_profit [B] f32;
+// out_f [8, B] f32 and out_i [6, B] int32 (row order in ops/replay.py);
+// curve [B, T] f32, or null for the stats alone.
+extern "C" int replay_walk_launch(
+    const float* close, const float* volatility, const float* volume,
+    const float* sl_override, const float* tp_override, const unsigned* mask,
     const float* stop_loss, const float* take_profit, float* out_f,
-    int* out_i, int B, long long T, int warmup, float initial_balance,
-    float conf_thr, float min_strength, void* stream) {
-  if (B < 1 || T < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = (B + kBlock - 1) / kBlock;
-  replay_sweep_kernel<<<blocks, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      close, signal, strength, volatility, volume, confidence, decision,
-      sl_override, tp_override, stop_loss, take_profit, out_f, out_i, B, T,
-      warmup, initial_balance, conf_thr, min_strength);
+    int* out_i, float* curve, int B, long long T, int warmup,
+    float initial_balance, void* stream) {
+  if (B < 1 || bad_length(T)) return static_cast<int>(cudaErrorInvalidValue);
+  if (reinterpret_cast<std::uintptr_t>(close) % 16 != 0)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const int blocks = (B + kWarps - 1) / kWarps;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const int n = static_cast<int>(T);
+  if (curve != nullptr) {
+    replay_walk_kernel<true><<<blocks, kThreads, 0, s>>>(
+        close, volatility, volume, sl_override, tp_override, mask, stop_loss,
+        take_profit, out_f, out_i, curve, B, n, warmup, initial_balance);
+  } else {
+    replay_walk_kernel<false><<<blocks, kThreads, 0, s>>>(
+        close, volatility, volume, sl_override, tp_override, mask, stop_loss,
+        take_profit, out_f, out_i, nullptr, B, n, warmup, initial_balance);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -20,17 +20,27 @@ imports nothing of JAX or of the JAX package.  Phases, one JSON line each:
                 (the JAX package's rounding), and every signal, strength-gate
                 and sizer-bucket difference that follows counted and held to
                 a threshold it sits on;
-  3. replay   — the replay-sweep kernel against the engine's plain loop on
-                the card: 4096 strategies over the first 8192 candles of the
-                main path's inputs, B=130 × T=1500, and T=900 with SL/TP
-                overrides and confidence gating; and the graph-replayed
+  3. replay   — the replay-sweep kernel (K1) against the engine's eager
+                plain loop on the card, stats and equity curve, through both
+                of its variants (stats alone, and with the curve): 4096
+                strategies over the first 8192 candles of the main path's
+                inputs, B=130 × T=1500, T=900 with SL/TP overrides and
+                confidence gating, SL/TP so small that every position closes
+                on the next candle and so large that only the end of the
+                test closes one, SL/TP hit with equality, and a ragged T of
+                32·1024 + 7 with warmup 2000; `run_backtest`'s param-SL/TP
+                mode at B=1 × T=8192 with its curve; and the graph-replayed
                 plain loop (below) bit for bit against the eager one;
   4. main     — the population backtest at the bench's full size (T =
                 525,600 candles, B = 4096 strategies) through the port's
                 entry points, with launch counts, stage times and a check
                 that every metric is finite and trades happen; then the
                 kernel's stats from that run against the plain loop on the
-                same inputs and strategies, at full size;
+                same inputs and strategies, at full size, and the curve of
+                the first 256 strategies over all T against the plain
+                loop's; K1's pre-pass and walk timed alone, the walk of the
+                strategy with the most trades alone, and the pre-pass's gate
+                mask against its plain version;
   5. kernels  — one line with each kernel's launches, error, times and
                 bound, at the main path's shapes.
 
@@ -54,11 +64,15 @@ B_FULL = 4096             # strategies on one chip (bench.py:2054)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
-# operations of the replay step per candle and strategy (counted from
-# csrc/replay_sweep.cu): the SL/TP check and gate every candle, the close
-# bookkeeping per close, the sizer per entry, the equity point per booked
-# candle
-REPLAY_OPS_BASE, REPLAY_OPS_CLOSE, REPLAY_OPS_ENTRY, REPLAY_OPS_BOOK = 12, 6, 16, 10
+# operations the replay needs (counted from csrc/replay_sweep.cu): the entry
+# gate once per candle; the SL/TP test (sub, div, mul, two compares) on each
+# in-position candle and strategy; per close the bookkeeping and its equity
+# point, per entry the sizer.  The bound of a replay that steps every candle
+# and strategy (REPLAY_OPS_STEP each) is printed beside it.
+REPLAY_OPS_GATE, REPLAY_OPS_EXIT = 6, 5
+REPLAY_OPS_CLOSE, REPLAY_OPS_ENTRY, REPLAY_OPS_BOOK = 6, 16, 10
+REPLAY_OPS_STEP = 12
+CURVE_B = 256             # strategies whose full-T curve is checked
 # per element and output of the EWMA: the element map (select, multiply)
 # and the recursion (multiply, add) and the NaN mask
 EWMA_OPS = 5
@@ -137,8 +151,22 @@ def resource_usage(path):
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out = subprocess.run([tool, "--dump-resource-usage", str(path)],
                          capture_output=True, text=True, timeout=60)
-    return {"rc": out.returncode,
-            "kernels": [line.strip() for line in out.stdout.splitlines() if "REG:" in line]}
+    kernels, name = [], None
+    for line in out.stdout.splitlines():
+        line = line.strip()
+        if line.startswith("Function"):
+            name = line[len("Function"):].strip(" :")
+        elif "REG:" in line:
+            kernels.append({"function": name, "usage": line})
+    return {"rc": out.returncode, "kernels": kernels}
+
+
+def registers(report, library, fragment):
+    """REG of the first kernel of ``library`` whose name holds ``fragment``."""
+    for k in report[library]["resources"]["kernels"]:
+        if fragment in (k["function"] or ""):
+            return int(k["usage"].split("REG:")[1].split()[0])
+    return None
 
 
 def phase_build():
@@ -146,10 +174,11 @@ def phase_build():
 
     t0 = time.perf_counter()
     report = _cuda.build()
+    libraries = {k: {**v, "resources": resource_usage(_cuda.library_path(k))}
+                 for k, v in report.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "libraries": {k: {**v, "resources": resource_usage(_cuda.library_path(k))}
-                        for k, v in report.items()},
-          "refused_launch": refused_launch_raises()})
+          "libraries": libraries, "refused_launch": refused_launch_raises()})
+    return libraries
 
 
 def ewma_check(x, alphas, start, label):
@@ -221,30 +250,37 @@ def phase_ewma(d):
             "bound_by": bound_by}
 
 
-def replay_bound_ms(stats, B, T):
+def replay_bound_ms(stats, B, T, warmup=10):
     """Least time for the replay at B × T on this run's data: the stream
     bytes read once and the stats written once, or the operations the data
-    needed (every candle's check and gate, each close, entry and booked
-    equity point)."""
+    needed — the gate once per candle, the SL/TP test on every in-position
+    candle (B·(T − warmup) − Σ(n_r − 1) that survive, and one per close),
+    and each close and entry.  Also the bound of a replay that steps every
+    candle and strategy: (ms, by, stepped_ms)."""
     trades = int(stats.total_trades.sum())
     books = int((stats.n_r - 1).sum())
-    ops = (REPLAY_OPS_BASE * B * T + REPLAY_OPS_CLOSE * trades
-           + REPLAY_OPS_ENTRY * trades + REPLAY_OPS_BOOK * books)
+    survived = B * (T - warmup) - books
+    ops = (REPLAY_OPS_GATE * T + REPLAY_OPS_EXIT * (survived + trades)
+           + (REPLAY_OPS_CLOSE + REPLAY_OPS_BOOK + REPLAY_OPS_ENTRY) * trades)
+    stepped_ops = (REPLAY_OPS_STEP * B * T + (REPLAY_OPS_CLOSE + REPLAY_OPS_ENTRY) * trades
+               + REPLAY_OPS_BOOK * books)
     n_bytes = 9 * 4 * T + 2 * 4 * B + 14 * 4 * B
     ms, by = max((n_bytes / HBM_BYTES_PER_S, "bytes"), (ops / F32_OPS_PER_S, "operations"))
-    return 1e3 * ms, by
+    stepped_ms = max(n_bytes / HBM_BYTES_PER_S, stepped_ops / F32_OPS_PER_S)
+    return 1e3 * ms, by, 1e3 * stepped_ms
 
 
 def sweep_plain_graphed(inputs, params, steps=32, initial_balance=10_000.0,
                         ai_confidence_threshold=0.7, min_signal_strength=70.0,
-                        warmup=10):
+                        warmup=10, curve_b=0):
     """`sweep_plain` — the engine's loop of `replay_step` in use_param_sl_tp
     mode — with ``steps`` candles of it captured in one CUDA graph and the
     graph replayed over T (the last T mod ``steps`` candles run eagerly).
     The ops and their order are the eager loop's, and so are the bits
     (phase 3 checks it); the card just stops waiting on the host, which
     issues the eager loop one op at a time and would take a quarter of an
-    hour over 525,600 candles."""
+    hour over 525,600 candles.  With ``curve_b`` the graph also writes the
+    equity of the first ``curve_b`` strategies: (stats, curve [curve_b, T])."""
     import torch
 
     from ai_crypto_trader_tpu_torch.backtest import engine
@@ -254,17 +290,21 @@ def sweep_plain_graphed(inputs, params, steps=32, initial_balance=10_000.0,
     step = engine.replay_step(
         params, warmup=warmup, ai_confidence_threshold=ai_confidence_threshold,
         min_signal_strength=min_signal_strength, reference_quirks=False,
-        use_param_sl_tp=True, return_curve=False, sell_exits=False)
+        use_param_sl_tp=True, return_curve=True, sell_exits=False)
     state = engine._init_state(initial_balance, (B,), dev)
+    curve = torch.empty((curve_b, T), dtype=torch.float32, device=dev)
     t0 = torch.zeros((), dtype=torch.long, device=dev)
     offsets = torch.arange(steps, device=dev)
 
     def chunk():
         idx = t0 + offsets
         cols = [x.index_select(0, idx) for x in inputs]
-        s = state
+        s, equity = state, []
         for k in range(steps):
-            s, _ = step(s, (idx[k],) + tuple(c[k] for c in cols))
+            s, eq = step(s, (idx[k],) + tuple(c[k] for c in cols))
+            equity.append(eq[:curve_b])
+        if curve_b:
+            curve.index_copy_(1, idx, torch.stack(equity, 1))
         for dst, src in zip(state, s):
             dst.copy_(src)
         t0.add_(steps)
@@ -285,34 +325,45 @@ def sweep_plain_graphed(inputs, params, steps=32, initial_balance=10_000.0,
         graph.replay()
     s = state
     for t in range(n * steps, T):
-        s, _ = step(s, (t,) + tuple(x[t] for x in inputs))
-    return engine.finalize_stats(s, inputs.close[-1], initial_balance)
+        s, eq = step(s, (t,) + tuple(x[t] for x in inputs))
+        curve[:, t] = eq[:curve_b]
+    stats = engine.finalize_stats(s, inputs.close[-1], initial_balance)
+    return (stats, curve) if curve_b else stats
 
 
-def compare_stats(got, ref, label):
-    """Every count equal, every float stat at rtol 1e-5, atol 1e-6
-    (assert_stats_equal, tests/test_pallas_backtest.py:33-37), and trades
-    > 0."""
+def same_bits(g, r):
+    """float32 tensors equal bit for bit."""
     import torch
 
-    worst = worst_rel = 0.0
+    return g.shape == r.shape and torch.equal(g.contiguous().view(torch.int32),
+                                              r.contiguous().view(torch.int32))
+
+
+def compare_stats(got, ref, label, curve=None, ref_curve=None):
+    """Every stat bit-identical (counts equal, floats equal bit for bit), and
+    the curves too where given, and trades > 0."""
+    import torch
+
+    worst = 0.0
     for f in ref._fields:
         g, r = getattr(got, f), getattr(ref, f)
         if r.dtype == torch.int32:
             if not torch.equal(g, r):
                 fail(f"replay {label}: {f} differs in {int((g != r).sum())} strategies")
         else:
-            err = torch.abs(g - r)
-            if bool((err > 1e-6 + 1e-5 * torch.abs(r)).any()):
-                fail(f"replay {label}: {f} outside rtol 1e-5 / atol 1e-6 "
-                     f"(max abs err {float(err.max())})")
-            worst = max(worst, float(err.max()))
-            worst_rel = max(worst_rel, float((err / torch.clamp_min(torch.abs(r), 1e-30)).max()))
-    trades = int(ref.total_trades.sum())
-    if trades <= 0:
+            worst = max(worst, float(torch.abs(g - r).max()))
+            if not same_bits(g, r):
+                fail(f"replay {label}: {f} not bit-identical (max abs err {worst})")
+    out = {"case": label, "B": int(ref.total_trades.numel()),
+           "trades": int(ref.total_trades.sum()), "max_abs_err": worst}
+    if ref_curve is not None:
+        if not same_bits(curve, ref_curve):
+            fail(f"replay {label}: the curve is not bit-identical (max abs err "
+                 f"{float(torch.abs(curve - ref_curve).max())})")
+        out["curve_max_abs_err"] = float(torch.abs(curve - ref_curve).max())
+    if out["trades"] <= 0:
         fail(f"replay {label}: no trades — the parity would be vacuous")
-    return {"case": label, "B": int(ref.total_trades.shape[0]), "trades": trades,
-            "max_abs_err": worst, "max_rel_err": worst_rel}
+    return out
 
 
 def timed(fn):
@@ -329,13 +380,18 @@ def timed(fn):
 
 
 def replay_check(inputs, params, label, **kw):
-    """The kernel against the engine's eager plain loop on the card; the
-    plain loop's time rides along."""
+    """The kernel, both variants, against the engine's eager plain loop on
+    the card, stats and curve; the plain loop's time rides along."""
     from ai_crypto_trader_tpu_torch.ops.replay import sweep_kernel, sweep_plain
 
     got = sweep_kernel(inputs, params, device="cuda", **kw)
-    ref, plain_ms = timed(lambda: sweep_plain(inputs, params, **kw))
-    return {**compare_stats(got, ref, label), "T": int(inputs.close.shape[-1])}, ref, plain_ms
+    got_c, curve = sweep_kernel(inputs, params, device="cuda", return_curve=True, **kw)
+    (ref, ref_curve), plain_ms = timed(
+        lambda: sweep_plain(inputs, params, return_curve=True, **kw))
+    compare_stats(got_c, ref, label + "/curve_variant", curve, ref_curve)
+    check = {**compare_stats(got, ref, label), "T": int(inputs.close.shape[-1]),
+             "curve_max_abs_err": 0.0}
+    return check, (ref, ref_curve), plain_ms
 
 
 def phase_flips(d, params):
@@ -416,30 +472,74 @@ def phase_flips(d, params):
     return report
 
 
+def exact_tie(inp, e1=500, keep_from=2000):
+    """Entries only at two candles (and from ``keep_from`` on, as the
+    signals have them): at e1 a TP override equal to the float32 pnl% of a
+    later candle x1, computed on the card with replay_step's operands, and
+    SL out of reach; at e2 = x1 + 50 an SL override equal to minus the pnl%
+    of a later candle x2.  Both exits are hit with equality.  Returns the
+    inputs and (x1, x2)."""
+    import torch
+
+    close = inp.close
+    c = close.cpu().numpy()
+
+    def extreme(e, sign, nth):   # the nth new strict extreme after e
+        best, found = sign * c[e], 0
+        for t in range(e + 1, len(c)):
+            if sign * c[t] > best:
+                best, found = sign * c[t], found + 1
+                if found == nth:
+                    return t
+        fail("exact tie: no such candle")
+
+    x1 = extreme(e1, 1, 6)
+    e2 = x1 + 50
+    x2 = extreme(e2, -1, 4)
+    if x2 >= keep_from:
+        fail("exact tie: the second exit runs into the free entries")
+    pnl = lambda e, t: (close[t] - close[e]) / close[e] * 100.0  # noqa: E731
+    t = torch.arange(close.shape[0], device=close.device)
+    hot = (t == e1) | (t == e2)
+    sig = torch.where(hot, 1, torch.where(t >= keep_from, inp.signal, 0)).to(torch.int32)
+    sl = torch.full_like(close, float("nan"))
+    tp = torch.full_like(close, float("nan"))
+    tp[e1], sl[e1] = pnl(e1, x1), 1e6
+    sl[e2], tp[e2] = -pnl(e2, x2), 1e6
+    return inp._replace(signal=sig, decision=sig, strength=torch.where(hot, 100.0, inp.strength),
+                        sl_pct=sl, tp_pct=tp), (x1, x2)
+
+
 def phase_replay(main_inputs, params, d_small):
     import numpy as np
     import torch
 
-    from ai_crypto_trader_tpu_torch.backtest import prepare_inputs, sample_params
+    from ai_crypto_trader_tpu_torch.backtest import (
+        default_params, prepare_inputs, run_backtest, sample_params)
+    from ai_crypto_trader_tpu_torch.backtest.engine import replay
     from ai_crypto_trader_tpu_torch.ops import compute_indicators
     from ai_crypto_trader_tpu_torch.ops.replay import sweep_kernel
 
     gen = lambda: torch.Generator().manual_seed(0)  # noqa: E731
+    inputs_of = lambda n: prepare_inputs(  # noqa: E731
+        compute_indicators(d_small(n), device="cuda"), device="cuda")
     T_HEAD = 8192
     head = type(main_inputs)(*(x[:T_HEAD] for x in main_inputs))
-    c, ref_head, head_plain_ms = replay_check(head, params, "main_head")
+    c, (ref_head, ref_curve), head_plain_ms = replay_check(head, params, "main_head")
     checks = [c]
-    graphed, head_graphed_ms = timed(lambda: sweep_plain_graphed(head, params))
+    (graphed, graphed_curve), head_graphed_ms = timed(
+        lambda: sweep_plain_graphed(head, params, curve_b=CURVE_B))
     for f in ref_head._fields:
         if not torch.equal(getattr(graphed, f), getattr(ref_head, f)):
             fail(f"the graph-replayed plain loop differs from the eager one in {f}")
+    if not same_bits(graphed_curve, ref_curve[:CURVE_B]):
+        fail("the graph-replayed plain loop's curve differs from the eager one's")
     head_ms = cuda_ms(lambda: sweep_kernel(head, params, device="cuda"), 10)
 
-    small = prepare_inputs(compute_indicators(d_small(1500), device="cuda"), device="cuda")
-    checks.append(replay_check(small, sample_params(gen(), 130, device="cuda"),
+    checks.append(replay_check(inputs_of(1500), sample_params(gen(), 130, device="cuda"),
                                "B130_T1500")[0])
 
-    inp = prepare_inputs(compute_indicators(d_small(900), device="cuda"), device="cuda")
+    inp = inputs_of(900)
     rng = np.random.default_rng(1)
     mask = torch.as_tensor(rng.random(900) < 0.33, device="cuda")
     conf = torch.where(torch.arange(900, device="cuda") % 3 == 0, 0.9, 0.2)
@@ -447,6 +547,40 @@ def phase_replay(main_inputs, params, d_small):
                        tp_pct=torch.where(mask, 3.0, torch.nan), confidence=conf)
     checks.append(replay_check(inp, sample_params(gen(), 32, device="cuda"),
                                "T900_overrides_gated")[0])
+
+    inp = inputs_of(3000)
+    p32 = sample_params(gen(), 32, device="cuda")
+    for label, v in (("tiny_sl_tp_1e-4", 1e-4), ("huge_sl_tp_1e6", 1e6)):
+        full = torch.full((32,), v, dtype=torch.float32, device="cuda")
+        c, (ref, _), _ = replay_check(inp, p32._replace(stop_loss=full, take_profit=full), label)
+        if v > 1 and not bool((ref.total_trades == 1).all()):
+            fail("huge SL/TP: a position closed before the end of the test")
+        if v < 1 and int(ref.total_trades.min()) <= 100:
+            fail("tiny SL/TP: positions did not close on the next candle")
+        checks.append(c)
+    tie, exits = exact_tie(inp)
+    c, (_, curve), _ = replay_check(tie, p32, "exact_tie")
+    for x in exits:
+        if not bool((curve[:, x] != curve[:, x - 1]).all()):
+            fail(f"exact tie: not every strategy closed at candle {x}")
+    checks.append({**c, "tie_exits": list(exits)})
+
+    T_R = 32 * 1024 + 7
+    checks.append(replay_check(inputs_of(T_R), sample_params(gen(), 256, device="cuda"),
+                               f"ragged_T{T_R}_warmup2000", warmup=2000)[0])
+
+    # run_backtest's param-SL/TP mode: one strategy through the kernel
+    dp = default_params(device="cuda")
+    before = sweep_kernel.launches
+    got, curve = run_backtest(head, dp, use_param_sl_tp=True, return_curve=True, device="cuda")
+    if sweep_kernel.launches != before + 1:
+        fail("run_backtest(use_param_sl_tp=True) did not launch the replay kernel")
+    if got.total_trades.shape != () or curve.shape != (T_HEAD,):
+        fail(f"run_backtest shapes changed: {tuple(got.total_trades.shape)}, "
+             f"{tuple(curve.shape)}")
+    (ref, ref_c), _ = timed(lambda: replay(head, dp, use_param_sl_tp=True, return_curve=True))
+    checks.append({**compare_stats(got, ref, "run_backtest_B1_T8192", curve, ref_c),
+                   "T": T_HEAD})
     emit({"phase": "replay", "checks": checks, "graphed_plain_bit_identical": True,
           "head": {"B": B_FULL, "T": T_HEAD, "ms": head_ms, "plain_ms": head_plain_ms,
                    "graphed_plain_ms": head_graphed_ms}})
@@ -486,6 +620,8 @@ def run_main_path(d):
 def phase_main(d):
     import torch
 
+    from ai_crypto_trader_tpu_torch.backtest import BacktestStats, sweep
+    from ai_crypto_trader_tpu_torch.ops import replay
     from ai_crypto_trader_tpu_torch.ops.ewma import fused_ewma
     from ai_crypto_trader_tpu_torch.ops.replay import sweep_kernel
 
@@ -504,11 +640,36 @@ def phase_main(d):
     if trades <= 0:
         fail("the full-size sweep made no trades")
     # the kernel's launch on the main path, held against the plain loop on
-    # the same inputs and strategies
-    plain, plain_ms = timed(lambda: sweep_plain_graphed(inp, params))
+    # the same inputs and strategies; the plain loop also writes the curve
+    # of the first CURVE_B strategies, held against the curve variant's
+    (plain, plain_curve), plain_ms = timed(
+        lambda: sweep_plain_graphed(inp, params, curve_b=CURVE_B))
     full = compare_stats(stats, plain, "main_full")
     full["T"] = T_FULL
-    ms = cuda_ms(lambda: sweep_kernel(inp, params, device="cuda"), 3)
+    head = params._replace(**{f: getattr(params, f)[:CURVE_B] for f in params._fields})
+    got, curve = sweep(inp, head, return_curve=True, device="cuda")
+    curve_check = compare_stats(got, BacktestStats(*(v[:CURVE_B] for v in plain)),
+                                f"main_full_curve_B{CURVE_B}", curve, plain_curve)
+    curve_check["T"] = T_FULL
+    del curve, plain_curve
+    ms = cuda_ms(lambda: sweep_kernel(inp, params, device="cuda"), 10)
+    curve_ms = cuda_ms(lambda: sweep_kernel(inp, head, return_curve=True, device="cuda"), 3)
+    # the pre-pass against its plain version, and each launch timed alone
+    dev = inp.close.device
+    lib, s, sl, tp, T = replay.kernel_operands(inp, params, dev)
+    mask = replay.launch_gate(lib, s, T, 10, 0.7, 70.0, dev)
+    if not torch.equal(mask, replay.gate_mask_plain(inp)):
+        fail("the pre-pass's gate mask differs from its plain version")
+    gate_ms = cuda_ms(lambda: replay.launch_gate(lib, s, T, 10, 0.7, 70.0, dev), 20)
+    walk_ms = cuda_ms(lambda: replay.launch_walk(lib, s, mask, sl, tp, T, 10, 10_000.0,
+                                                 False, dev), 10)
+    # the walk of the strategy with the most trades, alone: its serial chain
+    # of events is the least time the whole walk can take
+    h = int(torch.argmax(stats.total_trades))
+    heaviest = {"index": h, "trades": int(stats.total_trades[h]), "walk_ms": cuda_ms(
+        lambda: replay.launch_walk(lib, s, mask, sl[h:h + 1], tp[h:h + 1], T, 10,
+                                   10_000.0, False, dev), 10)}
+    gate_bits = (mask.to(torch.int64)[:, None] >> torch.arange(32, device=dev)) & 1
     best = int(torch.argmax(metrics["sharpe_ratio"]))
     emit({"phase": "main", "T": T_FULL, "B": B_FULL, "launches": launches,
           "stage_ms": stage_ms, "wall_s": wall,
@@ -516,11 +677,16 @@ def phase_main(d):
           "end_to_end_candles_per_sec": T_FULL * B_FULL / wall,
           "total_trades": trades,
           "buy_signals": int((inp.signal == 1).sum()),
-          "full_check": full, "kernel_ms": ms, "plain_ms": plain_ms,
+          "gate_candles": int(gate_bits.sum()),
+          "full_check": full, "curve_check": curve_check, "kernel_ms": ms,
+          "prepass_ms": gate_ms, "walk_ms": walk_ms, "curve_ms": curve_ms,
+          "heaviest_strategy": heaviest, "plain_ms": plain_ms,
           "best": {k: float(v[best]) for k, v in metrics.items()
                    if k in ("sharpe_ratio", "final_balance", "total_trades",
                             "win_rate", "max_drawdown_pct")}})
-    return launches, stage_ms, stats, full, ms, plain_ms
+    return launches, stats, [full, curve_check], {
+        "ms": ms, "plain_ms": plain_ms, "prepass_ms": gate_ms, "walk_ms": walk_ms,
+        "curve_ms": curve_ms, "heaviest": heaviest}
 
 
 def main():
@@ -535,7 +701,7 @@ def main():
     from ai_crypto_trader_tpu_torch.data import generate_ohlcv
     from ai_crypto_trader_tpu_torch.ops import compute_indicators
 
-    phase_build()
+    libraries = phase_build()
     d = {k: v for k, v in generate_ohlcv(n=T_FULL, seed=3).items() if k != "regime"}
 
     def d_small(n):
@@ -546,9 +712,9 @@ def main():
     phase_flips(d, params)
     main_inputs = prepare_inputs(compute_indicators(d, device="cuda"), device="cuda")
     checks = phase_replay(main_inputs, params, d_small)
-    launches, stage_ms, stats, full, replay_ms, replay_plain_ms = phase_main(d)
-    bound_ms, bound_by = replay_bound_ms(stats, B_FULL, T_FULL)
-    checks.append(full)
+    launches, stats, full, k1 = phase_main(d)
+    bound_ms, bound_by, stepped_bound_ms = replay_bound_ms(stats, B_FULL, T_FULL)
+    checks += full
     kernels = [
         {"name": "fused_ewma", "route": "cuda",
          "source": "ai_crypto_trader_tpu_torch/csrc/fused_ewma.cu",
@@ -562,10 +728,19 @@ def main():
          "source": "ai_crypto_trader_tpu_torch/csrc/replay_sweep.cu",
          "replaces": "ai_crypto_trader_tpu/ops/pallas_backtest.py:259",
          "launches": launches["replay_sweep"],
-         "max_abs_err": max(c["max_abs_err"] for c in checks),
-         "max_rel_err": max(c["max_rel_err"] for c in checks),
-         "ms": replay_ms, "plain_ms": replay_plain_ms,
+         "max_abs_err": max(max(c["max_abs_err"], c.get("curve_max_abs_err", 0.0))
+                            for c in checks),
+         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+         "prepass_ms": k1["prepass_ms"], "walk_ms": k1["walk_ms"],
+         "curve_ms": k1["curve_ms"], "curve_shape": f"B={CURVE_B} x T={T_FULL}",
+         "walk_ms_heaviest_alone": k1["heaviest"]["walk_ms"],
+         "heaviest_trades": k1["heaviest"]["trades"],
+         "bound_ms_stepping_every_candle": stepped_bound_ms,
+         "registers": {"walk": registers(libraries, "replay_sweep", "replay_walk_kernelILb0E"),
+                       "walk_curve": registers(libraries, "replay_sweep",
+                                               "replay_walk_kernelILb1E"),
+                       "gate": registers(libraries, "replay_sweep", "replay_gate_kernel")},
          "shape": f"B={B_FULL} x T={T_FULL}",
          "plain": "the engine's loop, 32 candles a CUDA graph"},
     ]
