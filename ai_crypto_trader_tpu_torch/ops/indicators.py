@@ -14,7 +14,7 @@ first full window are NaN until `nanfill`).  Functions take float32 tensors
     max/min reduce an ``unfold`` view.
   * The EMA family (EMA, MACD, Wilder RSI, Wilder ATR) goes through
     `ops.ewma.fused_ewma` — the CUDA kernel on the card.
-    `compute_indicators` batches it into three launches per call.
+    `compute_indicators` batches it into two launches per call.
   * ``ffill``/``bfill``/``nanfill`` are a cummax over last-valid indices and
     one gather.
 """
@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from ai_crypto_trader_tpu_torch.device import const_over, div_const, resolve_device, to_device
-from ai_crypto_trader_tpu_torch.ops.ewma import associative_scan, fused_ewma
+from ai_crypto_trader_tpu_torch.ops.ewma import associative_scan, fused_ewma, fused_ewma_jobs
 
 
 def _iota(x):
@@ -281,10 +281,11 @@ def compute_indicators(ohlcv: dict, fill: bool = True, device=None) -> dict:
     or tensors).  Output: dict of the 21 indicator tensors plus the
     passthrough inputs, on ``device`` (default: the CUDA card).
 
-    The EMA family is three `fused_ewma` launches: close with the EMA-12 and
-    EMA-26 alphas (which also give MACD's two lines — the same `_ewm` under
-    other masks); RSI's gains and losses and the true range stacked as three
-    series with Wilder's alpha, seeded at 1; and the MACD line with the
+    The EMA family is two kernel launches.  The first runs two jobs: close
+    with the EMA-12 and EMA-26 alphas (which also give MACD's two lines —
+    the same `_ewm` under other masks), and RSI's gains and losses and the
+    true range stacked as three series with Wilder's alpha, seeded at 1.
+    The second, which needs the first's MACD line, runs that line with the
     signal alpha, seeded at slow-1 = 25."""
     dev = resolve_device(device)
     out = {k: to_device(v, dev) for k, v in ohlcv.items()}
@@ -295,7 +296,13 @@ def compute_indicators(ohlcv: dict, fill: bool = True, device=None) -> dict:
     out["sma_50"] = sma(close, 50)
     out["sma_200"] = sma(close, 200)
 
-    e12, e26 = fused_ewma(close, [2.0 / 13.0, 2.0 / 27.0], 0, device=dev)
+    up, dn = _rsi_moves(close)
+    ema_close, wilder = fused_ewma_jobs(
+        [(close, [2.0 / 13.0, 2.0 / 27.0], 0),
+         (torch.stack([up, dn, true_range(high, low, close)]), [1.0 / 14.0], 1)],
+        device=dev)
+    e12, e26 = ema_close
+    ag, al, tr = wilder[0]
     out["ema_12"] = _mask_warmup(e12, 12)
     out["ema_26"] = _mask_warmup(e26, 26)
     line = _mask_warmup(_mask_warmup(e12, 1) - _mask_warmup(e26, 1), 26)
@@ -305,9 +312,6 @@ def compute_indicators(ohlcv: dict, fill: bool = True, device=None) -> dict:
     a, b = ichimoku(high, low)
     out["ichimoku_a"], out["ichimoku_b"] = a, b
 
-    up, dn = _rsi_moves(close)
-    ag, al, tr = fused_ewma(torch.stack([up, dn, true_range(high, low, close)]),
-                            [1.0 / 14.0], 1, device=dev)[0]
     out["rsi"] = _rsi_from(ag, al, 14)
 
     k, d = stochastic(high, low, close)

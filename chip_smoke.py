@@ -12,14 +12,23 @@ imports nothing of JAX or of the JAX package.  Phases, one JSON line each:
                 csrc/`` into ``.torch_kernels/`` (one nvcc per source, run
                 together), with cuobjdump's register and shared-memory
                 report of each library;
-  2. ewma     — the fused-EWMA kernel against its plain PyTorch version on
-                the card, at the three shapes compute_indicators gives it on
-                a year of 1-minute candles, and at a ragged shape;
+  2. ewma     — the fused-EWMA kernel (K2) against its plain PyTorch
+                version on the card: each of the two launches that
+                compute_indicators makes on a year of 1-minute candles, on
+                its own inputs; ragged shapes, a job list of four jobs with
+                their own T, alphas and seeds; and x [64, 525,600] with K=2,
+                more than the co-resident blocks keep in shared memory.
+                Every case is launched twice and must give the same bits.
+                Per-launch times beside two floors (the launch's grid
+                crossing its barrier alone, and a device copy of the same
+                bytes), the grid each launch takes, registers;
   2b. flips   — the year's indicator table built twice on the card, its EMA
                 family once from the kernel and once from the plain version
-                (the JAX package's rounding), and every signal, strength-gate
-                and sizer-bucket difference that follows counted and held to
-                a threshold it sits on;
+                (the JAX package's rounding; every EWMA entry that
+                compute_indicators calls is patched, and the plain table must
+                launch no kernel), and every signal, strength-gate and
+                sizer-bucket difference that follows counted and held to a
+                threshold it sits on;
   3. replay   — the replay-sweep kernel (K1) against the engine's eager
                 plain loop on the card, stats and equity curve, through both
                 of its variants (stats alone, and with the curve): 4096
@@ -33,7 +42,7 @@ imports nothing of JAX or of the JAX package.  Phases, one JSON line each:
                 plain loop (below) bit for bit against the eager one;
   4. main     — the population backtest at the bench's full size (T =
                 525,600 candles, B = 4096 strategies) through the port's
-                entry points, with launch counts, stage times and a check
+                entry points, with launch counts (exactly 2 of K2), stage times and a check
                 that every metric is finite and trades happen; then the
                 kernel's stats from that run against the plain loop on the
                 same inputs and strategies, at full size, and the curve of
@@ -41,6 +50,12 @@ imports nothing of JAX or of the JAX package.  Phases, one JSON line each:
                 loop's; K1's pre-pass and walk timed alone, the walk of the
                 strategy with the most trades alone, and the pre-pass's gate
                 mask against its plain version;
+  4b. split   — where the indicator stage's time goes, measured only: its
+                parts (host-to-device copies, rolling sums, unfold max/min,
+                rolling_std, the EMA family, nanfill over every column, the
+                rest) between CUDA events, and torch.profiler's top 10
+                device ops with their counts and the device's idle share
+                over one whole call;
   5. kernels  — one line with each kernel's launches, error, times and
                 bound, at the main path's shapes.
 
@@ -53,6 +68,7 @@ rate outside the tensor cores, at the full 700 W power limit).
 
 from __future__ import annotations
 
+import ctypes
 import json
 import shutil
 import subprocess
@@ -127,17 +143,20 @@ def phase_device():
 
 
 def refused_launch_raises():
-    """A launch the C entry refuses (K = 0 series maps) must raise in the
-    wrapper's check, not pass silently."""
+    """A launch the C entry refuses (a job of K = 0 series maps) must raise
+    in the wrapper's check, not pass silently."""
     import torch
 
     from ai_crypto_trader_tpu_torch.ops import _cuda, ewma
 
     lib = _cuda.library("fused_ewma", ewma._SIGNATURES)
     x = torch.zeros((1, 16), device="cuda")
-    rc = lib.fused_ewma_launch(x.data_ptr(), x.data_ptr(), x.data_ptr(),
-                               x.data_ptr(), None, None, 0, 1, 16, 0,
-                               _cuda.stream_handle(x.device))
+    ptr = lambda ctype, v: ctypes.cast((ctype * 1)(v), ctypes.c_void_p)  # noqa: E731
+    zeros = ctypes.cast((ctypes.c_float * ewma.MAX_K)(), ctypes.c_void_p)
+    rc = lib.fused_ewma_launch(
+        1, ptr(ctypes.c_void_p, x.data_ptr()), ptr(ctypes.c_void_p, x.data_ptr()),
+        ptr(ctypes.c_longlong, 16), ptr(ctypes.c_int, 1), ptr(ctypes.c_int, 0),
+        ptr(ctypes.c_int, 0), zeros, zeros, x.data_ptr(), _cuda.stream_handle(x.device))
     try:
         _cuda.check(lib, "fused_ewma", rc)
     except RuntimeError as e:
@@ -161,12 +180,19 @@ def resource_usage(path):
     return {"rc": out.returncode, "kernels": kernels}
 
 
-def registers(report, library, fragment):
-    """REG of the first kernel of ``library`` whose name holds ``fragment``."""
+def usage(report, library, fragment):
+    """cuobjdump's whole resource line (registers, stack, static shared
+    memory) of the first kernel of ``library`` whose name holds ``fragment``."""
     for k in report[library]["resources"]["kernels"]:
         if fragment in (k["function"] or ""):
-            return int(k["usage"].split("REG:")[1].split()[0])
+            return k["usage"]
     return None
+
+
+def registers(report, library, fragment):
+    """REG of the first kernel of ``library`` whose name holds ``fragment``."""
+    line = usage(report, library, fragment)
+    return None if line is None else int(line.split("REG:")[1].split()[0])
 
 
 def phase_build():
@@ -181,41 +207,65 @@ def phase_build():
     return libraries
 
 
-def ewma_check(x, alphas, start, label):
-    """Kernel vs plain on one input.  Values must satisfy
+def ewma_check(jobs, label):
+    """One kernel launch over ``jobs`` [(name, x, alphas, start)] against
+    the plain version of each job, and against a second launch of the same
+    inputs, which must give the same bits.  Values must satisfy
     |kernel - plain| <= 1e-3 + 2e-5 * S, S = the plain EWMA of |x|: the
     magnitude the recursion sums, which is |plain| for a series of one sign
     (the tolerance of tests/test_pallas.py:23).  For a signed series the
     output can pass through zero while its rounding stays that of S."""
     import torch
 
-    from ai_crypto_trader_tpu_torch.ops.ewma import fused_ewma, fused_ewma_plain
+    from ai_crypto_trader_tpu_torch.ops.ewma import (
+        fused_ewma, fused_ewma_jobs, fused_ewma_plain, launch_plan, tile_count)
 
-    got = fused_ewma(x, alphas, start, device="cuda")
-    ref = fused_ewma_plain(x, alphas, start)
-    scale = fused_ewma_plain(torch.abs(x), alphas, start)
+    args = [(x, alphas, start) for _, x, alphas, start in jobs]
+    before = fused_ewma.launches
+    got = fused_ewma_jobs(args, device="cuda")
+    again = fused_ewma_jobs(args, device="cuda")
     torch.cuda.synchronize()
-    nan_g, nan_r = torch.isnan(got), torch.isnan(ref)
-    if not torch.equal(nan_g, nan_r):
-        fail(f"ewma {label}: NaN masks differ")
-    diff = torch.where(nan_r, 0.0, torch.abs(got - ref))
-    sc = torch.where(nan_r, 0.0, scale)
-    bad = diff > 1e-3 + 2e-5 * sc
-    if bool(bad.any()):
-        fail(f"ewma {label}: {int(bad.sum())} values outside 1e-3 + 2e-5*S")
-    strict_bad = diff > 1e-3 + 2e-5 * torch.where(nan_r, 0.0, torch.abs(ref))
-    rel = diff / torch.clamp_min(sc, 1e-30)
-    return {"shape": list(x.shape), "K": len(alphas), "start": start,
-            "max_abs_err": float(diff.max()), "max_rel_err": float(rel.max()),
-            "outside_rtol_of_value": int(strict_bad.sum())}
+    if fused_ewma.launches != before + 2:
+        fail(f"ewma {label}: a job list took {fused_ewma.launches - before} launches for 2 calls")
+    out = []
+    for (name, x, alphas, start), g, g2 in zip(jobs, got, again):
+        if not same_bits(g, g2):
+            fail(f"ewma {label}/{name}: two launches of the same input differ")
+        ref = fused_ewma_plain(x, alphas, start)
+        scale = fused_ewma_plain(torch.abs(x), alphas, start)
+        nan_g, nan_r = torch.isnan(g), torch.isnan(ref)
+        if not torch.equal(nan_g, nan_r):
+            fail(f"ewma {label}/{name}: NaN masks differ")
+        diff = torch.where(nan_r, 0.0, torch.abs(g - ref))
+        sc = torch.where(nan_r, 0.0, scale)
+        bad = diff > 1e-3 + 2e-5 * sc
+        if bool(bad.any()):
+            fail(f"ewma {label}/{name}: {int(bad.sum())} values outside 1e-3 + 2e-5*S")
+        strict_bad = diff > 1e-3 + 2e-5 * torch.where(nan_r, 0.0, torch.abs(ref))
+        rel = diff / torch.clamp_min(sc, 1e-30)
+        out.append({"job": name, "shape": list(x.shape), "K": len(alphas), "start": start,
+                    "max_abs_err": float(diff.max()), "max_rel_err": float(rel.max()),
+                    "outside_rtol_of_value": int(strict_bad.sum())})
+    return {"case": label, "jobs": out, "repeat_bitwise_equal": True,
+            "plan": launch_plan(tile_count([x.shape for _, x, _, _ in jobs]),
+                                max(len(a) for _, _, a, _ in jobs))}
 
 
-def phase_ewma(d):
+def ewma_bound(jobs):
+    """(bytes ms, operations ms) of jobs: x read once, K outputs written
+    once, EWMA_OPS float32 operations per element and output."""
+    n_bytes = sum(4 * x.numel() * (1 + len(a)) for _, x, a, _ in jobs)
+    ops = sum(EWMA_OPS * len(a) * x.numel() for _, x, a, _ in jobs)
+    return 1e3 * n_bytes / HBM_BYTES_PER_S, 1e3 * ops / F32_OPS_PER_S
+
+
+def phase_ewma(d, libraries):
     import numpy as np
     import torch
 
     from ai_crypto_trader_tpu_torch.ops import indicators as ind
-    from ai_crypto_trader_tpu_torch.ops.ewma import fused_ewma, fused_ewma_plain
+    from ai_crypto_trader_tpu_torch.ops.ewma import (
+        TILE_LEN, barrier_launch, fused_ewma_jobs, fused_ewma_plain, tile_count)
 
     close = torch.as_tensor(d["close"], device="cuda")
     high = torch.as_tensor(d["high"], device="cuda")
@@ -224,30 +274,67 @@ def phase_ewma(d):
     line = ind._mask_warmup(e12 - e26, 26)
     up, dn = ind._rsi_moves(close)
     tr = ind.true_range(high, low, close)
-    # the three launches of compute_indicators, on its own inputs
-    main = [("close", close[None], [2 / 13, 2 / 27], 0),
-            ("rsi_atr", torch.stack([up, dn, tr]), [1 / 14], 1),
-            ("macd_signal", line[None], [0.2], 25)]
-    checks, ms, plain_ms, bytes_ms, ops_ms = [], 0.0, 0.0, 0.0, 0.0
-    for label, x, alphas, start in main:
-        checks.append({"case": label, **ewma_check(x, alphas, start, label)})
-        ms += cuda_ms(lambda: fused_ewma(x, alphas, start, device="cuda"), 20)
-        plain_ms += cuda_ms(lambda: fused_ewma_plain(x, alphas, start), 3)
-        B, T = x.shape
-        bytes_ms += 1e3 * (4 * B * T + 4 * len(alphas) * B * T) / HBM_BYTES_PER_S
-        ops_ms += 1e3 * EWMA_OPS * len(alphas) * B * T / F32_OPS_PER_S
+    # the two launches of compute_indicators, on its own inputs
+    main = {"A": [("close", close[None], [2 / 13, 2 / 27], 0),
+                  ("rsi_atr", torch.stack([up, dn, tr]), [1 / 14], 1)],
+            "B": [("macd_signal", line[None], [0.2], 25)]}
+    checks, launches = [], {}
+    bytes_ms = ops_ms = 0.0
+    for name, jobs in main.items():
+        checks.append(ewma_check(jobs, f"main_{name}"))
+        args = [(x, a, s) for _, x, a, s in jobs]
+        b_ms, o_ms = ewma_bound(jobs)
+        bytes_ms, ops_ms = bytes_ms + b_ms, ops_ms + o_ms
+        n_tiles = tile_count([x.shape for x, _, _ in args])
+        kmax = max(len(a) for _, a, _ in args)
+        # the floors under a launch: its grid crossing the barrier alone, and
+        # a device copy of the same bytes (one torch copy per job: x read,
+        # K outputs written)
+        outs = [torch.empty((len(a),) + tuple(x.shape), device="cuda") for x, a, _ in args]
+        copy = lambda: [o.copy_(x.expand_as(o)) for o, (x, _, _) in zip(outs, args)]  # noqa: E731
+        launches[name] = {
+            "jobs": [j[0] for j in jobs],
+            "ms": cuda_ms(lambda: fused_ewma_jobs(args, device="cuda"), 50),
+            "barrier_only_ms": cuda_ms(lambda: barrier_launch(n_tiles, kmax), 50),
+            "copy_same_bytes_ms": cuda_ms(copy, 50), "copy_kernels": len(args),
+            "plain_ms": sum(cuda_ms(lambda: fused_ewma_plain(x, a, s), 3) for x, a, s in args),
+            "bound_ms": max(b_ms, o_ms), "plan": checks[-1]["plan"]}
+        del outs, copy
+    ms = sum(v["ms"] for v in launches.values())
+    plain_ms = sum(v["plain_ms"] for v in launches.values())
+    main_err = max(j["max_abs_err"] for c in checks for j in c["jobs"])
+    main_rel = max(j["max_rel_err"] for c in checks for j in c["jobs"])
+
     rng = np.random.default_rng(1234)
+    walk = lambda B, T: torch.as_tensor(  # noqa: E731
+        (100.0 + np.cumsum(rng.normal(0, 1, (B, T)), axis=1)).astype(np.float32), device="cuda")
     ragged = torch.as_tensor(rng.normal(100, 5, (5, 1000)).astype(np.float32), device="cuda")
     for start in (0, 1, 25):
-        checks.append({"case": f"ragged_start{start}",
-                       **ewma_check(ragged, [2 / 13, 2 / 27, 1 / 14], start, "ragged")})
+        checks.append(ewma_check([("ragged", ragged, [2 / 13, 2 / 27, 1 / 14], start)],
+                                 f"ragged_start{start}"))
+    checks.append(ewma_check(
+        [("T37", walk(3, 37), [0.5], 0), ("T4097", walk(2, TILE_LEN + 1), [2 / 13, 0.01], 1),
+         ("seed_past_tile", walk(1, 3 * TILE_LEN + 5), [1 / 14], TILE_LEN + 904),
+         ("K8", walk(2, 9001), [2 / (n + 1) for n in range(2, 10)], 25)], "ragged_jobs"))
+    # beyond what the co-resident blocks keep in shared memory: x is read
+    # again for the tiles that pass through the transient slot
+    big = [("B64", walk(64, T_FULL), [2 / 13, 2 / 27], 0)]
+    checks.append(ewma_check(big, "beyond_residency"))
+    if checks[-1]["plan"]["resident"]:
+        fail("ewma beyond_residency: the launch kept every tile resident")
+    big_args = [(x, a, s) for _, x, a, s in big]
+    beyond = {"shape": [64, T_FULL], "K": 2, "plan": checks[-1]["plan"],
+              "ms": cuda_ms(lambda: fused_ewma_jobs(big_args, device="cuda"), 10),
+              "bound_ms": max(ewma_bound(big))}
+    del big, big_args
     bound_ms, bound_by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
-    emit({"phase": "ewma", "checks": checks, "ms": ms, "plain_ms": plain_ms,
-          "bound_ms": bound_ms, "bound_by": bound_by})
-    return {"max_abs_err": max(c["max_abs_err"] for c in checks[:3]),
-            "max_rel_err": max(c["max_rel_err"] for c in checks[:3]),
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+    result = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+              "launches": launches, "max_abs_err": main_err, "max_rel_err": main_rel,
+              "beyond_residency": beyond,
+              "registers": registers(libraries, "fused_ewma", "ewma_tiles"),
+              "shared_memory": usage(libraries, "fused_ewma", "ewma_tiles")}
+    emit({"phase": "ewma", "checks": checks, **result})
+    return result
 
 
 def replay_bound_ms(stats, B, T, warmup=10):
@@ -415,19 +502,28 @@ def phase_flips(d, params):
         compute_signal_features, prepare_inputs, sweep)
     from ai_crypto_trader_tpu_torch.ops import compute_indicators
     from ai_crypto_trader_tpu_torch.ops import indicators as ind_mod
-    from ai_crypto_trader_tpu_torch.ops.ewma import fused_ewma_plain
+    from ai_crypto_trader_tpu_torch.ops.ewma import fused_ewma, fused_ewma_plain
 
     def ewma_plain(x, alphas, start=0, device=None):
         lead, T = x.shape[:-1], x.shape[-1]
         out = fused_ewma_plain(x.reshape(-1, T), alphas, start)
         return out.reshape((out.shape[0],) + tuple(lead) + (T,))
 
+    def jobs_plain(jobs, device=None):
+        return [ewma_plain(x, alphas, start) for x, alphas, start in jobs]
+
     tab_k = compute_indicators(d, device="cuda")
-    kernel_ewma, ind_mod.fused_ewma = ind_mod.fused_ewma, ewma_plain
+    # every EWMA entry compute_indicators calls, patched to the plain version
+    kernel_entries = ind_mod.fused_ewma, ind_mod.fused_ewma_jobs
+    ind_mod.fused_ewma, ind_mod.fused_ewma_jobs = ewma_plain, jobs_plain
+    before = fused_ewma.launches
     try:
         tab_p = compute_indicators(d, device="cuda")
     finally:
-        ind_mod.fused_ewma = kernel_ewma
+        ind_mod.fused_ewma, ind_mod.fused_ewma_jobs = kernel_entries
+    if fused_ewma.launches != before:
+        fail(f"ewma flips: the plain table launched the kernel "
+             f"{fused_ewma.launches - before} times")
     inp_k, inp_p = (prepare_inputs(t, device="cuda") for t in (tab_k, tab_p))
     f = compute_signal_features(tab_p)
     T = int(f.close.shape[-1])
@@ -449,6 +545,7 @@ def phase_flips(d, params):
     }
     entry = lambda i: (i.signal == i.decision) & (i.decision == 1) & (i.strength >= 70.0)  # noqa: E731
     report = {"phase": "ewma_flips", "T": T, "limit_per_kind": T // 1000,
+              "plain_table_launches": 0,
               "entry_gate_differs": int((entry(inp_k) != entry(inp_p)).sum())}
     for kind, (diff, near) in kinds.items():
         where = torch.nonzero(diff).flatten()
@@ -631,8 +728,9 @@ def phase_main(d):
     inp, params, stats, metrics, stage_ms, wall = run_main_path(d)
     launches = {"fused_ewma": fused_ewma.launches,
                 "replay_sweep": sweep_kernel.launches}
-    if launches["fused_ewma"] < 3 or launches["replay_sweep"] < 1:
-        fail(f"the main path did not go through both kernels: {launches}")
+    if launches["fused_ewma"] != 2 or launches["replay_sweep"] < 1:
+        fail(f"the main path did not go through both kernels as planned "
+             f"(2 EWMA launches, the replay at least once): {launches}")
     for k, v in metrics.items():
         if v.shape not in ((), (B_FULL,)) or not bool(torch.isfinite(v).all()):
             fail(f"metric {k} is not finite of shape [{B_FULL}]")
@@ -689,6 +787,111 @@ def phase_main(d):
         "curve_ms": curve_ms, "heaviest": heaviest}
 
 
+def device_profile(fn):
+    """``fn()`` once under torch.profiler: the top 10 device ops by total
+    time with their call counts, and the share of the span — from the
+    host's first call to the device's last op — in which no device op ran."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("chip_smoke_region"):
+            fn()
+            torch.cuda.synchronize()
+    events = prof.events()
+    region = [e for e in events if e.name == "chip_smoke_region"
+              and e.device_type == DeviceType.CPU]
+    dev = [e for e in events if e.device_type == DeviceType.CUDA
+           and e.name != "chip_smoke_region" and not getattr(e, "is_user_annotation", False)]
+    if not region or not dev:
+        return {"measured": False, "reason": f"{len(dev)} device events, "
+                                             f"{len(region)} region events in the trace"}
+    by_name = {}
+    for e in dev:
+        tot, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (tot + e.time_range.end - e.time_range.start, n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    t0 = region[0].time_range.start
+    t1 = max(e.time_range.end for e in dev)
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted((max(e.time_range.start, t0), e.time_range.end) for e in dev):
+        if cur_e is None or s > cur_e:
+            busy += 0.0 if cur_e is None else cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    return {"measured": True, "span_ms": (t1 - t0) / 1e3, "device_busy_ms": busy / 1e3,
+            "device_idle_share": 1.0 - busy / (t1 - t0), "device_ops": len(dev),
+            "top10": [{"op": k[:120], "ms": v[0] / 1e3, "count": v[1]} for k, v in top]}
+
+
+def phase_indicator_split(d):
+    """Where the indicator stage's time goes, measured after the main
+    path's warm run and without changing the stage: its parts re-run as
+    groups of the calls compute_indicators makes, on the same inputs, each
+    group between CUDA events (the least of three runs after a warm one);
+    "rest" is the whole stage, timed the same way, less the parts.  Then
+    torch.profiler over one whole call."""
+    import torch
+
+    from ai_crypto_trader_tpu_torch.device import to_device
+    from ai_crypto_trader_tpu_torch.ops import compute_indicators
+    from ai_crypto_trader_tpu_torch.ops import indicators as ind
+    from ai_crypto_trader_tpu_torch.ops.ewma import fused_ewma, fused_ewma_jobs
+
+    def h2d():
+        out = {k: to_device(v, "cuda") for k, v in d.items()}
+        return {k: v.float() if v.is_floating_point() else v for k, v in out.items()}
+
+    cols = h2d()
+    high, low, close, volume = (cols[k] for k in ("high", "low", "close", "volume"))
+    tp = ind.div_const(high + low + close, 3.0) * volume
+
+    def rolling_sums():      # sma ×3, vwap's two sums, %D, the Bollinger mid
+        return [ind.sma(close, 20), ind.sma(close, 50), ind.sma(close, 200),
+                ind.rolling_sum(tp, 14), ind.rolling_sum(volume, 14),
+                ind.rolling_mean(close, 3), ind.rolling_mean(close, 20)]
+
+    def unfold_max_min():    # stochastic, williams %R, ichimoku 9/26/52
+        return [f(x, w) for w in (14, 14, 9, 26, 52)
+                for f, x in ((ind.rolling_max, high), (ind.rolling_min, low))]
+
+    def ema_family():        # the two K2 launches and what feeds them
+        up, dn = ind._rsi_moves(close)
+        a, b = fused_ewma_jobs([(close, [2 / 13, 2 / 27], 0),
+                                (torch.stack([up, dn, ind.true_range(high, low, close)]),
+                                 [1 / 14], 1)], device="cuda")
+        line = ind._mask_warmup(ind._mask_warmup(a[0], 1) - ind._mask_warmup(a[1], 1), 26)
+        return fused_ewma(line, [0.2], 25, device="cuda")
+
+    raw = compute_indicators(d, fill=False, device="cuda")
+    floats = [v for v in raw.values() if v.is_floating_point()]
+    fn_all = lambda: compute_indicators(d, device="cuda")  # noqa: E731
+    parts = {}
+    for name, fn in (("h2d_copies", h2d), ("rolling_sums", rolling_sums),
+                     ("unfold_max_min", unfold_max_min),
+                     ("rolling_std", lambda: ind.rolling_std(close, 20)),
+                     ("ema_family_k2", ema_family),
+                     ("nanfill_all_columns", lambda: [ind.nanfill(v) for v in floats]),
+                     ("stage", fn_all)):
+        fn()
+        parts[name] = min(timed(fn)[1] for _ in range(3))
+    total = parts.pop("stage")
+    parts["rest"] = total - sum(parts.values())
+    try:
+        profile = device_profile(fn_all)
+    except Exception as e:  # noqa: BLE001 — a profiler that cannot trace is reported, not fatal
+        profile = {"measured": False, "reason": repr(e)[:300]}
+    report = {"phase": "indicator_split", "T": T_FULL, "stage_ms": total,
+              "parts_ms": parts, "nanfill_columns": len(floats),
+              "shares": {k: v / total for k, v in parts.items()}, "profile": profile}
+    emit(report)
+    return report
+
+
 def main():
     import torch
 
@@ -708,11 +911,12 @@ def main():
         return {k: v for k, v in generate_ohlcv(n=n, seed=3).items() if k != "regime"}
 
     params = sample_params(torch.Generator().manual_seed(0), B_FULL, device="cuda")
-    ewma = phase_ewma(d)
+    ewma = phase_ewma(d, libraries)
     phase_flips(d, params)
     main_inputs = prepare_inputs(compute_indicators(d, device="cuda"), device="cuda")
     checks = phase_replay(main_inputs, params, d_small)
     launches, stats, full, k1 = phase_main(d)
+    phase_indicator_split(d)
     bound_ms, bound_by, stepped_bound_ms = replay_bound_ms(stats, B_FULL, T_FULL)
     checks += full
     kernels = [
@@ -723,7 +927,14 @@ def main():
          "max_abs_err": ewma["max_abs_err"], "max_rel_err": ewma["max_rel_err"],
          "ms": ewma["ms"], "plain_ms": ewma["plain_ms"],
          "bound_ms": ewma["bound_ms"], "bound_by": ewma["bound_by"], "library_ms": None,
-         "shape": "the three launches of compute_indicators at T=525600, summed"},
+         "ms_per_launch": {k: v["ms"] for k, v in ewma["launches"].items()},
+         "floors_ms_per_launch": {k: {f: v[f] for f in ("barrier_only_ms", "copy_same_bytes_ms")}
+                                  for k, v in ewma["launches"].items()},
+         "plan": {k: v["plan"] for k, v in ewma["launches"].items()},
+         "registers": ewma["registers"], "resources": ewma["shared_memory"],
+         "beyond_residency": ewma["beyond_residency"],
+         "shape": "the two launches of compute_indicators at T=525600, summed "
+                  "(A: close K=2 + up/dn/tr K=1; B: MACD line K=1)"},
         {"name": "replay_sweep", "route": "cuda",
          "source": "ai_crypto_trader_tpu_torch/csrc/replay_sweep.cu",
          "replaces": "ai_crypto_trader_tpu/ops/pallas_backtest.py:259",
