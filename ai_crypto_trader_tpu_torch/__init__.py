@@ -1,12 +1,14 @@
-"""PyTorch/CUDA port of ai_crypto_trader_tpu's population backtest.
+"""PyTorch/CUDA port of ai_crypto_trader_tpu's population backtest and GA.
 
-The chain, module for module after the JAX package:
+The chains, module for module after the JAX package:
 
     data.generate_ohlcv → ops.compute_indicators → backtest.prepare_inputs
         → backtest.sweep → backtest.compute_metrics
+    data.generate_ohlcv → evolve.backtest_fitness (backtest.evolvable's
+        period tables over ops.dynamic) → evolve.run_ga
 
 Plain tensor code is PyTorch; the two Pallas kernels of the JAX package on
-this path are CUDA C++ kernels for Hopper (``csrc/``), built with nvcc on
+these paths are CUDA C++ kernels for Hopper (``csrc/``), built with nvcc on
 first use and loaded with ctypes (``ops/_cuda.py``).  Entry points run on the
 CUDA card unless called with ``device="cpu"`` (``device.resolve_device``).
 Arithmetic is float32 throughout; TF32 is switched off here, once, although

@@ -34,9 +34,9 @@ from ai_crypto_trader_tpu_torch.device import resolve_device, to_device
 
 
 class BacktestInputs(NamedTuple):
-    """Per-candle tensors consumed by the replay (all shape [T]).
-    sl_pct / tp_pct are optional per-candle exit levels (percent); NaN
-    means "no override"."""
+    """Per-candle tensors consumed by the replay, each [T] or with leading
+    strategy axes [..., T] (the GA's per-genome rows).  sl_pct / tp_pct are
+    optional per-candle exit levels (percent); NaN means "no override"."""
 
     close: torch.Tensor
     signal: torch.Tensor        # int32 {-1,0,1}
@@ -301,8 +301,10 @@ def run_backtest(inputs: BacktestInputs, params: StrategyParams | None = None, *
     take_profit (percent) override the sizer's volatility ladder;
     ``sell_exits`` adds an explicit SELL-signal close.  On CUDA the
     ``use_param_sl_tp`` mode without ``sell_exits`` over one candle series
-    runs the replay kernel over the params' broadcast shape
-    (``reference_quirks`` changes nothing there); every other mode, a batch
+    (``close`` [T]) runs the replay kernel over the broadcast of the
+    params' shape and the leading shape of the other streams, which may
+    carry a row per strategy (the GA's per-genome signals and exits;
+    ``reference_quirks`` changes nothing there); every other mode, a batch
     of series, and the CPU run the plain loop."""
     dev = resolve_device(device)
     inputs = _on(inputs, dev)
@@ -316,10 +318,15 @@ def run_backtest(inputs: BacktestInputs, params: StrategyParams | None = None, *
         # imported here: ops.replay imports this module
         from ai_crypto_trader_tpu_torch.ops.replay import sweep_kernel
 
-        shape = torch.broadcast_shapes(params.stop_loss.shape, params.take_profit.shape)
+        T = inputs.close.shape[-1]
+        shape = torch.broadcast_shapes(params.stop_loss.shape, params.take_profit.shape,
+                                       *(x.shape[:-1] for x in inputs))
         flat = params._replace(stop_loss=params.stop_loss.expand(shape).reshape(-1),
                                take_profit=params.take_profit.expand(shape).reshape(-1))
-        out = sweep_kernel(inputs, flat, return_curve=return_curve, device=dev, **kw)
+        # a stream with a leading shape becomes [B, T] rows; [T] stays shared
+        rows = type(inputs)(*(x if x.ndim == 1 else x.expand(shape + (T,)).reshape(-1, T)
+                              for x in inputs))
+        out = sweep_kernel(rows, flat, return_curve=return_curve, device=dev, **kw)
         stats, curve = out if return_curve else (out, None)
         stats = BacktestStats(*(v.reshape(shape) for v in stats))
         return (stats, curve.reshape(shape + curve.shape[-1:])) if return_curve else stats

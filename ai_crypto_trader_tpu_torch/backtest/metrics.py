@@ -10,6 +10,7 @@ from the streaming moments the replay carries, O(1) per backtest.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ai_crypto_trader_tpu_torch.backtest.engine import BacktestStats, _on
@@ -29,7 +30,9 @@ def compute_metrics(s: BacktestStats, annualization: float = 252.0,
     mean_r = s.sum_r / n
     var_r = torch.clamp_min(s.sum_r2 / n - mean_r * mean_r, 0.0)
     std_r = torch.sqrt(var_r)
-    sqrt_ann = torch.sqrt(torch.tensor(annualization, dtype=torch.float32, device=dev))
+    # float32 sqrt, as a Python float: a tensor made from the host here
+    # would wait for the card
+    sqrt_ann = float(np.sqrt(np.float32(annualization)))
 
     sharpe = torch.where((s.n_r > 1) & (std_r > 0.0),
                          mean_r / _safe(std_r, std_r > 0) * sqrt_ann, 0.0)

@@ -10,6 +10,7 @@ the JAX draws over with `convert.params_from_numpy`).
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -67,7 +68,10 @@ _HIGHS = np.asarray([r[1] for r in PARAM_RANGES.values()], np.float32)
 _IS_INT = np.asarray([r[2] for r in PARAM_RANGES.values()], bool)
 
 
+@functools.lru_cache(maxsize=None)
 def _ranges(device):
+    """(lows, highs, is_int) on ``device``, made once per device: a copy
+    from the host in the GA's generation loop would wait for the card."""
     as_t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
     return as_t(_LOWS), as_t(_HIGHS), as_t(_IS_INT)
 

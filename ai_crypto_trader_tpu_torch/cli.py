@@ -1,15 +1,20 @@
-"""Command-line interface of the port: the ``backtest`` subcommand.
+"""Command-line interface of the port: the ``backtest`` and ``evolve``
+subcommands.
 
 Same flags and JSON output as ``python -m ai_crypto_trader_tpu.cli
-backtest``, plus ``--device {cuda,cpu}`` (default cuda):
+backtest`` / ``evolve``, plus ``--device {cuda,cpu}`` (default cuda):
 
     python -m ai_crypto_trader_tpu_torch.cli backtest --days 365 --sweep 4096
+    python -m ai_crypto_trader_tpu_torch.cli evolve --days 30 --population 256 --generations 3
 
 A CSV at ``backtesting/data/market/<symbol>/<symbol>_1m.csv`` is used when
 present; otherwise the deterministic synthetic series is generated.
 ``--sweep N`` (N > 1) sweeps N strategies drawn from a ``torch.Generator``
 seeded with ``--seed`` through the replay kernel and reports the best by
 Sharpe; otherwise one default-parameter backtest runs with its equity curve.
+``evolve`` runs the GA with backtest fitness over the candles, seeded with
+the default parameters as individual 0, its draws from a ``torch.Generator``
+seeded with ``--seed``, and prints the history and the best parameters.
 """
 
 from __future__ import annotations
@@ -95,6 +100,23 @@ def cmd_backtest(args):
     print(f"saved -> {fname}")
 
 
+def cmd_evolve(args):
+    from ai_crypto_trader_tpu_torch import resolve_device
+    from ai_crypto_trader_tpu_torch.backtest import default_params
+    from ai_crypto_trader_tpu_torch.config import GAParams
+    from ai_crypto_trader_tpu_torch.evolve import backtest_fitness, run_ga
+
+    dev = resolve_device(args.device)
+    d = _load_or_generate(args.symbol, args.days * 1440, args.seed)
+    cfg = GAParams(population_size=args.population, generations=args.generations)
+    best, hist = run_ga(torch.Generator(device=dev).manual_seed(args.seed),
+                        backtest_fitness(d, device=dev), cfg,
+                        seed_params=default_params(device=dev), device=dev)
+    print(json.dumps({"history": hist, "devices": 1, "device": dev.type,
+                      "best_params": {k: float(v) for k, v in
+                                      best._asdict().items()}}, indent=2))
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="ai_crypto_trader_tpu_torch",
                                 description=__doc__,
@@ -108,6 +130,14 @@ def build_parser() -> argparse.ArgumentParser:
                     help="strategy-population width")
     sp.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     sp.set_defaults(fn=cmd_backtest)
+    sp = sub.add_parser("evolve", help="GA-evolve strategy parameters")
+    sp.add_argument("--symbol", default="BTCUSDC")
+    sp.add_argument("--days", type=int, default=7)
+    sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument("--population", type=int, default=20)
+    sp.add_argument("--generations", type=int, default=10)
+    sp.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    sp.set_defaults(fn=cmd_evolve)
     return p
 
 

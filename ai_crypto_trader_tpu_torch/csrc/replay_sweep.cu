@@ -53,6 +53,16 @@
 // The curve variant (a template flag, so the stats-only walk carries no
 // curve code) writes the balance after each candle, which changes only at
 // closes, as runs between closes; each warp writes its own row.
+// Rows form (the GA's fitness, where every genome has its own signal rule
+// and exits): signal, decision, strength, confidence, volatility and the
+// SL/TP overrides may each be one [T] stream shared by every strategy (row
+// stride 0) or [B, T] rows (row stride T); close and volume are shared.
+// When any gate stream is rows the pre-pass writes one mask row per
+// strategy, [B, ceil(T/32)], and warp b walks row b; the walk reads a row
+// of volatility and the overrides only at an entry, as replay_step uses
+// them only there.  The shared form (every stride 0) is its own
+// instantiation (kRows false), the walk of the main path as it was, with
+// no row offsets: the same launches, the same bits and the same time.
 
 #include <cuda_runtime.h>
 
@@ -207,25 +217,32 @@ __device__ __forceinline__ void fill(float* __restrict__ row, int from, int to,
   for (int i = from + lane; i < to; i += 32) row[i] = v;
 }
 
+// Row r of the mask from the streams' row r (each stream's row stride is
+// 0 or T); blocks tile each row, tiles_per_row of them a row.
 __global__ void __launch_bounds__(kGateThreads)
     replay_gate_kernel(const float* __restrict__ confidence,
                        const float* __restrict__ strength,
                        const int* __restrict__ signal,
                        const int* __restrict__ decision,
                        unsigned* __restrict__ mask, int T, int warmup,
-                       float conf_thr, float min_strength) {
-  const int t = blockIdx.x * kGateThreads + threadIdx.x;
+                       float conf_thr, float min_strength, int tiles_per_row,
+                       long long conf_stride, long long strength_stride,
+                       long long signal_stride, long long decision_stride) {
+  const int r = blockIdx.x / tiles_per_row;
+  const int t = (blockIdx.x - r * tiles_per_row) * kGateThreads + threadIdx.x;
   bool gate = false;
   if (t < T && t >= warmup) {
-    const int dec = decision[t];
-    gate = confidence[t] >= conf_thr && strength[t] >= min_strength &&
-           signal[t] == dec && dec == 1;
+    const int dec = decision[r * decision_stride + t];
+    gate = confidence[r * conf_stride + t] >= conf_thr &&
+           strength[r * strength_stride + t] >= min_strength &&
+           signal[r * signal_stride + t] == dec && dec == 1;
   }
   const unsigned bits = __ballot_sync(kFull, gate);
-  if ((threadIdx.x & 31) == 0 && t < T) mask[t >> 5] = bits;
+  if ((threadIdx.x & 31) == 0 && t < T)
+    mask[static_cast<long long>(r) * ((T + 31) >> 5) + (t >> 5)] = bits;
 }
 
-template <bool kCurve>
+template <bool kCurve, bool kRows>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     replay_walk_kernel(const float* __restrict__ close,
                        const float* __restrict__ volatility,
@@ -237,13 +254,20 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
                        const float* __restrict__ take_profit,
                        float* __restrict__ out_f, int* __restrict__ out_i,
                        float* __restrict__ curve, int B, int T, int warmup,
-                       float initial_balance) {
+                       float initial_balance, long long mask_stride,
+                       long long vol_stride, long long sl_stride,
+                       long long tp_stride) {
   const int lane = threadIdx.x & 31;
   const int j = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (j >= B) return;  // the whole warp
   const float psl = stop_loss[j], ptp = take_profit[j];
   const int nwords = (T + 31) >> 5;
   float* row = kCurve ? curve + static_cast<long long>(j) * T : nullptr;
+  // strategy j's rows (stride 0: the shared stream)
+  const unsigned* __restrict__ mask_j = kRows ? mask + j * mask_stride : mask;
+  const float* __restrict__ vol_j = kRows ? volatility + j * vol_stride : volatility;
+  const float* __restrict__ sl_j = kRows ? sl_override + j * sl_stride : sl_override;
+  const float* __restrict__ tp_j = kRows ? tp_override + j * tp_stride : tp_override;
 
   Carry c;
   c.balance = initial_balance;
@@ -262,7 +286,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   int t = booked;                        // where the gate search starts
   while (t < T) {
     // out of a position: candles booked..g book r = 0 (g the entry)
-    const int g = next_gate(mask, nwords, t, T, lane);
+    const int g = next_gate(mask_j, nwords, t, T, lane);
     const int count = (g < T ? g + 1 : T) - booked;
     if (count > 0) {
       equity_point(c, c.balance);
@@ -272,8 +296,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 
     const float price = __ldg(close + g);
     const float size =
-        position_size(c.balance, __ldg(volatility + g), __ldg(volume + g));
-    const float slo = __ldg(sl_override + g), tpo = __ldg(tp_override + g);
+        position_size(c.balance, __ldg(vol_j + g), __ldg(volume + g));
+    const float slo = __ldg(sl_j + g), tpo = __ldg(tp_j + g);
     c.in_pos = true;
     c.entry = price;
     c.qty = size / price;
@@ -324,47 +348,61 @@ extern "C" const char* replay_sweep_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// The entry gate of every candle into mask [ceil(T/32)] (bit t % 32 of word
-// t / 32).  confidence and strength f32, signal and decision int32, all [T].
+// The entry gate of every candle into mask [R, ceil(T/32)] (bit t % 32 of
+// word t / 32 of row r).  confidence and strength f32, signal and decision
+// int32, each [T] (row stride 0) or [R, T] (row stride T).
 extern "C" int replay_gate_launch(const float* confidence,
                                   const float* strength, const int* signal,
                                   const int* decision, unsigned* mask,
-                                  long long T, int warmup, float conf_thr,
-                                  float min_strength, void* stream) {
-  if (bad_length(T)) return static_cast<int>(cudaErrorInvalidValue);
+                                  long long T, int R, long long conf_stride,
+                                  long long strength_stride,
+                                  long long signal_stride,
+                                  long long decision_stride, int warmup,
+                                  float conf_thr, float min_strength,
+                                  void* stream) {
+  if (bad_length(T) || R < 1) return static_cast<int>(cudaErrorInvalidValue);
   const int n = static_cast<int>(T);
-  const int blocks = (n + kGateThreads - 1) / kGateThreads;
-  replay_gate_kernel<<<blocks, kGateThreads, 0,
+  const int tiles = (n + kGateThreads - 1) / kGateThreads;
+  if (static_cast<long long>(tiles) * R > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  replay_gate_kernel<<<tiles * R, kGateThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       confidence, strength, signal, decision, mask, n, warmup, conf_thr,
-      min_strength);
+      min_strength, tiles, conf_stride, strength_stride, signal_stride,
+      decision_stride);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The walk over the gate mask.  close (16-byte aligned), volatility, volume,
-// sl_override, tp_override [T] f32; stop_loss and take_profit [B] f32;
-// out_f [8, B] f32 and out_i [6, B] int32 (row order in ops/replay.py);
-// curve [B, T] f32, or null for the stats alone.
+// The walk over the gate mask.  close (16-byte aligned) and volume [T] f32;
+// volatility, sl_override, tp_override f32 [T] (row stride 0) or [B, T]
+// (row stride T); mask [ceil(T/32)] (mask_stride 0) or [B, ceil(T/32)]
+// (mask_stride ceil(T/32)); stop_loss and take_profit [B] f32; out_f [8, B]
+// f32 and out_i [6, B] int32 (row order in ops/replay.py); curve [B, T]
+// f32, or null for the stats alone.
 extern "C" int replay_walk_launch(
     const float* close, const float* volatility, const float* volume,
     const float* sl_override, const float* tp_override, const unsigned* mask,
     const float* stop_loss, const float* take_profit, float* out_f,
     int* out_i, float* curve, int B, long long T, int warmup,
-    float initial_balance, void* stream) {
+    float initial_balance, long long mask_stride, long long vol_stride,
+    long long sl_stride, long long tp_stride, void* stream) {
   if (B < 1 || bad_length(T)) return static_cast<int>(cudaErrorInvalidValue);
   if (reinterpret_cast<std::uintptr_t>(close) % 16 != 0)
     return static_cast<int>(cudaErrorMisalignedAddress);
   const int blocks = (B + kWarps - 1) / kWarps;
   const auto s = static_cast<cudaStream_t>(stream);
   const int n = static_cast<int>(T);
-  if (curve != nullptr) {
-    replay_walk_kernel<true><<<blocks, kThreads, 0, s>>>(
-        close, volatility, volume, sl_override, tp_override, mask, stop_loss,
-        take_profit, out_f, out_i, curve, B, n, warmup, initial_balance);
-  } else {
-    replay_walk_kernel<false><<<blocks, kThreads, 0, s>>>(
-        close, volatility, volume, sl_override, tp_override, mask, stop_loss,
-        take_profit, out_f, out_i, nullptr, B, n, warmup, initial_balance);
-  }
+  const bool rows = (mask_stride | vol_stride | sl_stride | tp_stride) != 0;
+  // one instantiation for each (curve, rows): the stats-only shared walk
+  // carries neither curve code nor row offsets
+  auto walk = rows ? (curve != nullptr ? replay_walk_kernel<true, true>
+                                       : replay_walk_kernel<false, true>)
+                   : (curve != nullptr ? replay_walk_kernel<true, false>
+                                       : replay_walk_kernel<false, false>);
+  walk<<<blocks, kThreads, 0, s>>>(close, volatility, volume, sl_override,
+                                   tp_override, mask, stop_loss, take_profit,
+                                   out_f, out_i, curve, B, n, warmup,
+                                   initial_balance, mask_stride, vol_stride,
+                                   sl_stride, tp_stride);
   return static_cast<int>(cudaGetLastError());
 }

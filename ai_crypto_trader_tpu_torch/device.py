@@ -2,14 +2,16 @@
 
 Every public entry point of the port — `compute_indicators`, `fused_ewma`,
 `prepare_inputs`, `default_params`, `sample_params`, `run_backtest`,
-`sweep`, `compute_metrics`, `convert.params_from_numpy`
-and `convert.inputs_from_numpy` —
+`sweep`, `compute_metrics`, `build_indicator_tables`,
+`population_backtest` and the other `backtest.evolvable` pipelines,
+`backtest_fitness`, `run_ga`, and the `convert` functions —
 takes ``device=None``, which means the CUDA card, and moves its inputs
 there.  The CPU is used only when the caller asks for it with
 ``device="cpu"`` (the tests do; there every kernel wrapper takes its plain
 PyTorch version).  A request for the card on a machine without one raises:
 nothing carries on quietly on the CPU.  The building blocks under them
-(single indicators, the signal rule, `replay_step`) compute on the device
+(single indicators, the indicators with tensor periods, the signal and
+vote rules, `replay_step`, the GA's `_evolve_core`) compute on the device
 of the tensors they are given.
 """
 

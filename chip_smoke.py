@@ -56,8 +56,20 @@ imports nothing of JAX or of the JAX package.  Phases, one JSON line each:
                 rest) between CUDA events, and torch.profiler's top 10
                 device ops with their counts and the device's idle share
                 over one whole call;
-  5. kernels  — one line with each kernel's launches, error, times and
-                bound, at the main path's shapes.
+  5. ga       — the GA at the bench's full width (`GAParams(256, 3)` on the
+                first 43,200 candles of the year, bench.py:1927-2003): the
+                period-table build's K2 launches, as packed, against the
+                plain version job by job and twice for the same bits; K1's
+                rows form (a row of signal, strength, volatility and SL/TP
+                per genome) against the plain loop bit for bit, stats and
+                curve, on the GA's own fitness inputs and in edge cases;
+                `run_backtest` on per-genome rows through K1; the whole GA
+                through `backtest_fitness` and `run_ga` with exact launch
+                counts and one host read, backtests/s and its time split;
+                and K2's flips as the GA reads them (`ga_flips`);
+  6. kernels  — one line with each kernel's launches, error, times and
+                bound, at the main path's shapes, and each kernel's GA
+                launches (`ga_tables`, `ga_rows`).
 
 Any failed check raises, so the script exits non-zero and never prints its
 last line, ``{"ok": true, "device": {...}}``.  Times are CUDA-event times
@@ -70,6 +82,7 @@ from __future__ import annotations
 
 import ctypes
 import json
+import math
 import shutil
 import subprocess
 import sys
@@ -89,6 +102,8 @@ REPLAY_OPS_GATE, REPLAY_OPS_EXIT = 6, 5
 REPLAY_OPS_CLOSE, REPLAY_OPS_ENTRY, REPLAY_OPS_BOOK = 6, 16, 10
 REPLAY_OPS_STEP = 12
 CURVE_B = 256             # strategies whose full-T curve is checked
+T_GA, POP_GA, GENS_GA = 43_200, 256, 3   # the bench's GA row (bench.py:1945-1949)
+GA_CURVE_B = 32           # strategies whose curve the rows checks hold
 # per element and output of the EWMA: the element map (select, multiply)
 # and the recursion (multiply, add) and the NaN mask
 EWMA_OPS = 5
@@ -385,10 +400,10 @@ def sweep_plain_graphed(inputs, params, steps=32, initial_balance=10_000.0,
 
     def chunk():
         idx = t0 + offsets
-        cols = [x.index_select(0, idx) for x in inputs]
+        cols = [x.index_select(-1, idx) for x in inputs]
         s, equity = state, []
         for k in range(steps):
-            s, eq = step(s, (idx[k],) + tuple(c[k] for c in cols))
+            s, eq = step(s, (idx[k],) + tuple(c[..., k] for c in cols))
             equity.append(eq[:curve_b])
         if curve_b:
             curve.index_copy_(1, idx, torch.stack(equity, 1))
@@ -412,7 +427,7 @@ def sweep_plain_graphed(inputs, params, steps=32, initial_balance=10_000.0,
         graph.replay()
     s = state
     for t in range(n * steps, T):
-        s, eq = step(s, (t,) + tuple(x[t] for x in inputs))
+        s, eq = step(s, (t,) + tuple(x[..., t] for x in inputs))
         curve[:, t] = eq[:curve_b]
     stats = engine.finalize_stats(s, inputs.close[-1], initial_balance)
     return (stats, curve) if curve_b else stats
@@ -892,6 +907,385 @@ def phase_indicator_split(d):
     return report
 
 
+def ewma_jobs_bound(jobs):
+    """(bytes ms, operations ms) of the EWMA function over ``jobs`` [(x,
+    alphas, start)]: each distinct input series read once, every output
+    row written once, EWMA_OPS float32 operations per output element."""
+    inputs = {x.data_ptr(): x.numel() for x, _, _ in jobs}
+    outputs = sum(len(a) * x.numel() for x, a, _ in jobs)
+    return (1e3 * 4 * (sum(inputs.values()) + outputs) / HBM_BYTES_PER_S,
+            1e3 * EWMA_OPS * outputs / F32_OPS_PER_S)
+
+
+def replay_rows_bound_ms(stats, inputs, warmup=10):
+    """`replay_bound_ms` for the rows form: each stream read once ([T] or
+    [B, T] as given), the stats written once; the gate on every candle of
+    every row; the SL/TP test on every in-position candle; each close and
+    entry.  (ms, by)."""
+    B, T = int(stats.total_trades.numel()), int(inputs.close.shape[-1])
+    trades = int(stats.total_trades.sum())
+    books = int((stats.n_r - 1).sum())
+    survived = B * (T - warmup) - books
+    gate_rows = max(int(x.shape[0]) if x.ndim == 2 else 1
+                    for x in (inputs.signal, inputs.decision, inputs.strength, inputs.confidence))
+    ops = (REPLAY_OPS_GATE * gate_rows * T + REPLAY_OPS_EXIT * (survived + trades)
+           + (REPLAY_OPS_CLOSE + REPLAY_OPS_BOOK + REPLAY_OPS_ENTRY) * trades)
+    n_bytes = sum(4 * x.numel() for x in inputs) + 2 * 4 * B + 14 * 4 * B
+    ms, by = max((n_bytes / HBM_BYTES_PER_S, "bytes"), (ops / F32_OPS_PER_S, "operations"))
+    return 1e3 * ms, by
+
+
+def rows_head(inputs, params, n):
+    """The first ``n`` strategies: their rows and params."""
+    return (type(inputs)(*(x[:n] if x.ndim == 2 else x for x in inputs)),
+            params._replace(**{f: getattr(params, f)[:n] for f in params._fields}))
+
+
+def rows_check(inputs, params, label, eager=False, **kw):
+    """K1's rows form, both variants (the curve on the first GA_CURVE_B
+    strategies), against the plain loop bit for bit: the eager loop, or
+    the graph-replayed one (phase 3 holds the two equal, and this phase
+    holds them equal on rows)."""
+    from ai_crypto_trader_tpu_torch.backtest import BacktestStats
+    from ai_crypto_trader_tpu_torch.ops.replay import sweep_kernel, sweep_plain
+
+    n = min(GA_CURVE_B, int(params.stop_loss.shape[0]))
+    got = sweep_kernel(inputs, params, device="cuda", **kw)
+    got_c, curve = sweep_kernel(*rows_head(inputs, params, n), device="cuda",
+                                return_curve=True, **kw)
+    if eager:
+        (ref, ref_curve), plain_ms = timed(lambda: sweep_plain(inputs, params,
+                                                               return_curve=True, **kw))
+        ref_curve = ref_curve[:n]
+    else:
+        (ref, ref_curve), plain_ms = timed(lambda: sweep_plain_graphed(inputs, params,
+                                                                       curve_b=n, **kw))
+    check = {**compare_stats(got, ref, label), "T": int(inputs.close.shape[-1]),
+             "rows": [k for k in inputs._fields if getattr(inputs, k).ndim == 2]}
+    check["curve"] = compare_stats(got_c, BacktestStats(*(v[:n] for v in ref)),
+                                   label + f"/curve_B{n}", curve, ref_curve)
+    return check, ref, plain_ms
+
+
+def ga_flips(d, fit_k, p0, cfg, seed_params):
+    """K2's rounding where the GA reads it.  The period tables are built a
+    second time with every EWMA entry of ops/dynamic.py patched to the plain
+    version (which must launch no kernel); generation 0's genomes are
+    evaluated on both.  Every signal flip, strength-gate (50) crossing and
+    sizer-bucket crossing must sit within 1e-4 of a threshold on its
+    input's scale — a MACD line within 1e-4·close of 0, an RSI within 1e-2
+    of the genome's oversold, oversold+10 or overbought, the two trend
+    EMAs within 1e-4·close of each other or the trend strength within 1e-2
+    of 1, the strength within 1e-2 of 50, the volatility within a relative
+    1e-4 of 0.01 or 0.02 — and no kind may exceed T/1000 on any genome.
+    Then the GA from one seed on both tables: is the best genome the
+    same?"""
+    import torch
+
+    from ai_crypto_trader_tpu_torch.backtest import evolvable as ev
+    from ai_crypto_trader_tpu_torch.evolve import ga
+    from ai_crypto_trader_tpu_torch.ops import dynamic
+    from ai_crypto_trader_tpu_torch.ops.ewma import fused_ewma, fused_ewma_plain
+
+    def jobs_plain(jobs, device=None):
+        out = []
+        for x, alphas, start in jobs:
+            lead, T = x.shape[:-1], x.shape[-1]
+            y = fused_ewma_plain(x.reshape(-1, T), alphas, start)
+            out.append(y.reshape((y.shape[0],) + tuple(lead) + (T,)))
+        return out
+
+    kernel_entry = dynamic.fused_ewma_jobs
+    dynamic.fused_ewma_jobs = jobs_plain
+    before = fused_ewma.launches
+    try:
+        fit_p = ga.backtest_fitness(d, device="cuda")
+    finally:
+        dynamic.fused_ewma_jobs = kernel_entry
+    if fused_ewma.launches != before:
+        fail(f"ga flips: the plain tables launched the kernel {fused_ewma.launches - before} times")
+    tab_k, tab_p = fit_k.tables, fit_p.tables
+    inp_k, inp_p = (ev.evolvable_inputs(d, p0, tables=t, device="cuda") for t in (tab_k, tab_p))
+    a = {k: torch.as_tensor(d[k], device="cuda") for k in ("close", "high", "low", "volume")}
+    rsi, macd, _, ema_s, ema_l, _, _ = ev._filled_indicators(a, p0, tab_p)
+    pc = ev._columns(p0)
+    close = a["close"]
+    trend = torch.abs((ema_s - ema_l) / ema_l * 100.0)
+    near_votes = ((torch.abs(macd) <= 1e-4 * close)
+                  | (torch.abs(rsi - pc.rsi_oversold) <= 1e-2)
+                  | (torch.abs(rsi - (pc.rsi_oversold + 10.0)) <= 1e-2)
+                  | (torch.abs(rsi - pc.rsi_overbought) <= 1e-2)
+                  | (torch.abs(ema_s - ema_l) <= 1e-4 * close)
+                  | (torch.abs(trend - 1.0) <= 1e-2))
+    vol_p, vol_k = inp_p.volatility, inp_k.volatility
+    sig_flip = inp_k.signal != inp_p.signal
+    kinds = {
+        "signal": (sig_flip, near_votes),
+        "strength_gate": (~sig_flip & ((inp_k.strength >= 50.0) != (inp_p.strength >= 50.0)),
+                          near_votes | (torch.abs(inp_p.strength - 50.0) <= 1e-2)),
+        "sizer_bucket": (((vol_k > 0.02) != (vol_p > 0.02)) | ((vol_k > 0.01) != (vol_p > 0.01)),
+                         torch.minimum(torch.abs(vol_p - 0.01) / 0.01,
+                                       torch.abs(vol_p - 0.02) / 0.02) <= 1e-4),
+    }
+    T = int(close.shape[-1])
+    report = {"phase": "ga_flips", "T": T, "genomes": int(p0.stop_loss.shape[0]),
+              "limit_per_genome_per_kind": T // 1000, "plain_table_launches": 0}
+    for kind, (diff, near) in kinds.items():
+        where = torch.nonzero(diff)
+        report[kind] = {"count": int(diff.sum()), "genomes": int(diff.any(-1).sum()),
+                        "max_per_genome": int(diff.sum(-1).max()),
+                        "far_from_threshold": int((diff & ~near).sum()),
+                        "examples": [{"genome": int(g), "t": int(t),
+                                      "macd": float(macd[g, t]), "rsi": float(rsi[g, t]),
+                                      "ema_gap": float(ema_s[g, t] - ema_l[g, t]),
+                                      "strength": [float(inp_p.strength[g, t]),
+                                                   float(inp_k.strength[g, t])],
+                                      "volatility": float(vol_p[g, t])}
+                                     for g, t in where[:3].tolist()]}
+    st_k, st_p = (ev.evolvable_fused_backtest(d, p0, t, device="cuda") for t in (tab_k, tab_p))
+    report["genomes_with_other_stats"] = int(((st_k.total_trades != st_p.total_trades)
+                                              | (st_k.final_balance != st_p.final_balance)).sum())
+    f_k, f_p = fit_k(p0), fit_p(p0)
+    report["max_fitness_difference"] = float(torch.abs(f_k - f_p).max())
+    bests = [ga.run_ga(torch.Generator(device="cuda").manual_seed(7), f, cfg,
+                       seed_params=seed_params, device="cuda")[0] for f in (fit_k, fit_p)]
+    report["same_best_genome"] = all(bool(torch.equal(a_, b_)) for a_, b_ in zip(*bests))
+    emit(report)
+    for kind in kinds:
+        if report[kind]["far_from_threshold"]:
+            fail(f"ga flips: {report[kind]['far_from_threshold']} {kind} differences sit "
+                 "farther than 1e-4 from any threshold")
+        if report[kind]["max_per_genome"] > T // 1000:
+            fail(f"ga flips: {report[kind]['max_per_genome']} {kind} differences on one "
+                 "genome, over T/1000")
+    return report
+
+
+def phase_ga(d_year, info, libraries):
+    """The GA on the card at the bench's full width (bench.py:1927-2003):
+    `generate_ohlcv(525600, seed=3)` cut to its first 43,200 candles,
+    `GAParams(256, 3)`.  K2's table-build launches and K1's rows form
+    against their plain versions, `run_backtest` on per-genome rows, the
+    whole GA through the port's entry points with its launch counts and
+    its one host read, its time split, and K2's flips as the GA reads
+    them."""
+    import torch
+
+    from ai_crypto_trader_tpu_torch.backtest import (
+        compute_metrics, default_params, run_backtest, sample_params)
+    from ai_crypto_trader_tpu_torch.backtest import evolvable as ev
+    from ai_crypto_trader_tpu_torch.backtest.strategy import unstack_params
+    from ai_crypto_trader_tpu_torch.config import GAParams
+    from ai_crypto_trader_tpu_torch.evolve import ga
+    from ai_crypto_trader_tpu_torch.ops import dynamic, replay
+    from ai_crypto_trader_tpu_torch.ops.ewma import (
+        barrier_launch, fused_ewma, fused_ewma_jobs, fused_ewma_plain, tile_count)
+    from ai_crypto_trader_tpu_torch.ops.indicators import nanfill
+    from ai_crypto_trader_tpu_torch.ops.replay import sweep_kernel
+
+    d = {k: v[:T_GA] for k, v in d_year.items()}
+    cfg = GAParams(population_size=POP_GA, generations=GENS_GA)
+    seed_params = default_params(device="cuda")
+    kw = dict(min_signal_strength=50.0, warmup=10)
+
+    # --- 1. K2's launches of the table build, recorded as packed ---------
+    launches = []
+    kernel_entry = dynamic.fused_ewma_jobs
+
+    def recording(jobs, device=None):
+        launches.append([(x, alphas, start) for x, alphas, start in jobs])
+        return kernel_entry(jobs, device=device)
+
+    dynamic.fused_ewma_jobs = recording
+    try:
+        tables = ev.build_indicator_tables(d, device="cuda")
+    finally:
+        dynamic.fused_ewma_jobs = kernel_entry
+    k2 = []
+    for i, jobs in enumerate(launches):
+        named = [(f"job{j}_K{len(a)}_start{st}", x.reshape(-1, x.shape[-1]), a, st)
+                 for j, (x, a, st) in enumerate(jobs)]
+        check = ewma_check(named, f"ga_tables_launch{i}")
+        args = [(x, a, st) for _, x, a, st in named]
+        n_tiles = tile_count([x.shape for x, _, _ in args])
+        kmax = max(len(a) for _, a, _ in args)
+        b_ms, o_ms = ewma_jobs_bound(jobs)
+        k2.append({**check, "grid": check["plan"],
+                   "ms": cuda_ms(lambda: fused_ewma_jobs(args, device="cuda"), 20),
+                   "barrier_only_ms": cuda_ms(lambda: barrier_launch(n_tiles, kmax), 20),
+                   "bytes_bound_ms": b_ms, "operations_bound_ms": o_ms,
+                   "plain_ms": sum(cuda_ms(lambda: fused_ewma_plain(x, a, st), 3)
+                                   for x, a, st in args)})
+    all_jobs = [job for jobs in launches for job in jobs]
+    b_ms, o_ms = ewma_jobs_bound(all_jobs)
+    ga_tables = {"launches_per_build": len(launches),
+                 "jobs": [len(j) for j in launches],
+                 "ms": sum(c["ms"] for c in k2), "plain_ms": sum(c["plain_ms"] for c in k2),
+                 "bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else "operations",
+                 "barrier_only_ms": sum(c["barrier_only_ms"] for c in k2),
+                 "max_abs_err": max(j["max_abs_err"] for c in k2 for j in c["jobs"]),
+                 "max_rel_err": max(j["max_rel_err"] for c in k2 for j in c["jobs"])}
+    emit({"phase": "ga_tables", "T": T_GA, "launches": k2, **ga_tables})
+
+    # --- 2. K1's rows form against the plain loop ------------------------
+    genomes0 = ga.GeneratorDraws(torch.Generator(device="cuda").manual_seed(0)).init(POP_GA)
+    genomes0[0] = torch.stack(list(seed_params))
+    p0 = unstack_params(genomes0)
+    inputs0 = ev.evolvable_inputs(d, p0, tables=tables, device="cuda")
+    checks = []
+    c, stats0, ga_plain_ms = rows_check(inputs0, p0, f"ga_fitness_B{POP_GA}_T{T_GA}", **kw)
+    checks.append(c)
+    if int(stats0.total_trades.sum()) <= 0:
+        fail("ga: no genome of generation 0 trades")
+
+    def d_small(n):
+        from ai_crypto_trader_tpu_torch.data import generate_ohlcv
+        return {k: v for k, v in generate_ohlcv(n=n, seed=3).items() if k != "regime"}
+
+    def ga_rows(n, B, seed):
+        dn = d_small(n)
+        p = sample_params(torch.Generator().manual_seed(seed), B, device="cuda")
+        return ev.evolvable_inputs(dn, p, tables=ev.build_indicator_tables(dn, device="cuda"),
+                                   device="cuda"), p
+
+    inp130, p130 = ga_rows(1500, 130, 1)
+    c, ref130, _ = rows_check(inp130, p130, "rows_B130_T1500", eager=True, **kw)
+    (graphed, graphed_curve), _ = timed(lambda: sweep_plain_graphed(inp130, p130, curve_b=32, **kw))
+    for f in ref130._fields:
+        if not torch.equal(getattr(graphed, f), getattr(ref130, f)):
+            fail(f"ga: the graph-replayed plain loop differs from the eager one on rows in {f}")
+    checks.append(c)
+    T_R = 32 * 1024 + 7
+    inp_r, p_r = ga_rows(T_R, 256, 2)
+    checks.append(rows_check(inp_r, p_r, f"rows_ragged_T{T_R}_warmup2000",
+                             min_signal_strength=50.0, warmup=2000)[0])
+    for label, v in (("rows_tiny_sl_tp_1e-4", 1e-4), ("rows_huge_sl_tp_1e6", 1e6)):
+        full = torch.full(inp130.sl_pct.shape, v, dtype=torch.float32, device="cuda")
+        rows = inp130._replace(sl_pct=full, tp_pct=full)
+        c, ref, _ = rows_check(rows, p130, label, **kw)
+        # one position a genome that enters at all, closed by the end of the test
+        enters = (replay.gate_mask_plain(rows, 0.7, 50.0, 10) != 0).any(-1)
+        if v > 1 and not torch.equal(ref.total_trades, enters.to(torch.int32)):
+            fail("ga rows, huge SL/TP: a position closed before the end of the test")
+        # every position closes on the candle after its entry: almost no
+        # candle survives in a position, and almost every one is booked
+        if v < 1 and not bool((ref.n_r > inp130.close.shape[-1] // 2).all()):
+            fail("ga rows, tiny SL/TP: positions did not close on the next candle")
+        checks.append(c)
+    # the pre-pass's mask rows against their plain version
+    lib, s, sl, tp, T = replay.kernel_operands(inputs0, p0, inputs0.close.device)
+    mask = replay.launch_gate(lib, s, T, 10, 0.7, 50.0, inputs0.close.device)
+    if mask.shape != (POP_GA, -(-T_GA // 32)) or not torch.equal(
+            mask, replay.gate_mask_plain(inputs0, 0.7, 50.0, 10)):
+        fail("ga: the pre-pass's mask rows differ from their plain version")
+    emit({"phase": "ga_rows", "checks": checks, "graphed_plain_bit_identical_on_rows": True,
+          "mask_rows_equal_plain": True})
+
+    # --- 3. run_backtest on CUDA with per-genome rows --------------------
+    before = sweep_kernel.launches
+    got = run_backtest(inp130, p130, use_param_sl_tp=True, device="cuda", **kw)
+    if sweep_kernel.launches != before + 1:
+        fail("run_backtest on per-genome rows did not launch the replay kernel once")
+    run_backtest_check = compare_stats(got, ref130, "run_backtest_rows_B130_T1500")
+
+    # --- 4. the whole GA at full width -----------------------------------
+    def run(fit=None):
+        f = fit or ga.backtest_fitness(d, device="cuda")
+        return f, ga.run_ga(torch.Generator(device="cuda").manual_seed(0), f, cfg,
+                            seed_params=seed_params, device="cuda")
+
+    run()                                                  # warm run
+    reads = []
+    read = ga.host_read
+    ga.host_read = lambda tree: (reads.append(1), read(tree))[1]
+    fused_ewma.launches = 0
+    sweep_kernel.launches = 0
+    try:
+        ev_ = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev_[0].record()
+        fit = ga.backtest_fitness(d, device="cuda")
+        ev_[1].record()
+        t1 = time.perf_counter()
+        best, hist = ga.run_ga(torch.Generator(device="cuda").manual_seed(0), fit, cfg,
+                               seed_params=seed_params, device="cuda")
+        ev_[2].record()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    finally:
+        ga.host_read = read
+    ga_launches = {"fused_ewma": fused_ewma.launches, "replay_sweep": sweep_kernel.launches}
+    if ga_launches != {"fused_ewma": len(launches), "replay_sweep": GENS_GA + 1}:
+        fail(f"the GA did not launch the kernels as planned ({len(launches)} EWMA launches, "
+             f"{GENS_GA + 1} replays): {ga_launches}")
+    if len(reads) != 1:
+        fail(f"run_ga read the host {len(reads)} times, not once")
+    values = [h[k] for h in hist for k in ("best_fitness", "mean_fitness", "diversity")]
+    if len(hist) != GENS_GA or not all(math.isfinite(v) for v in values):
+        fail(f"the GA's history is not {GENS_GA} finite records: {hist}")
+    bf = [h["best_fitness"] for h in hist]
+    if any(b2 < b1 for b1, b2 in zip(bf, bf[1:])):
+        fail(f"best fitness fell between generations: {bf}")
+    run_wall = t2 - t1
+
+    # the time split, each part re-run alone between CUDA events (the least
+    # of three runs after a warm one)
+    f0 = fit(p0)
+    state0 = ga.GAState(genomes0, f0, genomes0[0], f0.max())
+    draws = ga._generation_draws(ga.GeneratorDraws(torch.Generator(device="cuda").manual_seed(3)),
+                                 state0, cfg)
+    bb_like = torch.where(torch.rand(inputs0.strength.shape, device="cuda") < 0.01, math.nan,
+                          inputs0.strength)
+    parts = {}
+    for name, fn in (("table_build", lambda: ev.build_indicator_tables(d, device="cuda")),
+                     ("gather_vote_nanfill", lambda: ev.evolvable_inputs(d, p0, tables=tables,
+                                                                          device="cuda")),
+                     ("of_which_nanfill_pop_x_T", lambda: nanfill(bb_like)),
+                     ("k1_prepass_and_walk", lambda: sweep_kernel(inputs0, p0, device="cuda",
+                                                                  **kw)),
+                     ("compute_metrics", lambda: compute_metrics(stats0, device="cuda")),
+                     ("evolve_core", lambda: ga._evolve_core(draws, state0, cfg)),
+                     ("one_evaluation", lambda: fit(p0))):
+        fn()
+        parts[name] = min(timed(fn)[1] for _ in range(3))
+    gate_ms = cuda_ms(lambda: replay.launch_gate(lib, s, T, 10, 0.7, 50.0, inputs0.close.device), 20)
+    walk_ms = cuda_ms(lambda: replay.launch_walk(lib, s, mask, sl, tp, T, 10, 10_000.0, False,
+                                                 inputs0.close.device), 10)
+    k1_ms = cuda_ms(lambda: sweep_kernel(inputs0, p0, device="cuda", **kw), 10)
+    try:
+        profile = device_profile(lambda: fit(p0))
+    except Exception as e:  # noqa: BLE001 — a profiler that cannot trace is reported, not fatal
+        profile = {"measured": False, "reason": repr(e)[:300]}
+    bound_ms, bound_by = replay_rows_bound_ms(stats0, inputs0)
+    report = {"phase": "ga", "card": info["nvidia_smi"], "T": T_GA, "population": POP_GA,
+              "generations": GENS_GA, "launches": ga_launches, "host_reads": len(reads),
+              "history": hist, "best": {k: float(v) for k, v in best._asdict().items()},
+              "table_build_ms": ev_[0].elapsed_time(ev_[1]),
+              "run_ga_ms": ev_[1].elapsed_time(ev_[2]), "run_ga_wall_s": run_wall,
+              "table_build_wall_s": t1 - t0,
+              "backtests_per_s": POP_GA * (GENS_GA + 1) / run_wall,
+              "gen0_trades": int(stats0.total_trades.sum()),
+              "gen0_genomes_trading": int((stats0.total_trades > 0).sum()),
+              "parts_ms": parts, "k1_ms": k1_ms, "k1_prepass_ms": gate_ms, "k1_walk_ms": walk_ms,
+              "k1_plain_ms": ga_plain_ms, "k1_bound_ms": bound_ms, "k1_bound_by": bound_by,
+              "run_backtest_rows": run_backtest_check, "profile_one_evaluation": profile}
+    emit(report)
+
+    # --- 5. flips ---------------------------------------------------------
+    flips = ga_flips(d, fit, p0, cfg, seed_params)
+    ga_rows_entry = {"launches": ga_launches["replay_sweep"], "ms": k1_ms,
+                     "prepass_ms": gate_ms, "walk_ms": walk_ms, "plain_ms": ga_plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "max_abs_err": max(max(c["max_abs_err"], c["curve"]["max_abs_err"])
+                                        for c in checks),
+                     "shape": f"rows B={POP_GA} x T={T_GA}",
+                     "plain": "the engine's loop on the rows, 32 candles a CUDA graph"}
+    ga_tables_entry = {"launches": ga_launches["fused_ewma"], **ga_tables,
+                       "shape": f"141 EWMA rows at T={T_GA} in {len(launches)} launches"}
+    return {"ga_rows": ga_rows_entry, "ga_tables": ga_tables_entry, "flips": flips}
+
+
 def main():
     import torch
 
@@ -917,6 +1311,7 @@ def main():
     checks = phase_replay(main_inputs, params, d_small)
     launches, stats, full, k1 = phase_main(d)
     phase_indicator_split(d)
+    ga_entries = phase_ga(d, info, libraries)
     bound_ms, bound_by, stepped_bound_ms = replay_bound_ms(stats, B_FULL, T_FULL)
     checks += full
     kernels = [
@@ -933,6 +1328,7 @@ def main():
          "plan": {k: v["plan"] for k, v in ewma["launches"].items()},
          "registers": ewma["registers"], "resources": ewma["shared_memory"],
          "beyond_residency": ewma["beyond_residency"],
+         "ga_tables": {**ga_entries["ga_tables"], "registers": ewma["registers"]},
          "shape": "the two launches of compute_indicators at T=525600, summed "
                   "(A: close K=2 + up/dn/tr K=1; B: MACD line K=1)"},
         {"name": "replay_sweep", "route": "cuda",
@@ -948,10 +1344,17 @@ def main():
          "walk_ms_heaviest_alone": k1["heaviest"]["walk_ms"],
          "heaviest_trades": k1["heaviest"]["trades"],
          "bound_ms_stepping_every_candle": stepped_bound_ms,
-         "registers": {"walk": registers(libraries, "replay_sweep", "replay_walk_kernelILb0E"),
+         "registers": {"walk": registers(libraries, "replay_sweep",
+                                         "replay_walk_kernelILb0ELb0E"),
                        "walk_curve": registers(libraries, "replay_sweep",
-                                               "replay_walk_kernelILb1E"),
+                                               "replay_walk_kernelILb1ELb0E"),
                        "gate": registers(libraries, "replay_sweep", "replay_gate_kernel")},
+         "ga_rows": {**ga_entries["ga_rows"],
+                     "registers": {
+                         "walk_rows": registers(libraries, "replay_sweep",
+                                                "replay_walk_kernelILb0ELb1E"),
+                         "walk_rows_curve": registers(libraries, "replay_sweep",
+                                                      "replay_walk_kernelILb1ELb1E")}},
          "shape": f"B={B_FULL} x T={T_FULL}",
          "plain": "the engine's loop, 32 candles a CUDA graph"},
     ]

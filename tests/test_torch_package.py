@@ -23,6 +23,11 @@ from ai_crypto_trader_tpu_torch.data import from_dict, generate_ohlcv, load_csv
 from ai_crypto_trader_tpu_torch.ops import compute_indicators, fused_ewma
 from ai_crypto_trader_tpu_torch.ops import _cuda
 from ai_crypto_trader_tpu_torch.ops.replay import sweep_kernel
+from ai_crypto_trader_tpu_torch.backtest.evolvable import (
+    build_indicator_tables, evolvable_fused_backtest, population_backtest,
+)
+from ai_crypto_trader_tpu_torch.config import GAParams
+from ai_crypto_trader_tpu_torch.evolve import backtest_fitness, run_ga
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -37,7 +42,11 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
              or re.match(r"ai_crypto_trader_tpu(?!_torch)(\.|$)", m))
 print(len(names), bad)
-sys.exit(1 if bad or len(names) < 12 else 0)
+expected = {"config", "ops.dynamic", "backtest.evolvable", "evolve", "evolve.ga",
+            "evolve.selection", "cli"}
+missing = sorted(e for e in expected if pkg.__name__ + "." + e not in names)
+print(missing)
+sys.exit(1 if bad or missing or len(names) < 18 else 0)
 """
 
 
@@ -77,6 +86,21 @@ _ENTRY_POINTS = {
         {f: np.ones(2, np.float32) for f in StrategyParams._fields}),
     "inputs_from_numpy": lambda: convert.inputs_from_numpy(
         {f: np.ones(4, np.float32) for f in BacktestInputs._fields}),
+    "build_indicator_tables": lambda: build_indicator_tables(_small()),
+    "population_backtest": lambda: population_backtest(
+        _small(), default_params((2,), device="cpu")),
+    "evolvable_fused_backtest": lambda: evolvable_fused_backtest(
+        _small(), default_params((2,), device="cpu"),
+        build_indicator_tables(_small(), device="cpu")),
+    "backtest_fitness": lambda: backtest_fitness(_small()),
+    "run_ga": lambda: run_ga(torch.Generator().manual_seed(0),
+                             backtest_fitness(_small(), device="cpu"),
+                             GAParams(population_size=4, generations=1)),
+    "tables_from_numpy": lambda: convert.tables_from_numpy(
+        {f: np.ones((2, 4), np.float32) for f in
+         ("ema_raw", "ema_fill", "rsi_fill", "atr_fill", "atr_median", "bb_mid", "bb_sd",
+          "vol_ma_fill")}),
+    "genomes_from_numpy": lambda: convert.genomes_from_numpy(np.ones((4, 18), np.float32)),
 }
 
 

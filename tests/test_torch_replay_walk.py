@@ -15,6 +15,14 @@ test, a warmup past the first gate, and SL/TP hit with equality.  Once it is
 also held against the JAX package's `sweep` (at `assert_stats_equal`'s
 tolerance).  `ops.replay.gate_mask_plain`, the pre-pass's plain version, is
 held against the entry gate of `replay_step`.
+
+The rows form (the GA's fitness: signal, decision, strength, confidence,
+volatility and the SL/TP overrides [B, T], a row per strategy; close and
+volume shared) is mirrored the same way, strategy j walking row j of each
+stream: rows whose gates differ, rows that hit SL/TP with equality beside
+rows that do not, a ragged T.  `run_backtest` on per-genome rows, the
+input the kernel's rows form takes on the card, is held against the JAX
+package's `population_backtest` on the CPU.
 """
 
 import numpy as np
@@ -144,15 +152,25 @@ def _walk_one(x, gate, psl, ptp, warmup, curve_row):
     return c
 
 
+def _row_of(x, j):
+    """Strategy j's streams: row j of each [B, T] stream, the [T] ones as
+    they are (the kernel's row stride T or 0)."""
+    return {k: (v[j] if v.ndim == 2 else v) for k, v in x.items()}
+
+
 def walk(inputs, params, warmup=10):
-    """The kernel's event walk in NumPy float32: (stats dict, curve [B, T])."""
+    """The kernel's event walk in NumPy float32: (stats dict, curve [B, T]).
+    Each stream [T], or [B, T] rows (but close and volume)."""
     x = {k: getattr(inputs, k).numpy() for k in inputs._fields}
-    gate = gate_of(x, warmup)
+    assert x["close"].ndim == 1 and x["volume"].ndim == 1
     sl, tp = params.stop_loss.numpy(), params.take_profit.numpy()
     B, T = len(sl), len(x["close"])
     curve = np.empty((B, T), F)
     with np.errstate(all="ignore"):
-        carries = [_walk_one(x, gate, sl[j], tp[j], warmup, curve[j]) for j in range(B)]
+        carries = []
+        for j in range(B):
+            xj = _row_of(x, j)
+            carries.append(_walk_one(xj, gate_of(xj, warmup), sl[j], tp[j], warmup, curve[j]))
     col = lambda f, dt: np.array([getattr(c, f) for c in carries], dt)  # noqa: E731
     stats = {
         "initial_balance": np.full(B, BALANCE, F), "final_balance": col("balance", F),
@@ -265,6 +283,43 @@ def case(name, inp, params):
 
 CASES = ["synthetic", "overrides", "gated", "tiny_sl_tp", "huge_sl_tp",
          "late_warmup", "exact_tie"]
+ROW_STREAMS = ("signal", "decision", "strength", "confidence", "volatility",
+               "sl_pct", "tp_pct")
+
+
+def rows_case(name, inp, params):
+    """(inputs with [B, T] rows, params, warmup) of one rows case."""
+    rng = np.random.default_rng(7)
+    B, T = int(params.stop_loss.shape[0]), T_BASE
+    if name == "rows_gates":
+        # each row keeps its own share of the BUY candles, its own strength
+        # offset, confidence, volatility scale and exit overrides
+        keep = torch.as_tensor(rng.random((B, T)) < rng.uniform(0.2, 1.0, (B, 1)))
+        sig = torch.where(keep, inp.signal, 0).to(torch.int32)
+        dec = torch.where(torch.as_tensor(rng.random((B, T)) < 0.97), sig, 1).to(torch.int32)
+        ovr = torch.as_tensor(rng.random((B, T)) < rng.uniform(0.0, 0.6, (B, 1)))
+        level = torch.as_tensor(rng.uniform(0.3, 4.0, (B, 1)).astype(np.float32))
+        return inp._replace(
+            signal=sig, decision=dec,
+            strength=inp.strength + torch.as_tensor(rng.normal(0, 8, (B, 1)).astype(np.float32)),
+            confidence=torch.as_tensor(rng.uniform(0.6, 1.0, (B, T)).astype(np.float32)),
+            volatility=inp.volatility * torch.as_tensor(rng.uniform(0.5, 3, (B, 1)).astype(F)),
+            sl_pct=torch.where(ovr, level, torch.nan),
+            tp_pct=torch.where(ovr, 2 * level, torch.nan)), params, 10
+    if name == "rows_exact_tie":
+        # even rows: the exact-tie gates and overrides; odd rows: the base
+        tie, _ = exact_tie(inp)
+        even = (torch.arange(B) % 2 == 0)[:, None]
+        return inp._replace(**{k: torch.where(even, getattr(tie, k), getattr(inp, k))
+                               for k in ROW_STREAMS}), params, 10
+    if name == "rows_ragged":
+        Tr = 2 * 1024 + 7
+        out, p, w = rows_case("rows_gates", inp, params)
+        return type(out)(*(x[..., :Tr] for x in out)), p, 700
+    raise KeyError(name)
+
+
+ROW_CASES = ["rows_gates", "rows_exact_tie", "rows_ragged"]
 
 
 @pytest.mark.parametrize("name", CASES)
@@ -294,6 +349,29 @@ def test_walk_matches_plain_loop_bit_for_bit(base, name):
         assert (curve[:, x[1]] != curve[:, x[1] - 1]).all()
 
 
+@pytest.mark.parametrize("name", ROW_CASES)
+def test_walk_matches_plain_loop_bit_for_bit_on_rows(base, name):
+    inp, params, warmup = rows_case(name, *base)
+    assert inp.signal.ndim == 2 and inp.close.ndim == 1
+    mirror, curve = walk(inp, params, warmup)
+    stats, plain_curve = tbt.sweep(inp, params, warmup=warmup, return_curve=True,
+                                   device="cpu")
+    assert_bit_identical(mirror, stats, plain_curve, curve)
+    trades = mirror["total_trades"]
+    assert trades.sum() > 0 and len(np.unique(trades)) > 4
+    if name == "rows_exact_tie":
+        # the tie rows close at both tie candles, as the shared form does
+        _, info = exact_tie(base[0])
+        for x in info["exits"]:
+            assert (curve[0::2, x] != curve[0::2, x - 1]).all()
+    # a row equal to the shared stream walks as the shared form does
+    one = type(inp)(*(x[3] if x.ndim == 2 else x for x in inp))
+    p3 = params._replace(**{f: getattr(params, f)[3:4] for f in params._fields})
+    alone, _ = walk(one, p3, warmup)
+    for f in alone:
+        np.testing.assert_array_equal(_bits(alone[f]), _bits(mirror[f][3:4]), err_msg=f)
+
+
 def test_walk_matches_jax_sweep():
     _, jinp = make_inputs(1500)
     jparams = jbt.sample_params(jax.random.PRNGKey(0), 24)
@@ -302,6 +380,54 @@ def test_walk_matches_jax_sweep():
     ref = jbt.sweep(jinp, jparams)
     assert_stats_equal(ref, tbt.BacktestStats(**{k: torch.from_numpy(v)
                                                  for k, v in mirror.items()}))
+    assert int(np.sum(np.asarray(ref.total_trades))) > 0
+
+
+def test_gate_mask_plain_rows_form(base):
+    """[B, T] gate streams give one mask row per strategy, each the mask of
+    that strategy's streams alone and replay_step's gate."""
+    inp, params, warmup = rows_case("rows_gates", *base)
+    words = gate_mask_plain(inp, THR, MIN_STRENGTH, warmup)
+    B = int(params.stop_loss.shape[0])
+    assert words.dtype == torch.int32 and words.shape == (B, -(-T_BASE // 32))
+    for j in (0, 5, B - 1):
+        one = type(inp)(*(x[j] if x.ndim == 2 else x for x in inp))
+        assert torch.equal(words[j], gate_mask_plain(one, THR, MIN_STRENGTH, warmup))
+    bits = ((words.to(torch.int64)[..., None] >> torch.arange(32)) & 1).flatten(1).bool()
+    step = engine.replay_step(tbt.default_params(device="cpu"), warmup=warmup,
+                              ai_confidence_threshold=THR, min_signal_strength=MIN_STRENGTH,
+                              reference_quirks=False, use_param_sl_tp=True,
+                              return_curve=False, sell_exits=False)
+    state = engine._init_state(BALANCE, (B, T_BASE), torch.device("cpu"))
+    after, _ = step(state, (torch.arange(T_BASE),) + tuple(inp))
+    assert torch.equal(bits[:, :T_BASE], after.in_pos)
+    assert (after.in_pos.sum(1) != after.in_pos[0].sum()).any()
+
+
+def test_run_backtest_on_per_genome_rows_matches_jax_population_backtest():
+    """The input `population_backtest` gives `run_backtest`: one close
+    series, per-genome signal/strength/volatility/SL/TP rows.  On the card
+    it takes the kernel's rows form; here the plain loop, against the JAX
+    package's vmapped replay."""
+    import jax.numpy as jnp
+
+    from ai_crypto_trader_tpu.backtest import evolvable as jev
+    from ai_crypto_trader_tpu.data import generate_ohlcv as jax_generate
+
+    d = {k: jnp.asarray(v[:1024]) for k, v in jax_generate(n=1024, seed=3).items()
+         if k != "regime"}
+    pop = jbt.sample_params(jax.random.PRNGKey(5), 12)
+    ref = jev.population_backtest(d, pop)
+    rows = jax.jit(jax.vmap(lambda p: jev.evolvable_inputs(d, p)))(pop)
+    shared = {"close", "volume", "confidence"}
+    tin = convert.inputs_from_numpy({k: np.asarray(getattr(rows, k))[0] if k in shared
+                                     else np.asarray(getattr(rows, k))
+                                     for k in rows._fields}, device="cpu")
+    assert tin.close.shape == (1024,) and tin.sl_pct.shape == (12, 1024)
+    got = tbt.run_backtest(tin, convert.params_from_numpy(pop, device="cpu"),
+                           use_param_sl_tp=True, min_signal_strength=50.0, device="cpu")
+    assert got.total_trades.shape == (12,)
+    assert_stats_equal(ref, got)
     assert int(np.sum(np.asarray(ref.total_trades))) > 0
 
 
