@@ -104,17 +104,18 @@ def build_indicator_tables(ohlcv: dict, device=None) -> IndicatorTables:
     (default: the CUDA card).  The EMA family's 141 rows (96 EMA spans on
     close; 26 Wilder periods on the gains and losses, two series; 19 on
     the true range) are 19 jobs of at most 8 alphas in 5 launches of the
-    fused-EWMA kernel."""
+    fused-EWMA kernel; their periods are ``range``s, so the alphas are made
+    on the host and the build reads nothing back from the device."""
     dev = resolve_device(device)
     a = _arrays(ohlcv, dev)
     close, high, low, volume = (a[k] for k in _OHLCV)
-    ema_raw = dyn.ema_dyn(close, _grid(_EMA_LO, _EMA_HI, dev))
-    atr_fill = nanfill(dyn.atr_dyn(high, low, close, _grid(_ATR_LO, _ATR_HI, dev)))
+    ema_raw = dyn.ema_dyn(close, range(_EMA_LO, _EMA_HI + 1))
+    atr_fill = nanfill(dyn.atr_dyn(high, low, close, range(_ATR_LO, _ATR_HI + 1)))
     bb = _grid(_BB_LO, _BB_HI, dev)
     return IndicatorTables(
         ema_raw=ema_raw,
         ema_fill=nanfill(ema_raw),
-        rsi_fill=nanfill(dyn.rsi_dyn(close, _grid(_RSI_LO, _RSI_HI, dev))),
+        rsi_fill=nanfill(dyn.rsi_dyn(close, range(_RSI_LO, _RSI_HI + 1))),
         atr_fill=atr_fill,
         # the median of what the signal path calls `volatility`
         atr_median=median(atr_fill / close),

@@ -38,7 +38,6 @@ import torch
 
 from ai_crypto_trader_tpu_torch.backtest.evolvable import (
     build_indicator_tables,
-    evolvable_backtest,
     evolvable_fused_backtest,
 )
 from ai_crypto_trader_tpu_torch.backtest.metrics import compute_metrics
@@ -88,24 +87,24 @@ def population_diversity(genomes: torch.Tensor) -> torch.Tensor:
 
 def backtest_fitness(ohlcv: dict, *, min_sharpe_weight: float = 1.0,
                      drawdown_limit: float = 15.0, win_rate_target: float = 52.0,
-                     tables: bool = True, device=None) -> Callable:
+                     device=None) -> Callable:
     """Fitness = backtest Sharpe, penalized by the monitoring thresholds of
     the reference's _needs_improvement (strategy_evolution_service.py:
     1571-1582): excess drawdown and win-rate shortfall subtract, and a
     genome that never trades loses 5.
 
     Returns ``fitness(p)``: params [pop] → fitness [pop] on ``device``
-    (default: the CUDA card).  ``tables=True`` builds the integer-period
-    indicator tables for this window once, here (the fused-EWMA kernel's
-    launches), and every evaluation gathers rows from them and replays the
-    population through the replay kernel's rows form."""
+    (default: the CUDA card).  The integer-period indicator tables for this
+    window are built once, here (the fused-EWMA kernel's launches), and
+    every evaluation gathers rows from them and replays the population
+    through the replay kernel's rows form.  The direct per-genome path,
+    the parity oracle, is `population_backtest` without tables."""
     dev = resolve_device(device)
     arrays = {k: to_device(v, dev, torch.float32) for k, v in ohlcv.items() if k != "regime"}
-    tbl = build_indicator_tables(arrays, device=dev) if tables else None
+    tbl = build_indicator_tables(arrays, device=dev)
 
     def fitness(p: StrategyParams) -> torch.Tensor:
-        stats = (evolvable_fused_backtest(arrays, p, tbl, device=dev) if tbl is not None
-                 else evolvable_backtest(arrays, p, device=dev))
+        stats = evolvable_fused_backtest(arrays, p, tbl, device=dev)
         m = compute_metrics(stats, device=dev)
         dd_pen = torch.clamp_min(m["max_drawdown_pct"] - drawdown_limit, 0.0) * 0.05
         wr_pen = torch.clamp_min(win_rate_target - m["win_rate"], 0.0) * 0.01

@@ -15,8 +15,9 @@ every genome's row.
     version on the CPU.  A column of periods over one series is one family
     of alphas, packed into jobs of at most ``ewma.MAX_K`` alphas and
     launches of at most ``ewma.MAX_JOBS`` jobs; one period runs over any
-    batch of series.  The alphas are read on the host (K2 takes them as
-    launch arguments).
+    batch of series.  K2 takes the alphas as launch arguments: a ``range``
+    of integer periods (the period tables' grids) makes them on the host,
+    a tensor period on the card is read back.
   * A period divides as a tensor (a true division, as XLA keeps a division
     by a traced value); a constant over a tensor goes through
     `device.const_over`.
@@ -28,6 +29,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from ai_crypto_trader_tpu_torch.device import const_over
@@ -108,26 +110,45 @@ def ewma_family(x, alphas, start: int):
     return torch.cat(out, dim=0)
 
 
-def _alphas(x, alpha):
-    """The float32 alphas of one EMA family over x, as Python floats: one
-    alpha (a one-element tensor) over any batch of series x [..., T], or a
-    column [n, 1] of them over one series x [T]."""
-    if alpha.numel() > 1 and x.ndim > 1:
+def _periods(x, window):
+    """``window`` as a tensor for the masks, and its float32 periods on the
+    host when it is a ``range`` of integer periods — a period grid, a
+    column [n, 1] on x's device — else None."""
+    if isinstance(window, range):
+        col = torch.arange(window.start, window.stop, dtype=torch.float32,
+                           device=x.device)[:, None]
+        return col, np.arange(window.start, window.stop, dtype=np.float32)
+    return window, None
+
+
+def _alphas(x, c: float, window, offset: float, host):
+    """The float32 alphas c / (window + offset) of one EMA family over x, as
+    Python floats (K2 takes them as launch arguments): one alpha over any
+    batch of series x [..., T], or a column [n, 1] of them over one series
+    x [T].  From host periods NumPy's float32 division makes them with no
+    device sync; a tensor period on the card is read back."""
+    alpha = (np.float32(c) / (host + np.float32(offset)) if host is not None
+             else const_over(c, window + offset))
+    alphas = alpha.reshape(-1).tolist()
+    if len(alphas) > 1 and x.ndim > 1:
         raise ValueError("a column of periods runs over one series [T], "
                          f"got a batch of series {tuple(x.shape)}")
-    return alpha.reshape(-1).tolist()
+    return alphas
 
 
-def _ewm_dyn(x, alpha, start: int):
-    """`_ewm` with a tensor alpha: [..., T], the broadcast of x and alpha."""
-    out = ewma_family(x, _alphas(x, alpha), start)
-    return out.reshape(torch.broadcast_shapes(x.shape, alpha.shape))
+def _ewm_dyn(x, window, c: float, offset: float, start: int):
+    """`_ewm` with alpha = c / (window + offset): ([..., T], the broadcast
+    of x and the window; the window as a tensor)."""
+    window, host = _periods(x, window)
+    out = ewma_family(x, _alphas(x, c, window, offset, host), start)
+    return out.reshape(torch.broadcast_shapes(x.shape, window.shape)), window
 
 
 def ema_dyn(x, window):
-    """EMA with a tensor span (pandas ewm(span=w, adjust=False))."""
-    alpha = const_over(2.0, window + 1.0)
-    return _mask_warmup_dyn(_ewm_dyn(x, alpha, 0), window)
+    """EMA with a tensor span (pandas ewm(span=w, adjust=False)), or a
+    ``range`` of integer spans: the grid's rows [n, T]."""
+    y, window = _ewm_dyn(x, window, 2.0, 1.0, 0)
+    return _mask_warmup_dyn(y, window)
 
 
 def macd_dyn(close, fast, slow, signal):
@@ -148,12 +169,14 @@ def macd_dyn(close, fast, slow, signal):
 
 
 def rsi_dyn(close, window):
-    """Wilder RSI with a tensor period (ops.indicators.rsi with α = 1/w);
-    the gains and losses are one family of two series."""
+    """Wilder RSI with a tensor period (ops.indicators.rsi with α = 1/w),
+    or a ``range`` of them; the gains and losses are one family of two
+    series."""
+    window, host = _periods(close, window)
     diff = close - _roll(close, 1)
     up = torch.clamp_min(diff, 0.0)
     dn = torch.clamp_min(-diff, 0.0)
-    g = ewma_family(torch.stack([up, dn]), _alphas(close, const_over(1.0, window)), 1)
+    g = ewma_family(torch.stack([up, dn]), _alphas(close, 1.0, window, 0.0, host), 1)
     shape = torch.broadcast_shapes(close.shape, window.shape)
     ag, al = g[:, 0].reshape(shape), g[:, 1].reshape(shape)
     r = torch.where(al == 0.0, torch.where(ag == 0.0, 50.0, 100.0),
@@ -162,8 +185,9 @@ def rsi_dyn(close, window):
 
 
 def atr_dyn(high, low, close, window):
+    """Wilder ATR with a tensor period, or a ``range`` of them."""
     tr = true_range(high, low, close)
-    y = _ewm_dyn(tr, const_over(1.0, window), 1)
+    y, window = _ewm_dyn(tr, window, 1.0, 0.0, 1)
     return torch.where(_iota(close) < window, math.nan, y)
 
 

@@ -59,7 +59,8 @@ imports nothing of JAX or of the JAX package.  Phases, one JSON line each:
   5. ga       — the GA at the bench's full width (`GAParams(256, 3)` on the
                 first 43,200 candles of the year, bench.py:1927-2003): the
                 period-table build's K2 launches, as packed, against the
-                plain version job by job and twice for the same bits; K1's
+                plain version job by job and twice for the same bits, and
+                the build with no synchronizing call of torch's; K1's
                 rows form (a row of signal, strength, volatility and SL/TP
                 per genome) against the plain loop bit for bit, stats and
                 curve, on the GA's own fitness inputs and in edge cases;
@@ -87,6 +88,7 @@ import shutil
 import subprocess
 import sys
 import time
+import warnings
 
 T_FULL = 525_600          # one year of 1-minute candles (bench.py:2051)
 B_FULL = 4096             # strategies on one chip (bench.py:2054)
@@ -918,10 +920,15 @@ def ewma_jobs_bound(jobs):
 
 
 def replay_rows_bound_ms(stats, inputs, warmup=10):
-    """`replay_bound_ms` for the rows form: each stream read once ([T] or
-    [B, T] as given), the stats written once; the gate on every candle of
-    every row; the SL/TP test on every in-position candle; each close and
-    entry.  (ms, by)."""
+    """`replay_bound_ms` for the rows form, on what this run's data needs.
+    Bytes: each distinct stream read once — a tensor that two fields share
+    (the GA's decision is its signal) once; the gate streams and the shared
+    [T] streams in full; volatility, sl_pct and tp_pct, which the walk
+    reads only at an entry, one 32-byte sector an entry each when they are
+    rows [B, T] (every position closes by the end of the test, so entries
+    = trades); the stats written once.  Operations: the gate on every
+    candle of every row; the SL/TP test on every in-position candle; each
+    close and entry.  (ms, by)."""
     B, T = int(stats.total_trades.numel()), int(inputs.close.shape[-1])
     trades = int(stats.total_trades.sum())
     books = int((stats.n_r - 1).sum())
@@ -930,7 +937,11 @@ def replay_rows_bound_ms(stats, inputs, warmup=10):
                     for x in (inputs.signal, inputs.decision, inputs.strength, inputs.confidence))
     ops = (REPLAY_OPS_GATE * gate_rows * T + REPLAY_OPS_EXIT * (survived + trades)
            + (REPLAY_OPS_CLOSE + REPLAY_OPS_BOOK + REPLAY_OPS_ENTRY) * trades)
-    n_bytes = sum(4 * x.numel() for x in inputs) + 2 * 4 * B + 14 * 4 * B
+    streams = {}
+    for field, x in zip(inputs._fields, inputs):
+        at_entries = field in ("volatility", "sl_pct", "tp_pct") and x.ndim == 2
+        streams[x.data_ptr()] = 32 * trades if at_entries else 4 * x.numel()
+    n_bytes = sum(streams.values()) + 2 * 4 * B + 14 * 4 * B
     ms, by = max((n_bytes / HBM_BYTES_PER_S, "bytes"), (ops / F32_OPS_PER_S, "operations"))
     return 1e3 * ms, by
 
@@ -1116,9 +1127,32 @@ def phase_ga(d_year, info, libraries):
                    "bytes_bound_ms": b_ms, "operations_bound_ms": o_ms,
                    "plain_ms": sum(cuda_ms(lambda: fused_ewma_plain(x, a, st), 3)
                                    for x, a, st in args)})
+    # on arrays already on the card the build reads nothing back: torch's
+    # sync debug mode flags no call in it (its message learnt from a probe
+    # that must sync, apart from what the mode says of itself)
+    def warned(fn):
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return [str(w.message)[:200] for w in caught]
+
+    quiet = set(warned(lambda: None))
+    sync_messages = set(warned(lambda: torch.ones(1, device="cuda").item())) - quiet
+    if not sync_messages:
+        fail("torch's sync debug mode flagged no .item(): it cannot check the table build")
+    d_cuda = {k: torch.as_tensor(v, device="cuda") for k, v in d.items()}
+    syncs = [m for m in warned(lambda: ev.build_indicator_tables(d_cuda, device="cuda"))
+             if m in sync_messages]
+    if syncs:
+        fail(f"the table build made {len(syncs)} synchronizing calls: {syncs[:3]}")
     all_jobs = [job for jobs in launches for job in jobs]
     b_ms, o_ms = ewma_jobs_bound(all_jobs)
-    ga_tables = {"launches_per_build": len(launches),
+    ga_tables = {"launches_per_build": len(launches), "host_syncs_per_build": len(syncs),
                  "jobs": [len(j) for j in launches],
                  "ms": sum(c["ms"] for c in k2), "plain_ms": sum(c["plain_ms"] for c in k2),
                  "bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else "operations",

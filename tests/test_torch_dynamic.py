@@ -121,6 +121,17 @@ def test_ewma_family_grid(candles, name):
         assert_bits(tfn(_t(periods[i])).numpy(), got[i])
 
 
+@pytest.mark.parametrize("name", ["ema", "rsi", "atr"])
+def test_ewma_family_range_grid_matches_tensor_grid(candles, name):
+    """A ``range`` of integer periods (the period tables' form, whose
+    alphas are made on the host with NumPy) gives the tensor column's
+    rows bit for bit."""
+    _, tfn, periods = _ewma_cases(candles)[name]
+    got = tfn(range(int(periods[0]), int(periods[-1]) + 1))
+    assert got.shape == (len(periods), T)
+    assert_bits(got.numpy(), tfn(_t(periods)[:, None]).numpy())
+
+
 def test_ewma_family_packs_into_kernel_launches(candles):
     """96 EMA spans are 12 jobs of 8 alphas in 3 launches of 4 jobs; the
     plain results do not depend on the packing."""

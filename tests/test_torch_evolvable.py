@@ -129,8 +129,10 @@ def test_signal_and_inputs_one_genome_and_population(market, tabled):
 
 
 def test_population_backtest_three_paths(market):
-    """tests/test_evolve.py:109-146's pins, port against JAX path by path,
-    and the port's own three paths against each other."""
+    """tests/test_evolve.py:109-146's pins, port against JAX path by path.
+    (The port's tabled `population_backtest` and `evolvable_fused_backtest`
+    are both `evolvable_backtest` with tables, so they are held to JAX's
+    two tabled paths, not to each other.)"""
     jd, d, pop, tpop = market["jd"], market["d"], market["pop"], market["tpop"]
     direct = jev.population_backtest(jd, pop)
     tabled = jev.population_backtest(jd, pop, tables=market["jtab"])
@@ -142,8 +144,6 @@ def test_population_backtest_three_paths(market):
         assert got.total_trades.shape == (POP,)
         assert_stats_equal(ref, got)
     assert int(np.sum(np.asarray(direct.total_trades))) > 0
-    for a, b in zip(t_tabled, t_fused):
-        assert torch.equal(a, b)
     # JAX's own tables, carried over, give JAX's tabled stats too
     jtab = convert.tables_from_numpy(market["jtab"], device="cpu")
     assert_stats_equal(tabled, tev.population_backtest(d, tpop, tables=jtab, device="cpu"))
