@@ -1,4 +1,5 @@
-"""PyTorch/CUDA port of ai_crypto_trader_tpu's population backtest and GA.
+"""PyTorch/CUDA port of ai_crypto_trader_tpu's population backtest, GA,
+live tick path and portfolio backtest.
 
 The chains, module for module after the JAX package:
 
@@ -6,6 +7,10 @@ The chains, module for module after the JAX package:
         → backtest.sweep → backtest.compute_metrics
     data.generate_ohlcv → evolve.backtest_fitness (backtest.evolvable's
         period tables over ops.dynamic) → evolve.run_ga
+    kline windows → ops.TickEngine.ingest → TickEngine.step (indicators,
+        signals, volume profile, combinations, drift; one host read)
+    per-symbol candles → backtest.stack_symbol_inputs
+        → backtest.portfolio_backtest (silos or one shared pool)
 
 Plain tensor code is PyTorch; the two Pallas kernels of the JAX package on
 these paths are CUDA C++ kernels for Hopper (``csrc/``), built with nvcc on

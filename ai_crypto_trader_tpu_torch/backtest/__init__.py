@@ -19,3 +19,8 @@ from ai_crypto_trader_tpu_torch.backtest.engine import (  # noqa: F401
     sweep,
 )
 from ai_crypto_trader_tpu_torch.backtest.metrics import compute_metrics  # noqa: F401
+from ai_crypto_trader_tpu_torch.backtest.portfolio import (  # noqa: F401
+    portfolio_backtest,
+    shared_capital_backtest,
+    stack_symbol_inputs,
+)

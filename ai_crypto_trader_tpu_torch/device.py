@@ -4,15 +4,18 @@ Every public entry point of the port — `compute_indicators`, `fused_ewma`,
 `prepare_inputs`, `default_params`, `sample_params`, `run_backtest`,
 `sweep`, `compute_metrics`, `build_indicator_tables`,
 `population_backtest` and the other `backtest.evolvable` pipelines,
-`backtest_fitness`, `run_ga`, and the `convert` functions —
+`backtest_fitness`, `run_ga`, `TickEngine`, `stack_symbol_inputs`,
+`shared_capital_backtest`, `portfolio_backtest`, and the `convert`
+functions —
 takes ``device=None``, which means the CUDA card, and moves its inputs
 there.  The CPU is used only when the caller asks for it with
 ``device="cpu"`` (the tests do; there every kernel wrapper takes its plain
 PyTorch version).  A request for the card on a machine without one raises:
 nothing carries on quietly on the CPU.  The building blocks under them
 (single indicators, the indicators with tensor periods, the signal and
-vote rules, `replay_step`, the GA's `_evolve_core`) compute on the device
-of the tensors they are given.
+vote rules, `volume_profile`, the indicator combinations, `replay_step`,
+the GA's `_evolve_core`) compute on the device of the tensors they are
+given.
 """
 
 from __future__ import annotations
@@ -59,3 +62,25 @@ def div_const(x, c: float):
 def const_over(c: float, x):
     """``c / x`` for a constant ``c``, as a true division."""
     return torch.full_like(x, c) / x
+
+
+# The matmul-precision knob's vocabulary: the port's copy of the JAX
+# package's `models/train_loop._PRECISIONS` (user-facing name → canonical
+# name; None is the backend default).
+PRECISIONS = {
+    None: None,
+    "f32": "float32", "float32": "float32", "highest": "highest",
+    "bf16": "bfloat16", "bfloat16": "bfloat16",
+    "tf32": "tensorfloat32", "tensorfloat32": "tensorfloat32",
+}
+
+
+def canonical_precision(precision: str | None) -> str | None:
+    """The canonical name of a precision knob value; ``ValueError`` for an
+    unknown one."""
+    try:
+        return PRECISIONS[precision]
+    except KeyError:
+        raise ValueError(
+            f"unknown precision {precision!r}; one of "
+            f"{sorted(k for k in PRECISIONS if k)}") from None

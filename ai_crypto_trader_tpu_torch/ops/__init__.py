@@ -24,3 +24,9 @@ from ai_crypto_trader_tpu_torch.ops.indicators import (  # noqa: F401
     williams_r,
 )
 from ai_crypto_trader_tpu_torch.ops.ewma import fused_ewma  # noqa: F401
+from ai_crypto_trader_tpu_torch.ops.volume_profile import volume_profile  # noqa: F401
+from ai_crypto_trader_tpu_torch.ops.combinations import (  # noqa: F401
+    combination_signal,
+    combined_indicators,
+)
+from ai_crypto_trader_tpu_torch.ops.tick_engine import TickEngine  # noqa: F401

@@ -68,9 +68,31 @@ imports nothing of JAX or of the JAX package.  Phases, one JSON line each:
                 through `backtest_fitness` and `run_ga` with exact launch
                 counts and one host read, backtests/s and its time split;
                 and K2's flips as the GA reads them (`ga_flips`);
-  6. kernels  — one line with each kernel's launches, error, times and
-                bound, at the main path's shapes, and each kernel's GA
-                launches (`ga_tables`, `ga_rows`).
+  6. tick     — the live tick path at the bench's `tick_pipeline` width (64
+                symbols × frames 1m/3m/5m/15m × a 256-candle window,
+                bench.py:1323-1337, on the exchange's resampled klines):
+                the three K2 launches of a step, recorded as the step makes
+                them, against the plain version job by job and twice for
+                the same bits (`tick_k2`); exactly 3 K2 launches and one
+                host read a step, and no other synchronizing call of
+                torch's in it; the ring delta bit for bit against a fresh
+                seed; the pipelined tables bit for bit against the serial
+                ones shifted by one tick; K2's flips over every window
+                candle and in the tables (`tick_flips`); 20 timed polls in
+                each mode (ingest + step, split into scatter build,
+                dispatch, the program's CUDA-event span and host read) and
+                torch.profiler over one step;
+  7. portfolio — 8 symbols, one left-padded: `stack_symbol_inputs` with
+                exactly 2 K2 launches; capital silos in param-SL/TP mode at
+                T = 8,192, one K1 launch per symbol, bit for bit against the
+                plain loop over all symbols (graph-replayed); the
+                sizer-ladder silos and the shared pool (both equity
+                cadences), plain loops on the card at T = 2,048, against
+                the port's CPU run of the same inputs;
+  8. kernels  — one line with each kernel's launches, error, times and
+                bound, at the main path's shapes, and each kernel's GA,
+                tick and portfolio launches (`ga_tables`, `ga_rows`,
+                `tick`, `portfolio`).
 
 Any failed check raises, so the script exits non-zero and never prints its
 last line, ``{"ok": true, "device": {...}}``.  Times are CUDA-event times
@@ -106,6 +128,11 @@ REPLAY_OPS_STEP = 12
 CURVE_B = 256             # strategies whose full-T curve is checked
 T_GA, POP_GA, GENS_GA = 43_200, 256, 3   # the bench's GA row (bench.py:1945-1949)
 GA_CURVE_B = 32           # strategies whose curve the rows checks hold
+S_TICK, T_TICK = 64, 256  # the bench's tick_pipeline row (bench.py:1323-1337)
+TICK_FRAMES = ("1m", "3m", "5m", "15m")
+TICK_POLLS = 20
+S_PORT = 8                # portfolio symbols
+T_PORT_K1, T_PORT_PLAIN = 8192, 2048   # K1's check; the plain-loop modes
 # per element and output of the EWMA: the element map (select, multiply)
 # and the recursion (multiply, add) and the NaN mask
 EWMA_OPS = 5
@@ -431,7 +458,7 @@ def sweep_plain_graphed(inputs, params, steps=32, initial_balance=10_000.0,
     for t in range(n * steps, T):
         s, eq = step(s, (t,) + tuple(x[..., t] for x in inputs))
         curve[:, t] = eq[:curve_b]
-    stats = engine.finalize_stats(s, inputs.close[-1], initial_balance)
+    stats = engine.finalize_stats(s, inputs.close[..., -1], initial_balance)
     return (stats, curve) if curve_b else stats
 
 
@@ -498,6 +525,21 @@ def replay_check(inputs, params, label, **kw):
     return check, (ref, ref_curve), plain_ms
 
 
+def ewma_plain(x, alphas, start=0, device=None):
+    """`ops.ewma.fused_ewma` through its plain version on any device (no
+    kernel launch): what the flip phases patch in for every EWMA entry."""
+    from ai_crypto_trader_tpu_torch.ops.ewma import fused_ewma_plain
+
+    lead, T = x.shape[:-1], x.shape[-1]
+    out = fused_ewma_plain(x.reshape(-1, T), alphas, start)
+    return out.reshape((out.shape[0],) + tuple(lead) + (T,))
+
+
+def jobs_plain(jobs, device=None):
+    """`ops.ewma.fused_ewma_jobs` through the plain version."""
+    return [ewma_plain(x, alphas, start) for x, alphas, start in jobs]
+
+
 def phase_flips(d, params):
     """K2's rounding where the backtest reads it.  The kernel composes a
     chunk's affine maps in another order than `fused_ewma_plain`, which
@@ -519,15 +561,7 @@ def phase_flips(d, params):
         compute_signal_features, prepare_inputs, sweep)
     from ai_crypto_trader_tpu_torch.ops import compute_indicators
     from ai_crypto_trader_tpu_torch.ops import indicators as ind_mod
-    from ai_crypto_trader_tpu_torch.ops.ewma import fused_ewma, fused_ewma_plain
-
-    def ewma_plain(x, alphas, start=0, device=None):
-        lead, T = x.shape[:-1], x.shape[-1]
-        out = fused_ewma_plain(x.reshape(-1, T), alphas, start)
-        return out.reshape((out.shape[0],) + tuple(lead) + (T,))
-
-    def jobs_plain(jobs, device=None):
-        return [ewma_plain(x, alphas, start) for x, alphas, start in jobs]
+    from ai_crypto_trader_tpu_torch.ops.ewma import fused_ewma
 
     tab_k = compute_indicators(d, device="cuda")
     # every EWMA entry compute_indicators calls, patched to the plain version
@@ -909,6 +943,34 @@ def phase_indicator_split(d):
     return report
 
 
+def _debug_mode_messages(fn):
+    """What torch's sync debug mode says while ``fn()`` runs."""
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [str(w.message)[:200] for w in caught]
+
+
+def sync_calls(fn):
+    """The synchronizing calls torch's sync debug mode flags in ``fn()``:
+    its message is learnt from a probe that must sync (an ``.item()``),
+    apart from what the mode says of itself."""
+    import torch
+
+    quiet = set(_debug_mode_messages(lambda: None))
+    probe = set(_debug_mode_messages(lambda: torch.ones(1, device="cuda").item())) - quiet
+    if not probe:
+        fail("torch's sync debug mode flagged no .item(): it cannot check for syncs")
+    return [m for m in _debug_mode_messages(fn) if m in probe]
+
+
 def ewma_jobs_bound(jobs):
     """(bytes ms, operations ms) of the EWMA function over ``jobs`` [(x,
     alphas, start)]: each distinct input series read once, every output
@@ -996,15 +1058,7 @@ def ga_flips(d, fit_k, p0, cfg, seed_params):
     from ai_crypto_trader_tpu_torch.backtest import evolvable as ev
     from ai_crypto_trader_tpu_torch.evolve import ga
     from ai_crypto_trader_tpu_torch.ops import dynamic
-    from ai_crypto_trader_tpu_torch.ops.ewma import fused_ewma, fused_ewma_plain
-
-    def jobs_plain(jobs, device=None):
-        out = []
-        for x, alphas, start in jobs:
-            lead, T = x.shape[:-1], x.shape[-1]
-            y = fused_ewma_plain(x.reshape(-1, T), alphas, start)
-            out.append(y.reshape((y.shape[0],) + tuple(lead) + (T,)))
-        return out
+    from ai_crypto_trader_tpu_torch.ops.ewma import fused_ewma
 
     kernel_entry = dynamic.fused_ewma_jobs
     dynamic.fused_ewma_jobs = jobs_plain
@@ -1128,26 +1182,9 @@ def phase_ga(d_year, info, libraries):
                    "plain_ms": sum(cuda_ms(lambda: fused_ewma_plain(x, a, st), 3)
                                    for x, a, st in args)})
     # on arrays already on the card the build reads nothing back: torch's
-    # sync debug mode flags no call in it (its message learnt from a probe
-    # that must sync, apart from what the mode says of itself)
-    def warned(fn):
-        torch.cuda.synchronize()
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                fn()
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-        return [str(w.message)[:200] for w in caught]
-
-    quiet = set(warned(lambda: None))
-    sync_messages = set(warned(lambda: torch.ones(1, device="cuda").item())) - quiet
-    if not sync_messages:
-        fail("torch's sync debug mode flagged no .item(): it cannot check the table build")
+    # sync debug mode flags no call in it
     d_cuda = {k: torch.as_tensor(v, device="cuda") for k, v in d.items()}
-    syncs = [m for m in warned(lambda: ev.build_indicator_tables(d_cuda, device="cuda"))
-             if m in sync_messages]
+    syncs = sync_calls(lambda: ev.build_indicator_tables(d_cuda, device="cuda"))
     if syncs:
         fail(f"the table build made {len(syncs)} synchronizing calls: {syncs[:3]}")
     all_jobs = [job for jobs in launches for job in jobs]
@@ -1320,6 +1357,463 @@ def phase_ga(d_year, info, libraries):
     return {"ga_rows": ga_rows_entry, "ga_tables": ga_tables_entry, "flips": flips}
 
 
+class TickTape:
+    """bench.py's `tick_pipeline` tape (bench.py:1323-1337): S symbols from
+    `generate_ohlcv(n=T·15 + 64, seed=11)`, symbol i's prices scaled by
+    1 + 0.03·i and its volume by 1 + 0.01·i, one candle a minute.  Its
+    klines are what `FakeExchange.get_klines` serves (shell/exchange.py:
+    254-275): bars of 1, 3, 5 or 15 minutes with absolute-time boundaries,
+    the last bar the in-progress one, the newest ``limit`` of them."""
+
+    FACTORS = {"1m": 1, "3m": 3, "5m": 5, "15m": 15}
+
+    def __init__(self, S, T, seed=11):
+        import numpy as np
+
+        from ai_crypto_trader_tpu_torch.data import generate_ohlcv
+
+        self.n = T * 15 + 64
+        d = generate_ohlcv(n=self.n, seed=seed)
+        self.symbols = [f"S{i:03d}USDC" for i in range(S)]
+        self.ts = np.arange(self.n, dtype=np.int64) * 60_000
+        self.cols, self.bars = [], []
+        for i in range(S):
+            scale = np.float64(1.0 + 0.03 * i)
+            cols = [d[k] * scale for k in ("open", "high", "low", "close")]
+            cols.append(d["volume"] * (1.0 + 0.01 * i))
+            self.cols.append(cols)
+            bars = {}
+            for f in self.FACTORS.values():       # every complete bar
+                m = self.n // f * f
+                o, h, lo, c, v = (x[:m].reshape(-1, f) for x in cols)
+                vsum = v[:, 0].astype(np.float64)  # summed in candle order in
+                for j in range(1, f):              # float64, as the exchange's
+                    vsum += v[:, j]                # Python sum of floats
+                bars[f] = np.stack([o[:, 0], h.max(1), lo.min(1), c[:, -1], vsum], 1)
+            self.bars.append(bars)
+
+    def klines(self, i, interval, cursor, limit):
+        import numpy as np
+
+        f = self.FACTORS[interval]
+        k = cursor // f
+        o, h, lo, c, v = self.cols[i]
+        a, b = k * f, cursor + 1
+        last = [o[a], h[a:b].max(), lo[a:b].min(), c[b - 1], sum(v[a:b].tolist())]
+        arr = np.vstack([self.bars[i][f][k - limit + 1:k], last])
+        ts = self.ts[np.arange(k - limit + 1, k + 1) * f]
+        return np.column_stack([ts, arr]).tolist()
+
+    def feed(self, eng, cursor, limit):
+        for i, s in enumerate(self.symbols):
+            for iv in eng.intervals:
+                eng.ingest(s, iv, self.klines(i, iv, cursor, limit))
+
+
+def same_table(a, b):
+    """Two tick tables equal bit for bit (float32 leaves as int32 views)."""
+    import numpy as np
+
+    if set(a) != set(b):
+        return False
+    for k in a:
+        if isinstance(a[k], dict):
+            if not same_table(a[k], b[k]):
+                return False
+        elif a[k].dtype != b[k].dtype or not np.array_equal(
+                a[k].view(np.int32), b[k].view(np.int32)):
+            return False
+    return True
+
+
+def percentile(xs, q):
+    import numpy as np
+
+    return float(np.percentile(np.asarray(xs), q))
+
+
+def tick_flips(tape, cursor):
+    """K2's rounding where the tick path reads it: every (symbol, frame)
+    window of one poll — all S·F·T candles, not only the table's last
+    candle — through compute_indicators with the kernel and with every EWMA
+    entry patched to the plain version (which must launch no kernel), then
+    the signal features and the signal.  Every candle whose signal or trend
+    differs must sit within 1e-4 of a threshold on its input's scale (a
+    MACD within 1e-4·close of 0, an RSI within 1e-2 of 35 or 45), and each
+    kind must stay under one candle in 1,000.  The tick tables of one step
+    with each EWMA are compared too: their signal and trend differences are
+    counted and held the same way, the other fields reported."""
+    import numpy as np
+    import torch
+
+    from ai_crypto_trader_tpu_torch.backtest import compute_signal_features, reference_signal
+    from ai_crypto_trader_tpu_torch.ops import indicators as ind_mod
+    from ai_crypto_trader_tpu_torch.ops import tick_engine
+    from ai_crypto_trader_tpu_torch.ops.ewma import fused_ewma
+
+    def engine_table():
+        eng = tick_engine.TickEngine(tape.symbols, TICK_FRAMES, window=T_TICK, device="cuda")
+        tape.feed(eng, cursor, T_TICK)
+        return eng.step(), eng
+
+    def windows(eng):
+        w = torch.as_tensor(eng._win, device="cuda")
+        return {k: w[..., j].contiguous() for j, k in
+                enumerate(("open", "high", "low", "close", "volume"))}
+
+    table_k, eng = engine_table()
+    win = windows(eng)
+    ind_k = ind_mod.compute_indicators(win, device="cuda")
+    kernel_entries = ind_mod.fused_ewma, ind_mod.fused_ewma_jobs
+    ind_mod.fused_ewma, ind_mod.fused_ewma_jobs = ewma_plain, jobs_plain
+    before = fused_ewma.launches
+    try:
+        ind_p = ind_mod.compute_indicators(win, device="cuda")
+        table_p, _ = engine_table()
+    finally:
+        ind_mod.fused_ewma, ind_mod.fused_ewma_jobs = kernel_entries
+    if fused_ewma.launches != before:
+        fail(f"tick flips: the plain EWMA launched the kernel {fused_ewma.launches - before} times")
+    f_k, f_p = compute_signal_features(ind_k), compute_signal_features(ind_p)
+    (sig_k, _), (sig_p, _) = reference_signal(f_k), reference_signal(f_p)
+    near = ((torch.abs(f_p.macd) <= 1e-4 * f_p.close)
+            | (torch.minimum(torch.abs(f_p.rsi - 35.0), torch.abs(f_p.rsi - 45.0)) <= 1e-2))
+    n = int(sig_k.numel())
+    counts = {v: int((sig_p == v).sum()) for v in (-1, 0, 1)}
+    if not (counts[1] and counts[-1]):
+        fail(f"tick flips: the windows hold no BUY or no SELL signal {counts}: vacuous")
+    report = {"phase": "tick_flips", "candles": n, "limit_per_kind": n // 1000,
+              "plain_launches": 0, "signals_sell_neutral_buy": list(counts.values())}
+    for kind, diff in (("signal", sig_k != sig_p), ("trend", f_k.trend != f_p.trend)):
+        where = torch.nonzero(diff)[:3].tolist()
+        report[kind] = {"count": int(diff.sum()), "far_from_threshold": int((diff & ~near).sum()),
+                        "examples": [{"lane_t": ix, "macd": float(f_p.macd[tuple(ix)]),
+                                      "rsi": float(f_p.rsi[tuple(ix)]),
+                                      "close": float(f_p.close[tuple(ix)])} for ix in where]}
+    # the tables: the last candle of every lane
+    last = {k: (v[..., -1] if v.ndim == 3 else v) for k, v in
+            (("macd", f_p.macd), ("rsi", f_p.rsi), ("close", f_p.close))}
+    near_last = ((np.abs(last["macd"].cpu().numpy()) <= 1e-4 * last["close"].cpu().numpy())
+                 | (np.minimum(np.abs(last["rsi"].cpu().numpy() - 35.0),
+                               np.abs(last["rsi"].cpu().numpy() - 45.0)) <= 1e-2))
+    tables = {}
+    for kind in ("signal", "trend"):
+        diff = table_k[kind] != table_p[kind]
+        tables[kind] = {"count": int(diff.sum()), "far_from_threshold": int((diff & ~near_last).sum())}
+    flat = lambda t: {**{k: v for k, v in t.items() if k != "combo"},  # noqa: E731
+                      **{"combo." + k: v for k, v in t["combo"].items()}}
+    fk, fp = flat(table_k), flat(table_p)
+    tables["max_abs_diff"] = {k: float(np.nanmax(np.abs(fk[k].astype(np.float64) - fp[k])))
+                              for k in fp if k not in ("signal", "trend")}
+    report["tables"] = tables
+    emit(report)
+    for kind in ("signal", "trend"):
+        for where, r in (("windows", report[kind]), ("table", tables[kind])):
+            if r["far_from_threshold"]:
+                fail(f"tick flips: {r['far_from_threshold']} {kind} differences in the {where} "
+                     "sit farther than 1e-4 from any threshold")
+        if report[kind]["count"] > n // 1000:
+            fail(f"tick flips: {report[kind]['count']} {kind} differences, over one in 1,000")
+    return report
+
+
+def phase_tick(info):
+    """The live tick path at bench.py's `tick_pipeline` width (bench.py:
+    1323-1337): 64 symbols × frames 1m/3m/5m/15m × a 256-candle window.
+    The K2 launches of one step, recorded as the step makes them, against
+    the plain version job by job and twice for the same bits; exactly 3 K2
+    launches and one host read a step; no synchronizing call of torch's in
+    a step but that read; the ring delta bit for bit against a fresh seed;
+    the pipelined engine bit for bit against the serial one shifted by one
+    tick; K2's flips (`tick_flips`); then timed polls (ingest + step) in
+    both modes with their split, and torch.profiler over one step."""
+    import torch
+
+    from ai_crypto_trader_tpu_torch.ops import indicators as ind_mod
+    from ai_crypto_trader_tpu_torch.ops import tick_engine
+    from ai_crypto_trader_tpu_torch.ops.ewma import (
+        barrier_launch, fused_ewma, fused_ewma_jobs, fused_ewma_plain, tile_count)
+
+    tape = TickTape(S_TICK, T_TICK)
+    cursor = tape.n - 64                       # 63 candles of headroom
+    make = lambda pipelined=False: tick_engine.TickEngine(  # noqa: E731
+        tape.symbols, TICK_FRAMES, window=T_TICK, pipelined=pipelined, device="cuda")
+    eng = make()
+    tape.feed(eng, cursor, T_TICK)
+    eng.step()                                 # the seed (and the first nvcc/launches)
+
+    # --- 1. one steady step: its K2 launches, host reads and syncs ------
+    launches, reads = [], []
+    entries = {"fused_ewma": ind_mod.fused_ewma, "fused_ewma_jobs": ind_mod.fused_ewma_jobs}
+
+    def recording(name):
+        def call(*args, **kw):
+            jobs = args[0] if name == "fused_ewma_jobs" else [(args[0], args[1], args[2])]
+            launches.append([(x, a, st) for x, a, st in jobs])
+            return entries[name](*args, **kw)
+        return call
+
+    real_read = tick_engine.host_read
+
+    def quiet_read(readback):                  # the one sanctioned sync
+        reads.append(1)
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            return real_read(readback)
+        finally:
+            torch.cuda.set_sync_debug_mode("warn")
+
+    cursor += 1
+    tape.feed(eng, cursor, T_TICK)
+    ind_mod.fused_ewma, ind_mod.fused_ewma_jobs = recording("fused_ewma"), recording("fused_ewma_jobs")
+    tick_engine.host_read = quiet_read
+    before = fused_ewma.launches
+    try:
+        syncs = sync_calls(eng.step)
+    finally:
+        ind_mod.fused_ewma, ind_mod.fused_ewma_jobs = entries["fused_ewma"], entries["fused_ewma_jobs"]
+        tick_engine.host_read = real_read
+    n_launch = fused_ewma.launches - before
+    if n_launch != 3 or len(launches) != 3 or len(reads) != 1:
+        fail(f"a tick step made {n_launch} K2 launches ({len(launches)} calls) and "
+             f"{len(reads)} host reads, not 3 and 1")
+    if syncs:
+        fail(f"a tick step made {len(syncs)} synchronizing calls besides its read: {syncs[:3]}")
+    if eng.last_stats["full_seed"] or eng.last_stats["upload_rows"] <= 0:
+        fail(f"the steady tick step re-seeded or uploaded nothing: {eng.last_stats}")
+    k2 = []
+    for i, jobs in enumerate(launches):
+        named = [(f"job{j}_K{len(a)}_start{st}", x.reshape(-1, x.shape[-1]), a, st)
+                 for j, (x, a, st) in enumerate(jobs)]
+        check = ewma_check(named, f"tick_launch{i}")
+        args = [(x, a, st) for _, x, a, st in named]
+        n_tiles = tile_count([x.shape for x, _, _ in args])
+        kmax = max(len(a) for _, a, _ in args)
+        b_ms, o_ms = ewma_jobs_bound(args)
+        k2.append({**check, "ms": cuda_ms(lambda: fused_ewma_jobs(args, device="cuda"), 50),
+                   "barrier_only_ms": cuda_ms(lambda: barrier_launch(n_tiles, kmax), 50),
+                   "bytes_bound_ms": b_ms, "operations_bound_ms": o_ms,
+                   "plain_ms": sum(cuda_ms(lambda: fused_ewma_plain(x, a, st), 3)
+                                   for x, a, st in args)})
+    all_jobs = [(x.reshape(-1, x.shape[-1]), a, st) for jobs in launches for x, a, st in jobs]
+    b_ms, o_ms = ewma_jobs_bound(all_jobs)
+    k2_entry = {"launches_per_step": n_launch, "ms": sum(c["ms"] for c in k2),
+                "ms_per_launch": [c["ms"] for c in k2],
+                "plain_ms": sum(c["plain_ms"] for c in k2),
+                "barrier_only_ms": sum(c["barrier_only_ms"] for c in k2),
+                "bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else "operations",
+                "plans": [c["plan"] for c in k2],
+                "max_abs_err": max(j["max_abs_err"] for c in k2 for j in c["jobs"]),
+                "max_rel_err": max(j["max_rel_err"] for c in k2 for j in c["jobs"]),
+                "shape": f"S={S_TICK} x F={len(TICK_FRAMES)} x T={T_TICK}: compute_indicators' "
+                         "two launches and rsi(close, 7)"}
+    emit({"phase": "tick_k2", "launches": k2, "host_reads_per_step": len(reads),
+          "host_syncs_per_step_besides_read": len(syncs), **k2_entry})
+
+    # --- 2. the ring delta against a fresh seed, bit for bit --------------
+    for _ in range(5):
+        cursor += 1
+        tape.feed(eng, cursor, T_TICK)
+        inc = eng.step()
+    fresh = make()
+    tape.feed(fresh, cursor, T_TICK)
+    seeded = fresh.step()
+    if eng.last_stats["full_seed"] or not fresh.last_stats["full_seed"]:
+        fail("the ring-delta check did not compare a delta with a seed")
+    if not same_table(inc, seeded):
+        fail("the ring delta's tick table differs from a fresh seed's on the card")
+
+    # --- 3. pipelined against serial, shifted by one tick -----------------
+    serial, pipe = make(), make(pipelined=True)
+    serial_outs, pipe_outs = [], []
+    for i in range(5):
+        c = cursor + 1 + i
+        tape.feed(serial, c, T_TICK)
+        tape.feed(pipe, c, T_TICK)
+        serial_outs.append(serial.step())
+        got = pipe.step()
+        if (got is None) != (i == 0):
+            fail("the pipelined engine's first step returned a table, or a later one none")
+        if got is not None:
+            pipe_outs.append(got)
+    pipe_outs.append(pipe.flush())
+    if not all(same_table(a, b) for a, b in zip(pipe_outs, serial_outs)):
+        fail("the pipelined tables differ from the serial ones shifted by one tick")
+
+    # --- 4. flips ---------------------------------------------------------
+    flips = tick_flips(tape, cursor)
+
+    # --- 5. timed polls: ingest + step, and the step's split --------------
+    marks = {}
+    real_program = tick_engine._tick_program
+
+    def timed_program(*args):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        marks["t_prog"] = time.perf_counter()
+        ev[0].record()
+        out = real_program(*args)
+        ev[1].record()
+        marks["t_prog_end"], marks["events"] = time.perf_counter(), ev
+        return out
+
+    def timed_read(readback):
+        marks["t_read"] = time.perf_counter()
+        out = real_read(readback)
+        marks["t_read_end"] = time.perf_counter()
+        return out
+
+    polls = {}
+    c0 = cursor + 6
+    for mode in ("serial", "pipelined"):
+        e = make(pipelined=mode == "pipelined")
+        tape.feed(e, c0, T_TICK)
+        e.step()
+        if mode == "pipelined":
+            tape.feed(e, c0 + 1, T_TICK)
+            e.step()
+        rows, events = [], []
+        tick_engine._tick_program, tick_engine.host_read = timed_program, timed_read
+        try:
+            for k in range(TICK_POLLS):
+                c = c0 + 2 + k
+                t0 = time.perf_counter()
+                tape.feed(e, c, T_TICK)
+                t1 = time.perf_counter()
+                e.step()
+                t2 = time.perf_counter()
+                rows.append({"ingest_s": t1 - t0, "step_s": t2 - t1, "poll_s": t2 - t0,
+                             "scatter_build_s": marks["t_prog"] - t1,
+                             "dispatch_s": marks["t_prog_end"] - marks["t_prog"],
+                             "host_read_s": marks["t_read_end"] - marks["t_read"]})
+                events.append(marks["events"])
+        finally:
+            tick_engine._tick_program, tick_engine.host_read = real_program, real_read
+        torch.cuda.synchronize()
+        for r, (a, b) in zip(rows, events):
+            # the program's span on the card, from its first op to its last
+            r["program_device_ms"] = a.elapsed_time(b)
+        polls[mode] = {k: {"p50": percentile([r[k] for r in rows], 50),
+                           "p99": percentile([r[k] for r in rows], 99)} for k in rows[0]}
+        polls[mode]["polls"] = len(rows)
+    e = make()
+    tape.feed(e, c0, T_TICK)
+    e.step()
+    tape.feed(e, c0 + 1, T_TICK)
+    try:
+        profile = device_profile(e.step)
+    except Exception as ex:  # noqa: BLE001 — a profiler that cannot trace is reported, not fatal
+        profile = {"measured": False, "reason": repr(ex)[:300]}
+    report = {"phase": "tick", "card": info["nvidia_smi"], "symbols": S_TICK,
+              "frames": list(TICK_FRAMES), "window": T_TICK, "lanes": eng.last_stats["lanes"],
+              "ring_delta_bit_equal_fresh_seed": True, "pipelined_bit_equal_serial_shifted": True,
+              "k2_launches_per_step": n_launch, "host_reads_per_step": len(reads),
+              "polls": polls, "profile_one_step": profile,
+              "flips": {k: flips[k]["count"] for k in ("signal", "trend")}}
+    emit(report)
+    return {**k2_entry, "poll_ms_p50": 1e3 * polls["serial"]["poll_s"]["p50"],
+            "poll_ms_p99": 1e3 * polls["serial"]["poll_s"]["p99"]}
+
+
+def phase_portfolio(info):
+    """The portfolio backtest on the card: S = 8 symbols, one of them
+    shorter (left-padded), `max_positions = 5` (config.json's
+    trading_params).  `stack_symbol_inputs` with exactly 2 K2 launches;
+    capital silos in param-SL/TP mode at T = 8,192 with one K1 launch per
+    symbol, bit for bit against the plain loop over all S symbols at once
+    (replayed from CUDA graphs); the sizer-ladder silos and the shared pool
+    (both equity cadences), plain loops on the card at T = 2,048, against
+    the port's CPU run of the same inputs."""
+    import torch
+
+    from ai_crypto_trader_tpu_torch.backtest import (
+        BacktestStats, default_params, portfolio_backtest, run_backtest,
+        shared_capital_backtest, stack_symbol_inputs)
+    from ai_crypto_trader_tpu_torch.data import generate_ohlcv
+    from ai_crypto_trader_tpu_torch.ops.ewma import fused_ewma
+    from ai_crypto_trader_tpu_torch.ops.replay import sweep_kernel
+
+    def candles(T):
+        per = {}
+        for i in range(S_PORT):
+            d = generate_ohlcv(n=T - (T // 8 if i == 3 else 0), seed=40 + i)
+            per[f"P{i}USDC"] = {k: d[k] for k in ("open", "high", "low", "close", "volume")}
+        return per
+
+    def stack(T):
+        before = fused_ewma.launches
+        inp, syms = stack_symbol_inputs(candles(T), device="cuda")
+        if fused_ewma.launches != before + 2:
+            fail(f"stack_symbol_inputs made {fused_ewma.launches - before} K2 launches, not 2")
+        return inp
+
+    params = default_params(device="cuda")
+    big = stack(T_PORT_K1)
+    # --- silos, param SL/TP: one K1 launch per symbol ---------------------
+    before = sweep_kernel.launches
+    (stats, metrics, pf), k1_call_ms = timed(lambda: portfolio_backtest(
+        big, params, use_param_sl_tp=True, device="cuda"))
+    k1_launches = sweep_kernel.launches - before
+    if k1_launches != S_PORT:
+        fail(f"the param-SL/TP portfolio made {k1_launches} K1 launches, not one per symbol")
+    rows_params = params._replace(**{f: getattr(params, f).expand(S_PORT).contiguous()
+                                     for f in params._fields})
+    plain, plain_ms = timed(lambda: sweep_plain_graphed(big, rows_params))
+    k1_check = {**compare_stats(stats, plain, f"portfolio_k1_S{S_PORT}_T{T_PORT_K1}"),
+                "T": T_PORT_K1}
+    one = type(big)(*(x[0] for x in big))
+    k1_ms = cuda_ms(lambda: run_backtest(one, params, use_param_sl_tp=True, device="cuda"), 20)
+    bound = [replay_bound_ms(BacktestStats(*(v[s:s + 1] for v in stats)), 1, T_PORT_K1)
+             for s in range(S_PORT)]
+    k1_entry = {"launches": k1_launches, "ms": k1_ms, "call_ms": k1_call_ms,
+                "plain_ms": plain_ms, "bound_ms": sum(b[0] for b in bound),
+                "bound_by": max(bound)[1], "max_abs_err": k1_check["max_abs_err"],
+                "trades": k1_check["trades"],
+                "shape": f"{S_PORT} launches of B=1 x T={T_PORT_K1} (ms: one launch; "
+                         "bound: all of them)",
+                "plain": "the engine's loop over all symbols' rows, 32 candles a CUDA graph"}
+
+    # --- plain-loop modes on the card against the CPU run -----------------
+    small = stack(T_PORT_PLAIN)
+    cpu = type(small)(*(x.cpu() for x in small))
+    runs = {"silos_sizer_ladder": lambda inp, dev: portfolio_backtest(inp, device=dev)[0],
+            "shared_per_update": lambda inp, dev: portfolio_backtest(
+                inp, shared_capital=True, max_positions=5, device=dev)[0],
+            "shared_per_candle_param_sl_tp": lambda inp, dev: shared_capital_backtest(
+                inp, params, initial_balance=10_000.0 * S_PORT, max_positions=5,
+                use_param_sl_tp=True, equity_cadence="per_candle", device=dev)[0]}
+    plain_checks = []
+    for name, fn in runs.items():
+        before = (fused_ewma.launches, sweep_kernel.launches)
+        got, card_ms = timed(lambda: fn(small, "cuda"))
+        if (fused_ewma.launches, sweep_kernel.launches) != before:
+            fail(f"portfolio {name}: a plain-loop mode launched a kernel")
+        t0 = time.perf_counter()
+        ref = fn(cpu, "cpu")
+        cpu_s = time.perf_counter() - t0
+        worst = 0.0
+        for f in ref._fields:
+            g, r = getattr(got, f).cpu(), getattr(ref, f)
+            if r.dtype == torch.int32:
+                if not torch.equal(g, r):
+                    fail(f"portfolio {name}: {f} differs from the CPU run")
+            else:
+                worst = max(worst, float(torch.abs(g - r).max()))
+                # the engine tolerance of tests/test_torch_slice.py
+                if not torch.allclose(g, r, rtol=1e-5, atol=1e-6):
+                    fail(f"portfolio {name}: {f} outside rtol 1e-5, atol 1e-6 of the CPU run")
+        trades = int(ref.total_trades.sum())
+        if trades <= 0:
+            fail(f"portfolio {name}: no trades — the comparison would be vacuous")
+        plain_checks.append({"case": name, "T": T_PORT_PLAIN, "trades": trades,
+                             "max_abs_err_vs_cpu": worst, "card_ms": card_ms,
+                             "cpu_s": cpu_s})
+    emit({"phase": "portfolio", "card": info["nvidia_smi"], "symbols": S_PORT,
+          "max_positions": 5, "k1": {**k1_entry, "check": k1_check},
+          "plain_loop_modes": plain_checks,
+          "portfolio_k1": {k: float(v) for k, v in pf.items()}})
+    return k1_entry
+
+
 def main():
     import torch
 
@@ -1346,6 +1840,8 @@ def main():
     launches, stats, full, k1 = phase_main(d)
     phase_indicator_split(d)
     ga_entries = phase_ga(d, info, libraries)
+    tick = phase_tick(info)
+    portfolio = phase_portfolio(info)
     bound_ms, bound_by, stepped_bound_ms = replay_bound_ms(stats, B_FULL, T_FULL)
     checks += full
     kernels = [
@@ -1363,6 +1859,7 @@ def main():
          "registers": ewma["registers"], "resources": ewma["shared_memory"],
          "beyond_residency": ewma["beyond_residency"],
          "ga_tables": {**ga_entries["ga_tables"], "registers": ewma["registers"]},
+         "tick": tick,
          "shape": "the two launches of compute_indicators at T=525600, summed "
                   "(A: close K=2 + up/dn/tr K=1; B: MACD line K=1)"},
         {"name": "replay_sweep", "route": "cuda",
@@ -1389,6 +1886,7 @@ def main():
                                                 "replay_walk_kernelILb0ELb1E"),
                          "walk_rows_curve": registers(libraries, "replay_sweep",
                                                       "replay_walk_kernelILb1ELb1E")}},
+         "portfolio": portfolio,
          "shape": f"B={B_FULL} x T={T_FULL}",
          "plain": "the engine's loop, 32 candles a CUDA graph"},
     ]

@@ -17,10 +17,11 @@ import torch
 from ai_crypto_trader_tpu_torch import convert, resolve_device
 from ai_crypto_trader_tpu_torch.backtest import (
     BacktestInputs, StrategyParams, compute_metrics, default_params,
-    prepare_inputs, run_backtest, sample_params, sweep,
+    portfolio_backtest, prepare_inputs, run_backtest, sample_params,
+    shared_capital_backtest, stack_symbol_inputs, sweep,
 )
 from ai_crypto_trader_tpu_torch.data import from_dict, generate_ohlcv, load_csv
-from ai_crypto_trader_tpu_torch.ops import compute_indicators, fused_ewma
+from ai_crypto_trader_tpu_torch.ops import TickEngine, compute_indicators, fused_ewma
 from ai_crypto_trader_tpu_torch.ops import _cuda
 from ai_crypto_trader_tpu_torch.ops.replay import sweep_kernel
 from ai_crypto_trader_tpu_torch.backtest.evolvable import (
@@ -43,10 +44,11 @@ bad = sorted(m for m in sys.modules
              or re.match(r"ai_crypto_trader_tpu(?!_torch)(\.|$)", m))
 print(len(names), bad)
 expected = {"config", "ops.dynamic", "backtest.evolvable", "evolve", "evolve.ga",
-            "evolve.selection", "cli"}
+            "evolve.selection", "cli", "obs", "obs.drift", "ops.volume_profile",
+            "ops.combinations", "ops.tick_engine", "backtest.portfolio", "data.ingest"}
 missing = sorted(e for e in expected if pkg.__name__ + "." + e not in names)
 print(missing)
-sys.exit(1 if bad or missing or len(names) < 18 else 0)
+sys.exit(1 if bad or missing or len(names) < 28 else 0)
 """
 
 
@@ -101,6 +103,12 @@ _ENTRY_POINTS = {
          ("ema_raw", "ema_fill", "rsi_fill", "atr_fill", "atr_median", "bb_mid", "bb_sd",
           "vol_ma_fill")}),
     "genomes_from_numpy": lambda: convert.genomes_from_numpy(np.ones((4, 18), np.float32)),
+    "TickEngine": lambda: TickEngine(["BTCUSDC"], ["1m"], window=64),
+    "stack_symbol_inputs": lambda: stack_symbol_inputs({"BTCUSDC": _small()}),
+    "portfolio_backtest": lambda: portfolio_backtest(
+        prepare_inputs(compute_indicators(_small(), device="cpu"), device="cpu")),
+    "shared_capital_backtest": lambda: shared_capital_backtest(
+        stack_symbol_inputs({"BTCUSDC": _small()}, device="cpu")[0]),
 }
 
 
