@@ -6,9 +6,9 @@ is the same transition on tensors whose leading shape is the population
 (or nothing, for one strategy), and `run_backtest` is a plain Python loop
 over T.  That loop is the plain version of the replay kernel: on a CUDA
 device `sweep`, and `run_backtest` in ``use_param_sl_tp`` mode without
-``sell_exits`` over one candle series, launch `ops.replay.sweep_kernel`
-(the port of the Pallas kernel `ops/pallas_backtest.py:sweep_pallas`)
-instead.  The other modes of `run_backtest` run the loop on either device,
+``sell_exits``, launch `ops.replay.sweep_kernel` (the port of the Pallas
+kernel `ops/pallas_backtest.py:sweep_pallas`) instead — once per candle
+series.  The other modes of `run_backtest` run the loop on either device,
 as the JAX package has no kernel for them either.
 
 Parity contract (as the JAX engine's, strategy_tester.py:190-300 of the
@@ -23,6 +23,7 @@ Counts are int32, as in the JAX package.
 
 from __future__ import annotations
 
+import itertools
 import math
 from typing import NamedTuple
 
@@ -289,6 +290,42 @@ def replay(inputs: BacktestInputs, params: StrategyParams | None = None, *,
     return (stats, curve) if return_curve else stats
 
 
+def _per_series(run, inputs: BacktestInputs, params: StrategyParams,
+                return_curve: bool = False):
+    """``run(inputs, params)`` once per candle series: at every place of
+    the broadcast along the leading dims of ``close`` and ``volume``, the
+    call gets that series' [T] close and volume, and the other streams and
+    stop_loss / take_profit taken at the same place (broadcasting is
+    right-aligned).  Leading dims beyond those stay a batch of rows within
+    the call.  The results are put back at their places: stats of the
+    broadcast shape, the curve of it + [T]."""
+    shape = torch.broadcast_shapes(params.stop_loss.shape, params.take_profit.shape,
+                                   *(x.shape[:-1] for x in inputs))
+    k = max(inputs.close.ndim, inputs.volume.ndim) - 1
+    rest, series = shape[:len(shape) - k], shape[len(shape) - k:]
+
+    def at(y, idx, trailing):
+        lead = y.shape[:y.ndim - trailing]
+        m = min(len(idx), len(lead))
+        sel = tuple(0 if n == 1 else i for n, i in zip(lead[len(lead) - m:], idx[len(idx) - m:]))
+        return y[(Ellipsis,) + sel + (slice(None),) * trailing]
+
+    outs = [run(type(inputs)(*(at(x, idx, 1) for x in inputs)),
+                params._replace(stop_loss=at(params.stop_loss, idx, 0),
+                                take_profit=at(params.take_profit, idx, 0)))
+            for idx in itertools.product(*map(range, series))]
+
+    def put_back(values, tail=()):
+        t = torch.stack([v.expand(tuple(rest) + tail) for v in values])
+        t = t.reshape(tuple(series) + tuple(rest) + tail)
+        return t.movedim(tuple(range(k)), tuple(range(len(rest), len(rest) + k))).contiguous()
+
+    if not return_curve:
+        return BacktestStats(*(put_back(v) for v in zip(*outs)))
+    stats = BacktestStats(*(put_back(v) for v in zip(*(s for s, _ in outs))))
+    return stats, put_back([c for _, c in outs], (int(inputs.close.shape[-1]),))
+
+
 def run_backtest(inputs: BacktestInputs, params: StrategyParams | None = None, *,
                  initial_balance: float = 10_000.0,
                  ai_confidence_threshold: float = 0.7,
@@ -300,21 +337,27 @@ def run_backtest(inputs: BacktestInputs, params: StrategyParams | None = None, *
     card).  With ``use_param_sl_tp`` the StrategyParams stop_loss /
     take_profit (percent) override the sizer's volatility ladder;
     ``sell_exits`` adds an explicit SELL-signal close.  On CUDA the
-    ``use_param_sl_tp`` mode without ``sell_exits`` over one candle series
-    (``close`` [T]) runs the replay kernel over the broadcast of the
+    ``use_param_sl_tp`` mode without ``sell_exits`` runs the replay kernel
+    (``reference_quirks`` changes nothing there): over one candle series
+    (``close`` and ``volume`` [T]) one launch over the broadcast of the
     params' shape and the leading shape of the other streams, which may
-    carry a row per strategy (the GA's per-genome signals and exits;
-    ``reference_quirks`` changes nothing there); every other mode, a batch
-    of series, and the CPU run the plain loop."""
+    carry a row per strategy (the GA's per-genome signals and exits); over
+    a batch of series (a portfolio's symbols) one such launch per series
+    (`_per_series`).  Every other mode, and the CPU, run the plain loop."""
     dev = resolve_device(device)
     inputs = _on(inputs, dev)
     params = None if params is None else _on(params, dev)
     kw = dict(initial_balance=initial_balance,
               ai_confidence_threshold=ai_confidence_threshold,
               min_signal_strength=min_signal_strength, warmup=warmup)
-    if dev.type == "cuda" and use_param_sl_tp and not sell_exits and inputs.close.ndim == 1:
+    if dev.type == "cuda" and use_param_sl_tp and not sell_exits:
         if params is None:
             raise ValueError("use_param_sl_tp needs StrategyParams")
+        if max(inputs.close.ndim, inputs.volume.ndim) > 1:
+            # the kernel shares close and volume across its rows
+            return _per_series(lambda i, p: run_backtest(
+                i, p, use_param_sl_tp=True, return_curve=return_curve, device=dev, **kw),
+                inputs, params, return_curve)
         # imported here: ops.replay imports this module
         from ai_crypto_trader_tpu_torch.ops.replay import sweep_kernel
 

@@ -11,11 +11,11 @@ On the card:
   * `stack_symbol_inputs` makes one `compute_indicators` call over the [S, T]
     stack — two launches of the fused-EWMA kernel, not 2·S.  Indicators are
     computed per row, so each row is what that symbol alone would give;
-  * silos in ``use_param_sl_tp`` mode run one `run_backtest` per symbol on
-    its [T] streams, one launch of the replay kernel each (the kernel's
+  * the silos are one `run_backtest` over all [S, T]: in ``use_param_sl_tp``
+    mode that is one launch of the replay kernel per symbol (the kernel's
     rows form shares close and volume across rows, and every symbol has
-    its own); the sizer-ladder mode runs the engine's plain loop over all
-    [S, T] at once, as `run_backtest` does for one symbol;
+    its own); the sizer-ladder mode runs the engine's plain loop, as
+    `run_backtest` does for one symbol;
   * `shared_capital_backtest` is a loop over candles with the S-symbol
     inner loop in Python, as the JAX package's `lax.scan` is (no kernel
     computes it).
@@ -317,15 +317,8 @@ def portfolio_backtest(inputs: BacktestInputs, params: StrategyParams | None = N
             "per_symbol_realized_pnl": per_symbol["realized_pnl"],
         }
         return stats, m, portfolio
-    kw = dict(initial_balance=initial_balance_per_symbol,
-              use_param_sl_tp=use_param_sl_tp, device=dev)
-    if dev.type == "cuda" and use_param_sl_tp:
-        # one replay-kernel launch per symbol, on its own [T] streams
-        per = [run_backtest(type(inputs)(*(x[s] for x in inputs)), params, **kw)
-               for s in range(inputs.close.shape[0])]
-        stats = BacktestStats(*(torch.stack(v) for v in zip(*per)))
-    else:
-        stats = run_backtest(inputs, params, **kw)
+    stats = run_backtest(inputs, params, initial_balance=initial_balance_per_symbol,
+                         use_param_sl_tp=use_param_sl_tp, device=dev)
     m = compute_metrics(stats, device=dev)
     n = stats.final_balance.shape[0]
     # a tensor: a division by it stays a true division on either device

@@ -79,13 +79,16 @@ imports nothing of JAX or of the JAX package.  Phases, one JSON line each:
                 seed; the pipelined tables bit for bit against the serial
                 ones shifted by one tick; K2's flips over every window
                 candle and in the tables (`tick_flips`); 20 timed polls in
-                each mode (ingest + step, split into scatter build,
-                dispatch, the program's CUDA-event span and host read) and
-                torch.profiler over one step;
+                each mode, the modes in turns within one loop (ingest +
+                step, split into scatter build, dispatch, the program's
+                CUDA-event span and host read) and torch.profiler over one
+                step;
   7. portfolio — 8 symbols, one left-padded: `stack_symbol_inputs` with
                 exactly 2 K2 launches; capital silos in param-SL/TP mode at
-                T = 8,192, one K1 launch per symbol, bit for bit against the
-                plain loop over all symbols (graph-replayed); the
+                T = 8,192 through one `run_backtest` over [S, T], one K1
+                launch per symbol, bit for bit against the plain loop over
+                all symbols (graph-replayed), all S launches timed
+                together beside the sum of their bounds; the
                 sizer-ladder silos and the shared pool (both equity
                 cadences), plain loops on the card at T = 2,048, against
                 the port's CPU run of the same inputs;
@@ -1466,14 +1469,14 @@ def tick_flips(tape, cursor):
     ind_k = ind_mod.compute_indicators(win, device="cuda")
     kernel_entries = ind_mod.fused_ewma, ind_mod.fused_ewma_jobs
     ind_mod.fused_ewma, ind_mod.fused_ewma_jobs = ewma_plain, jobs_plain
-    before = fused_ewma.launches
+    fused_ewma.launches = 0
     try:
         ind_p = ind_mod.compute_indicators(win, device="cuda")
         table_p, _ = engine_table()
     finally:
         ind_mod.fused_ewma, ind_mod.fused_ewma_jobs = kernel_entries
-    if fused_ewma.launches != before:
-        fail(f"tick flips: the plain EWMA launched the kernel {fused_ewma.launches - before} times")
+    if fused_ewma.launches:
+        fail(f"tick flips: the plain EWMA launched the kernel {fused_ewma.launches} times")
     f_k, f_p = compute_signal_features(ind_k), compute_signal_features(ind_p)
     (sig_k, _), (sig_p, _) = reference_signal(f_k), reference_signal(f_p)
     near = ((torch.abs(f_p.macd) <= 1e-4 * f_p.close)
@@ -1567,13 +1570,13 @@ def phase_tick(info):
     tape.feed(eng, cursor, T_TICK)
     ind_mod.fused_ewma, ind_mod.fused_ewma_jobs = recording("fused_ewma"), recording("fused_ewma_jobs")
     tick_engine.host_read = quiet_read
-    before = fused_ewma.launches
+    fused_ewma.launches = 0
     try:
         syncs = sync_calls(eng.step)
     finally:
         ind_mod.fused_ewma, ind_mod.fused_ewma_jobs = entries["fused_ewma"], entries["fused_ewma_jobs"]
         tick_engine.host_read = real_read
-    n_launch = fused_ewma.launches - before
+    n_launch = fused_ewma.launches
     if n_launch != 3 or len(launches) != 3 or len(reads) != 1:
         fail(f"a tick step made {n_launch} K2 launches ({len(launches)} calls) and "
              f"{len(reads)} host reads, not 3 and 1")
@@ -1662,39 +1665,48 @@ def phase_tick(info):
         marks["t_read_end"] = time.perf_counter()
         return out
 
-    polls = {}
+    # the two modes in turns within one loop, each first every other poll,
+    # so host noise falls on both alike
+    polls, engines, rows, events = {}, {}, {}, {}
     c0 = cursor + 6
     for mode in ("serial", "pipelined"):
-        e = make(pipelined=mode == "pipelined")
+        e = engines[mode] = make(pipelined=mode == "pipelined")
         tape.feed(e, c0, T_TICK)
         e.step()
         if mode == "pipelined":
             tape.feed(e, c0 + 1, T_TICK)
             e.step()
-        rows, events = [], []
-        tick_engine._tick_program, tick_engine.host_read = timed_program, timed_read
-        try:
-            for k in range(TICK_POLLS):
-                c = c0 + 2 + k
+        rows[mode], events[mode] = [], []
+    tick_engine._tick_program, tick_engine.host_read = timed_program, timed_read
+    try:
+        for k in range(TICK_POLLS):
+            c = c0 + 2 + k
+            for mode in (("serial", "pipelined") if k % 2 == 0 else ("pipelined", "serial")):
+                e = engines[mode]
+                marks.clear()
                 t0 = time.perf_counter()
                 tape.feed(e, c, T_TICK)
                 t1 = time.perf_counter()
                 e.step()
                 t2 = time.perf_counter()
-                rows.append({"ingest_s": t1 - t0, "step_s": t2 - t1, "poll_s": t2 - t0,
-                             "scatter_build_s": marks["t_prog"] - t1,
-                             "dispatch_s": marks["t_prog_end"] - marks["t_prog"],
-                             "host_read_s": marks["t_read_end"] - marks["t_read"]})
-                events.append(marks["events"])
-        finally:
-            tick_engine._tick_program, tick_engine.host_read = real_program, real_read
-        torch.cuda.synchronize()
-        for r, (a, b) in zip(rows, events):
+                rows[mode].append({"ingest_s": t1 - t0, "step_s": t2 - t1, "poll_s": t2 - t0,
+                                   "scatter_build_s": marks["t_prog"] - t1,
+                                   "dispatch_s": marks["t_prog_end"] - marks["t_prog"],
+                                   "host_read_s": marks["t_read_end"] - marks["t_read"]})
+                events[mode].append(marks["events"])
+    finally:
+        tick_engine._tick_program, tick_engine.host_read = real_program, real_read
+    torch.cuda.synchronize()
+    for mode, rs in rows.items():
+        for r, (a, b) in zip(rs, events[mode]):
             # the program's span on the card, from its first op to its last
             r["program_device_ms"] = a.elapsed_time(b)
-        polls[mode] = {k: {"p50": percentile([r[k] for r in rows], 50),
-                           "p99": percentile([r[k] for r in rows], 99)} for k in rows[0]}
-        polls[mode]["polls"] = len(rows)
+        polls[mode] = {k: {"p50": percentile([r[k] for r in rs], 50),
+                           "p99": percentile([r[k] for r in rs], 99)} for k in rs[0]}
+        polls[mode]["polls"] = len(rs)
+    polls["interleaved"] = True
+    polls["pipelined_minus_serial_poll_ms_per_poll"] = [
+        1e3 * (p["poll_s"] - s["poll_s"]) for s, p in zip(rows["serial"], rows["pipelined"])]
     e = make()
     tape.feed(e, c0, T_TICK)
     e.step()
@@ -1726,8 +1738,8 @@ def phase_portfolio(info):
     import torch
 
     from ai_crypto_trader_tpu_torch.backtest import (
-        BacktestStats, default_params, portfolio_backtest, run_backtest,
-        shared_capital_backtest, stack_symbol_inputs)
+        BacktestStats, default_params, portfolio_backtest, shared_capital_backtest,
+        stack_symbol_inputs)
     from ai_crypto_trader_tpu_torch.data import generate_ohlcv
     from ai_crypto_trader_tpu_torch.ops.ewma import fused_ewma
     from ai_crypto_trader_tpu_torch.ops.replay import sweep_kernel
@@ -1740,19 +1752,19 @@ def phase_portfolio(info):
         return per
 
     def stack(T):
-        before = fused_ewma.launches
+        fused_ewma.launches = 0
         inp, syms = stack_symbol_inputs(candles(T), device="cuda")
-        if fused_ewma.launches != before + 2:
-            fail(f"stack_symbol_inputs made {fused_ewma.launches - before} K2 launches, not 2")
+        if fused_ewma.launches != 2:
+            fail(f"stack_symbol_inputs made {fused_ewma.launches} K2 launches, not 2")
         return inp
 
     params = default_params(device="cuda")
     big = stack(T_PORT_K1)
     # --- silos, param SL/TP: one K1 launch per symbol ---------------------
-    before = sweep_kernel.launches
+    sweep_kernel.launches = 0
     (stats, metrics, pf), k1_call_ms = timed(lambda: portfolio_backtest(
         big, params, use_param_sl_tp=True, device="cuda"))
-    k1_launches = sweep_kernel.launches - before
+    k1_launches = sweep_kernel.launches
     if k1_launches != S_PORT:
         fail(f"the param-SL/TP portfolio made {k1_launches} K1 launches, not one per symbol")
     rows_params = params._replace(**{f: getattr(params, f).expand(S_PORT).contiguous()
@@ -1760,16 +1772,21 @@ def phase_portfolio(info):
     plain, plain_ms = timed(lambda: sweep_plain_graphed(big, rows_params))
     k1_check = {**compare_stats(stats, plain, f"portfolio_k1_S{S_PORT}_T{T_PORT_K1}"),
                 "T": T_PORT_K1}
-    one = type(big)(*(x[0] for x in big))
-    k1_ms = cuda_ms(lambda: run_backtest(one, params, use_param_sl_tp=True, device="cuda"), 20)
+    # the path's K1 work, all S launches (each symbol's [T] streams, B = 1),
+    # timed together as the plain loop is, against the sum of their bounds
+    one = params._replace(stop_loss=params.stop_loss.reshape(1),
+                          take_profit=params.take_profit.reshape(1))
+    per_symbol = [type(big)(*(x[s] for x in big)) for s in range(S_PORT)]
+    k1_ms = cuda_ms(lambda: [sweep_kernel(r, one, device="cuda") for r in per_symbol], 10)
     bound = [replay_bound_ms(BacktestStats(*(v[s:s + 1] for v in stats)), 1, T_PORT_K1)
              for s in range(S_PORT)]
-    k1_entry = {"launches": k1_launches, "ms": k1_ms, "call_ms": k1_call_ms,
-                "plain_ms": plain_ms, "bound_ms": sum(b[0] for b in bound),
+    k1_entry = {"launches": k1_launches, "ms": k1_ms, "ms_per_launch": k1_ms / S_PORT,
+                "call_ms": k1_call_ms, "plain_ms": plain_ms,
+                "bound_ms": sum(b[0] for b in bound),
                 "bound_by": max(bound)[1], "max_abs_err": k1_check["max_abs_err"],
                 "trades": k1_check["trades"],
-                "shape": f"{S_PORT} launches of B=1 x T={T_PORT_K1} (ms: one launch; "
-                         "bound: all of them)",
+                "shape": f"{S_PORT} launches of B=1 x T={T_PORT_K1}; ms, plain_ms and "
+                         "bound_ms each cover all of them",
                 "plain": "the engine's loop over all symbols' rows, 32 candles a CUDA graph"}
 
     # --- plain-loop modes on the card against the CPU run -----------------
@@ -1783,9 +1800,9 @@ def phase_portfolio(info):
                 use_param_sl_tp=True, equity_cadence="per_candle", device=dev)[0]}
     plain_checks = []
     for name, fn in runs.items():
-        before = (fused_ewma.launches, sweep_kernel.launches)
+        fused_ewma.launches = sweep_kernel.launches = 0
         got, card_ms = timed(lambda: fn(small, "cuda"))
-        if (fused_ewma.launches, sweep_kernel.launches) != before:
+        if fused_ewma.launches or sweep_kernel.launches:
             fail(f"portfolio {name}: a plain-loop mode launched a kernel")
         t0 = time.perf_counter()
         ref = fn(cpu, "cpu")

@@ -22,7 +22,7 @@ from ai_crypto_trader_tpu.backtest.strategy import default_params as jdefault  #
 from ai_crypto_trader_tpu.data.synthetic import generate_ohlcv  # noqa: E402
 from ai_crypto_trader_tpu_torch import convert  # noqa: E402
 from ai_crypto_trader_tpu_torch.backtest import (  # noqa: E402
-    portfolio_backtest, prepare_inputs, shared_capital_backtest, stack_symbol_inputs)
+    engine, portfolio_backtest, prepare_inputs, shared_capital_backtest, stack_symbol_inputs)
 from ai_crypto_trader_tpu_torch.ops import compute_indicators  # noqa: E402
 
 SYMBOLS = ("AAAUSDC", "BBBUSDC", "CCCUSDC")
@@ -135,6 +135,37 @@ def test_portfolio_backtest_matches_jax(stacked, shared, use_param_sl_tp):
     for k, r in jpf.items():
         np.testing.assert_allclose(tpf[k].numpy(), np.asarray(r), rtol=1e-4, atol=1e-6,
                                    err_msg=f"{where} {k}")
+
+
+@pytest.mark.parametrize("case", ["scalar_params", "params_per_symbol", "params_grid_curve"])
+def test_per_series_split_equals_one_batched_run(stacked, case):
+    """On the card `run_backtest` over [S, T] gives each close series its
+    own replay-kernel launch (`engine._per_series`).  The split and the
+    putting back are device-free: here each piece runs the plain loop, and
+    the whole equals one batched plain run bit for bit, at every broadcast
+    shape of the params."""
+    _, _, tin = stacked
+    tin = type(tin)(*(x[..., :200] for x in tin))
+    params = convert.params_from_numpy(jdefault(), device="cpu")
+    sl_tp = {"scalar_params": (0.6, 1.2),
+             "params_per_symbol": ([0.4, 0.6, 0.9], [0.8, 1.2, 2.0]),
+             "params_grid_curve": ([[0.4], [0.9]], [[0.8], [2.0]])}[case]
+    params = params._replace(stop_loss=torch.tensor(sl_tp[0]), take_profit=torch.tensor(sl_tp[1]))
+    curve = case.endswith("curve")
+
+    def run(i, p):
+        return engine.run_backtest(i, p, use_param_sl_tp=True, return_curve=curve, device="cpu")
+
+    got, ref = engine._per_series(run, tin, params, curve), run(tin, params)
+    if curve:
+        (got, got_curve), (ref, ref_curve) = got, ref
+        assert torch.equal(got_curve, ref_curve) and got_curve.shape == (2, len(SYMBOLS), 200)
+    shape = (2, len(SYMBOLS)) if curve else (len(SYMBOLS),)
+    for f in ref._fields:
+        g, r = getattr(got, f), getattr(ref, f)
+        assert g.shape == r.shape == shape and g.dtype == r.dtype, f
+        assert torch.equal(g, r), f
+    assert int(ref.total_trades.sum()) > 0
 
 
 @pytest.mark.parametrize("cadence", ["per_update", "per_candle"])

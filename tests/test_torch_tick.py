@@ -32,6 +32,7 @@ from ai_crypto_trader_tpu.obs import tickpath  # noqa: E402
 from ai_crypto_trader_tpu.ops import combinations as jcomb  # noqa: E402
 from ai_crypto_trader_tpu.ops.tick_engine import TickEngine as JTickEngine  # noqa: E402
 from ai_crypto_trader_tpu.ops.volume_profile import volume_profile as jvolume_profile  # noqa: E402
+from ai_crypto_trader_tpu.utils import devprof, meshprof  # noqa: E402
 from ai_crypto_trader_tpu.shell.exchange import FakeExchange  # noqa: E402
 from ai_crypto_trader_tpu_torch import data as tdata  # noqa: E402
 from ai_crypto_trader_tpu_torch.device import PRECISIONS  # noqa: E402
@@ -201,9 +202,10 @@ def tape():
     ref_hist = jdrift.reference_histogram(
         {"rsi": np.linspace(20, 80, 200), "volatility": np.full(50, 0.004)})
     steps = []
-    # no JAX observatory active (another test may have left one installed):
-    # last_stats then holds the keys the port's step sets
-    with tickpath.use(None):
+    # none of the observatories the JAX step feeds is active (another test
+    # may have left one installed): last_stats then holds the keys the
+    # port's step sets
+    with tickpath.use(None), devprof.use(None), meshprof.use(None):
         for tick in range(TICKS + 1):
             if tick:
                 ex.advance(steps=1)
