@@ -1,5 +1,6 @@
 """PyTorch/CUDA port of ai_crypto_trader_tpu's population backtest, GA,
-live tick path and portfolio backtest.
+live tick and decision path, portfolio backtest, risk layer and
+Monte-Carlo engine.
 
 The chains, module for module after the JAX package:
 
@@ -11,6 +12,11 @@ The chains, module for module after the JAX package:
         signals, volume profile, combinations, drift; one host read)
     per-symbol candles → backtest.stack_symbol_inputs
         → backtest.portfolio_backtest (silos or one shared pool)
+    TickEngine.last_out → ops.TenantEngine.feats_from_tick
+        → TenantEngine.decide (every tenant's gates and sizes, lane
+        containment, obs.fleetscope aggregates; one host read)
+    returns → mc.run_simulation / risk.stress_var_cvar (GBM or bootstrap
+        paths, VaR / CVaR); risk.stops, risk.social, risk.var
 
 Plain tensor code is PyTorch; the two Pallas kernels of the JAX package on
 these paths are CUDA C++ kernels for Hopper (``csrc/``), built with nvcc on

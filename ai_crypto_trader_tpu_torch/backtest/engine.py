@@ -383,7 +383,7 @@ def sweep(inputs: BacktestInputs, params: StrategyParams,
           ai_confidence_threshold: float = 0.7,
           min_signal_strength: float = 70.0, warmup: int = 10,
           reference_quirks: bool = False, return_curve: bool = False,
-          device=None):
+          unroll: int = 8, partitioner=None, device=None):
     """The population sweep: every strategy of a stacked StrategyParams
     [B] over the same candles, in ``use_param_sl_tp`` mode.
 
@@ -391,7 +391,17 @@ def sweep(inputs: BacktestInputs, params: StrategyParams,
     the CPU it runs the plain loop; with ``return_curve`` either returns
     ``(stats, curve)``, the curve [B, T].  ``inputs`` must carry NaN
     sl_pct/tp_pct columns for the genomes' stops to matter (as
-    `prepare_inputs` builds them)."""
+    `prepare_inputs` builds them).
+
+    ``unroll`` is accepted for the JAX package's signature and ignored: it
+    unrolls a `lax.scan`, and the kernel walks from event to event, with
+    nothing to unroll.  ``partitioner`` must be None: the population is
+    not split over several cards yet (ROADMAP item 15)."""
+    del unroll
+    if partitioner is not None:
+        raise NotImplementedError(
+            "sweep over a partitioner (several cards) is not ported yet: "
+            "ROADMAP item 15")
     dev = resolve_device(device)
     inputs = _on(inputs, dev)
     params = _on(params, dev)

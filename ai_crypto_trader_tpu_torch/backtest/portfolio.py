@@ -182,6 +182,7 @@ def shared_capital_backtest(
     min_signal_strength: float = 70.0,
     warmup: int = 10,
     use_param_sl_tp: bool = False,
+    unroll: int = 1,
     equity_cadence: str = "per_update",
     device=None,
 ):
@@ -200,8 +201,10 @@ def shared_capital_backtest(
     reference's booking, against the previously booked balance) or
     ``"per_candle"`` (once per active candle, against the candle-open
     balance); at the end every open slot is liquidated at its last close, in
-    symbol order.  (The JAX function's ``unroll`` is a `lax.scan` knob with
-    no counterpart in a Python loop.)"""
+    symbol order.  ``unroll`` is accepted for the JAX package's signature
+    and ignored: it unrolls a `lax.scan`, and a Python loop has nothing to
+    unroll."""
+    del unroll
     if equity_cadence not in ("per_update", "per_candle"):
         raise ValueError(f"unknown equity_cadence {equity_cadence!r}")
     if use_param_sl_tp and params is None:

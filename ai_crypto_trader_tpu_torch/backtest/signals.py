@@ -142,23 +142,37 @@ class PositionPlan(NamedTuple):
     trailing_distance: torch.Tensor
 
 
+def size_ladder(volatility, volume):
+    """The capital-free half of `position_size`: the volatility ladder's
+    position fraction and stop fraction, and the volume factor."""
+    hi = volatility > 0.02
+    mid = (~hi) & (volatility > 0.01)
+    position_pct = torch.where(hi, 0.25, torch.where(mid, 0.20, 0.15))
+    sl = torch.where(hi, 0.02, torch.where(mid, 0.015, 0.01))
+    volume_factor = torch.clamp_max(div_const(volume, 50_000.0), 1.0)
+    return position_pct, sl, volume_factor
+
+
+def ladder_size(total_capital, position_pct, sl, volume_factor,
+                max_risk_per_trade: float = 0.15):
+    """The capital half of `position_size`: the size for ``total_capital``
+    from `size_ladder`'s outputs.  Split out so a sequential caller (the
+    tenant engine's balance carry) computes the ladder once."""
+    size = total_capital * position_pct * volume_factor
+    size = torch.minimum(size, total_capital * max_risk_per_trade / sl)
+    size = torch.minimum(size, total_capital * 0.20)
+    size = torch.maximum(size, total_capital * 0.10)
+    return torch.clamp_min(size, 40.0)
+
+
 def position_size(total_capital, volatility, volume,
                   max_risk_per_trade: float = 0.15) -> PositionPlan:
     """PositionSizer.calculate_position_size, vectorized.  stop_loss_pct is
     the reference's FRACTION; the engine decides its unit
     (``reference_quirks``)."""
-    hi = volatility > 0.02
-    mid = (~hi) & (volatility > 0.01)
-    position_pct = torch.where(hi, 0.25, torch.where(mid, 0.20, 0.15))
-    sl = torch.where(hi, 0.02, torch.where(mid, 0.015, 0.01))
-
-    volume_factor = torch.clamp_max(div_const(volume, 50_000.0), 1.0)
-    size = total_capital * position_pct * volume_factor
-    size = torch.minimum(size, total_capital * max_risk_per_trade / sl)
-    size = torch.minimum(size, total_capital * 0.20)
-    size = torch.maximum(size, total_capital * 0.10)
-    size = torch.clamp_min(size, 40.0)
-
+    position_pct, sl, volume_factor = size_ladder(volatility, volume)
+    size = ladder_size(total_capital, position_pct, sl, volume_factor,
+                       max_risk_per_trade)
     return PositionPlan(
         size=size,
         stop_loss_pct=sl,

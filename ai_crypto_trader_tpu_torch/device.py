@@ -5,8 +5,15 @@ Every public entry point of the port — `compute_indicators`, `fused_ewma`,
 `sweep`, `compute_metrics`, `build_indicator_tables`,
 `population_backtest` and the other `backtest.evolvable` pipelines,
 `backtest_fitness`, `run_ga`, `TickEngine`, `stack_symbol_inputs`,
-`shared_capital_backtest`, `portfolio_backtest`, and the `convert`
-functions —
+`shared_capital_backtest`, `portfolio_backtest`, `TenantEngine`, the
+Monte-Carlo engine's functions (`run_simulation`, `simulate_gbm`,
+`simulate_bootstrap`, `path_statistics`, `estimate_mu_sigma`,
+`portfolio_stats`, `simulate_portfolio_correlated`), the risk layer's
+(`historical_var`, `parametric_var`, `cvar`, `correlation_matrix`,
+`portfolio_var`, `equal_risk_position_sizes`, `stress_var_cvar`,
+`diversification_analysis`, `adaptive_stop_loss`, `trailing_stop_init`,
+`trailing_stop_update`, `weighted_sentiment`, `social_risk_adjustment`),
+and the `convert` functions —
 takes ``device=None``, which means the CUDA card, and moves its inputs
 there.  The CPU is used only when the caller asks for it with
 ``device="cpu"`` (the tests do; there every kernel wrapper takes its plain
@@ -14,8 +21,8 @@ PyTorch version).  A request for the card on a machine without one raises:
 nothing carries on quietly on the CPU.  The building blocks under them
 (single indicators, the indicators with tensor periods, the signal and
 vote rules, `volume_profile`, the indicator combinations, `replay_step`,
-the GA's `_evolve_core`) compute on the device of the tensors they are
-given.
+the GA's `_evolve_core`, `fleetscope.device_aggregates`, `mc.quantile`)
+compute on the device of the tensors they are given.
 """
 
 from __future__ import annotations
@@ -62,6 +69,25 @@ def div_const(x, c: float):
 def const_over(c: float, x):
     """``c / x`` for a constant ``c``, as a true division."""
     return torch.full_like(x, c) / x
+
+
+def div_true(x, c: float):
+    """``x / c`` for a value ``c`` that the JAX package's programs take as
+    an argument (not a constant), so XLA divides truly: a true division on
+    both devices (a 0-d tensor on ``x``'s device is not the CPU scalar that
+    CUDA would multiply by its reciprocal)."""
+    return x / torch.full((), c, dtype=x.dtype, device=x.device)
+
+
+def minus_product(c, a, b):
+    """``c − a·b`` rounded once, as the fused multiply-add XLA forms on the
+    CPU for this pattern.  The float32 product is exact in float64, so the
+    result differs from one rounding only where the float64 difference
+    lands exactly halfway between two float32 values.  ``b`` may be a
+    tensor or a float32-exact Python float.  The same bits on every
+    device."""
+    b = b.double() if torch.is_tensor(b) else float(b)
+    return (c.double() - a.double() * b).to(torch.float32)
 
 
 # The matmul-precision knob's vocabulary: the port's copy of the JAX

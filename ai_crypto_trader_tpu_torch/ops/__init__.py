@@ -30,3 +30,4 @@ from ai_crypto_trader_tpu_torch.ops.combinations import (  # noqa: F401
     combined_indicators,
 )
 from ai_crypto_trader_tpu_torch.ops.tick_engine import TickEngine  # noqa: F401
+from ai_crypto_trader_tpu_torch.ops.tenant_engine import TenantEngine  # noqa: F401

@@ -66,7 +66,8 @@ from ai_crypto_trader_tpu_torch.ops.combinations import (
 from ai_crypto_trader_tpu_torch.ops.indicators import compute_indicators
 from ai_crypto_trader_tpu_torch.ops.volume_profile import volume_profile
 
-_NP_DTYPES = {torch.float32: np.float32, torch.int32: np.int32}
+_NP_DTYPES = {torch.float32: np.float32, torch.int32: np.int32,
+              torch.int8: np.int8, torch.bool: np.bool_}
 
 
 class Readback:
@@ -87,6 +88,14 @@ def host_read(readback: Readback) -> dict:
 
     A module-level seam, so tests can wrap it with a counting double and
     assert one read per poll."""
+    return read_packed(readback)
+
+
+def read_packed(readback: Readback) -> dict:
+    """Wait for ``readback``'s copy and unpack it: the body of the tick
+    engine's and the tenant engine's `host_read` seams.  A leaf named
+    ``group/leaf`` lands in ``out[group][leaf]``; every value float32
+    carries must be exact in it (small integers, booleans)."""
     t0 = time.perf_counter()
     if readback.event is not None:
         readback.event.synchronize()

@@ -92,10 +92,34 @@ imports nothing of JAX or of the JAX package.  Phases, one JSON line each:
                 sizer-ladder silos and the shared pool (both equity
                 cadences), plain loops on the card at T = 2,048, against
                 the port's CPU run of the same inputs;
-  8. kernels  — one line with each kernel's launches, error, times and
+  8. tenant   — the live decision path at full width: the tick phase's
+                tape through a `TickEngine` into a `TenantEngine` of 256
+                tenants × those 64 symbols (the fleet observatory and
+                containment on, heterogeneous tenants, a live SL/TP
+                override for half the run, venue syncs and one lane's
+                balance poisoned with NaN mid-run); 20 polls of ingest →
+                step → `feats_from_tick` → `decide`, each decide with one
+                host read and no other synchronizing call, against a CPU
+                engine fed the same features and calls (gate flips only
+                within 1e-6 of a threshold, counted; floats bit for bit),
+                the poisoned lane quarantined and its neighbours
+                bit-identical to a run without the poison, the fleet
+                aggregates equal to `host_aggregates` of the read-back
+                table, exactly 3 K2 launches a tick step; the decide's
+                and the poll's times, torch.profiler over one decide, and
+                the decide at the capacity row's width (256 × 4 symbols);
+  9. mc       — the Monte-Carlo service at the bench's width (10,000 paths
+                × 30 days, bench.py:837-866): `run_simulation` (GBM,
+                bootstrap), `stress_var_cvar` (flash_crash), the
+                correlated 8-asset portfolio, and the trailing stops over
+                a [256, 64] grid for 20 prices in all four strategies,
+                each against the port's CPU run on the same draws (rtol
+                1e-5; the stops exactly), with each call's p50 over 20
+                calls;
+ 10. kernels  — one line with each kernel's launches, error, times and
                 bound, at the main path's shapes, and each kernel's GA,
-                tick and portfolio launches (`ga_tables`, `ga_rows`,
-                `tick`, `portfolio`).
+                tick, portfolio and tenant launches (`ga_tables`,
+                `ga_rows`, `tick`, `portfolio`, `tenant`).
 
 Any failed check raises, so the script exits non-zero and never prints its
 last line, ``{"ok": true, "device": {...}}``.  Times are CUDA-event times
@@ -136,6 +160,13 @@ TICK_FRAMES = ("1m", "3m", "5m", "15m")
 TICK_POLLS = 20
 S_PORT = 8                # portfolio symbols
 T_PORT_K1, T_PORT_PLAIN = 8192, 2048   # K1's check; the plain-loop modes
+N_TENANT = 256            # the capacity row's vmapped tenant cap (bench.py:1734)
+S_CAP = 4                 # the capacity row's symbols (bench.py:1735)
+TENANT_POLLS = 20
+MC_SIMS, MC_DAYS, MC_PRICE = 10_000, 30, 40_000.0   # bench.py:837-866
+MC_CALLS = 20
+MC_RTOL = 1e-5
+STOP_GRID, STOP_PRICES = (256, 64), 20
 # per element and output of the EWMA: the element map (select, multiply)
 # and the recursion (multiply, add) and the NaN mask
 EWMA_OPS = 5
@@ -1831,6 +1862,390 @@ def phase_portfolio(info):
     return k1_entry
 
 
+def tenant_grid(eng, symbols):
+    """Heterogeneous tenants: a grid of confidence threshold, strength
+    floor, position cap and minimum trade; some open and some pending
+    symbols; balances from 1,000 up."""
+    for i in range(eng.n_tenants):
+        eng.set_tenant(
+            i, balance=1_000.0 + 37.0 * i,
+            open_symbols=[symbols[(3 * i) % len(symbols)]] if i % 5 == 0 else (),
+            pending_symbols=[symbols[(7 * i + 1) % len(symbols)]] if i % 7 == 0 else (),
+            conf_threshold=(0.0, 0.3, 0.5, 0.7)[i % 4],
+            min_strength=(0.0, 20.0, 50.0, 70.0)[(i // 4) % 4],
+            max_positions=(1, 2, 5, 64)[(i // 16) % 4],
+            min_trade=(1.0, 40.0, 400.0)[(i // 64) % 3])
+
+
+def decide_flips(card, cpu, feats, params):
+    """Gate and exec differences between the card's and the CPU's decide,
+    each required to sit within 1e-6 relative of the threshold of the
+    value that decides it (strength, confidence, a sizer-ladder step, the
+    minimum trade); float outputs compared bit for bit."""
+    import numpy as np
+
+    diff = (card["gate"] != cpu["gate"]) | (card["exec"] != cpu["exec"])
+    n = int(diff.sum())
+    far = 0
+    if n:
+        s = feats["strength"][None, :]
+        rel = lambda a, b: np.abs(a - b) <= 1e-6 * np.maximum(np.abs(b), 1e-30)  # noqa: E731
+        near = (rel(s, params["min_strength"][:card["gate"].shape[0], None])
+                | rel(cpu["confidence"], params["conf_threshold"][:card["gate"].shape[0], None])
+                | rel(feats["volatility"][None, :], 0.01) | rel(feats["volatility"][None, :], 0.02)
+                | rel(cpu["size"], params["min_trade"][:card["gate"].shape[0], None]))
+        far = int((diff & ~near).sum())
+    floats = [k for k in ("confidence", "size", "qty", "sl_pct", "tp_pct", "equity")
+              if not np.array_equal(card[k], cpu[k], equal_nan=True)]
+    return n, far, floats
+
+
+def phase_tenant(info):
+    """The live decision path at full width: the tick phase's tape (64
+    symbols × frames 1m/3m/5m/15m × a 256-candle window) through a port
+    `TickEngine` into `TenantEngine(symbols=those 64, n_tenants=256)`, the
+    fleet observatory on (top 8) and containment on; heterogeneous tenants
+    (`tenant_grid`), a live SL/TP override on for half the run, a venue
+    sync of a few lanes and a NaN balance poisoning one lane mid-run.  A
+    warm poll, then 20 polls of ingest → step → `feats_from_tick` →
+    `decide`.  Every decide: exactly one host read and no other
+    synchronizing call of torch's; gates, decisions and exec against a
+    `TenantEngine(device="cpu")` fed the same features and calls (flips
+    only within 1e-6 of a threshold, counted), floats bit for bit; the
+    poisoned lane `lane_quarantined` from the next decide on, its
+    neighbours bit-identical to a card run without the poison; the fleet
+    aggregates equal `host_aggregates` of the decide's own read-back
+    table.  Then the decide's times, torch.profiler over one decide, and
+    the same decide at the capacity row's width (256 tenants × 4
+    symbols)."""
+    import numpy as np
+    import torch
+
+    from ai_crypto_trader_tpu_torch.obs import fleetscope
+    from ai_crypto_trader_tpu_torch.ops import tenant_engine, tick_engine
+    from ai_crypto_trader_tpu_torch.ops.ewma import fused_ewma
+
+    tape = TickTape(S_TICK, T_TICK)
+    cursor = tape.n - 64
+    tick = tick_engine.TickEngine(tape.symbols, TICK_FRAMES, window=T_TICK, device="cuda")
+    make = lambda dev: tenant_engine.TenantEngine(tape.symbols, N_TENANT, device=dev)  # noqa: E731
+    card, twin, cpu = make("cuda"), make("cuda"), make("cpu")
+    scopes = {id(e): fleetscope.FleetScope(top_k=8) for e in (card, twin, cpu)}
+    for e in (card, twin, cpu):
+        tenant_grid(e, tape.symbols)
+    poison_lane, poll_sync, poll_poison = 77, 9, 10
+    synced = {3: [tape.symbols[9]], 40: [], 130: [tape.symbols[0], tape.symbols[5]]}
+    q_gate = tenant_engine.GATE_ID["lane_quarantined"]
+
+    real_read, real_program = tenant_engine.host_read, tenant_engine._decide_program
+    marks, reads = {}, []
+
+    def quiet_read(readback):                  # the one sanctioned sync
+        reads.append(1)
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            return real_read(readback)
+        finally:
+            torch.cuda.set_sync_debug_mode("warn")
+
+    def timed_program(*args, **kw):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = real_program(*args, **kw)
+        ev[1].record()
+        marks["events"] = ev
+        return out
+
+    quiet = set(_debug_mode_messages(lambda: None))
+    probe = set(_debug_mode_messages(lambda: torch.ones(1, device="cuda").item())) - quiet
+    if not probe:
+        fail("torch's sync debug mode flagged no .item(): it cannot check for syncs")
+
+    def decide_all(feats, k):
+        out = {}
+        for name, e in (("card", card), ("twin", twin), ("cpu", cpu)):
+            with fleetscope.use(scopes[id(e)]):
+                if name != "card":
+                    out[name] = e.decide(feats)
+                    continue
+                reads.clear()
+                tenant_engine.host_read = quiet_read
+                tenant_engine._decide_program = timed_program
+                t0 = time.perf_counter()
+                try:
+                    msgs = _debug_mode_messages(lambda: out.__setitem__("card", e.decide(feats)))
+                finally:
+                    tenant_engine.host_read, tenant_engine._decide_program = real_read, real_program
+                marks["decide_s"] = time.perf_counter() - t0
+                syncs = [m for m in msgs if m in probe]
+                if len(reads) != 1 or syncs:
+                    fail(f"decide {k}: {len(reads)} host reads and {len(syncs)} other "
+                         f"synchronizing calls, not 1 and 0: {syncs[:3]}")
+        return out
+
+    def poll(k):
+        nonlocal cursor
+        cursor += 1
+        t0 = time.perf_counter()
+        tape.feed(tick, cursor, T_TICK)
+        t1 = time.perf_counter()
+        tick.step()
+        t2 = time.perf_counter()
+        feats = card.feats_from_tick(tick.last_out, tick.last_valid, frame=0)
+        outs = decide_all(feats, k)
+        return feats, outs, {"ingest_s": t1 - t0, "step_s": t2 - t1,
+                             "decide_s": marks["decide_s"],
+                             "poll_s": t2 - t0 + marks["decide_s"]}
+
+    poll("warm")
+    rows, events, flips, floats_differ, quarantined_from = [], [], 0, set(), None
+    exec_total = 0
+    fused_ewma.launches = 0
+    for k in range(TENANT_POLLS):
+        if k == TENANT_POLLS // 4:
+            for e in (card, twin, cpu):
+                e.set_live_overrides(stop_loss=1.5, take_profit=3.0)
+        if k == TENANT_POLLS // 4 + TENANT_POLLS // 2:
+            for e in (card, twin, cpu):
+                e.set_live_overrides(None, None)
+        if k == poll_sync:
+            for e in (card, twin, cpu):
+                for lane, held in synced.items():
+                    e.sync_positions(lane, held)
+                    e.sync_balance(lane, 2_500.0 + lane)
+        if k == poll_poison:
+            for e in (card, cpu):
+                e.sync_balance(poison_lane, float("nan"))
+        feats, outs, row = poll(k)
+        rows.append(row)
+        events.append(marks["events"])
+        c, r = outs["card"], outs["cpu"]
+        exec_total += int(np.count_nonzero(c["exec"]))
+        n, far, fl = decide_flips(c, r, feats, cpu._params_np)
+        floats_differ |= set(fl)
+        flips += n
+        if far:
+            fail(f"decide {k}: {far} gate/exec differences from the CPU farther than 1e-6 "
+                 "from a threshold")
+        if not np.array_equal(c["decision"], r["decision"]):
+            fail(f"decide {k}: decisions differ from the CPU run")
+        for key, v in card._state_np.items():
+            if not np.array_equal(v, cpu._state_np[key], equal_nan=True):
+                floats_differ.add("state." + key)
+        # the poisoned lane, and its neighbours against the twin
+        healthy = np.ones(N_TENANT, bool)
+        healthy[poison_lane] = False
+        if k >= poll_poison:
+            decided = c["gate"][poison_lane] != tenant_engine.NO_DECISION
+            if not decided.any() or (c["gate"][poison_lane][decided] != q_gate).any():
+                fail(f"decide {k}: the poisoned lane is not lane_quarantined")
+            quarantined_from = quarantined_from if quarantined_from is not None else k
+        for key in c:
+            if not np.array_equal(c[key][healthy], outs["twin"][key][healthy]):
+                fail(f"decide {k}: a neighbour of the poisoned lane differs in {key}")
+        for key, v in card._state_np.items():
+            if not np.array_equal(v[healthy], twin._state_np[key][healthy]):
+                fail(f"decide {k}: a neighbour's state {key} differs from the unpoisoned run")
+        # the fleet aggregates against the host recompute of this table
+        st = card._state_np
+        host = fleetscope.host_aggregates(
+            gate=c["gate"][:, :S_TICK], pnl=card.rolling_pnl(), balance=st["balance"],
+            max_drawdown=st["max_drawdown"], active=card._params_np["active"],
+            quarantined=st["quarantined"], k=8)
+        for key, v in host.items():
+            if not np.array_equal(np.asarray(card.last_fleet[key], np.float64),
+                                  np.asarray(v, np.float64), equal_nan=True):
+                fail(f"decide {k}: fleet {key} differs from host_aggregates")
+    k2_launches = fused_ewma.launches
+    if k2_launches != 3 * TENANT_POLLS:
+        fail(f"{TENANT_POLLS} tick steps feeding the decides made {k2_launches} K2 launches, "
+             f"not {3 * TENANT_POLLS}")
+    if floats_differ:
+        fail(f"the card's decide differs from the CPU's in {sorted(floats_differ)}")
+    if not exec_total:
+        fail("no decide cleared an entry: the comparison would be vacuous")
+    if card.quarantine_trips != 1 or cpu.quarantine_trips != 1 or twin.quarantine_trips:
+        fail("the poison tripped no quarantine, or more than one")
+    execs = int(np.count_nonzero(outs["card"]["exec"]))
+    vetoes = card.veto_counts()
+    torch.cuda.synchronize()
+    spans = [a.elapsed_time(b) for a, b in events]
+    pct = lambda key: {q: 1e3 * percentile([r[key] for r in rows], q)  # noqa: E731
+                       for q in (50, 99)}
+    feats = card.feats_from_tick(tick.last_out, tick.last_valid, frame=0)
+    try:
+        with fleetscope.use(scopes[id(card)]):
+            profile = device_profile(lambda: card.decide(feats))
+    except Exception as ex:  # noqa: BLE001 — a profiler that cannot trace is reported, not fatal
+        profile = {"measured": False, "reason": repr(ex)[:300]}
+
+    # the capacity row's width: 256 tenants × the first 4 symbols
+    cap = tenant_engine.TenantEngine(tape.symbols[:S_CAP], N_TENANT, device="cuda")
+    tenant_grid(cap, tape.symbols[:S_CAP])
+    cap_feats = cap.feats_from_tick(tick.last_out, tick.last_valid, frame=0)
+    cap_feats["valid"][S_CAP:] = False
+    cap_ms = []
+    with fleetscope.use(fleetscope.FleetScope(top_k=8)):
+        cap.decide(cap_feats)
+        for _ in range(TENANT_POLLS):
+            t0 = time.perf_counter()
+            cap.decide(cap_feats)
+            cap_ms.append(1e3 * (time.perf_counter() - t0))
+    report = {
+        "phase": "tenant", "card": info["nvidia_smi"], "tenants": N_TENANT,
+        "symbols": S_TICK, "frames": list(TICK_FRAMES), "window": T_TICK,
+        "polls": TENANT_POLLS, "host_reads_per_decide": 1, "other_syncs_per_decide": 0,
+        "k2_launches_in_the_polls": k2_launches,
+        "gate_or_exec_flips_vs_cpu": flips, "floats_vs_cpu": "bit-identical",
+        "poisoned_lane": poison_lane, "quarantined_from_decide": quarantined_from,
+        "neighbours_bit_identical_to_unpoisoned_run": True,
+        "fleet_equals_host_aggregates": True,
+        "veto_counts_last": vetoes, "exec_last": execs, "exec_total": exec_total,
+        "fleet_last": {k: np.asarray(v).tolist() for k, v in card.last_fleet.items()},
+        "decide_ms": pct("decide_s"),
+        "decide_program_device_span_ms": {q: percentile(spans, q) for q in (50, 99)},
+        "poll_ms": pct("poll_s"), "ingest_ms": pct("ingest_s"), "step_ms": pct("step_s"),
+        "profile_one_decide": profile,
+        "capacity_width": {"tenants": N_TENANT, "symbols": S_CAP,
+                           "decide_ms": {q: percentile(cap_ms, q) for q in (50, 99)}},
+    }
+    emit(report)
+    return {"tick_steps": TENANT_POLLS, "launches": k2_launches,
+            "decide_ms_p50": report["decide_ms"][50], "poll_ms_p50": report["poll_ms"][50]}
+
+
+def phase_mc(info):
+    """The Monte-Carlo service at the bench's width (bench.py:837-866):
+    2,048 daily returns from `default_rng(0).normal(0.0002, 0.01)`, price
+    40,000, 30 days, 10,000 paths.  `run_simulation` (GBM and bootstrap),
+    `stress_var_cvar` (flash_crash, 4,096 paths), the correlated
+    portfolio (8 assets × 10,000 × 30) and `trailing_stop_update` over a
+    [256, 64] position grid for 20 prices in all four strategies.  Each
+    result against the port's CPU run on the same draws (drawn on the card
+    from a seeded generator, drawn again from the same seed and moved to
+    the CPU): VaR, CVaR and percentiles within rtol 1e-5, the trailing
+    stops exactly.  Each call's p50 over 20 calls, a fresh generator seed
+    each."""
+    import numpy as np
+    import torch
+
+    from ai_crypto_trader_tpu_torch.mc import run_simulation, simulate_portfolio_correlated
+    from ai_crypto_trader_tpu_torch.risk import (
+        STRATEGIES, stress_var_cvar, trailing_stop_init, trailing_stop_update)
+
+    returns = np.random.default_rng(0).normal(0.0002, 0.01, 2048).astype(np.float32)
+    gen = lambda seed: torch.Generator(device="cuda").manual_seed(seed)  # noqa: E731
+    shape = (MC_SIMS, MC_DAYS - 1)
+
+    def close(name, got, ref, rtol=MC_RTOL):
+        g, r = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+        err = float(np.max(np.abs(g - r) / np.maximum(np.abs(r), 1e-12)))
+        if not np.allclose(g, r, rtol=rtol, atol=0.0):
+            fail(f"mc {name}: card and CPU differ by {err:.3g} relative, over {rtol}")
+        return err
+
+    a = np.random.default_rng(8).normal(size=(8, 8)).astype(np.float32)
+    cov = (a @ a.T * 0.05 + np.eye(8, dtype=np.float32) * 0.02).astype(np.float32)
+    prices = np.linspace(1.0, 40_000.0, 8).astype(np.float32)
+    mus = np.linspace(-0.1, 0.3, 8).astype(np.float32)
+    w = np.full(8, 1.0 / 8, np.float32)
+    calls = {
+        "run_simulation_gbm": (
+            lambda g, **kw: run_simulation(g, MC_PRICE, returns, days=MC_DAYS,
+                                           num_sims=MC_SIMS, **kw),
+            lambda g: {"z": torch.randn(shape, generator=g, device="cuda")}),
+        "run_simulation_bootstrap": (
+            lambda g, **kw: run_simulation(g, MC_PRICE, returns, days=MC_DAYS,
+                                           num_sims=MC_SIMS, method="bootstrap", **kw),
+            lambda g: {"idx": torch.randint(0, returns.size, shape, generator=g,
+                                            device="cuda")}),
+        "stress_var_cvar_flash_crash": (
+            lambda g, **kw: stress_var_cvar(g, MC_PRICE, returns, stress="flash_crash",
+                                            num_sims=4096, **kw),
+            lambda g: {"z": torch.randn((4096, MC_DAYS - 1), generator=g, device="cuda")}),
+        "portfolio_correlated_8": (
+            lambda g, **kw: simulate_portfolio_correlated(g, prices, mus, cov, w, MC_DAYS,
+                                                          MC_SIMS, **kw),
+            lambda g: {"z": torch.randn((MC_SIMS, MC_DAYS - 1, 8), generator=g,
+                                        device="cuda")}),
+    }
+    report = {"phase": "mc", "card": info["nvidia_smi"], "sims": MC_SIMS, "days": MC_DAYS,
+              "rtol": MC_RTOL, "calls": {}}
+    for name, (fn, draw) in calls.items():
+        got = fn(gen(1), device="cuda")
+        again = fn(gen(1), **draw(gen(1)), device="cuda")     # the same draws, injected
+        draws = {k: v.cpu() for k, v in draw(gen(1)).items()}
+        ref = fn(None, **draws, device="cpu")
+        errs = {}
+        if name == "portfolio_correlated_8":
+            if not torch.equal(got, again):
+                fail(f"mc {name}: the injected draws are not the generator's")
+            errs["paths"] = close(name, got.cpu(), ref)
+        elif name.startswith("stress"):
+            if got != again:
+                fail(f"mc {name}: the injected draws are not the generator's")
+            for k in ("var_pct", "cvar_pct", "stress_var_pct", "stress_cvar_pct",
+                      "var_signed_pct", "stress_var_signed_pct"):
+                errs[k] = close(f"{name}.{k}", got[k], ref[k])
+            if not got["stress_var_pct"] > got["var_pct"]:
+                fail("mc: the flash crash did not deepen the VaR")
+        else:
+            if not torch.equal(got["paths"], again["paths"]):
+                fail(f"mc {name}: the injected draws are not the generator's")
+            for k in ("var", "cvar", "percentile_prices", "expected_price",
+                      "max_drawdown_median", "mu", "sigma"):
+                errs[k] = close(f"{name}.{k}", got[k].cpu(), ref[k])
+            if not np.isfinite(got["paths"].cpu().numpy()).all():
+                fail(f"mc {name}: non-finite paths")
+        ms = []
+        for i in range(MC_CALLS):
+            t0 = time.perf_counter()
+            out = fn(gen(100 + i), device="cuda")
+            if isinstance(out, dict) and "var" in out:
+                float(out["var"])                              # what a caller reads
+            elif torch.is_tensor(out):
+                torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        report["calls"][name] = {"ms_p50": percentile(ms, 50), "ms_p99": percentile(ms, 99),
+                                 "max_rel_err_vs_cpu": errs,
+                                 "var": (float(got["var"]) if isinstance(got, dict)
+                                         and "var" in got else None)}
+
+    # trailing stops over a [256, 64] grid, 20 prices, every strategy
+    rng = np.random.default_rng(12)
+    entry = rng.uniform(50.0, 500.0, STOP_GRID).astype(np.float32)
+    path = (entry * np.cumprod(1.0 + rng.normal(0.004, 0.02, (STOP_PRICES, *STOP_GRID)),
+                               axis=0)).astype(np.float32)
+    stop_report = {}
+    for strategy in STRATEGIES:
+        kw = dict(strategy=strategy, atr=entry * np.float32(0.01),
+                  volatility=entry * np.float32(0.02))
+
+        def run(dev):
+            st = trailing_stop_init(entry, entry * np.float32(0.97), device=dev)
+            fired = 0
+            for p in path:
+                st, trig = trailing_stop_update(st, p, device=dev, **kw)
+                fired = fired + trig.to(torch.int32)
+            return st, fired
+
+        (st, fired), card_ms = timed(lambda: run("cuda"))
+        ref, ref_fired = run("cpu")
+        for f in st._fields:
+            if not torch.equal(getattr(st, f).cpu(), getattr(ref, f)):
+                fail(f"trailing stop {strategy}: {f} differs from the CPU run")
+        if not torch.equal(fired.cpu(), ref_fired) or int(ref.n_adjustments.sum()) == 0:
+            fail(f"trailing stop {strategy}: triggers differ, or nothing adjusted")
+        ms = [timed(lambda: run("cuda"))[1] for _ in range(5)]
+        stop_report[strategy] = {"ms_20_updates_p50": percentile(ms, 50),
+                                 "adjustments": int(ref.n_adjustments.sum()),
+                                 "triggered": int(ref_fired.sum()), "exact": True}
+    report["trailing_stops"] = {"grid": list(STOP_GRID), "prices": STOP_PRICES,
+                                **stop_report}
+    emit(report)
+    return report
+
+
 def main():
     import torch
 
@@ -1859,6 +2274,8 @@ def main():
     ga_entries = phase_ga(d, info, libraries)
     tick = phase_tick(info)
     portfolio = phase_portfolio(info)
+    tenant = phase_tenant(info)
+    phase_mc(info)
     bound_ms, bound_by, stepped_bound_ms = replay_bound_ms(stats, B_FULL, T_FULL)
     checks += full
     kernels = [
@@ -1877,6 +2294,7 @@ def main():
          "beyond_residency": ewma["beyond_residency"],
          "ga_tables": {**ga_entries["ga_tables"], "registers": ewma["registers"]},
          "tick": tick,
+         "tenant": tenant,
          "shape": "the two launches of compute_indicators at T=525600, summed "
                   "(A: close K=2 + up/dn/tr K=1; B: MACD line K=1)"},
         {"name": "replay_sweep", "route": "cuda",

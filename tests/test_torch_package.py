@@ -29,6 +29,12 @@ from ai_crypto_trader_tpu_torch.backtest.evolvable import (
 )
 from ai_crypto_trader_tpu_torch.config import GAParams
 from ai_crypto_trader_tpu_torch.evolve import backtest_fitness, run_ga
+from ai_crypto_trader_tpu_torch.mc import run_simulation, simulate_portfolio_correlated
+from ai_crypto_trader_tpu_torch.ops.tenant_engine import TenantEngine
+from ai_crypto_trader_tpu_torch.risk import (
+    historical_var, social_risk_adjustment, stress_var_cvar, trailing_stop_init,
+    trailing_stop_update)
+from ai_crypto_trader_tpu_torch.risk.social import SocialSnapshot
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -45,10 +51,12 @@ bad = sorted(m for m in sys.modules
 print(len(names), bad)
 expected = {"config", "ops.dynamic", "backtest.evolvable", "evolve", "evolve.ga",
             "evolve.selection", "cli", "obs", "obs.drift", "ops.volume_profile",
-            "ops.combinations", "ops.tick_engine", "backtest.portfolio", "data.ingest"}
+            "ops.combinations", "ops.tick_engine", "backtest.portfolio", "data.ingest",
+            "obs.flightrec", "obs.fleetscope", "utils.journal", "ops.tenant_engine",
+            "risk.stops", "risk.social", "risk.var", "sim.scenarios", "mc.engine"}
 missing = sorted(e for e in expected if pkg.__name__ + "." + e not in names)
 print(missing)
-sys.exit(1 if bad or missing or len(names) < 28 else 0)
+sys.exit(1 if bad or missing or len(names) < 38 else 0)
 """
 
 
@@ -109,6 +117,19 @@ _ENTRY_POINTS = {
         prepare_inputs(compute_indicators(_small(), device="cpu"), device="cpu")),
     "shared_capital_backtest": lambda: shared_capital_backtest(
         stack_symbol_inputs({"BTCUSDC": _small()}, device="cpu")[0]),
+    "TenantEngine": lambda: TenantEngine(["BTCUSDC"], 4),
+    "run_simulation": lambda: run_simulation(None, 100.0, np.full(64, 0.001, np.float32)),
+    "stress_var_cvar": lambda: stress_var_cvar(None, 100.0, np.full(64, 0.001, np.float32),
+                                               num_sims=16),
+    "simulate_portfolio_correlated": lambda: simulate_portfolio_correlated(
+        None, np.ones(2, np.float32), np.zeros(2, np.float32), np.eye(2, dtype=np.float32),
+        np.full(2, 0.5, np.float32), 5, 4),
+    "historical_var": lambda: historical_var(np.zeros((2, 16), np.float32)),
+    "trailing_stop_update": lambda: trailing_stop_update(
+        trailing_stop_init(np.ones(2, np.float32), np.zeros(2, np.float32), device="cpu"),
+        np.ones(2, np.float32)),
+    "social_risk_adjustment": lambda: social_risk_adjustment(SocialSnapshot(
+        np.full((2, 4), 0.5, np.float32), np.zeros(2, np.float32), np.float32(1.0))),
 }
 
 
@@ -190,3 +211,54 @@ def test_cli_backtest_on_the_cpu(tmp_path, monkeypatch, capsys):
     result = json.loads(saved.read_text())
     assert result["sweep_size"] == 8 and result["device"] == "cpu"
     assert np.isfinite(result["sharpe_ratio"])
+
+
+def test_gate_vocabulary_is_the_jax_package_vocabulary():
+    """Gate ids are positions in GATES and live in journaled records: the
+    port's copy must keep the JAX package's order."""
+    from ai_crypto_trader_tpu.obs import flightrec as ref
+    from ai_crypto_trader_tpu_torch.obs import flightrec
+
+    assert flightrec.GATES == ref.GATES
+    assert flightrec.VETO_ORDER == ref.VETO_ORDER
+
+
+@pytest.mark.parametrize("name", ["TradingParams", "TrailingStopParams",
+                                  "SocialRiskParams", "MonteCarloParams", "GAParams"])
+def test_config_defaults_are_the_jax_package_defaults(name):
+    import dataclasses
+
+    from ai_crypto_trader_tpu import config as ref
+    from ai_crypto_trader_tpu_torch import config
+
+    mine, theirs = getattr(config, name)(), getattr(ref, name)()
+    assert dataclasses.asdict(mine) == dataclasses.asdict(theirs)
+    assert [f.name for f in dataclasses.fields(mine)] == \
+        [f.name for f in dataclasses.fields(theirs)]
+
+
+def _unroll_case(fn_name):
+    inp = prepare_inputs(compute_indicators(_small(), device="cpu"), device="cpu")
+    if fn_name == "sweep":
+        params = sample_params(torch.Generator().manual_seed(1), 4, device="cpu")
+        return lambda **kw: sweep(inp, params, device="cpu", **kw)
+    stacked, _ = stack_symbol_inputs({"A": _small(), "B": _small()}, device="cpu")
+    return lambda **kw: shared_capital_backtest(stacked, max_positions=1,
+                                                min_signal_strength=40.0,
+                                                device="cpu", **kw)[0]
+
+
+@pytest.mark.parametrize("fn_name", ["sweep", "shared_capital_backtest"])
+def test_jax_signature_keywords_unroll_and_partitioner(fn_name):
+    """`unroll` (a `lax.scan` knob) is accepted and changes no bit; `sweep`
+    takes `partitioner=None` and refuses any other partitioner."""
+    run = _unroll_case(fn_name)
+    base, unrolled = run(), run(unroll=8)
+    for f in base._fields:
+        a, b = getattr(base, f), getattr(unrolled, f)
+        assert a.dtype == b.dtype and torch.equal(a.view(-1), b.view(-1)), f
+    if fn_name == "sweep":
+        for f, v in run(partitioner=None)._asdict().items():
+            assert torch.equal(v, getattr(base, f)), f
+        with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
+            run(partitioner=object())
