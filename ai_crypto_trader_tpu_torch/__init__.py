@@ -1,6 +1,6 @@
 """PyTorch/CUDA port of ai_crypto_trader_tpu's population backtest, GA,
-live tick and decision path, portfolio backtest, risk layer and
-Monte-Carlo engine.
+live tick and decision path, portfolio backtest, risk layer, Monte-Carlo
+engine, price-model zoo and chart-pattern classifier (serving).
 
 The chains, module for module after the JAX package:
 
@@ -17,13 +17,19 @@ The chains, module for module after the JAX package:
         containment, obs.fleetscope aggregates; one host read)
     returns → mc.run_simulation / risk.stress_var_cvar (GBM or bootstrap
         paths, VaR / CVaR); risk.stops, risk.social, risk.var
+    features → models.predict_prices_batched (the zoo's nine architectures,
+        N models of one architecture as one vmapped program; one host read)
+    ohlcv → patterns.detect_patterns (CNN / LSTM / CNN-LSTM over every
+        overlapping window; one host read)
 
 Plain tensor code is PyTorch; the two Pallas kernels of the JAX package on
 these paths are CUDA C++ kernels for Hopper (``csrc/``), built with nvcc on
-first use and loaded with ctypes (``ops/_cuda.py``).  Entry points run on the
-CUDA card unless called with ``device="cpu"`` (``device.resolve_device``).
-Arithmetic is float32 throughout; TF32 is switched off here, once, although
-no matmul or convolution lies on this path.
+first use and loaded with ctypes (``ops/_cuda.py``).  The models' matmuls
+and convolutions are PyTorch's, as the JAX package computes them outside
+any Pallas kernel.  Entry points run on the CUDA card unless called with
+``device="cpu"`` (``device.resolve_device``).  Arithmetic is float32
+throughout: TF32 is switched off here, once, for matmuls and for cuDNN's
+convolutions, so the card's outputs can be held to the CPU's.
 """
 
 import torch

@@ -1,14 +1,28 @@
 """Carry the JAX package's state across to the port, and results back.
 
-This system has no weights: its "parameters" are the strategy population
-(or the GA's genome matrix), the candle inputs and the GA's period tables.
-They come over as NumPy arrays — ``np.asarray`` of the JAX leaves, in
-dicts or NamedTuples — and become the port's NamedTuples of tensors on a
-device, with the dtypes the JAX package uses (float32, and int32 for the
-signal and decision streams).  `stats_to_numpy` goes back.
+Two kinds of state come over:
+
+  * the backtest's and the GA's arrays — the strategy population (or the
+    GA's genome matrix), the candle inputs and the GA's period tables —
+    as NumPy arrays (``np.asarray`` of the JAX leaves, in dicts or
+    NamedTuples), which become the port's NamedTuples of tensors on a
+    device with the dtypes the JAX package uses (float32, and int32 for
+    the signal and decision streams).  `stats_to_numpy` goes back;
+  * the weights of the model zoo and of the chart-pattern classifier: a
+    flax parameter tree becomes the port's module of that architecture
+    (`model_from_flax`), a JAX ``TrainResult`` the port's
+    (`train_result_from_flax`), a pattern classifier's tree a
+    `PatternRecognizer` (`recognizer_from_flax`).  Leaves are matched by
+    flax scope name — the port's modules carry flax's names, whose
+    auto-numbering follows construction order, not data flow — and each
+    leaf's shape is checked against the shape that name must have before
+    its layout is turned into torch's.  Every flax leaf is used exactly
+    once, or the conversion raises.
 """
 
 from __future__ import annotations
+
+from collections import Counter
 
 import numpy as np
 import torch
@@ -17,6 +31,12 @@ from ai_crypto_trader_tpu_torch.backtest.engine import BacktestInputs, BacktestS
 from ai_crypto_trader_tpu_torch.backtest.evolvable import IndicatorTables
 from ai_crypto_trader_tpu_torch.backtest.strategy import StrategyParams
 from ai_crypto_trader_tpu_torch.device import resolve_device, to_device
+from ai_crypto_trader_tpu_torch.models.fused_lstm import FusedLSTM
+from ai_crypto_trader_tpu_torch.models.layers import (
+    Conv, Dense, GRUCell, LayerNorm, MultiHeadDotProductAttention)
+from ai_crypto_trader_tpu_torch.models.train import Scaler, TrainResult
+from ai_crypto_trader_tpu_torch.models.zoo import build_model
+from ai_crypto_trader_tpu_torch.patterns.model import PatternRecognizer, _build
 
 _INT_FIELDS = frozenset({"signal", "decision", "total_trades", "winning_trades",
                          "losing_trades", "n_r", "max_win_streak",
@@ -68,3 +88,142 @@ def stats_to_numpy(stats: BacktestStats) -> dict:
     """BacktestStats of tensors → {field: np.ndarray}."""
     return {k: getattr(stats, k).detach().cpu().numpy()
             for k in BacktestStats._fields}
+
+
+# -- weights: flax parameter trees → the port's modules ----------------------
+
+def _flatten(tree, prefix: str = "") -> dict:
+    """A flax parameter tree (nested mappings; the ``"params"`` collection
+    of an ``init`` output unwrapped) → {"scope/.../leaf": array}."""
+    if not prefix and set(tree) == {"params"}:
+        tree = tree["params"]
+    flat = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else str(k)
+        if hasattr(v, "items"):
+            flat.update(_flatten(v, path))
+        else:
+            flat[path] = v
+    return flat
+
+
+def _flax_sources(model: torch.nn.Module) -> dict:
+    """{port parameter: (flax leaf paths, the shape each must have, the
+    function of those leaves that gives the torch tensor)} for every
+    parameter of ``model``."""
+    out, composite = {}, []
+    for name, mod in model.named_modules():
+        if any(name.startswith(c + ".") for c in composite):
+            continue                       # a part of an attention layer or a GRU cell
+        pre, p = (name + "." if name else ""), name.replace(".", "/")
+        if isinstance(mod, MultiHeadDotProductAttention):
+            composite.append(name)
+            heads = mod.num_heads
+            for part in ("query", "key", "value"):
+                o, i = getattr(mod, part).weight.shape
+                out[f"{pre}{part}.weight"] = ([f"{p}/{part}/kernel"], [(i, heads, o // heads)],
+                                              lambda k: k.reshape(k.shape[0], -1).T)
+                out[f"{pre}{part}.bias"] = ([f"{p}/{part}/bias"], [(heads, o // heads)],
+                                            lambda b: b.reshape(-1))
+            o, i = mod.out.weight.shape
+            out[f"{pre}out.weight"] = ([f"{p}/out/kernel"], [(heads, i // heads, o)],
+                                       lambda k: k.reshape(-1, k.shape[-1]).T)
+            out[f"{pre}out.bias"] = ([f"{p}/out/bias"], [(o,)], lambda b: b)
+        elif isinstance(mod, GRUCell):
+            composite.append(name)
+            H, F = mod.bhn.shape[0], mod.wi.weight.shape[1]
+            out[f"{pre}wi.weight"] = ([f"{p}/{g}/kernel" for g in ("ir", "iz", "in")], [(F, H)] * 3,
+                                      lambda *ks: np.concatenate(ks, axis=1).T)
+            out[f"{pre}wi.bias"] = ([f"{p}/{g}/bias" for g in ("ir", "iz", "in")], [(H,)] * 3,
+                                    lambda *bs: np.concatenate(bs))
+            out[f"{pre}wh"] = ([f"{p}/{g}/kernel" for g in ("hr", "hz", "hn")], [(H, H)] * 3,
+                               lambda *ks: np.concatenate(ks, axis=1))
+            out[f"{pre}bhn"] = ([f"{p}/hn/bias"], [(H,)], lambda b: b)
+        elif isinstance(mod, Dense):
+            o, i = mod.weight.shape
+            out[f"{pre}weight"] = ([f"{p}/kernel"], [(i, o)], lambda k: k.T)
+            out[f"{pre}bias"] = ([f"{p}/bias"], [(o,)], lambda b: b)
+        elif isinstance(mod, Conv):
+            o, i, k = mod.weight.shape
+            out[f"{pre}weight"] = ([f"{p}/kernel"], [(k, i, o)], lambda w: w.transpose(2, 1, 0))
+            out[f"{pre}bias"] = ([f"{p}/bias"], [(o,)], lambda b: b)
+        elif isinstance(mod, LayerNorm):
+            (d,) = mod.scale.shape
+            out[f"{pre}scale"] = ([f"{p}/scale"], [(d,)], lambda s: s)
+            out[f"{pre}bias"] = ([f"{p}/bias"], [(d,)], lambda b: b)
+        elif isinstance(mod, FusedLSTM):
+            out[f"{pre}wh"] = ([f"{p}/wh"], [tuple(mod.wh.shape)], lambda w: w)
+    return out
+
+
+def state_from_flax(model: torch.nn.Module, params) -> dict:
+    """``model``'s state dict from a flax parameter tree of its
+    architecture: float32 CPU tensors.  Raises if a leaf is missing, has
+    another shape than its name requires, or is left over."""
+    flat = {k: np.asarray(v, np.float32) for k, v in _flatten(params).items()}
+    sources = _flax_sources(model)
+    names = {n for n, _ in model.named_parameters()}
+    if set(sources) != names:
+        raise ValueError(f"no flax source for {sorted(names - set(sources))}")
+    used, state = Counter(), {}
+    for pname, (paths, shapes, to_torch) in sources.items():
+        leaves = []
+        for path, shape in zip(paths, shapes):
+            if path not in flat:
+                raise KeyError(f"the flax tree has no leaf {path!r} (for {pname})")
+            if flat[path].shape != tuple(shape):
+                raise ValueError(f"flax leaf {path!r} is {flat[path].shape}; "
+                                 f"{pname} needs {tuple(shape)}")
+            used[path] += 1
+            leaves.append(flat[path])
+        state[pname] = torch.from_numpy(np.array(to_torch(*leaves), order="C"))
+    left = sorted(set(flat) - set(used))
+    twice = sorted(p for p, n in used.items() if n > 1)
+    if left or twice:
+        raise ValueError(f"flax leaves left over {left}, used twice {twice}")
+    return state
+
+
+def model_from_flax(model_type: str, params, model_kwargs: dict | None = None, *,
+                    features: int = 5, device=None) -> torch.nn.Module:
+    """A flax parameter tree of the zoo's architecture ``model_type`` (as
+    ``build_model(model_type, **model_kwargs).init`` gives it, leaves
+    anything NumPy takes) over ``features`` input columns → the port's
+    module of that architecture holding those weights, on ``device``."""
+    dev = resolve_device(device)
+    model = build_model(model_type, **(model_kwargs or {}), features=features, device="cpu")
+    model.load_state_dict(state_from_flax(model, params))
+    return model.to(dev)
+
+
+def _params_of(model: torch.nn.Module) -> dict:
+    return {k: v.detach() for k, v in model.named_parameters()}
+
+
+def train_result_from_flax(result, device=None) -> TrainResult:
+    """A JAX ``TrainResult`` (its ``params``, the ``scaler``'s min and max,
+    ``model_type``, ``model_kwargs``, ``history``, ``best_val_loss``,
+    ``epochs_run`` and ``target_col``) → the port's TrainResult on
+    ``device``; the input width is the scaler's."""
+    dev = resolve_device(device)
+    smin, smax = (np.asarray(v, np.float32) for v in (result.scaler.min, result.scaler.max))
+    kwargs = dict(result.model_kwargs)
+    model = model_from_flax(result.model_type, result.params, kwargs,
+                            features=smin.shape[-1], device=dev)
+    return TrainResult(params=_params_of(model), model_type=result.model_type,
+                       scaler=Scaler(to_device(smin, dev), to_device(smax, dev)),
+                       model_kwargs=kwargs, history=list(result.history),
+                       best_val_loss=float(result.best_val_loss),
+                       epochs_run=int(result.epochs_run), target_col=int(result.target_col))
+
+
+def recognizer_from_flax(model_type: str, params, *, seq_len: int = 60,
+                         trained: bool = True, device=None) -> PatternRecognizer:
+    """A flax parameter tree of the pattern classifier ``model_type``
+    ("cnn", "lstm" or "cnn_lstm"; windows of ``seq_len`` candles) → the
+    port's PatternRecognizer with those weights on ``device``."""
+    dev = resolve_device(device)
+    model = _build(model_type, device="cpu", seq_len=seq_len)
+    model.load_state_dict(state_from_flax(model, params))
+    return PatternRecognizer(model_type=model_type, params=_params_of(model.to(dev)),
+                             trained=trained)

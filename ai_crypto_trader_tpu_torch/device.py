@@ -13,7 +13,9 @@ Monte-Carlo engine's functions (`run_simulation`, `simulate_gbm`,
 `portfolio_var`, `equal_risk_position_sizes`, `stress_var_cvar`,
 `diversification_analysis`, `adaptive_stop_loss`, `trailing_stop_init`,
 `trailing_stop_update`, `weighted_sentiment`, `social_risk_adjustment`),
-and the `convert` functions —
+the model zoo's and the pattern classifier's (`build_model`, `fit_scaler`,
+`predict_prices`, `predict_prices_batched`, `detect_patterns`, the
+classifiers' `_build`), and the `convert` functions —
 takes ``device=None``, which means the CUDA card, and moves its inputs
 there.  The CPU is used only when the caller asks for it with
 ``device="cpu"`` (the tests do; there every kernel wrapper takes its plain
@@ -21,8 +23,9 @@ PyTorch version).  A request for the card on a machine without one raises:
 nothing carries on quietly on the CPU.  The building blocks under them
 (single indicators, the indicators with tensor periods, the signal and
 vote rules, `volume_profile`, the indicator combinations, `replay_step`,
-the GA's `_evolve_core`, `fleetscope.device_aggregates`, `mc.quantile`)
-compute on the device of the tensors they are given.
+the GA's `_evolve_core`, `fleetscope.device_aggregates`, `mc.quantile`,
+the models' layers and `patterns.preprocess_window`) compute on the device
+of the tensors they are given.
 """
 
 from __future__ import annotations

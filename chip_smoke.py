@@ -116,10 +116,26 @@ imports nothing of JAX or of the JAX package.  Phases, one JSON line each:
                 each against the port's CPU run on the same draws (rtol
                 1e-5; the stops exactly), with each call's p50 over 20
                 calls;
- 10. kernels  — one line with each kernel's launches, error, times and
+ 10. nn       — the model zoo through the prediction service's batched
+                path: 256 lanes (the tick tape's 64 symbols × 4 frames),
+                each its own model and 60-candle window, for each of the
+                nine architectures `predict_prices_batched` on the card
+                against the port's CPU run (scaled outputs atol 1e-5,
+                prices rtol 1e-5), one host read and no other sync a call,
+                three lanes of `predict_prices` equal to the batch, p50/p99
+                of 20 calls; torch.profiler over one lstm call and cuDNN's
+                `nn.LSTM` over the same windows as the library's time; then
+                `cli train`'s seven feature columns over 64 symbols ×
+                43,200 candles (exactly 2 K2 launches) and its lstm group;
+ 11. patterns — the three chart-pattern classifiers' `detect_patterns`
+                over the 64 symbols' 256-candle `5m` windows against the
+                port's CPU run (probabilities atol 1e-5, the same top 3 but
+                for near-ties, counted), p50/p99 of 20 rounds;
+ 12. kernels  — one line with each kernel's launches, error, times and
                 bound, at the main path's shapes, and each kernel's GA,
-                tick, portfolio and tenant launches (`ga_tables`,
-                `ga_rows`, `tick`, `portfolio`, `tenant`).
+                tick, portfolio, tenant and `cli train` launches
+                (`ga_tables`, `ga_rows`, `tick`, `portfolio`, `tenant`,
+                `nn_cli_train`).
 
 Any failed check raises, so the script exits non-zero and never prints its
 last line, ``{"ok": true, "device": {...}}``.  Times are CUDA-event times
@@ -130,6 +146,7 @@ rate outside the tensor cores, at the full 700 W power limit).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import math
@@ -167,6 +184,10 @@ MC_SIMS, MC_DAYS, MC_PRICE = 10_000, 30, 40_000.0   # bench.py:837-866
 MC_CALLS = 20
 MC_RTOL = 1e-5
 STOP_GRID, STOP_PRICES = (256, 64), 20
+NN_UNITS, NN_SEQ = 64, 60          # build_model's defaults, the service's window
+NN_CALLS = 20
+NN_ATOL, NN_RTOL = 1e-5, 1e-5      # scaled outputs / probabilities; prices
+CLI_TRAIN_COLUMNS = ("close", "volume", "rsi", "macd", "bb_position", "stoch_k", "atr")
 # per element and output of the EWMA: the element map (select, multiply)
 # and the recursion (multiply, add) and the NaN mask
 EWMA_OPS = 5
@@ -572,6 +593,28 @@ def ewma_plain(x, alphas, start=0, device=None):
 def jobs_plain(jobs, device=None):
     """`ops.ewma.fused_ewma_jobs` through the plain version."""
     return [ewma_plain(x, alphas, start) for x, alphas, start in jobs]
+
+
+@contextlib.contextmanager
+def recording_ewma(launches):
+    """Every EWMA entry compute_indicators calls, patched to record each
+    call's jobs [(x, alphas, start)] into ``launches`` before it runs."""
+    from ai_crypto_trader_tpu_torch.ops import indicators as ind_mod
+
+    entries = {"fused_ewma": ind_mod.fused_ewma, "fused_ewma_jobs": ind_mod.fused_ewma_jobs}
+
+    def recording(name):
+        def call(*args, **kw):
+            jobs = args[0] if name == "fused_ewma_jobs" else [(args[0], args[1], args[2])]
+            launches.append([(x, a, st) for x, a, st in jobs])
+            return entries[name](*args, **kw)
+        return call
+
+    ind_mod.fused_ewma, ind_mod.fused_ewma_jobs = recording("fused_ewma"), recording("fused_ewma_jobs")
+    try:
+        yield launches
+    finally:
+        ind_mod.fused_ewma, ind_mod.fused_ewma_jobs = entries["fused_ewma"], entries["fused_ewma_jobs"]
 
 
 def phase_flips(d, params):
@@ -1563,7 +1606,6 @@ def phase_tick(info):
     both modes with their split, and torch.profiler over one step."""
     import torch
 
-    from ai_crypto_trader_tpu_torch.ops import indicators as ind_mod
     from ai_crypto_trader_tpu_torch.ops import tick_engine
     from ai_crypto_trader_tpu_torch.ops.ewma import (
         barrier_launch, fused_ewma, fused_ewma_jobs, fused_ewma_plain, tile_count)
@@ -1578,15 +1620,6 @@ def phase_tick(info):
 
     # --- 1. one steady step: its K2 launches, host reads and syncs ------
     launches, reads = [], []
-    entries = {"fused_ewma": ind_mod.fused_ewma, "fused_ewma_jobs": ind_mod.fused_ewma_jobs}
-
-    def recording(name):
-        def call(*args, **kw):
-            jobs = args[0] if name == "fused_ewma_jobs" else [(args[0], args[1], args[2])]
-            launches.append([(x, a, st) for x, a, st in jobs])
-            return entries[name](*args, **kw)
-        return call
-
     real_read = tick_engine.host_read
 
     def quiet_read(readback):                  # the one sanctioned sync
@@ -1599,13 +1632,12 @@ def phase_tick(info):
 
     cursor += 1
     tape.feed(eng, cursor, T_TICK)
-    ind_mod.fused_ewma, ind_mod.fused_ewma_jobs = recording("fused_ewma"), recording("fused_ewma_jobs")
     tick_engine.host_read = quiet_read
     fused_ewma.launches = 0
     try:
-        syncs = sync_calls(eng.step)
+        with recording_ewma(launches):
+            syncs = sync_calls(eng.step)
     finally:
-        ind_mod.fused_ewma, ind_mod.fused_ewma_jobs = entries["fused_ewma"], entries["fused_ewma_jobs"]
         tick_engine.host_read = real_read
     n_launch = fused_ewma.launches
     if n_launch != 3 or len(launches) != 3 or len(reads) != 1:
@@ -2246,6 +2278,395 @@ def phase_mc(info):
     return report
 
 
+def lane_features(tape, cursor, frames, limit):
+    """Each (symbol, frame) lane's OHLCV features [limit, 5] as the
+    prediction service builds them from its klines (`_features_from_klines`,
+    models/service.py:49-56), symbol-major."""
+    import numpy as np
+
+    return [np.asarray([row[1:6] for row in tape.klines(i, iv, cursor, limit)], np.float32)
+            for i in range(len(tape.symbols)) for iv in frames]
+
+
+def lane_results(model_type, feats, seed):
+    """One `TrainResult` per lane: the port's initialisers drawing from one
+    seeded CPU generator, lane after lane; each lane's scaler fitted on its
+    own features; the close (column 3) as target, as the service predicts."""
+    import torch
+
+    from ai_crypto_trader_tpu_torch.models import TrainResult, build_model, fit_scaler
+
+    horizons = (1, 3, 5) if model_type == "multitask" else (1,)
+    kwargs = dict(units=NN_UNITS, dropout=0.2, horizons=horizons)
+    g = torch.Generator().manual_seed(seed)
+    out = []
+    for lane, f in enumerate(feats):
+        model = build_model(model_type, **kwargs, features=f.shape[1], generator=g,
+                            device="cpu")
+        out.append(TrainResult({k: v.detach() for k, v in model.named_parameters()},
+                               model_type, fit_scaler(f, device="cpu"), kwargs,
+                               best_val_loss=0.001 * (1 + lane % 7), target_col=3))
+    return out
+
+
+def batched_check(results, feats, label):
+    """`predict_prices_batched` on the card against the port's CPU run of the
+    same results and windows: the scaled outputs (read through the
+    `host_read` seam) within NN_ATOL, the prices within NN_RTOL.  One warm
+    call, then one call with its host reads counted and torch's sync debug
+    mode on: exactly one read and no other synchronizing call."""
+    import numpy as np
+    import torch
+
+    from ai_crypto_trader_tpu_torch.models import train as mtrain
+
+    real_read, seen, reads = mtrain.host_read, [], []
+
+    def capture(rb):
+        seen.append(real_read(rb))
+        return seen[-1]
+
+    def quiet_read(rb):                        # the one sanctioned sync
+        reads.append(1)
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            return capture(rb)
+        finally:
+            torch.cuda.set_sync_debug_mode("warn")
+
+    run = lambda dev: mtrain.predict_prices_batched(results, feats, seq_len=NN_SEQ,  # noqa: E731
+                                                    device=dev)
+    mtrain.host_read = capture
+    try:
+        ref = run("cpu")
+        run("cuda")                            # warm: the stack goes up once
+        mtrain.host_read = quiet_read
+        got = []
+        syncs = sync_calls(lambda: got.append(run("cuda")))
+    finally:
+        mtrain.host_read = real_read
+    if len(reads) != 1 or syncs:
+        fail(f"nn {label}: a batched predict made {len(reads)} host reads and "
+             f"{len(syncs)} other synchronizing calls ({syncs[:2]}), not 1 and 0")
+    cpu_out, card_out = seen[0], seen[-1]
+    errs = {}
+    for k in ("mean", "log_sigma"):
+        if k in cpu_out:
+            errs[k] = float(np.max(np.abs(card_out[k] - cpu_out[k])))
+            if not np.isfinite(card_out[k]).all() or errs[k] > NN_ATOL:
+                fail(f"nn {label}: card {k} off the CPU run's by {errs[k]:.3g} (atol {NN_ATOL})")
+    price = lambda preds: np.array([float(np.ravel(p["predicted_price"])[0])  # noqa: E731
+                                    for p in preds], np.float64)
+    g, r = price(got[0]), price(ref)
+    errs["price_rel"] = float(np.max(np.abs(g - r) / np.abs(r)))
+    if not np.allclose(g, r, rtol=NN_RTOL, atol=0.0):
+        fail(f"nn {label}: card prices off the CPU run's by {errs['price_rel']:.3g} relative")
+    return got[0], errs
+
+
+def cli_train_k2(stacked, ind, recorded):
+    """K2 where `cli train` reads it, at 64 × 43,200.  Each of the two
+    launches that `compute_indicators` made (``recorded``: its jobs'
+    inputs) is run again through the kernel and held against the plain
+    EWMA of the same inputs at K2's tolerance (`ewma_check`), and timed
+    beside the plain version and its bound.  Then the seven columns are
+    built again with every EWMA entry plain (no launch): the four that no
+    EWMA feeds (close, volume, bb_position, stoch_k) must be equal bit for
+    bit, and the three that K2 feeds must stay within the bounds its
+    tolerance e = 1e-3 + 2e-5·S carries into them — ATR (an EWMA of the true
+    range) within e; the MACD line (EMA-12 − EMA-26 of the close) within
+    2e-3 + 4e-5·max(close); RSI = 100·g/(g + l) within the widest move of
+    that ratio with its gain g and loss l each off by its e, plus 1e-4 for
+    the two float32 evaluations (each within 3 ulps of 100)."""
+    import torch
+
+    from ai_crypto_trader_tpu_torch.ops import compute_indicators
+    from ai_crypto_trader_tpu_torch.ops import indicators as ind_mod
+    from ai_crypto_trader_tpu_torch.ops.ewma import fused_ewma, fused_ewma_jobs, fused_ewma_plain
+
+    checks = []
+    for i, jobs in enumerate(recorded):
+        named = [(f"job{j}_K{len(a)}_start{st}", x.reshape(-1, x.shape[-1]), a, st)
+                 for j, (x, a, st) in enumerate(jobs)]
+        check = ewma_check(named, f"cli_train_launch{i}")
+        args = [(x, a, st) for _, x, a, st in named]
+        checks.append({**check, "ms": cuda_ms(lambda: fused_ewma_jobs(args, device="cuda"), 20),
+                       "plain_ms": sum(cuda_ms(lambda: fused_ewma_plain(x, a, st), 3)
+                                       for x, a, st in args)})
+    all_jobs = [(x.reshape(-1, x.shape[-1]), a, st) for jobs in recorded for x, a, st in jobs]
+    b_ms, o_ms = ewma_jobs_bound(all_jobs)
+
+    entries, before = (ind_mod.fused_ewma, ind_mod.fused_ewma_jobs), fused_ewma.launches
+    ind_mod.fused_ewma, ind_mod.fused_ewma_jobs = ewma_plain, jobs_plain
+    try:
+        plain = compute_indicators(stacked, device="cuda")
+    finally:
+        ind_mod.fused_ewma, ind_mod.fused_ewma_jobs = entries
+    if fused_ewma.launches != before:
+        fail(f"nn: the plain cli train columns launched K2 {fused_ewma.launches - before} times")
+    for k in ("close", "volume", "bb_position", "stoch_k"):
+        if not same_bits(ind[k], plain[k]):
+            fail(f"nn: cli train's {k}, which no EWMA feeds, differs with the plain EWMA")
+    # RSI's gain and loss: the plain Wilder EWMA of the first launch's stacked moves
+    x, alphas, start = recorded[0][1]
+    g, l = fused_ewma_plain(x.reshape(-1, x.shape[-1]), alphas, start)[0].reshape(
+        x.shape).double()[:2]
+    eg, el = 1e-3 + 2e-5 * g, 1e-3 + 2e-5 * l
+    ratio = lambda a, b: 100.0 * a / (a + b)  # noqa: E731
+    r = ratio(g, l)
+    spread = torch.maximum(ratio(g + eg, torch.clamp_min(l - el, 0.0)) - r,
+                           r - ratio(torch.clamp_min(g - eg, 0.0), l + el))
+    # masked and filled as the column is, so each candle meets its own bound
+    rsi_tol = ind_mod.nanfill(ind_mod._mask_warmup(spread.float(), 15)) + 1e-4
+    bounds = {"atr": 1e-3 + 2e-5 * plain["atr"],
+              "macd": 2e-3 + 4e-5 * plain["close"].amax(-1, keepdim=True),
+              "rsi": rsi_tol}
+    columns = {}
+    for k in CLI_TRAIN_COLUMNS:
+        diff = torch.abs(ind[k] - plain[k])
+        columns[k] = {"max_abs_diff": float(diff.max())}
+        if k in bounds:
+            worst = float((diff / bounds[k]).max())
+            columns[k]["max_diff_over_bound"] = worst
+            if not worst <= 1.0:
+                fail(f"nn: cli train's {k} is {float(diff.max()):.3g} off its plain-EWMA "
+                     f"column, beyond the bound K2's tolerance gives ({worst:.3g} of it)")
+    return {"ms": sum(c["ms"] for c in checks), "ms_per_launch": [c["ms"] for c in checks],
+            "plain_ms": sum(c["plain_ms"] for c in checks),
+            "bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else "operations",
+            "library_ms": None,
+            "max_abs_err": max(j["max_abs_err"] for c in checks for j in c["jobs"]),
+            "max_rel_err": max(j["max_rel_err"] for c in checks for j in c["jobs"]),
+            "plans": [c["plan"] for c in checks], "columns_vs_plain_ewma": columns,
+            "launch_checks": checks}
+
+
+def phase_nn(info):
+    """The model zoo through the prediction service's batched path at its
+    width: 256 lanes (the tick tape's 64 symbols × frames 1m/3m/5m/15m),
+    each lane its own model (the port's initialisers, a seeded generator)
+    and its own 60-candle OHLCV window (F = 5).  For each of the nine
+    architectures at `build_model`'s defaults: `predict_prices_batched` on
+    the card against the port's CPU run (scaled outputs within NN_ATOL,
+    prices within NN_RTOL), one host read and no other sync a call, three
+    lanes through `predict_prices` equal to their lanes of the batch (rtol
+    NN_RTOL, the JAX package's own test's), p50/p99 over 20 calls after a
+    warm one.  torch.profiler over one `lstm` call, and cuDNN's
+    `nn.LSTM` (2 layers × 64, one weight set) over the same 256 windows as
+    the library's time for that layer.  Then `cli train`'s feature set:
+    64 symbols of `generate_ohlcv(n=43,200, seed=60 + i)` stacked through
+    `compute_indicators` on the card (exactly 2 K2 launches, each held
+    against the plain EWMA on its recorded inputs: `cli_train_k2`), the
+    seven columns of cli.py:182-184, and the `lstm` group over those 64
+    lanes (F = 7) held to the CPU run the same way."""
+    import numpy as np
+    import torch
+
+    from ai_crypto_trader_tpu_torch.data import generate_ohlcv
+    from ai_crypto_trader_tpu_torch.models import MODEL_REGISTRY, predict_prices
+    from ai_crypto_trader_tpu_torch.models import train as mtrain
+    from ai_crypto_trader_tpu_torch.ops import compute_indicators
+    from ai_crypto_trader_tpu_torch.ops.ewma import fused_ewma
+
+    t_phase = time.perf_counter()
+    tape = TickTape(S_TICK, T_TICK)
+    feats = lane_features(tape, tape.n - 64, TICK_FRAMES, T_TICK)
+    report = {"phase": "nn", "card": info["nvidia_smi"], "lanes": len(feats),
+              "seq_len": NN_SEQ, "features": feats[0].shape[1], "units": NN_UNITS,
+              "atol": NN_ATOL, "rtol": NN_RTOL, "architectures": {}}
+    build_s = 0.0
+    for a, mt in enumerate(MODEL_REGISTRY):
+        t0 = time.perf_counter()
+        results = lane_results(mt, feats, 100 + a)
+        build_s += time.perf_counter() - t0
+        batch, errs = batched_check(results, feats, mt)
+        single_rel = 0.0
+        for lane in (0, 127, 255):
+            s = float(np.ravel(predict_prices(results[lane], feats[lane], seq_len=NN_SEQ,
+                                              device="cuda")["predicted_price"])[0])
+            b = float(np.ravel(batch[lane]["predicted_price"])[0])
+            single_rel = max(single_rel, abs(s - b) / abs(b))
+        if single_rel > NN_RTOL:
+            fail(f"nn {mt}: predict_prices off its lane of the batch by {single_rel:.3g}")
+        ms = []
+        for _ in range(NN_CALLS):
+            t0 = time.perf_counter()
+            mtrain.predict_prices_batched(results, feats, seq_len=NN_SEQ, device="cuda")
+            ms.append(1e3 * (time.perf_counter() - t0))
+        entry = {"ms_p50": percentile(ms, 50), "ms_p99": percentile(ms, 99),
+                 "max_err_vs_cpu": errs, "single_vs_batch_max_rel": single_rel,
+                 "parameters_per_lane": sum(v.numel() for v in results[0].params.values())}
+        if mt == "lstm":
+            try:
+                entry["profile_one_call"] = device_profile(
+                    lambda: mtrain.predict_prices_batched(results, feats, seq_len=NN_SEQ,
+                                                          device="cuda"))
+            except Exception as ex:  # noqa: BLE001 — a profiler that cannot trace is reported
+                entry["profile_one_call"] = {"measured": False, "reason": repr(ex)[:300]}
+            lib = torch.nn.LSTM(feats[0].shape[1], NN_UNITS, num_layers=2,
+                                batch_first=True).cuda()
+            x = torch.from_numpy(np.stack([f[-NN_SEQ:] for f in feats])).cuda()
+            with torch.no_grad():
+                entry["cudnn_lstm_ms"] = cuda_ms(lambda: lib(x), 20)
+        report["architectures"][mt] = entry
+
+    # cli train's feature set: 64 symbols × 43,200 candles, 7 columns
+    per = [generate_ohlcv(n=T_GA, seed=60 + i) for i in range(S_TICK)]
+    stacked = {k: np.stack([np.asarray(d[k], np.float32) for d in per])
+               for k in ("open", "high", "low", "close", "volume")}
+    fused_ewma.launches = 0
+    with recording_ewma([]) as recorded:
+        ind = compute_indicators(stacked, device="cuda")
+    k2_launches = fused_ewma.launches
+    if k2_launches != 2 or len(recorded) != 2:
+        fail(f"nn: cli train's indicators made {k2_launches} K2 launches "
+             f"({len(recorded)} calls), not 2")
+    k2 = cli_train_k2(stacked, ind, recorded)
+    cols = torch.stack([ind[k] for k in CLI_TRAIN_COLUMNS], dim=-1).cpu().numpy()
+    if not np.isfinite(cols).all():
+        fail("nn: cli train's feature columns are not finite")
+    cli_feats = list(cols)
+    results = lane_results("lstm", cli_feats, 300)
+    _, errs = batched_check(results, cli_feats, "cli_train_lstm")
+    ms = []
+    for _ in range(NN_CALLS):
+        t0 = time.perf_counter()
+        mtrain.predict_prices_batched(results, cli_feats, seq_len=NN_SEQ, device="cuda")
+        ms.append(1e3 * (time.perf_counter() - t0))
+    report["cli_train"] = {"symbols": S_TICK, "candles": T_GA, "columns": list(CLI_TRAIN_COLUMNS),
+                           "k2_launches": k2_launches, "k2": k2, "max_err_vs_cpu": errs,
+                           "lstm_ms_p50": percentile(ms, 50), "lstm_ms_p99": percentile(ms, 99)}
+    report["model_build_s"] = build_s
+    report["phase_s"] = time.perf_counter() - t_phase
+    emit(report)
+    return {"launches": k2_launches, **{k: v for k, v in k2.items() if k != "launch_checks"},
+            "lanes": S_TICK, "T": T_GA,
+            "shape": f"compute_indicators over {S_TICK} x {T_GA} (cli train's feature set)"}
+
+
+def detected_branch(mt, card, cpu, windows):
+    """`detect_patterns`' detected branch (primary pattern, confidence,
+    completion, implications) on the card against the CPU, at threshold 0
+    and with the classifier's no_pattern output bias lowered by 10 (on both
+    sides), so that a pattern leads the average on every symbol.  The
+    verdicts must be equal and every symbol detected; the primary pattern
+    equal but where the CPU's top two lie within NN_ATOL; the confidence
+    within NN_ATOL; the completion (the window where the primary's
+    probability peaks) equal but where the CPU's probabilities of the two
+    windows lie within NN_ATOL.  Returns (detected, near ties)."""
+    import numpy as np
+    import torch
+
+    from ai_crypto_trader_tpu_torch.patterns import PatternRecognizer, detect_patterns
+    from ai_crypto_trader_tpu_torch.patterns.model import (
+        N_CLASSES, PATTERN_CLASSES, PATTERN_IMPLICATIONS, _window_probs)
+
+    none = PATTERN_CLASSES.index("no_pattern")
+    head = [k for k, v in cpu.params.items() if k.endswith("bias") and v.shape == (N_CLASSES,)]
+    if len(head) != 1:
+        fail(f"patterns {mt}: no single output bias among {sorted(cpu.params)}")
+
+    def lowered(rec):
+        params = dict(rec.params)
+        params[head[0]] = params[head[0]].clone()
+        params[head[0]][none] -= 10.0
+        return PatternRecognizer(mt, params)
+
+    card0, cpu0 = lowered(card), lowered(cpu)
+    detected, ties = 0, 0
+    for w in windows:
+        got = detect_patterns(card0, w, confidence_threshold=0.0, device="cuda")
+        ref = detect_patterns(cpu0, w, confidence_threshold=0.0, device="cpu")
+        if got["detected"] != ref["detected"] or not ref["detected"]:
+            fail(f"patterns {mt} at threshold 0: detected {got['detected']} on the card, "
+                 f"{ref['detected']} on the CPU")
+        detected += 1
+        avg = np.array(list(ref["all_probabilities"].values()))
+        if got["primary_pattern"] != ref["primary_pattern"]:
+            if np.diff(np.sort(avg)[::-1][:2]).item() < -NN_ATOL:
+                fail(f"patterns {mt}: primary {got['primary_pattern']} on the card, "
+                     f"{ref['primary_pattern']} on the CPU")
+            ties += 1
+            continue
+        if abs(got["confidence"] - ref["confidence"]) > NN_ATOL:
+            fail(f"patterns {mt}: confidence {got['confidence']} on the card, "
+                 f"{ref['confidence']} on the CPU")
+        if got["implications"] != PATTERN_IMPLICATIONS[ref["primary_pattern"]]:
+            fail(f"patterns {mt}: the card's implications are not its pattern's")
+        if got["completion"] != ref["completion"]:
+            per = _window_probs(cpu0.params, mt, torch.as_tensor(w), NN_SEQ, 5)[
+                :, PATTERN_CLASSES.index(ref["primary_pattern"])].numpy()
+            at = [round(c * per.size) - 1 for c in (got["completion"], ref["completion"])]
+            if abs(per[at[0]] - per[at[1]]) > NN_ATOL:
+                fail(f"patterns {mt}: completion {got['completion']} on the card, "
+                     f"{ref['completion']} on the CPU")
+            ties += 1
+    return detected, ties
+
+
+def phase_patterns(info):
+    """The chart-pattern classifier at the pattern service's width
+    (patterns/service.py:79-112): the tick tape's 64 symbols, each one's
+    256-candle `5m` window (seq_len 60, stride 5: 40 windows), through
+    `detect_patterns` for each of the three classifiers (seeded parameters
+    on the card).  Each symbol against the port's CPU run of the same
+    parameters: the averaged probabilities within NN_ATOL, the same
+    verdict and the same top 3 except where two neighbouring probabilities
+    lie within NN_ATOL of each other (counted).  Seeded weights detect
+    nothing at the default threshold, so each classifier runs the detected
+    branch too (`detected_branch`).  The p50 and p99 over 20 rounds of the
+    64 symbols."""
+    import numpy as np
+    import torch
+
+    from ai_crypto_trader_tpu_torch.patterns import PatternRecognizer, detect_patterns
+    from ai_crypto_trader_tpu_torch.patterns.model import _build
+
+    t_phase = time.perf_counter()
+    tape = TickTape(S_TICK, T_TICK)
+    windows = lane_features(tape, tape.n - 64, ("5m",), T_TICK)
+    report = {"phase": "patterns", "card": info["nvidia_smi"], "symbols": len(windows),
+              "candles": T_TICK, "seq_len": NN_SEQ, "stride": 5, "atol": NN_ATOL,
+              "classifiers": {}}
+    for j, mt in enumerate(("cnn", "lstm", "cnn_lstm")):
+        model = _build(mt, generator=torch.Generator().manual_seed(200 + j), device="cuda")
+        card = PatternRecognizer(mt, {k: v.detach() for k, v in model.named_parameters()})
+        cpu = PatternRecognizer(mt, {k: v.cpu() for k, v in card.params.items()})
+        err, ties = 0.0, 0
+        for w in windows:
+            got = detect_patterns(card, w, device="cuda")
+            ref = detect_patterns(cpu, w, device="cpu")
+            g = np.array(list(got["all_probabilities"].values()))
+            r = np.array(list(ref["all_probabilities"].values()))
+            err = max(err, float(np.max(np.abs(g - r))))
+            if err > NN_ATOL or got["detected"] != ref["detected"]:
+                fail(f"patterns {mt}: the card's probabilities are {err:.3g} off the CPU's, "
+                     f"or the verdict differs")
+            top_g = [t["pattern"] for t in got["top_patterns"]]
+            top_r = [t["pattern"] for t in ref["top_patterns"]]
+            if top_g != top_r:
+                srt = np.sort(r)[::-1][:4]
+                if np.min(np.abs(np.diff(srt))) > NN_ATOL:
+                    fail(f"patterns {mt}: top 3 {top_g} on the card, {top_r} on the CPU")
+                ties += 1
+        detected_0, ties_0 = detected_branch(mt, card, cpu, windows)
+        rounds = []
+        for _ in range(NN_CALLS):
+            t0 = time.perf_counter()
+            for w in windows:
+                detect_patterns(card, w, device="cuda")
+            rounds.append(1e3 * (time.perf_counter() - t0))
+        report["classifiers"][mt] = {
+            "max_abs_err_vs_cpu": err, "top3_near_tie_differences": ties,
+            "threshold_0_detected": detected_0, "threshold_0_near_tie_differences": ties_0,
+            "round_ms_p50": percentile(rounds, 50), "round_ms_p99": percentile(rounds, 99),
+            "detected_last_round": int(sum(detect_patterns(card, w, device="cuda")["detected"]
+                                           for w in windows))}
+    report["phase_s"] = time.perf_counter() - t_phase
+    emit(report)
+    return report
+
+
 def main():
     import torch
 
@@ -2276,6 +2697,8 @@ def main():
     portfolio = phase_portfolio(info)
     tenant = phase_tenant(info)
     phase_mc(info)
+    nn = phase_nn(info)
+    phase_patterns(info)
     bound_ms, bound_by, stepped_bound_ms = replay_bound_ms(stats, B_FULL, T_FULL)
     checks += full
     kernels = [
@@ -2295,6 +2718,7 @@ def main():
          "ga_tables": {**ga_entries["ga_tables"], "registers": ewma["registers"]},
          "tick": tick,
          "tenant": tenant,
+         "nn_cli_train": nn,
          "shape": "the two launches of compute_indicators at T=525600, summed "
                   "(A: close K=2 + up/dn/tr K=1; B: MACD line K=1)"},
         {"name": "replay_sweep", "route": "cuda",

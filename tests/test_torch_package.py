@@ -30,6 +30,9 @@ from ai_crypto_trader_tpu_torch.backtest.evolvable import (
 from ai_crypto_trader_tpu_torch.config import GAParams
 from ai_crypto_trader_tpu_torch.evolve import backtest_fitness, run_ga
 from ai_crypto_trader_tpu_torch.mc import run_simulation, simulate_portfolio_correlated
+from ai_crypto_trader_tpu_torch.models import build_model, fit_scaler
+from ai_crypto_trader_tpu_torch.models.train import TrainResult, predict_prices_batched
+from ai_crypto_trader_tpu_torch.patterns import PatternRecognizer, detect_patterns
 from ai_crypto_trader_tpu_torch.ops.tenant_engine import TenantEngine
 from ai_crypto_trader_tpu_torch.risk import (
     historical_var, social_risk_adjustment, stress_var_cvar, trailing_stop_init,
@@ -53,10 +56,12 @@ expected = {"config", "ops.dynamic", "backtest.evolvable", "evolve", "evolve.ga"
             "evolve.selection", "cli", "obs", "obs.drift", "ops.volume_profile",
             "ops.combinations", "ops.tick_engine", "backtest.portfolio", "data.ingest",
             "obs.flightrec", "obs.fleetscope", "utils.journal", "ops.tenant_engine",
-            "risk.stops", "risk.social", "risk.var", "sim.scenarios", "mc.engine"}
+            "risk.stops", "risk.social", "risk.var", "sim.scenarios", "mc.engine",
+            "models", "models.fused_lstm", "models.zoo", "models.train", "patterns",
+            "patterns.model"}
 missing = sorted(e for e in expected if pkg.__name__ + "." + e not in names)
 print(missing)
-sys.exit(1 if bad or missing or len(names) < 38 else 0)
+sys.exit(1 if bad or missing or len(names) < 48 else 0)
 """
 
 
@@ -130,6 +135,13 @@ _ENTRY_POINTS = {
         np.ones(2, np.float32)),
     "social_risk_adjustment": lambda: social_risk_adjustment(SocialSnapshot(
         np.full((2, 4), 0.5, np.float32), np.zeros(2, np.float32), np.float32(1.0))),
+    "build_model": lambda: build_model("gru", units=8),
+    "predict_prices_batched": lambda: predict_prices_batched(
+        [TrainResult(dict(build_model("lstm", units=8, device="cpu").named_parameters()),
+                     "lstm", fit_scaler(np.ones((70, 5), np.float32), device="cpu"),
+                     {"units": 8})], [np.ones((70, 5), np.float32)]),
+    "detect_patterns": lambda: detect_patterns(
+        PatternRecognizer("cnn", {}), np.ones((64, 5), np.float32)),
 }
 
 
