@@ -1,6 +1,7 @@
 """PyTorch/CUDA port of ai_crypto_trader_tpu's population backtest, GA,
 live tick and decision path, portfolio backtest, risk layer, Monte-Carlo
-engine, price-model zoo and chart-pattern classifier (serving).
+engine, price-model zoo and chart-pattern classifier (training and
+serving).
 
 The chains, module for module after the JAX package:
 
@@ -19,15 +20,23 @@ The chains, module for module after the JAX package:
         paths, VaR / CVaR); risk.stops, risk.social, risk.var
     features → models.predict_prices_batched (the zoo's nine architectures,
         N models of one architecture as one vmapped program; one host read)
+    features → models.train_model (models.train_loop.EpochTrainer: the
+        epoch's batches, the LSTM's hand-written backward and Adam on the
+        device, one host read an epoch) → models.predict_prices(_batched);
+        models.optimize_hyperparameters, models.feature_importance and
+        models.service.PredictionService over them
     ohlcv → patterns.detect_patterns (CNN / LSTM / CNN-LSTM over every
         overlapping window; one host read)
+    patterns.generate_dataset → patterns.train_pattern_model
+        → patterns.detect_patterns
 
 Plain tensor code is PyTorch; the two Pallas kernels of the JAX package on
 these paths are CUDA C++ kernels for Hopper (``csrc/``), built with nvcc on
-first use and loaded with ctypes (``ops/_cuda.py``).  The models' matmuls
-and convolutions are PyTorch's, as the JAX package computes them outside
-any Pallas kernel.  Entry points run on the CUDA card unless called with
-``device="cpu"`` (``device.resolve_device``).  Arithmetic is float32
+first use and loaded with ctypes (``ops/_cuda.py``).  The models' matmuls,
+convolutions and training (autograd, the port's Adam) are PyTorch's, as the
+JAX package computes them outside any Pallas kernel.  Entry points run on
+the CUDA card unless called with ``device="cpu"``
+(``device.resolve_device``).  Arithmetic is float32
 throughout: TF32 is switched off here, once, for matmuls and for cuDNN's
 convolutions, so the card's outputs can be held to the CPU's.
 """

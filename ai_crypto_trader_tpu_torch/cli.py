@@ -1,10 +1,12 @@
-"""Command-line interface of the port: the ``backtest`` and ``evolve``
-subcommands.
+"""Command-line interface of the port: the ``backtest``, ``train`` and
+``evolve`` subcommands.
 
 Same flags and JSON output as ``python -m ai_crypto_trader_tpu.cli
-backtest`` / ``evolve``, plus ``--device {cuda,cpu}`` (default cuda):
+backtest`` / ``train`` / ``evolve``, plus ``--device {cuda,cpu}`` (default
+cuda):
 
     python -m ai_crypto_trader_tpu_torch.cli backtest --days 365 --sweep 4096
+    python -m ai_crypto_trader_tpu_torch.cli train --days 7 --model lstm --epochs 5
     python -m ai_crypto_trader_tpu_torch.cli evolve --days 30 --population 256 --generations 3
 
 A CSV at ``backtesting/data/market/<symbol>/<symbol>_1m.csv`` is used when
@@ -12,9 +14,13 @@ present; otherwise the deterministic synthetic series is generated.
 ``--sweep N`` (N > 1) sweeps N strategies drawn from a ``torch.Generator``
 seeded with ``--seed`` through the replay kernel and reports the best by
 Sharpe; otherwise one default-parameter backtest runs with its equity curve.
-``evolve`` runs the GA with backtest fitness over the candles, seeded with
-the default parameters as individual 0, its draws from a ``torch.Generator``
-seeded with ``--seed``, and prints the history and the best parameters.
+``train`` builds the indicator table, takes its seven feature columns
+(close, volume, RSI, MACD, Bollinger position, %K, ATR), trains a model of
+the zoo on them with its draws from a ``torch.Generator`` seeded with
+``--seed`` and predicts the next close.  ``evolve`` runs the GA with
+backtest fitness over the candles, seeded with the default parameters as
+individual 0, its draws from a ``torch.Generator`` seeded with ``--seed``,
+and prints the history and the best parameters.
 """
 
 from __future__ import annotations
@@ -100,6 +106,27 @@ def cmd_backtest(args):
     print(f"saved -> {fname}")
 
 
+TRAIN_COLUMNS = ("close", "volume", "rsi", "macd", "bb_position", "stoch_k", "atr")
+
+
+def cmd_train(args):
+    from ai_crypto_trader_tpu_torch import ops, resolve_device
+    from ai_crypto_trader_tpu_torch.models import predict_prices, train_model
+
+    dev = resolve_device(args.device)
+    d = _load_or_generate(args.symbol, args.days * 1440, args.seed)
+    ind = ops.compute_indicators(d, device=dev)
+    feats = torch.stack([ind[k] for k in TRAIN_COLUMNS], dim=1).cpu().numpy()
+    r = train_model(torch.Generator(device=dev).manual_seed(args.seed), feats, args.model,
+                    seq_len=args.seq_len, epochs=args.epochs, batch_size=args.batch_size,
+                    precision=args.precision, verbose=True, device=dev)
+    pred = predict_prices(r, feats, seq_len=args.seq_len, device=dev)
+    print(json.dumps({"model": args.model, "best_val_loss": r.best_val_loss,
+                      "epochs_run": r.epochs_run,
+                      "predicted_price": float(np.ravel(pred["predicted_price"])[0]),
+                      "confidence": pred["confidence"]}, indent=2))
+
+
 def cmd_evolve(args):
     from ai_crypto_trader_tpu_torch import resolve_device
     from ai_crypto_trader_tpu_torch.backtest import default_params
@@ -130,6 +157,18 @@ def build_parser() -> argparse.ArgumentParser:
                     help="strategy-population width")
     sp.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     sp.set_defaults(fn=cmd_backtest)
+    sp = sub.add_parser("train", help="train a price model")
+    sp.add_argument("--symbol", default="BTCUSDC")
+    sp.add_argument("--days", type=int, default=7)
+    sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument("--model", default="lstm")
+    sp.add_argument("--epochs", type=int, default=5)
+    sp.add_argument("--seq-len", type=int, default=60)
+    sp.add_argument("--batch-size", type=int, default=32)
+    sp.add_argument("--precision", choices=("f32", "bf16"), default="f32",
+                    help="matmul precision of the training epochs")
+    sp.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    sp.set_defaults(fn=cmd_train)
     sp = sub.add_parser("evolve", help="GA-evolve strategy parameters")
     sp.add_argument("--symbol", default="BTCUSDC")
     sp.add_argument("--days", type=int, default=7)

@@ -15,7 +15,10 @@ Monte-Carlo engine's functions (`run_simulation`, `simulate_gbm`,
 `trailing_stop_update`, `weighted_sentiment`, `social_risk_adjustment`),
 the model zoo's and the pattern classifier's (`build_model`, `fit_scaler`,
 `predict_prices`, `predict_prices_batched`, `detect_patterns`, the
-classifiers' `_build`), and the `convert` functions —
+classifiers' `_build`), their training (`train_model`, `EpochTrainer`,
+`optimize_hyperparameters`, `feature_importance`, `PredictionService`,
+`generate_dataset`, `train_pattern_model`, `load_checkpoint`), and the
+`convert` functions —
 takes ``device=None``, which means the CUDA card, and moves its inputs
 there.  The CPU is used only when the caller asks for it with
 ``device="cpu"`` (the tests do; there every kernel wrapper takes its plain
@@ -24,8 +27,9 @@ nothing carries on quietly on the CPU.  The building blocks under them
 (single indicators, the indicators with tensor periods, the signal and
 vote rules, `volume_profile`, the indicator combinations, `replay_step`,
 the GA's `_evolve_core`, `fleetscope.device_aggregates`, `mc.quantile`,
-the models' layers and `patterns.preprocess_window`) compute on the device
-of the tensors they are given.
+the models' layers, `dropout`, `lstm_scan`, `Adam` and
+`patterns.preprocess_window`) compute on the device of the tensors they are
+given.
 """
 
 from __future__ import annotations

@@ -14,8 +14,19 @@ Scaling by ½ or 1 is exact in binary floating point, so
 (whatever order the product sums in); the port scales ``zx`` and ``wh``
 once before the loop, which saves one operation a step.
 
-The hand-written backward pass of the JAX package (a ``jax.custom_vjp``)
-belongs to training and is not ported yet.
+The backward pass is the JAX package's hand-written one (its
+``jax.custom_vjp``, `_bwd_vjp`) as a ``torch.autograd.Function``: the
+forward keeps the post-tanh gate activations ``a_s`` [T, B, 4H], the cell
+states and the hidden states; the backward forms the gate cofactors in
+bulk (``mq``: one [T, B, 4H] tensor that folds tanh', σ' and the squared
+gate scale; ``k1``: o·(1 − tanh² c)), runs one reverse loop of an add, two
+multiplies, a concatenation and the recurrent product per step, and takes
+the recurrent kernel's gradient as ONE product over all T·B rows.  The
+gate gradient ``dg`` is taken with respect to the UNSCALED pre-activation
+(``mq`` carries the scale twice), so the carry and ``dwh`` use the saved,
+unscaled ``wh``.  `lstm_scan` goes through the Function only while
+autograd records an input that needs a gradient; otherwise (serving, its
+``vmap``) it runs the plain loop.
 """
 
 from __future__ import annotations
@@ -33,23 +44,79 @@ def _gate_scale(like: torch.Tensor, units: int) -> torch.Tensor:
     return scale.reshape(4 * units)
 
 
-def lstm_scan(zx: torch.Tensor, wh: torch.Tensor) -> torch.Tensor:
-    """The recurrent part of an LSTM layer over pre-projected inputs:
-    zx [T, B, 4H] (input projections + bias), wh [H, 4H] → hs [T, B, H],
-    from a zero carry."""
+def _scan(zx: torch.Tensor, wh: torch.Tensor, keep: bool):
+    """The forward loop: hs [T, B, H], and when ``keep`` also the gate
+    activations a_s [T, B, 4H] and cell states c_s [T, B, H]."""
     T, B, H4 = zx.shape
     H = H4 // 4
     scale = _gate_scale(zx, H)
     zs, ws = zx * scale, wh * scale
     c = h = zx.new_zeros(B, H)
-    hs = []
+    hs, a_s, c_s = [], [], []
     for t in range(T):
         a = torch.tanh(zs[t] + h @ ws)
         s = a * 0.5 + 0.5                      # σ of the i, f and o blocks
         c = s[:, H:2 * H] * c + s[:, :H] * a[:, 2 * H:3 * H]
         h = s[:, 3 * H:] * torch.tanh(c)
         hs.append(h)
+        if keep:
+            a_s.append(a)
+            c_s.append(c)
+    if keep:
+        return torch.stack(hs), torch.stack(a_s), torch.stack(c_s)
     return torch.stack(hs)
+
+
+class LSTMScan(torch.autograd.Function):
+    """`lstm_scan` with the JAX package's hand-written backward
+    (`fused_lstm.py:79-119`): gradients of zx [T, B, 4H] and wh [H, 4H]."""
+
+    @staticmethod
+    def forward(ctx, zx, wh):
+        hs, a_s, c_s = _scan(zx, wh, keep=True)
+        ctx.save_for_backward(a_s, c_s, hs, wh)
+        return hs
+
+    @staticmethod
+    def backward(ctx, dhs):
+        a_s, c_s, hs, wh = ctx.saved_tensors
+        T, B, H4 = a_s.shape
+        H = H4 // 4
+        whT = wh.T
+        i_s = 0.5 * a_s[..., :H] + 0.5
+        f_s = 0.5 * a_s[..., H:2 * H] + 0.5
+        tc_s = torch.tanh(c_s)
+        k1 = (0.5 * a_s[..., 3 * H:] + 0.5) * (1.0 - tc_s * tc_s)
+        c_prev = torch.cat([c_s.new_zeros(1, B, H), c_s[:-1]])
+        scale = _gate_scale(a_s, H)
+        # (1 − a²)·scale²: one scale is tanh's argument scaling, the other dσ = ½·dtanh
+        mq = (torch.cat([a_s[..., 2 * H:3 * H], c_prev, i_s, tc_s], dim=-1)
+              * (1.0 - a_s * a_s) * (scale * scale))
+        dc = dh_carry = dhs.new_zeros(B, H)
+        dgs = [None] * T
+        for t in range(T - 1, -1, -1):
+            dh = dhs[t] + dh_carry
+            dc = dc + dh * k1[t]
+            dg = torch.cat([dc, dc, dc, dh], dim=-1) * mq[t]
+            dgs[t] = dg
+            dc, dh_carry = dc * f_s[t], dg @ whT
+        dgs = torch.stack(dgs)
+        dwh = None
+        if ctx.needs_input_grad[1]:
+            # the recurrent kernel's gradient as one product over all T·B rows
+            h_prev = torch.cat([hs.new_zeros(1, B, H), hs[:-1]])
+            dwh = h_prev.reshape(-1, H).T @ dgs.reshape(-1, H4)
+        return dgs, dwh
+
+
+def lstm_scan(zx: torch.Tensor, wh: torch.Tensor) -> torch.Tensor:
+    """The recurrent part of an LSTM layer over pre-projected inputs:
+    zx [T, B, 4H] (input projections + bias), wh [H, 4H] → hs [T, B, H],
+    from a zero carry.  Through `LSTMScan` while autograd records an input
+    that needs a gradient, else the plain loop (the same bits)."""
+    if torch.is_grad_enabled() and (zx.requires_grad or wh.requires_grad):
+        return LSTMScan.apply(zx, wh)
+    return _scan(zx, wh, keep=False)
 
 
 class FusedLSTM(nn.Module):

@@ -15,13 +15,19 @@ as flax's initialisers do, in distribution (from an explicit
     variance, mean(x²) − mean(x)² clamped at 0; ``(x − mean) ·
     (rsqrt(var + ε) · scale) + bias``;
   * `MultiHeadDotProductAttention` — flax's, called as ``(x, x)``: the
-    query divided by √head_dim before the logits, a float32 softmax;
-    query/key/value/out as `Dense` layers over the flattened (heads,
-    head_dim) axis;
+    query divided by √head_dim before the logits, a float32 softmax, in
+    train mode attention dropout on the softmax weights (one [1, 1, T, T]
+    keep mask shared by every batch row and head, flax's
+    ``broadcast_dropout``); query/key/value/out as `Dense` layers over the
+    flattened (heads, head_dim) axis;
   * `GRUCell` — flax ``nn.GRUCell`` over a batch-major sequence (`gru_scan`):
     r, z = σ(x W_i + b_i + h W_h), n = tanh(x W_in + b_in + r ⊙ (h W_hn +
     b_hn)), h' = (1 − z) ⊙ n + z ⊙ h; orthogonal recurrent kernels without
     a bias but for ``hn``.
+
+`dropout` is flax ``nn.Dropout``'s arithmetic.  Its keep mask comes from an
+explicit ``torch.Generator`` (torch's global generator is never drawn
+from), so a training run is reproduced by reseeding its generator.
 
 No library-fused recurrent or attention layer is used: each rounds
 differently from the flax layer it would replace.  The `convert` module
@@ -35,6 +41,8 @@ import math
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+from ai_crypto_trader_tpu_torch.device import div_true
 
 # The standard deviation of a standard normal truncated to [-2, 2]: flax's
 # variance-scaling initialiser divides by it so the truncated draw keeps
@@ -71,6 +79,29 @@ def orthogonal(n_rows: int, n_cols: int, generator: torch.Generator) -> torch.Te
 def default_generator(generator: torch.Generator | None) -> torch.Generator:
     """``generator``, or a CPU generator seeded with 0."""
     return generator if generator is not None else torch.Generator().manual_seed(0)
+
+
+def keep_mask(shape, rate: float, generator: torch.Generator | None) -> torch.Tensor:
+    """Dropout's keep mask over ``shape``: ``uniform < 1 − rate`` (flax's
+    ``random.bernoulli(rng, 1 − rate, shape)``), drawn from ``generator`` on
+    its device.  Raises without a generator."""
+    if generator is None:
+        raise ValueError(f"dropout at rate {rate} in train mode needs a torch.Generator")
+    u = torch.rand(tuple(shape), generator=generator, device=generator.device)
+    return u < 1.0 - rate
+
+
+def dropout(x, rate: float, generator: torch.Generator | None, shape=None):
+    """flax ``nn.Dropout(rate)`` in train mode: ``where(keep, x / keep_prob,
+    0)`` with the keep mask over ``shape`` (default ``x.shape``; a shape
+    with ones broadcasts the mask) from ``generator``.  Rate 0 returns
+    ``x``, rate 1 zeros, as flax does."""
+    if rate == 0.0:
+        return x
+    if rate == 1.0:
+        return torch.zeros_like(x)
+    keep = keep_mask(x.shape if shape is None else shape, rate, generator)
+    return torch.where(keep, div_true(x, 1.0 - rate), 0.0)
 
 
 # Modules on the meta device, one per architecture: they hold no weights,
@@ -139,28 +170,31 @@ class LayerNorm(nn.Module):
 
 
 class MultiHeadDotProductAttention(nn.Module):
-    """flax ``nn.MultiHeadDotProductAttention(num_heads, qkv_features)``
-    self-attention over [B, T, in] (out features = in)."""
+    """flax ``nn.MultiHeadDotProductAttention(num_heads, qkv_features,
+    dropout_rate)`` self-attention over [B, T, in] (out features = in)."""
 
     def __init__(self, in_features: int, num_heads: int, qkv_features: int,
-                 generator: torch.Generator):
+                 generator: torch.Generator, dropout_rate: float = 0.0):
         super().__init__()
         if qkv_features % num_heads:
             raise ValueError(f"{qkv_features} features do not split into {num_heads} heads")
-        self.num_heads = num_heads
+        self.num_heads, self.dropout_rate = num_heads, dropout_rate
         self.query = Dense(in_features, qkv_features, generator)
         self.key = Dense(in_features, qkv_features, generator)
         self.value = Dense(in_features, qkv_features, generator)
         self.out = Dense(qkv_features, in_features, generator)
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False, *, generator: torch.Generator | None = None):
         B, T, _ = x.shape
         heads = lambda t: t.view(B, T, self.num_heads, -1)  # noqa: E731
         depth = self.query.weight.shape[0] // self.num_heads
         q = heads(self.query(x)) / math.sqrt(depth)
         k, v = heads(self.key(x)), heads(self.value(x))
         w = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k), dim=-1)
-        # attention dropout is off at inference (flax's deterministic=True)
+        if train and self.dropout_rate > 0.0:
+            # flax: weights × (keep / keep_prob), one mask for every row and head
+            keep = keep_mask((1, 1, T, T), self.dropout_rate, generator)
+            w = w * div_true(keep.to(w.dtype), 1.0 - self.dropout_rate)
         a = torch.einsum("bhqk,bkhd->bqhd", w, v)
         return self.out(a.reshape(B, T, -1))
 

@@ -1,13 +1,28 @@
-"""Prediction with the model zoo: MinMax scaling, sliding windows, one
-model's prediction and a batched prediction over many models of one
-architecture.
+"""Training and prediction with the model zoo: MinMax scaling, sliding
+windows, `train_model` with its LR plateau and early stopping, one model's
+prediction and a batched prediction over many models of one architecture.
 
-Port of the serving half of `ai_crypto_trader_tpu/models/train.py`
-(`Scaler`, `fit_scaler`, `make_windows`, `TrainResult`, `predict_prices`,
-`predict_prices_batched`).  A result's ``params`` are the named parameters
-of its architecture's module ({name: tensor}); the module itself is a
-template per architecture, called with those parameters through
-``torch.func.functional_call``.
+Port of `ai_crypto_trader_tpu/models/train.py`.  A result's ``params`` are
+the named parameters of its architecture's module ({name: tensor}); the
+module itself is a template per architecture, called with those
+parameters through ``torch.func.functional_call``.
+
+`train_model` keeps the JAX contract: a leak-free split (the scaler fit
+on the training rows only, the validation windows those whose target
+passes the boundary), the features uploaded once and windowed on the
+device, each epoch through `train_loop.EpochTrainer` with exactly one
+`train_loop.host_read`, the best parameters snapshotted, a history of
+``{epoch, loss, val_loss, lr}``, the learning rate cut on a plateau and
+early stopping, all decided on the host after the epoch's read.  Its
+draws (the initial parameters, each epoch's permutation, dropout) come
+from a ``torch.Generator`` on the device, or from a draw provider
+(`GeneratorDraws` is the generator's): ``init_params(build)`` returns the
+initial {name: tensor} of ``build(generator=...)``'s module,
+``permutation(epoch, n)`` epoch ``epoch``'s permutation of the training
+windows, and ``generator`` the dropout generator (None when the model
+drops nothing).  Handing over the JAX key schedule's draws this way
+reproduces a JAX run.  ``compiled_epoch=False`` runs the per-batch loop
+the JAX package keeps for its parity tests (a host read a batch).
 
 `predict_prices_batched` keeps the JAX contract: the parameters of N
 models that share one architecture stacked along a leading lane axis, one
@@ -21,12 +36,11 @@ while the results' tensors are the same and unchanged, so a steady
 cadence uploads only the windows.  Denormalizing is the JAX package's
 arithmetic in the same place: eager tensor ops in `predict_prices`, NumPy
 on the host in the batched form.
-
-Training (`train_model`) is not ported yet.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field
 from typing import Any, NamedTuple, Sequence
 
@@ -35,9 +49,13 @@ import torch
 from torch.func import functional_call, vmap
 
 from ai_crypto_trader_tpu_torch.device import resolve_device, to_device
+from ai_crypto_trader_tpu_torch.models import train_loop
 from ai_crypto_trader_tpu_torch.models.layers import meta_template
+from ai_crypto_trader_tpu_torch.models.train_loop import Adam, EpochTrainer, snapshot_params
 from ai_crypto_trader_tpu_torch.models.zoo import build_model
-from ai_crypto_trader_tpu_torch.ops.tick_engine import Readback, read_packed
+from ai_crypto_trader_tpu_torch.ops.tick_engine import Readback, read_packed, stage
+
+MULTITASK_WEIGHTS = (1.0, 0.7, 0.5)
 
 
 class Scaler(NamedTuple):
@@ -115,6 +133,203 @@ def _kwargs_key(result) -> tuple:
     return tuple(sorted(result.model_kwargs.items()))
 
 
+def _upload(value, device: torch.device) -> torch.Tensor:
+    """A tensor, or a host array as float32, on ``device``; to the card
+    from pinned memory, without a synchronizing copy."""
+    t = value if torch.is_tensor(value) else torch.from_numpy(
+        np.ascontiguousarray(value, np.float32))
+    if t.device == device:
+        return t
+    if device.type == "cuda" and t.device.type == "cpu":
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True)
+
+
+_TASK_WEIGHTS: dict = {}
+
+
+def _task_weights(n: int, device: torch.device) -> torch.Tensor:
+    """`MULTITASK_WEIGHTS`' first ``n`` on ``device``, uploaded once."""
+    key = (n, str(device))
+    if key not in _TASK_WEIGHTS:
+        _TASK_WEIGHTS[key] = _upload(np.asarray(MULTITASK_WEIGHTS[:n]), device)
+    return _TASK_WEIGHTS[key]
+
+
+def _loss_fn(out: dict, y: torch.Tensor, model_type: str) -> torch.Tensor:
+    """The zoo's training loss: Gaussian NLL for the probabilistic head,
+    horizon-weighted MSE for several horizons, else MSE."""
+    if model_type == "probabilistic":
+        mu, log_sigma = out["mean"], out["log_sigma"]
+        nll = 0.5 * torch.exp(-2 * log_sigma) * (y - mu) ** 2 + log_sigma
+        return torch.mean(nll)
+    pred = out["mean"]
+    if pred.shape[-1] > 1:  # multitask
+        w = _task_weights(pred.shape[-1], pred.device)
+        return torch.mean(torch.mean((pred - y) ** 2, dim=0) * w)
+    return torch.mean((pred - y) ** 2)
+
+
+class GeneratorDraws:
+    """`train_model`'s draws from one ``torch.Generator``, on its device."""
+
+    def __init__(self, generator: torch.Generator):
+        self.generator = generator
+
+    def init_params(self, build) -> dict:
+        return {k: v.detach() for k, v in build(generator=self.generator).named_parameters()}
+
+    def permutation(self, epoch: int, n: int) -> torch.Tensor:
+        return torch.randperm(n, generator=self.generator, device=self.generator.device)
+
+
+def _draws(draws):
+    return GeneratorDraws(draws) if isinstance(draws, torch.Generator) else draws
+
+
+def _windows(scaled: torch.Tensor, seq_len: int, horizons: Sequence[int], target_col: int):
+    """`make_windows` on the device: X [n, seq_len, F] (a view of
+    ``scaled``) and y [n, H]."""
+    T = scaled.shape[0]
+    n = T - seq_len - max(horizons) + 1
+    if n <= 0:
+        raise ValueError(f"series too short: T={T} seq_len={seq_len} hmax={max(horizons)}")
+    X = scaled.unfold(0, seq_len, 1)[:n].transpose(1, 2)
+    y = torch.stack([scaled[seq_len + h - 1: seq_len + h - 1 + n, target_col]
+                     for h in horizons], dim=-1)
+    return X, y
+
+
+def train_model(
+    generator,
+    features: np.ndarray,
+    model_type: str = "lstm",
+    *,
+    seq_len: int = 60,
+    horizons: Sequence[int] | None = None,
+    units: int = 64,
+    dropout: float = 0.2,
+    epochs: int = 100,
+    batch_size: int = 32,
+    learning_rate: float = 1e-3,
+    val_fraction: float = 0.2,
+    early_stopping_patience: int = 10,
+    reduce_lr_patience: int = 5,
+    reduce_lr_factor: float = 0.5,
+    min_lr: float = 1e-6,
+    verbose: bool = False,
+    target_col: int = 0,
+    precision: str | None = None,
+    compiled_epoch: bool = True,
+    device=None,
+) -> TrainResult:
+    """Fit one model on ``features`` [T, F] (a chronological split, shuffled
+    within the training windows only); returns the best parameters with
+    the history and the scaler.
+
+    ``generator``: a ``torch.Generator`` on ``device`` (None: the CUDA
+    card) or a draw provider (module docstring).  ``precision``: the
+    epochs' matmul precision (`train_loop.matmul_precision`).
+    ``compiled_epoch=False``: the per-batch loop, for parity tests."""
+    dev = resolve_device(device)
+    draws = _draws(generator)
+    if horizons is None:
+        horizons = (1, 3, 5) if model_type == "multitask" else (1,)
+    feats = np.asarray(features, np.float32)
+
+    # Leak-free split: the scaler is fit only on the training rows, and the
+    # validation windows are those whose targets reach past the boundary.
+    T, F = feats.shape
+    hmax = max(horizons)
+    train_rows = max(T - int(T * val_fraction), seq_len + hmax + 1)
+    scaler = fit_scaler(feats[:train_rows], device=dev)
+    X, y = _windows(scaler.transform(_upload(feats, dev)), seq_len, horizons, target_col)
+    n_tr = min(max(train_rows - (seq_len + hmax - 1), 0), X.shape[0])
+    X_tr, y_tr = X[:n_tr], y[:n_tr]
+    X_val, y_val = X[n_tr:], y[n_tr:]
+    if X_val.shape[0] == 0:
+        X_val, y_val = X_tr[-1:], y_tr[-1:]
+
+    model_kwargs = dict(units=units, dropout=dropout, horizons=tuple(horizons))
+    model = _template(model_type, tuple(sorted(model_kwargs.items())), F)
+    params = draws.init_params(functools.partial(
+        build_model, model_type, **model_kwargs, features=F, device=dev))
+    drop_gen = getattr(draws, "generator", None)
+    tx = Adam(learning_rate)
+    opt_state = tx.init(params)
+
+    def train_loss(p, xb, yb, gen):
+        return _loss_fn(functional_call(model, p, (xb, True), {"generator": gen}), yb,
+                        model_type)
+
+    def eval_loss(p, xb, yb):
+        return _loss_fn(functional_call(model, p, (xb, False)), yb, model_type)
+
+    if compiled_epoch:
+        trainer = EpochTrainer(train_loss, tx, eval_loss_fn=eval_loss, precision=precision,
+                               device=dev)
+
+        def run_epoch(epoch, params, opt_state):
+            return trainer.epoch(params, opt_state, X_tr, y_tr, draws.permutation(epoch, n_tr),
+                                 drop_gen, X_val, y_val, batch_size=batch_size)
+    else:
+        n_batches = max(n_tr // batch_size, 1)
+
+        def run_epoch(epoch, params, opt_state):
+            with train_loop.matmul_precision(precision):
+                perm = train_loop.permutation(draws.permutation(epoch, n_tr), n_tr, dev)
+                ep_loss = 0.0
+                for b in range(n_batches):
+                    sl = perm[b * batch_size: (b + 1) * batch_size]
+                    params, opt_state, loss = _legacy_step(train_loss, tx, params, opt_state,
+                                                           X_tr[sl], y_tr[sl], drop_gen)
+                    ep_loss += float(loss)
+                with torch.no_grad():
+                    val = eval_loss(params, X_val, y_val)
+            metrics = torch.stack([torch.tensor(ep_loss / n_batches, device=dev), val])
+            return params, opt_state, stage(metrics, [("metrics", (2,), np.float32)])
+
+    # the best parameters are a snapshot: the live ones are updated in place
+    best = TrainResult(params=snapshot_params(params), model_type=model_type,
+                       scaler=scaler, target_col=target_col, model_kwargs=model_kwargs)
+    patience = lr_patience = 0
+    lr = learning_rate
+    for epoch in range(epochs):
+        params, opt_state, metrics = run_epoch(epoch, params, opt_state)
+        # THE one host sync per epoch: [train_loss, val_loss] together
+        ep_loss, val_loss = (float(v) for v in train_loop.host_read(metrics))
+        best.history.append({"epoch": epoch, "loss": ep_loss, "val_loss": val_loss, "lr": lr})
+        if verbose:
+            print(f"epoch {epoch}: loss={ep_loss:.5f} val={val_loss:.5f}")
+
+        if val_loss < best.best_val_loss - 1e-7:
+            best.best_val_loss = val_loss
+            best.params = snapshot_params(params)
+            patience = lr_patience = 0
+        else:
+            patience += 1
+            lr_patience += 1
+            if lr_patience >= reduce_lr_patience and lr > min_lr:
+                lr = max(lr * reduce_lr_factor, min_lr)
+                opt_state.hyperparams["learning_rate"].fill_(lr)
+                lr_patience = 0
+            if patience >= early_stopping_patience:
+                break
+    best.epochs_run = len(best.history)
+    return best
+
+
+def _legacy_step(train_loss, tx, params, opt_state, xb, yb, gen):
+    """One per-batch update: the per-batch loop's body, kept for the
+    loss-trajectory parity tests."""
+    names = list(params)
+    leaves = [params[k].requires_grad_() for k in names]
+    loss = train_loss(params, xb, yb, gen)
+    grads = torch.autograd.grad(loss, leaves)
+    opt_state = tx.update(dict(zip(names, grads)), opt_state, params)
+    return params, opt_state, loss.detach()
+
+
 @torch.no_grad()
 def predict_prices(result: TrainResult, features: np.ndarray, seq_len: int = 60,
                    target_col: int | None = None, device=None) -> dict:
@@ -181,20 +396,14 @@ class _BatchedProgram:
         versions = [None if t.is_inference() else t._version for t in held]
         if (versions != self._versions or len(held) != len(self._held)
                 or any(a is not b for a, b in zip(held, self._held))):
-            params = {k: self._upload(torch.stack([r.params[k] for r in results]))
+            params = {k: _upload(torch.stack([r.params[k] for r in results]), self.device)
                       for k in names}
-            smin = self._upload(torch.stack([r.scaler.min for r in results]))
-            smax = self._upload(torch.stack([r.scaler.max for r in results]))
+            smin = _upload(torch.stack([r.scaler.min for r in results]), self.device)
+            smax = _upload(torch.stack([r.scaler.max for r in results]), self.device)
             self._held, self._versions = held, versions
             self._stacked = (params, smin, smax)
         return self._stacked
 
-    def _upload(self, t: torch.Tensor) -> torch.Tensor:
-        if t.device == self.device:
-            return t
-        if self.device.type == "cuda" and t.device.type == "cpu":
-            t = t.pin_memory()
-        return t.to(self.device, non_blocking=True)
 
 
 # One batched program per architecture (model_type, kwargs, input width)
@@ -224,24 +433,14 @@ def predict_prices_batched(results: Sequence[TrainResult], features_list,
     r0 = results[0]
     prog = _batched_program(r0.model_type, _kwargs_key(r0), r0.features, dev)
     params, smin, smax = prog.stacked(results)
-    windows = torch.from_numpy(np.stack(
-        [np.asarray(f, np.float32)[-seq_len:] for f in features_list]))
-    if dev.type == "cuda":
-        windows = windows.pin_memory()
-    out = prog.fn(params, smin, smax, windows.to(dev, non_blocking=True))
+    windows = _upload(np.stack([np.asarray(f, np.float32)[-seq_len:] for f in features_list]),
+                      dev)
+    out = prog.fn(params, smin, smax, windows)
     leaves = [(k, out[k]) for k in ("mean", "log_sigma") if k in out]     # [L, 1, H]
     leaves += [("smin", smin), ("smax", smax)]
     packed = torch.cat([v.reshape(-1) for _, v in leaves])
     layout = [(k, tuple(v.shape), np.float32) for k, v in leaves]
-    if dev.type == "cuda":
-        host = torch.empty(packed.shape, dtype=torch.float32, pin_memory=True)
-        host.copy_(packed, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record()
-        readback = Readback(host, event, layout)
-    else:
-        readback = Readback(packed, None, layout)
-    got = host_read(readback)                       # one pull, all lanes
+    got = host_read(stage(packed, layout))          # one pull, all lanes
     mins, maxs = got["smin"], got["smax"]
     preds = []
     for lane, r in enumerate(results):

@@ -3,8 +3,11 @@
 Port of `ai_crypto_trader_tpu/models/zoo.py` (flax/linen).  Every model
 maps ``x`` [B, T, F] to ``{"mean": [B, H]}`` (H = number of horizons, 1
 for single-task), plus ``"log_sigma"`` for the probabilistic head, through
-``forward(x, train=False)``.  Dropout is applied only when ``train`` is
-true, as flax's ``deterministic=not train``.
+``forward(x, train=False, *, generator=None)``.  Dropout is applied only
+when ``train`` is true, as flax's ``deterministic=not train``, with flax's
+arithmetic (`layers.dropout`); its keep masks are drawn from
+``generator``, and train mode at a dropout rate above 0 without one
+raises.
 
 Submodules carry the names of their flax scopes (``encoder``,
 ``RecurrentEncoder_0``, ``rnn_b_1``, ``GRUCell_0``, ``Dense_1``, ...), and
@@ -37,6 +40,7 @@ from ai_crypto_trader_tpu_torch.models.layers import (
     LayerNorm,
     MultiHeadDotProductAttention,
     default_generator,
+    dropout,
     gru_scan,
     max_pool2,
 )
@@ -69,8 +73,8 @@ def _positions_on(seq_len: int, d_model: int, device) -> torch.Tensor:
     return table
 
 
-def _dropout(x, p, train):
-    return F.dropout(x, p, training=True) if train else x
+def _dropout(x, rate, train, generator):
+    return dropout(x, rate, generator) if train else x
 
 
 class RecurrentEncoder(nn.Module):
@@ -101,7 +105,7 @@ class RecurrentEncoder(nn.Module):
                                     GRUCell(width, units, generator))
             width = units * len(directions)
 
-    def forward(self, x, train: bool = False):
+    def forward(self, x, train: bool = False, *, generator=None):
         if self.cell == "lstm":
             h = x.transpose(0, 1)                                  # [T, B, F]
             for layer in range(self.num_layers):
@@ -111,7 +115,7 @@ class RecurrentEncoder(nn.Module):
                     h = torch.cat([fwd, bwd], dim=-1)
                 else:
                     h = fwd
-                h = _dropout(h, self.dropout, train)
+                h = _dropout(h, self.dropout, train, generator)
             return h.transpose(0, 1)
         k = 2 if self.bidirectional else 1
         for layer in range(self.num_layers):
@@ -122,7 +126,7 @@ class RecurrentEncoder(nn.Module):
                 x = torch.cat([fwd, bwd], dim=-1)
             else:
                 x = fwd
-            x = _dropout(x, self.dropout, train)
+            x = _dropout(x, self.dropout, train, generator)
         return x
 
 
@@ -137,9 +141,9 @@ class SingleHead(nn.Module):
         self.Dense_0 = Dense(width, units // 2, generator)
         self.Dense_1 = Dense(units // 2, 1, generator)
 
-    def forward(self, x, train: bool = False):
-        h = self.encoder(x, train)[:, -1, :]
-        h = _dropout(F.relu(self.Dense_0(h)), self.dropout, train)
+    def forward(self, x, train: bool = False, *, generator=None):
+        h = self.encoder(x, train, generator=generator)[:, -1, :]
+        h = _dropout(F.relu(self.Dense_0(h)), self.dropout, train, generator)
         return {"mean": self.Dense_1(h)}
 
 
@@ -155,11 +159,11 @@ class CNNLSTM(nn.Module):
         self.FusedLSTM_0 = FusedLSTM(units, units, generator)
         self.Dense_0 = Dense(units, 1, generator)
 
-    def forward(self, x, train: bool = False):
+    def forward(self, x, train: bool = False, *, generator=None):
         c = max_pool2(F.relu(self.Conv_0(x.transpose(1, 2))))     # [B, C, T/2]
         c = F.relu(self.Conv_1(c))
         h = self.FusedLSTM_0(c.permute(2, 0, 1))[-1]               # last hidden state
-        return {"mean": self.Dense_0(_dropout(h, self.dropout, train))}
+        return {"mean": self.Dense_0(_dropout(h, self.dropout, train, generator))}
 
 
 class AttentionModel(nn.Module):
@@ -172,14 +176,15 @@ class AttentionModel(nn.Module):
         self.RecurrentEncoder_0 = RecurrentEncoder(features, units, 1, dropout,
                                                    generator=generator)
         self.MultiHeadDotProductAttention_0 = MultiHeadDotProductAttention(
-            units, num_heads, units, generator)
+            units, num_heads, units, generator, dropout_rate=dropout)
         self.LayerNorm_0 = LayerNorm(units, generator)
         self.Dense_0 = Dense(units // 2, 1, generator)       # the head, built first
         self.Dense_1 = Dense(units, units // 2, generator)
 
-    def forward(self, x, train: bool = False):
-        h = self.RecurrentEncoder_0(x, train)
-        h = self.LayerNorm_0(h + self.MultiHeadDotProductAttention_0(h))
+    def forward(self, x, train: bool = False, *, generator=None):
+        h = self.RecurrentEncoder_0(x, train, generator=generator)
+        h = self.LayerNorm_0(h + self.MultiHeadDotProductAttention_0(h, train,
+                                                                     generator=generator))
         h = h.mean(dim=1)
         return {"mean": self.Dense_0(F.relu(self.Dense_1(h)))}
 
@@ -190,16 +195,17 @@ class TransformerBlock(nn.Module):
         super().__init__()
         self.dropout = dropout
         self.MultiHeadDotProductAttention_0 = MultiHeadDotProductAttention(
-            d_model, num_heads, d_model, generator)
+            d_model, num_heads, d_model, generator, dropout_rate=dropout)
         self.LayerNorm_0 = LayerNorm(d_model, generator)
         self.Dense_0 = Dense(d_model, ff_dim, generator)
         self.Dense_1 = Dense(ff_dim, d_model, generator)
         self.LayerNorm_1 = LayerNorm(d_model, generator)
 
-    def forward(self, x, train: bool = False):
-        x = self.LayerNorm_0(x + self.MultiHeadDotProductAttention_0(x))
+    def forward(self, x, train: bool = False, *, generator=None):
+        x = self.LayerNorm_0(x + self.MultiHeadDotProductAttention_0(x, train,
+                                                                     generator=generator))
         f = self.Dense_1(F.gelu(self.Dense_0(x), approximate="tanh"))
-        return self.LayerNorm_1(x + _dropout(f, self.dropout, train))
+        return self.LayerNorm_1(x + _dropout(f, self.dropout, train, generator))
 
 
 class TransformerModel(nn.Module):
@@ -219,10 +225,10 @@ class TransformerModel(nn.Module):
         self.Dense_1 = Dense(d_model // 2, 1, generator)     # the head, built first
         self.Dense_2 = Dense(d_model, d_model // 2, generator)
 
-    def forward(self, x, train: bool = False):
+    def forward(self, x, train: bool = False, *, generator=None):
         h = self.Dense_0(x) + _positions_on(x.shape[1], self.d_model, x.device)
         for name in self.blocks:
-            h = getattr(self, name)(h, train)
+            h = getattr(self, name)(h, train, generator=generator)
         h = h.mean(dim=1)
         return {"mean": self.Dense_1(F.relu(self.Dense_2(h)))}
 
@@ -241,8 +247,8 @@ class MultitaskModel(nn.Module):
             self.add_module(f"Dense_{i}", Dense(units, 32, generator))
             self.add_module(f"head_h{hz}", Dense(32, 1, generator))
 
-    def forward(self, x, train: bool = False):
-        h = self.RecurrentEncoder_0(x, train)[:, -1, :]
+    def forward(self, x, train: bool = False, *, generator=None):
+        h = self.RecurrentEncoder_0(x, train, generator=generator)[:, -1, :]
         outs = [getattr(self, f"head_h{hz}")(F.relu(getattr(self, f"Dense_{i}")(h)))
                 for i, hz in enumerate(self.horizons)]
         return {"mean": torch.cat(outs, dim=-1)}
@@ -260,8 +266,8 @@ class ProbabilisticModel(nn.Module):
         self.Dense_1 = Dense(units // 2, 1, generator)
         self.Dense_2 = Dense(units // 2, 1, generator)
 
-    def forward(self, x, train: bool = False):
-        h = self.RecurrentEncoder_0(x, train)[:, -1, :]
+    def forward(self, x, train: bool = False, *, generator=None):
+        h = self.RecurrentEncoder_0(x, train, generator=generator)[:, -1, :]
         h = F.relu(self.Dense_0(h))
         return {"mean": self.Dense_1(h),
                 "log_sigma": torch.clamp(self.Dense_2(h), -7.0, 3.0)}
@@ -283,12 +289,12 @@ class EnsembleModel(nn.Module):
         self.Dense_0 = Dense(3 * units, units, generator)
         self.Dense_1 = Dense(units, 1, generator)
 
-    def forward(self, x, train: bool = False):
-        lstm = self.RecurrentEncoder_0(x, train)[:, -1]
-        gru = self.RecurrentEncoder_1(x, train)[:, -1]
+    def forward(self, x, train: bool = False, *, generator=None):
+        lstm = self.RecurrentEncoder_0(x, train, generator=generator)[:, -1]
+        gru = self.RecurrentEncoder_1(x, train, generator=generator)[:, -1]
         c = F.relu(self.Conv_0(x.transpose(1, 2))).mean(dim=-1)
         h = F.relu(self.Dense_0(torch.cat([lstm, gru, c], dim=-1)))
-        return {"mean": self.Dense_1(_dropout(h, self.dropout, train))}
+        return {"mean": self.Dense_1(_dropout(h, self.dropout, train, generator))}
 
 
 def build_model(model_type: str, units: int = 64, dropout: float = 0.2,

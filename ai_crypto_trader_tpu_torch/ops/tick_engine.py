@@ -91,6 +91,19 @@ def host_read(readback: Readback) -> dict:
     return read_packed(readback)
 
 
+def stage(packed: torch.Tensor, layout) -> Readback:
+    """``packed`` (a float32 tensor) on its way to the host: on the card one
+    non-blocking copy into a fresh pinned buffer with an event recorded
+    after it; on the CPU the tensor itself."""
+    if packed.device.type != "cuda":
+        return Readback(packed, None, layout)
+    host = torch.empty(packed.shape, dtype=torch.float32, pin_memory=True)
+    host.copy_(packed, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return Readback(host, event, layout)
+
+
 def read_packed(readback: Readback) -> dict:
     """Wait for ``readback``'s copy and unpack it: the body of the tick
     engine's and the tenant engine's `host_read` seams.  A leaf named

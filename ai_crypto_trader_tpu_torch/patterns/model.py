@@ -1,15 +1,15 @@
-"""Chart-pattern classifier, serving: CNN / LSTM / CNN-LSTM over OHLCV
-windows.
+"""Chart-pattern classifier: CNN / LSTM / CNN-LSTM over OHLCV windows.
 
-Port of the serving half of `ai_crypto_trader_tpu/patterns/model.py`:
-15-class softmax classifiers, the preprocess (OHLC ÷ last close, volume ÷
-max), every overlapping window (seq_len 60, stride 5) scored in one
-batched forward pass and one host read, the softmax averaged over
-windows, the top 3, a primary pattern only above the confidence
-threshold, the completion heuristic and each pattern's trading
-implications.  `PATTERN_CLASSES` is the port's copy of the JAX package's
-tuple (`patterns/synthetic.py`); the synthetic generators and training
-(`train_pattern_model`) are not ported yet.
+Port of `ai_crypto_trader_tpu/patterns/model.py`: 15-class softmax
+classifiers, the preprocess (OHLC ÷ last close, volume ÷ max), every
+overlapping window (seq_len 60, stride 5) scored in one batched forward
+pass and one host read, the softmax averaged over windows, the top 3, a
+primary pattern only above the confidence threshold, the completion
+heuristic and each pattern's trading implications; and
+`train_pattern_model`, which trains a classifier on the synthetic
+generators (`patterns.synthetic`, where `PATTERN_CLASSES` lives) with
+integer-label cross-entropy through `models.train_loop.EpochTrainer`, one
+host read an epoch.
 
 Submodules carry the names of their flax scopes, and a recognizer's
 ``params`` are the named parameters of its classifier's module ({name:
@@ -29,19 +29,14 @@ from torch.func import functional_call
 from torch.nn import functional as F
 
 from ai_crypto_trader_tpu_torch.device import resolve_device, to_device
+from ai_crypto_trader_tpu_torch.models import train_loop
 from ai_crypto_trader_tpu_torch.models.fused_lstm import FusedLSTM
 from ai_crypto_trader_tpu_torch.models.layers import (
-    Conv, Dense, default_generator, max_pool2, meta_template)
+    Conv, Dense, default_generator, dropout, max_pool2, meta_template)
+from ai_crypto_trader_tpu_torch.models.train_loop import Adam, EpochTrainer
+from ai_crypto_trader_tpu_torch.patterns.synthetic import (  # noqa: F401 — re-exported
+    N_CLASSES, PATTERN_CLASSES, generate_dataset)
 
-PATTERN_CLASSES = (
-    "head_and_shoulders", "inverse_head_and_shoulders",
-    "double_top", "double_bottom",
-    "ascending_triangle", "descending_triangle", "symmetric_triangle",
-    "rectangle", "flag_bull", "flag_bear",
-    "pennant", "cup_and_handle", "rising_wedge", "falling_wedge",
-    "no_pattern",
-)
-N_CLASSES = len(PATTERN_CLASSES)
 OHLCV = 5
 
 
@@ -53,8 +48,8 @@ def _center(x):
     return (x - mean) / (std + 1e-6)
 
 
-def _dropout(x, train):
-    return F.dropout(x, 0.3, training=True) if train else x
+def _dropout(x, train, generator):
+    return dropout(x, 0.3, generator) if train else x
 
 
 class PatternCNN(nn.Module):
@@ -69,12 +64,12 @@ class PatternCNN(nn.Module):
         self.Dense_0 = Dense(seq_len // 2 // 2 * 64, 128, generator)
         self.Dense_1 = Dense(128, N_CLASSES, generator)
 
-    def forward(self, x, train: bool = False):            # [B, T, 5]
+    def forward(self, x, train: bool = False, *, generator=None):   # [B, T, 5]
         c = _center(x).transpose(1, 2)
         for conv in (self.Conv_0, self.Conv_1):
             c = max_pool2(F.relu(conv(c)))
         flat = c.transpose(1, 2).reshape(c.shape[0], -1)  # [B, T', C] row-major, as flax
-        return self.Dense_1(_dropout(F.relu(self.Dense_0(flat)), train))
+        return self.Dense_1(_dropout(F.relu(self.Dense_0(flat)), train, generator))
 
 
 class PatternLSTM(nn.Module):
@@ -86,9 +81,9 @@ class PatternLSTM(nn.Module):
         self.Dense_0 = Dense(64, 64, generator)
         self.Dense_1 = Dense(64, N_CLASSES, generator)
 
-    def forward(self, x, train: bool = False):
+    def forward(self, x, train: bool = False, *, generator=None):
         h = self.FusedLSTM_0(_center(x).transpose(0, 1))[-1]
-        return self.Dense_1(_dropout(F.relu(self.Dense_0(h)), train))
+        return self.Dense_1(_dropout(F.relu(self.Dense_0(h)), train, generator))
 
 
 class PatternCNNLSTM(nn.Module):
@@ -100,10 +95,10 @@ class PatternCNNLSTM(nn.Module):
         self.FusedLSTM_0 = FusedLSTM(32, 64, generator)
         self.Dense_0 = Dense(64, N_CLASSES, generator)
 
-    def forward(self, x, train: bool = False):
+    def forward(self, x, train: bool = False, *, generator=None):
         c = max_pool2(F.relu(self.Conv_0(_center(x).transpose(1, 2))))
         h = self.FusedLSTM_0(c.permute(2, 0, 1))[-1]
-        return self.Dense_0(_dropout(h, train))
+        return self.Dense_0(_dropout(h, train, generator))
 
 
 _CLASSIFIERS = {"cnn": PatternCNN, "lstm": PatternLSTM, "cnn_lstm": PatternCNNLSTM}
@@ -190,8 +185,44 @@ class PatternRecognizer:
     # "untrained" so downstream consumers can gate
     trained: bool = True
 
-    def logits(self, x, train: bool = False):
-        return functional_call(_template(self.model_type, x.shape[1]), self.params, (x, train))
+    def logits(self, x, train: bool = False, *, generator=None):
+        return functional_call(_template(self.model_type, x.shape[1]), self.params, (x, train),
+                               {"generator": generator})
+
+
+def train_pattern_model(generator: torch.Generator, model_type: str = "cnn", *,
+                        n_per_class: int = 64, epochs: int = 10, batch_size: int = 64,
+                        learning_rate: float = 1e-3, T: int = 60,
+                        precision: str | None = None, verbose: bool = False,
+                        device=None) -> PatternRecognizer:
+    """Train the classifier ``model_type`` on the synthetic generators:
+    ``n_per_class`` windows of ``T`` candles per class, Adam, integer-label
+    cross-entropy, each epoch through `EpochTrainer` with one host read.
+    Every draw (the dataset, the initial parameters, the permutations,
+    dropout) comes from ``generator``, a ``torch.Generator`` on ``device``
+    (None: the CUDA card)."""
+    dev = resolve_device(device)
+    X, y = generate_dataset(generator, n_per_class, T, device=dev)
+    model = _template(model_type, T)
+    params = {k: v.detach() for k, v in
+              _build(model_type, generator, device=dev, seq_len=T).named_parameters()}
+    tx = Adam(learning_rate)
+    opt_state = tx.init(params)
+
+    def loss_fn(p, xb, yb, gen):
+        return F.cross_entropy(functional_call(model, p, (xb, True), {"generator": gen}), yb)
+
+    trainer = EpochTrainer(loss_fn, tx, precision=precision, device=dev)
+    rec = PatternRecognizer(model_type=model_type)
+    for epoch in range(epochs):
+        params, opt_state, metrics = trainer.epoch(params, opt_state, X, y, generator,
+                                                   generator, batch_size=batch_size)
+        ep_loss = float(train_loop.host_read(metrics)[0])      # one sync an epoch
+        rec.history.append({"epoch": epoch, "loss": ep_loss})
+        if verbose:
+            print(f"pattern {model_type} epoch {epoch}: {ep_loss:.4f}")
+    rec.params = {k: v.detach() for k, v in params.items()}
+    return rec
 
 
 @torch.no_grad()

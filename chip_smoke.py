@@ -131,11 +131,25 @@ imports nothing of JAX or of the JAX package.  Phases, one JSON line each:
                 over the 64 symbols' 256-candle `5m` windows against the
                 port's CPU run (probabilities atol 1e-5, the same top 3 but
                 for near-ties, counted), p50/p99 of 20 rounds;
- 12. kernels  — one line with each kernel's launches, error, times and
+ 12. train    — training on the card: the bench's `nn` row (the zoo lstm,
+                B 32 × T 60 × F 8, 32 batches an epoch, through
+                `EpochTrainer`: ms per step amortised over 3 epochs, one
+                read an epoch and no other sync, the epoch losses and
+                parameters against the port's CPU run, the LSTM's
+                hand-written backward against autograd of the plain loop,
+                torch.profiler over one step, cuDNN's `nn.LSTM` forward +
+                backward beside it); `cli train` at its defaults (7 days,
+                epochs cut to 2; exactly 2 K2 launches, held against the
+                plain EWMA); `PredictionService` at its defaults over 8
+                symbols × 2 frames (the first cycle's 16 trainings and one
+                batched predict, a cycle inside half an interval, one HPO
+                request); the three pattern classifiers trained; feature
+                importance of the `cli train` model against the CPU;
+ 13. kernels  — one line with each kernel's launches, error, times and
                 bound, at the main path's shapes, and each kernel's GA,
-                tick, portfolio, tenant and `cli train` launches
+                tick, portfolio, tenant, `cli train` and training launches
                 (`ga_tables`, `ga_rows`, `tick`, `portfolio`, `tenant`,
-                `nn_cli_train`).
+                `nn_cli_train`, `nn_train`).
 
 Any failed check raises, so the script exits non-zero and never prints its
 last line, ``{"ok": true, "device": {...}}``.  Times are CUDA-event times
@@ -188,6 +202,12 @@ NN_UNITS, NN_SEQ = 64, 60          # build_model's defaults, the service's windo
 NN_CALLS = 20
 NN_ATOL, NN_RTOL = 1e-5, 1e-5      # scaled outputs / probabilities; prices
 CLI_TRAIN_COLUMNS = ("close", "volume", "rsi", "macd", "bb_position", "stoch_k", "atr")
+TRAIN_B, TRAIN_F, TRAIN_BATCHES = 32, 8, 32   # the bench's nn row (bench.py:1154-1262)
+TRAIN_RTOL, TRAIN_ATOL = 1e-5, 1e-5  # epoch losses; parameters (card against the CPU)
+LSTM_GRAD_RTOL = 1e-5                # LSTMScan's gradients against the plain loop's, of scale
+CLI_TRAIN_EPOCHS = 2                 # cli train's 5 epochs, cut
+SVC_SYMBOLS, SVC_ROWS = 8, 256       # the service's pairs: symbols × (1m, 5m); kline rows
+IMPORTANCE_WINDOWS, IMPORTANCE_STEPS, IMPORTANCE_ATOL = 64, 32, 1e-5
 # per element and output of the EWMA: the element map (select, multiply)
 # and the recursion (multiply, add) and the NaN mask
 EWMA_OPS = 5
@@ -2667,6 +2687,357 @@ def phase_patterns(info):
     return report
 
 
+class MemoryBus:
+    """The prediction service's bus in memory (the service uses get, set
+    and an async publish), standing in for Redis as the tests' fake
+    transports do; published events are recorded."""
+
+    def __init__(self):
+        self.kv, self.events = {}, []
+
+    def get(self, key):
+        return self.kv.get(key)
+
+    def set(self, key, value):
+        self.kv[key] = value
+
+    async def publish(self, channel, event):
+        self.events.append((channel, event))
+
+
+@contextlib.contextmanager
+def counted(module, name):
+    """``module.name`` wrapped to record the time of each call; yields the
+    list of those times."""
+    real, times = getattr(module, name), []
+
+    def call(*args, **kw):
+        out = real(*args, **kw)
+        times.append(time.perf_counter())
+        return out
+
+    setattr(module, name, call)
+    try:
+        yield times
+    finally:
+        setattr(module, name, real)
+
+
+def train_row(info):
+    """The bench's `nn` row (bench.py:1154-1262) through `EpochTrainer`:
+    the zoo `lstm` (2 × LSTM-64 and its head, `build_model`'s initialisers
+    from a generator seeded 0), B 32 × T 60 × F 8, 32 batches an epoch,
+    seeded normal inputs and targets, Adam at 1e-3, eval-mode loss as the
+    bench's.  A warm epoch, 3 timed epochs (host wall, each ending in its
+    one read: ms per step amortised, the bench's `nn_train_step_ms`), then
+    one epoch with its reads counted and torch's sync debug mode on (one
+    read, no other sync).  The 5 epoch losses and the final parameters
+    against the port's CPU run from the same parameters and handed-over
+    permutations (TRAIN_RTOL / TRAIN_ATOL).  The Function's dzx and dwh on
+    the card against autograd through the plain loop on the card at 60 ×
+    32 × 64 (each within LSTM_GRAD_RTOL of its largest magnitude);
+    torch.profiler over one step; cuDNN's `nn.LSTM` (2 × 64) forward +
+    backward at the same shapes as the library's time."""
+    import numpy as np
+    import torch
+    from torch.func import functional_call
+
+    from ai_crypto_trader_tpu_torch.models import build_model, train, train_loop
+    from ai_crypto_trader_tpu_torch.models.fused_lstm import LSTMScan, _scan
+
+    B, T, F, NB = TRAIN_B, NN_SEQ, TRAIN_F, TRAIN_BATCHES
+    model = build_model("lstm", units=NN_UNITS, features=F,
+                        generator=torch.Generator().manual_seed(0), device="cpu")
+    params0 = {k: v.detach().clone() for k, v in model.named_parameters()}
+    tmpl = train._template("lstm", (("units", NN_UNITS),), F)
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(NB * B, T, F)).astype(np.float32)
+    Y = rng.normal(size=(NB * B, 1)).astype(np.float32)
+    perms = [np.random.default_rng(10 + e).permutation(NB * B) for e in range(5)]
+
+    def loss_fn(p, xb, yb, gen):                     # eval mode, as the bench's
+        return train._loss_fn(functional_call(tmpl, p, (xb, False)), yb, "lstm")
+
+    def setup(dev):
+        params = {k: v.to(dev).clone() for k, v in params0.items()}
+        tx = train_loop.Adam(1e-3)
+        return (train_loop.EpochTrainer(loss_fn, tx, device=dev), params, tx.init(params),
+                torch.from_numpy(X).to(dev), torch.from_numpy(Y).to(dev),
+                [torch.from_numpy(p).to(dev) for p in perms])
+
+    def epoch(state, e):
+        trainer, params, opt, Xd, Yd, pd = state
+        params, opt, m = trainer.epoch(params, opt, Xd, Yd, pd[e], None, batch_size=B)
+        state[2] = opt
+        return train_loop.host_read(m)
+
+    cpu = list(setup("cpu"))
+    t0 = time.perf_counter()
+    cpu_losses = [float(epoch(cpu, e)[0]) for e in range(5)]
+    cpu_s = time.perf_counter() - t0
+    card = list(setup("cuda"))
+    losses = [float(epoch(card, 0)[0])]              # warm
+    t0 = time.perf_counter()
+    losses += [float(epoch(card, e)[0]) for e in (1, 2, 3)]
+    step_ms = 1e3 * (time.perf_counter() - t0) / (3 * NB)
+    reads, real_read = [], train_loop.host_read
+
+    def quiet_read(rb):                              # the one sanctioned sync
+        reads.append(1)
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            return real_read(rb)
+        finally:
+            torch.cuda.set_sync_debug_mode("warn")
+
+    train_loop.host_read = quiet_read
+    try:
+        syncs = sync_calls(lambda: losses.append(float(epoch(card, 4)[0])))
+    finally:
+        train_loop.host_read = real_read
+    if len(reads) != 1 or syncs:
+        fail(f"train: an epoch made {len(reads)} host reads and {len(syncs)} other "
+             f"synchronizing calls ({syncs[:2]}), not 1 and 0")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, cpu_losses))
+    param_err = max(float((card[1][k].detach().cpu() - cpu[1][k].detach()).abs().max())
+                    for k in params0)
+    if not np.isfinite(losses).all() or loss_rel > TRAIN_RTOL or param_err > TRAIN_ATOL:
+        fail(f"train: the card's epoch losses are {loss_rel:.3g} (rtol {TRAIN_RTOL}) and its "
+             f"parameters {param_err:.3g} (atol {TRAIN_ATOL}) off the CPU run's")
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    zx = torch.randn((T, B, 4 * NN_UNITS), generator=g, device="cuda").requires_grad_()
+    wh = (0.3 * torch.randn((NN_UNITS, 4 * NN_UNITS), generator=g, device="cuda")).requires_grad_()
+    w = torch.randn((T, B, NN_UNITS), generator=g, device="cuda")
+    fn_grads = torch.autograd.grad((LSTMScan.apply(zx, wh) * w).sum(), (zx, wh))
+    plain_grads = torch.autograd.grad((_scan(zx, wh, keep=False) * w).sum(), (zx, wh))
+    # each gradient's largest error over its largest magnitude: dwh sums T·B rows
+    grad_err = {k: float((a - b).abs().max() / b.abs().max())
+                for k, a, b in zip(("dzx", "dwh"), fn_grads, plain_grads)}
+    if max(grad_err.values()) > LSTM_GRAD_RTOL:
+        fail(f"train: LSTMScan's gradients are {grad_err} (of their scale) off autograd of "
+             f"the plain loop")
+    fn_ms = cuda_ms(lambda: torch.autograd.grad((LSTMScan.apply(zx, wh) * w).sum(), (zx, wh)), 5)
+
+    one = [card[0], card[1], card[2], card[3][:B], card[4][:B],
+           [torch.arange(B, device="cuda")]]
+    try:
+        profile = device_profile(lambda: epoch(one, 0))
+    except Exception as ex:  # noqa: BLE001 — a profiler that cannot trace is reported
+        profile = {"measured": False, "reason": repr(ex)[:300]}
+    lib = torch.nn.LSTM(F, NN_UNITS, num_layers=2, batch_first=True).cuda()
+    xb = card[3][:B]
+    cudnn_ms = cuda_ms(lambda: torch.autograd.grad(lib(xb)[0].sum(), list(lib.parameters())), 20)
+    return {"model": "lstm", "units": NN_UNITS, "batch": B, "seq_len": T, "features": F,
+            "batches_per_epoch": NB, "step_ms_amortised": step_ms, "epoch_losses": losses,
+            "loss_max_rel_vs_cpu": loss_rel, "param_max_abs_vs_cpu": param_err,
+            "rtol": TRAIN_RTOL, "atol": TRAIN_ATOL, "cpu_5_epochs_s": cpu_s,
+            "reads_per_epoch": len(reads), "other_syncs": len(syncs),
+            "lstm_function_grad_err": grad_err, "lstm_function_fwd_bwd_ms": fn_ms,
+            "profile_one_step": profile, "cudnn_lstm_fwd_bwd_ms": cudnn_ms}
+
+
+def train_cli(info):
+    """`cli train` at its defaults (7 days: `generate_ohlcv(n=10,080,
+    seed=0)`, lstm, seq 60, batch 32), epochs cut from 5 to 2, through
+    `cli.main` on the card: exactly 2 K2 launches (recorded as the
+    indicators make them, and held against the plain EWMA by
+    `cli_train_k2`), a finite best val loss, a history of 2 and a finite
+    price; seconds per epoch between the epochs' reads.  Returns (report,
+    K2 entry, the trained result, its features)."""
+    import io
+
+    import numpy as np
+
+    from ai_crypto_trader_tpu_torch import cli, models
+    from ai_crypto_trader_tpu_torch.models import train_loop
+    from ai_crypto_trader_tpu_torch.ops import compute_indicators
+    from ai_crypto_trader_tpu_torch.ops.ewma import fused_ewma
+
+    real_train, got = models.train_model, []
+    models.train_model = lambda *a, **k: got.append((real_train(*a, **k), a[1])) or got[-1][0]
+    out = io.StringIO()
+    fused_ewma.launches = 0
+    try:
+        with recording_ewma([]) as recorded, counted(train_loop, "host_read") as reads, \
+                contextlib.redirect_stdout(out):
+            t0 = time.perf_counter()
+            cli.main(["train", "--days", "7", "--epochs", str(CLI_TRAIN_EPOCHS),
+                      "--device", "cuda"])
+            wall = time.perf_counter() - t0
+    finally:
+        models.train_model = real_train
+    launches = fused_ewma.launches
+    text = out.getvalue()
+    summary = json.loads(text[text.index("{"):text.rindex("}") + 1])
+    (result, feats), = got
+    if launches != 2 or len(recorded) != 2:
+        fail(f"train: cli train's indicators made {launches} K2 launches, not 2")
+    if not (np.isfinite(summary["best_val_loss"]) and np.isfinite(summary["predicted_price"])
+            and len(result.history) == summary["epochs_run"] == CLI_TRAIN_EPOCHS
+            and len(reads) == CLI_TRAIN_EPOCHS):
+        fail(f"train: cli train gave {summary} with {len(reads)} epoch reads")
+    d = cli._load_or_generate("BTCUSDC", 7 * 1440, 0)
+    k2 = cli_train_k2(d, compute_indicators(d, device="cuda"), recorded)
+    report = {"candles": int(np.shape(d["close"])[0]), "epochs": CLI_TRAIN_EPOCHS,
+              "summary": summary, "wall_s": wall, "k2_launches": launches,
+              "epoch_s": [b - a for a, b in zip(reads, reads[1:])],
+              "windows": int(feats.shape[0]) - NN_SEQ,
+              "history": result.history}
+    entry = {"launches": launches, **{k: v for k, v in k2.items() if k != "launch_checks"},
+             "T": report["candles"],
+             "shape": f"compute_indicators over 1 x {report['candles']} (cli train's defaults)"}
+    return report, entry, result, feats
+
+
+def train_service(info):
+    """`PredictionService` at its defaults (lstm, units 32, epochs 20, seq
+    60, intervals 1m/5m) on the card, over 8 symbols of the tick tape, 256
+    kline rows a pair, on an in-memory bus: the first `run_once` trains the
+    16 pairs and predicts them as one batched group with one read; a second
+    within half an interval predicts nothing; then one HPO request with
+    `hpo_trials=4`.  Times of each."""
+    import asyncio
+
+    import numpy as np
+
+    from ai_crypto_trader_tpu_torch.models import train, train_loop
+    from ai_crypto_trader_tpu_torch.models.service import PredictionService
+
+    tape = TickTape(SVC_SYMBOLS, T_TICK)
+    bus, clock = MemoryBus(), [1_000_000.0]
+    for i, sym in enumerate(tape.symbols):
+        for iv in ("1m", "5m"):
+            bus.set(f"historical_data_{sym}_{iv}", tape.klines(i, iv, tape.n - 64, SVC_ROWS))
+    svc = PredictionService(bus, tape.symbols, now_fn=lambda: clock[0], device="cuda")
+    report = {"symbols": SVC_SYMBOLS, "pairs": 2 * SVC_SYMBOLS, "rows": SVC_ROWS,
+              "model_type": svc.model_type, "units": svc.units, "epochs": svc.epochs}
+    with counted(train, "host_read") as preds, counted(train_loop, "host_read") as epochs:
+        t0 = time.perf_counter()
+        out = asyncio.run(svc.run_once())
+        report["first_run_s"] = time.perf_counter() - t0
+    if (out["trained"], out["predicted"], len(preds)) != (16, 16, 1):
+        fail(f"train: the service's first cycle trained {out['trained']}, predicted "
+             f"{out['predicted']} with {len(preds)} predict reads, not 16, 16 and 1")
+    prices = [bus.get(f"nn_prediction_{s}_{iv}")["predicted_price"]
+              for s in tape.symbols for iv in ("1m", "5m")]
+    if not np.isfinite(prices).all():
+        fail("train: the service published a price that is not finite")
+    report["epochs_trained"] = len(epochs)
+    report["epochs_run"] = [r.epochs_run for r in svc.models.values()]
+    clock[0] += 10.0
+    t0 = time.perf_counter()
+    again = asyncio.run(svc.run_once())
+    report["second_run_s"] = time.perf_counter() - t0
+    if again["predicted"] or again["trained"]:
+        fail(f"train: a cycle 10 s later predicted {again['predicted']}, trained "
+             f"{again['trained']}")
+    bus.set("nn_optimization_request", {"symbol": tape.symbols[0], "interval": "1m"})
+    clock[0] += 20.0
+    t0 = time.perf_counter()
+    hpo = asyncio.run(svc.run_once())
+    report["hpo_run_s"] = time.perf_counter() - t0
+    rec = bus.get(f"nn_last_optimization_{tape.symbols[0]}_1m")
+    if hpo["hpo"] != 1 or rec is None or not np.isfinite(rec["val_loss"]) \
+            or bus.get("nn_optimization_request") is not None:
+        fail(f"train: the HPO request gave {hpo} and {rec}")
+    report["hpo"] = {"trials": svc.hpo_trials, "best": {k: (v if isinstance(v, (int, float))
+                                                            else str(v))
+                                                        for k, v in rec["best"].items()},
+                     "val_loss": rec["val_loss"], "adoption": rec["adoption"]}
+    report["events"] = len(bus.events)
+    return report
+
+
+def train_patterns(info):
+    """`train_pattern_model("cnn")` at its defaults (64 windows a class ×
+    15, 10 epochs, batch 64, T 60) on the card: the loss falling below 0.7
+    of the first epoch's, one read an epoch, held-out accuracy above 0.5
+    (the JAX package's own test's bar), then `detect_patterns` with it over
+    the tick tape's 64 `5m` windows; `lstm` and `cnn_lstm` for 2 epochs
+    each."""
+    import numpy as np
+    import torch
+
+    from ai_crypto_trader_tpu_torch.models import train_loop
+    from ai_crypto_trader_tpu_torch.patterns import (
+        detect_patterns, generate_dataset, train_pattern_model)
+
+    report = {}
+    for mt, epochs in (("cnn", 10), ("lstm", 2), ("cnn_lstm", 2)):
+        g = torch.Generator(device="cuda").manual_seed(7)
+        with counted(train_loop, "host_read") as reads:
+            t0 = time.perf_counter()
+            rec = train_pattern_model(g, mt, epochs=epochs, device="cuda")
+            wall = time.perf_counter() - t0
+        losses = [h["loss"] for h in rec.history]
+        if len(reads) != epochs or not np.isfinite(losses).all():
+            fail(f"train: pattern {mt} made {len(reads)} reads in {epochs} epochs: {losses}")
+        report[mt] = {"epochs": epochs, "losses": losses, "wall_s": wall}
+        if mt != "cnn":
+            continue
+        if not losses[-1] < 0.7 * losses[0]:
+            fail(f"train: the cnn classifier's loss did not fall: {losses}")
+        X, y = generate_dataset(torch.Generator(device="cuda").manual_seed(99), 8,
+                                device="cuda")
+        with torch.no_grad():
+            acc = float((rec.logits(X).argmax(-1) == y).float().mean())
+        if acc <= 0.5:
+            fail(f"train: the trained cnn recognises {acc:.2f} of held-out patterns")
+        tape = TickTape(S_TICK, T_TICK)
+        windows = lane_features(tape, tape.n - 64, ("5m",), T_TICK)
+        t0 = time.perf_counter()
+        found = [detect_patterns(rec, w, device="cuda") for w in windows]
+        report[mt].update({"held_out_accuracy": acc,
+                           "detect_round_ms": 1e3 * (time.perf_counter() - t0),
+                           "detected": sum(f["detected"] for f in found)})
+    return report
+
+
+def train_importance(result, feats):
+    """`feature_importance` of `cli train`'s model over its last 64 scaled
+    windows × 32 steps on the card, against the port's CPU run: weights
+    within IMPORTANCE_ATOL, summing to 1."""
+    import numpy as np
+    import torch
+
+    from ai_crypto_trader_tpu_torch.models import feature_importance, make_windows
+
+    scaled = result.scaler.transform(torch.from_numpy(feats).cuda()).cpu().numpy()
+    X = make_windows(scaled, NN_SEQ)[0][-IMPORTANCE_WINDOWS:]
+    run = lambda dev: feature_importance(  # noqa: E731
+        {k: v.to(dev) for k, v in result.params.items()}, result.model_type, X,
+        steps=IMPORTANCE_STEPS, feature_names=list(CLI_TRAIN_COLUMNS),
+        model_kwargs=result.model_kwargs, device=dev)
+    t0 = time.perf_counter()
+    got = run("cuda")
+    card_s = time.perf_counter() - t0
+    ref = run("cpu")
+    err = max(abs(got["importances"][k] - ref["importances"][k]) for k in CLI_TRAIN_COLUMNS)
+    total = sum(got["importances"].values())
+    if not err <= IMPORTANCE_ATOL or abs(total - 1.0) > IMPORTANCE_ATOL:
+        fail(f"train: feature importance {err:.3g} off the CPU run's, summing to {total}")
+    return {"windows": IMPORTANCE_WINDOWS, "steps": IMPORTANCE_STEPS, "card_s": card_s,
+            "max_abs_err_vs_cpu": err, "sum": total, "ranked": got["ranked"]}
+
+
+def phase_train(info):
+    """Training on the card: the bench's `nn` row (`train_row`), `cli
+    train` at its defaults (`train_cli`), the prediction service's cadence
+    (`train_service`), the pattern classifiers (`train_patterns`) and
+    feature importance of the `cli train` model (`train_importance`).
+    Returns `cli train`'s K2 entry for the kernels line."""
+    t_phase = time.perf_counter()
+    report = {"phase": "train", "card": info["nvidia_smi"], "row": train_row(info)}
+    report["cli_train"], entry, result, feats = train_cli(info)
+    report["service"] = train_service(info)
+    report["patterns"] = train_patterns(info)
+    report["importance"] = train_importance(result, feats)
+    report["phase_s"] = time.perf_counter() - t_phase
+    emit(report)
+    return entry
+
+
 def main():
     import torch
 
@@ -2699,6 +3070,7 @@ def main():
     phase_mc(info)
     nn = phase_nn(info)
     phase_patterns(info)
+    nn_train = phase_train(info)
     bound_ms, bound_by, stepped_bound_ms = replay_bound_ms(stats, B_FULL, T_FULL)
     checks += full
     kernels = [
@@ -2719,6 +3091,7 @@ def main():
          "tick": tick,
          "tenant": tenant,
          "nn_cli_train": nn,
+         "nn_train": nn_train,
          "shape": "the two launches of compute_indicators at T=525600, summed "
                   "(A: close K=2 + up/dn/tr K=1; B: MACD line K=1)"},
         {"name": "replay_sweep", "route": "cuda",

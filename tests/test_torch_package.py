@@ -30,9 +30,14 @@ from ai_crypto_trader_tpu_torch.backtest.evolvable import (
 from ai_crypto_trader_tpu_torch.config import GAParams
 from ai_crypto_trader_tpu_torch.evolve import backtest_fitness, run_ga
 from ai_crypto_trader_tpu_torch.mc import run_simulation, simulate_portfolio_correlated
-from ai_crypto_trader_tpu_torch.models import build_model, fit_scaler
+from ai_crypto_trader_tpu_torch.models import (
+    EpochTrainer, build_model, feature_importance, fit_scaler, optimize_hyperparameters,
+    train_model)
+from ai_crypto_trader_tpu_torch.models.service import PredictionService
 from ai_crypto_trader_tpu_torch.models.train import TrainResult, predict_prices_batched
-from ai_crypto_trader_tpu_torch.patterns import PatternRecognizer, detect_patterns
+from ai_crypto_trader_tpu_torch.models.train_loop import Adam
+from ai_crypto_trader_tpu_torch.patterns import (
+    PatternRecognizer, detect_patterns, generate_dataset, train_pattern_model)
 from ai_crypto_trader_tpu_torch.ops.tenant_engine import TenantEngine
 from ai_crypto_trader_tpu_torch.risk import (
     historical_var, social_risk_adjustment, stress_var_cvar, trailing_stop_init,
@@ -58,10 +63,11 @@ expected = {"config", "ops.dynamic", "backtest.evolvable", "evolve", "evolve.ga"
             "obs.flightrec", "obs.fleetscope", "utils.journal", "ops.tenant_engine",
             "risk.stops", "risk.social", "risk.var", "sim.scenarios", "mc.engine",
             "models", "models.fused_lstm", "models.zoo", "models.train", "patterns",
-            "patterns.model"}
+            "patterns.model", "models.train_loop", "models.importance", "models.hpo",
+            "models.service", "utils.checkpoint", "patterns.synthetic"}
 missing = sorted(e for e in expected if pkg.__name__ + "." + e not in names)
 print(missing)
-sys.exit(1 if bad or missing or len(names) < 48 else 0)
+sys.exit(1 if bad or missing or len(names) < 54 else 0)
 """
 
 
@@ -142,7 +148,20 @@ _ENTRY_POINTS = {
                      {"units": 8})], [np.ones((70, 5), np.float32)]),
     "detect_patterns": lambda: detect_patterns(
         PatternRecognizer("cnn", {}), np.ones((64, 5), np.float32)),
+    "train_model": lambda: train_model(torch.Generator(), np.ones((80, 5), np.float32),
+                                       seq_len=8, units=8, epochs=1),
+    "EpochTrainer": lambda: EpochTrainer(lambda p, xb, yb, g: 0.0, Adam(1e-3)),
+    "optimize_hyperparameters": lambda: optimize_hyperparameters(
+        torch.Generator(), np.ones((80, 5), np.float32), n_trials=1),
+    "feature_importance": lambda: feature_importance(
+        dict(build_model("lstm", units=8, device="cpu").named_parameters()), "lstm",
+        np.ones((2, 8, 5), np.float32), model_kwargs={"units": 8}),
+    "PredictionService": lambda: PredictionService(None, ["BTCUSDC"]),
+    "generate_dataset": lambda: generate_dataset(torch.Generator(), 2),
+    "train_pattern_model": lambda: train_pattern_model(torch.Generator(), n_per_class=2,
+                                                       epochs=1),
 }
+
 
 
 @pytest.mark.parametrize("entry", sorted(_ENTRY_POINTS))

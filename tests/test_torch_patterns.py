@@ -23,6 +23,16 @@ from ai_crypto_trader_tpu_torch.patterns import (  # noqa: E402
     PATTERN_CLASSES, PATTERN_IMPLICATIONS, detect_patterns, preprocess_window)
 
 ATOL = 1e-5          # probabilities, port against flax
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small tensors: one intra-op thread, so that parallel test workers do
+    not oversubscribe the cores (torch's idle threads spin)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 CLASSIFIERS = ("cnn", "lstm", "cnn_lstm")
 
 
@@ -125,3 +135,102 @@ def test_recognizer_default_device_raises_without_cuda(monkeypatch):
             np.asarray, jpm._build("cnn").init(jax.random.PRNGKey(0), jnp.zeros((1, 60, 5)))))
     with pytest.raises(RuntimeError, match="CUDA"):
         tpm._build("lstm")
+
+
+# -- the synthetic generators and training --------------------------------------
+
+class _JaxPatternDraws:
+    """The JAX generators' draws for one key, handed over: `_path`'s
+    ``k_amp, k_noise, k_lvl = split(key, 3)``, `_no_pattern`'s ``k1, k2 =
+    split(key)`` and `to_ohlcv`'s ``k_o, k_w, k_v = split(key, 3)``."""
+
+    def __init__(self, key):
+        self.key = key
+
+    @staticmethod
+    def _t(a):
+        return torch.from_numpy(np.array(a))[None]
+
+    def path(self, n, T):
+        k_amp, k_noise, k_lvl = jax.random.split(self.key, 3)
+        return (self._t(jax.random.uniform(k_amp)), self._t(jax.random.uniform(k_lvl)),
+                self._t(jax.random.normal(k_noise, (T,))))
+
+    def walk(self, n, T):
+        k1, k2 = jax.random.split(self.key)
+        return self._t(jax.random.normal(k1, (T,))), self._t(jax.random.normal(k2, (T,)))
+
+    def ohlcv(self, n, T):
+        k_o, k_w, k_v = jax.random.split(self.key, 3)
+        return (self._t(jax.random.normal(k_o, (T,))), self._t(jax.random.normal(k_w, (2, T))),
+                self._t(jax.random.normal(k_v, (T,))))
+
+
+@pytest.mark.parametrize("label", range(len(PATTERN_CLASSES)))
+def test_generators_follow_jax_on_handed_over_draws(label):
+    """Each class's close path and its OHLCV dressing, on the JAX draws.
+    Paths near 100 are held at atol 2e-5 (under 3 ulps there: XLA's and
+    torch's sin, exp and cumsum round differently); the OHLCV window of the
+    same close path bit for bit."""
+    from ai_crypto_trader_tpu_torch.patterns import generate_pattern
+    from ai_crypto_trader_tpu_torch.patterns.synthetic import to_ohlcv
+
+    k1, k2 = jax.random.split(jax.random.PRNGKey(20 + label))
+    ref = np.asarray(jsyn.generate_pattern(k1, label, 60))
+    got = generate_pattern(_JaxPatternDraws(k1), label, 60)
+    assert got.shape == (1, 60)
+    np.testing.assert_allclose(got[0].numpy(), ref, rtol=0, atol=2e-5)
+    window = to_ohlcv(_JaxPatternDraws(k2), torch.from_numpy(ref.copy())[None])
+    np.testing.assert_array_equal(window[0].numpy(),
+                                  np.asarray(jsyn.to_ohlcv(k2, jnp.asarray(ref))))
+
+
+def test_dataset_shapes_and_labels():
+    from ai_crypto_trader_tpu_torch.patterns import generate_dataset
+
+    X, y = generate_dataset(torch.Generator().manual_seed(7), n_per_class=4, T=60, device="cpu")
+    assert X.shape == (4 * 15, 60, 5) and y.shape == (60,) and y.dtype == torch.int64
+    assert torch.equal(y, torch.arange(15).repeat_interleave(4))
+    assert torch.isfinite(X).all()
+    np.testing.assert_allclose(X[:, -1, 3].numpy(), 1.0, rtol=1e-6)    # ÷ the last close
+    assert float(X[..., 4].amax()) == 1.0                              # volume ÷ its max
+
+
+@pytest.fixture(scope="module")
+def trained_cnn():
+    return tpm.train_pattern_model(torch.Generator().manual_seed(7), "cnn", n_per_class=24,
+                                   epochs=6, device="cpu")
+
+
+def test_training_lowers_the_loss_with_one_read_an_epoch(monkeypatch):
+    from ai_crypto_trader_tpu_torch.models import train_loop
+
+    reads = []
+    real = train_loop.host_read
+    monkeypatch.setattr(train_loop, "host_read", lambda rb: reads.append(1) or real(rb))
+    rec = tpm.train_pattern_model(torch.Generator().manual_seed(7), "cnn", n_per_class=24,
+                                  epochs=6, device="cpu")
+    losses = [h["loss"] for h in rec.history]
+    assert len(reads) == len(losses) == 6
+    assert losses[-1] < losses[0] * 0.7
+
+
+def test_trained_classifier_recognises_held_out_patterns(trained_cnn):
+    from ai_crypto_trader_tpu_torch.patterns import generate_dataset
+
+    X, y = generate_dataset(torch.Generator().manual_seed(99), n_per_class=8, device="cpu")
+    with torch.no_grad():
+        acc = float((trained_cnn.logits(X).argmax(-1) == y).float().mean())
+    assert acc > 0.5, f"held-out accuracy {acc:.2f}"
+    out = detect_patterns(trained_cnn, X[0].numpy() * 100.0, confidence_threshold=0.2,
+                          device="cpu")
+    assert len(out["top_patterns"]) == 3
+
+
+@pytest.mark.parametrize("model_type", ["lstm", "cnn_lstm"])
+def test_other_classifiers_train(model_type):
+    rec = tpm.train_pattern_model(torch.Generator().manual_seed(7), model_type, n_per_class=8,
+                                  epochs=2, device="cpu")
+    assert len(rec.history) == 2 and np.isfinite(rec.history[-1]["loss"])
+    assert set(rec.params) == {n for n, _ in tpm._build(model_type, device="cpu")
+                               .named_parameters()}
