@@ -1,7 +1,7 @@
 """PyTorch/CUDA port of ai_crypto_trader_tpu's population backtest, GA,
 live tick and decision path, portfolio backtest, risk layer, Monte-Carlo
 engine, price-model zoo and chart-pattern classifier (training and
-serving).
+serving), and RL trainer (the DQN, the simulated markets, the PBT fleet).
 
 The chains, module for module after the JAX package:
 
@@ -29,6 +29,10 @@ The chains, module for module after the JAX package:
         overlapping window; one host read)
     patterns.generate_dataset → patterns.train_pattern_model
         → patterns.detect_patterns
+    sim.paths / sim.lob markets → sim.engine.scenario_env_params
+        (rl.pbt_env_params) → rl.train_pbt (the DQN fleet over a member axis,
+        rl.population's exchange on the card; one host read a generation);
+        indicators → rl.make_env_params → rl.train_dqn
 
 Plain tensor code is PyTorch; the two Pallas kernels of the JAX package on
 these paths are CUDA C++ kernels for Hopper (``csrc/``), built with nvcc on

@@ -1,13 +1,14 @@
-"""Command-line interface of the port: the ``backtest``, ``train`` and
-``evolve`` subcommands.
+"""Command-line interface of the port: the ``backtest``, ``train``,
+``evolve`` and ``rl`` subcommands.
 
-Same flags and JSON output as ``python -m ai_crypto_trader_tpu.cli
-backtest`` / ``train`` / ``evolve``, plus ``--device {cuda,cpu}`` (default
+Same flags and output as ``python -m ai_crypto_trader_tpu.cli backtest`` /
+``train`` / ``evolve`` / ``rl``, plus ``--device {cuda,cpu}`` (default
 cuda):
 
     python -m ai_crypto_trader_tpu_torch.cli backtest --days 365 --sweep 4096
     python -m ai_crypto_trader_tpu_torch.cli train --days 7 --model lstm --epochs 5
     python -m ai_crypto_trader_tpu_torch.cli evolve --days 30 --population 256 --generations 3
+    python -m ai_crypto_trader_tpu_torch.cli rl --population 8 --dynamics lob
 
 A CSV at ``backtesting/data/market/<symbol>/<symbol>_1m.csv`` is used when
 present; otherwise the deterministic synthetic series is generated.
@@ -20,7 +21,12 @@ the zoo on them with its draws from a ``torch.Generator`` seeded with
 ``--seed`` and predicts the next close.  ``evolve`` runs the GA with
 backtest fitness over the candles, seeded with the default parameters as
 individual 0, its draws from a ``torch.Generator`` seeded with ``--seed``,
-and prints the history and the best parameters.
+and prints the history and the best parameters.  ``rl`` PBT-trains a DQN
+fleet inside simulated markets (order-flow book or GBM), the markets and
+the fleet each drawn from a ``torch.Generator`` seeded with ``--seed``, and
+prints the generation table and the final fleet; its ``--registry``,
+``--checkpoint`` and ``--resume`` wait for the trainer service's port
+(ROADMAP Queue 1) and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -144,6 +150,59 @@ def cmd_evolve(args):
                                       best._asdict().items()}}, indent=2))
 
 
+def cmd_rl(args):
+    """Population-based RL inside the simulated markets: the JAX package's
+    `cli rl` table, trained on ``--device``."""
+    from ai_crypto_trader_tpu_torch import resolve_device
+    from ai_crypto_trader_tpu_torch.parallel import get_partitioner
+    from ai_crypto_trader_tpu_torch.rl import (
+        DQNConfig, PBTConfig, obs_size, pbt_env_params, train_pbt)
+
+    for flag, item in (("registry", "the model registry and scorecard, ROADMAP Queue 1 "
+                        "(`adopt_winner` with strategy/registry.py and obs/scorecard.py)"),
+                       ("checkpoint", "the trainer service's checkpoint codec and "
+                        "utils/journal.SnapshotJournal, ROADMAP Queue 1"),
+                       ("resume", "the trainer service's checkpoint codec and "
+                        "utils/journal.SnapshotJournal, ROADMAP Queue 1")):
+        if getattr(args, flag):
+            raise NotImplementedError(f"cli rl --{flag} waits for the port of {item}")
+    dev = resolve_device(args.device)
+    env, _labels = pbt_env_params(torch.Generator(device=dev).manual_seed(args.seed),
+                                  num_scenarios=args.scenarios, steps=args.steps,
+                                  episode_len=args.episode_len, dynamics=args.dynamics,
+                                  device=dev)
+    cfg = DQNConfig(state_size=obs_size(env), num_envs=args.envs, rollout_len=args.rollout,
+                    replay_capacity=2048, batch_size=32)
+    pcfg = PBTConfig(population=args.population, generations=args.generations,
+                     iters_per_generation=args.iters)
+    partitioner = get_partitioner()
+    res = train_pbt(torch.Generator(device=dev).manual_seed(args.seed), env, cfg, pcfg,
+                    partitioner=partitioner)
+
+    print(f"population={pcfg.population} devices={partitioner.device_count} "
+          f"dynamics={args.dynamics} scenarios={args.scenarios}")
+    print(f"{'gen':>3} {'src':>4} {'best':>9} {'mean':>9} {'exploited':>9} "
+          f"{'quar':>4} {'loss':>9}")
+    for h in res.history:
+        print(f"{h['generation']:>3} {'live':>4} {h['best_fitness']:>9.4f} "
+              f"{h['mean_fitness']:>9.4f} {h['n_exploited']:>9} "
+              f"{h.get('n_quarantined', 0):>4} {h['loss']:>9.4f}")
+    last = res.history[-1]
+    hy = last["hypers"]
+    print("\nfinal fleet (* = winner; 'from' = PBT lineage, the member "
+          "this slot last copied):")
+    print(f"{'member':>6} {'fitness':>9} {'from':>5} {'lr':>9} "
+          f"{'gamma':>7} {'eps_decay':>10} {'eps_min':>8} {'sync':>5}")
+    for i in range(pcfg.population):
+        star = "*" if i == res.best_member else " "
+        print(f"{i:>5}{star} {last['fitness'][i]:>9.4f} "
+              f"{last['lineage'][i]:>5} "
+              f"{hy['learning_rate'][i]:>9.2e} {hy['gamma'][i]:>7.4f} "
+              f"{hy['epsilon_decay'][i]:>10.5f} "
+              f"{hy['epsilon_min'][i]:>8.4f} "
+              f"{int(hy['target_sync_every'][i]):>5}")
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="ai_crypto_trader_tpu_torch",
                                 description=__doc__,
@@ -177,6 +236,31 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--generations", type=int, default=10)
     sp.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     sp.set_defaults(fn=cmd_evolve)
+    sp = sub.add_parser("rl", help="population-based RL: PBT-train a DQN "
+                        "fleet inside the LOB simulator (local, no venue)")
+    sp.add_argument("--population", type=int, default=8)
+    sp.add_argument("--generations", type=int, default=4)
+    sp.add_argument("--iters", type=int, default=4,
+                    help="train iterations per member per generation")
+    sp.add_argument("--envs", type=int, default=16)
+    sp.add_argument("--rollout", type=int, default=8)
+    sp.add_argument("--scenarios", type=int, default=8)
+    sp.add_argument("--steps", type=int, default=1024)
+    sp.add_argument("--episode-len", type=int, default=256)
+    sp.add_argument("--dynamics", choices=("lob", "gbm"), default="lob")
+    sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument("--registry", default=None,
+                    help="register + scorecard-gate the winner into this "
+                         "registry JSON (not ported yet)")
+    sp.add_argument("--checkpoint", default=None,
+                    help="journal full fleet snapshots to this path every "
+                         "--checkpoint-every generations (not ported yet)")
+    sp.add_argument("--checkpoint-every", type=int, default=1)
+    sp.add_argument("--resume", default=None,
+                    help="resume from the newest intact checkpoint in this "
+                         "journal (not ported yet)")
+    sp.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    sp.set_defaults(fn=cmd_rl)
     return p
 
 

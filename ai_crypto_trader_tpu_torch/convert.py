@@ -17,7 +17,14 @@ Two kinds of state come over:
     auto-numbering follows construction order, not data flow — and each
     leaf's shape is checked against the shape that name must have before
     its layout is turned into torch's.  Every flax leaf is used exactly
-    once, or the conversion raises.
+    once, or the conversion raises;
+  * the RL trainer's state: a flax QNetwork tree becomes the DQN's
+    parameter dict (`q_params_from_flax`), a JAX ``EnvParams`` the port's
+    (`env_params_from_numpy`), and a JAX ``DQNState`` — one agent's, or a
+    fleet's with every leaf stacked [P, ...] — the port's
+    (`dqn_state_from_jax`: parameters, target, Adam's count and moments,
+    the replay ring, env states, observations, ε and learn steps; the key
+    stays behind, as the port's draws come from a provider).
 """
 
 from __future__ import annotations
@@ -36,7 +43,10 @@ from ai_crypto_trader_tpu_torch.models.layers import (
     Conv, Dense, GRUCell, LayerNorm, MultiHeadDotProductAttention)
 from ai_crypto_trader_tpu_torch.models.train import Scaler, TrainResult
 from ai_crypto_trader_tpu_torch.models.zoo import build_model
+from ai_crypto_trader_tpu_torch.models.train_loop import AdamState
 from ai_crypto_trader_tpu_torch.patterns.model import PatternRecognizer, _build
+from ai_crypto_trader_tpu_torch.rl.dqn import DQNState, Replay
+from ai_crypto_trader_tpu_torch.rl.env import EnvParams, EnvState
 
 _INT_FIELDS = frozenset({"signal", "decision", "total_trades", "winning_trades",
                          "losing_trades", "n_r", "max_win_streak",
@@ -227,3 +237,64 @@ def recognizer_from_flax(model_type: str, params, *, seq_len: int = 60,
     model.load_state_dict(state_from_flax(model, params))
     return PatternRecognizer(model_type=model_type, params=_params_of(model.to(dev)),
                              trained=trained)
+
+
+def q_params_from_flax(params, device=None) -> dict:
+    """A flax `QNetwork` tree (``{"params": {"Dense_i": {"kernel",
+    "bias"}}}``, leaves optionally stacked [P, ...]) → the DQN's parameter
+    dict (``Dense_i.kernel`` [(P,) in, out], ``Dense_i.bias`` [(P,) out])
+    on ``device``.  Raises on a layer that is missing or left over."""
+    dev = resolve_device(device)
+    tree = params["params"] if "params" in params else params
+    names = [f"Dense_{i}" for i in range(len(tree))]
+    if sorted(tree) != sorted(names):
+        raise ValueError(f"not a QNetwork tree: layers {sorted(tree)}")
+    out = {}
+    for name in names:
+        if set(tree[name]) != {"kernel", "bias"}:
+            raise ValueError(f"{name} holds {sorted(tree[name])}, not kernel and bias")
+        out[f"{name}.kernel"] = to_device(np.asarray(tree[name]["kernel"]), dev, torch.float32)
+        out[f"{name}.bias"] = to_device(np.asarray(tree[name]["bias"]), dev, torch.float32)
+    return out
+
+
+def env_params_from_numpy(p, device=None) -> EnvParams:
+    """A JAX ``EnvParams`` → the port's on ``device`` (close, obs table,
+    fee rate and a trade-cost table as float32; a scalar cost of 0.0 stays
+    0.0)."""
+    dev = resolve_device(device)
+    cost = np.asarray(p.trade_cost, np.float32)
+    return EnvParams(close=to_device(np.asarray(p.close), dev, torch.float32),
+                     obs_table=to_device(np.asarray(p.obs_table), dev, torch.float32),
+                     episode_len=int(p.episode_len),
+                     fee_rate=to_device(np.asarray(p.fee_rate, np.float32), dev),
+                     trade_cost=to_device(cost, dev) if cost.ndim else float(cost))
+
+
+def _adam_moments(tree, dev) -> dict:
+    return q_params_from_flax(tree, device=dev)
+
+
+def dqn_state_from_jax(state, draws, device=None) -> DQNState:
+    """A JAX ``DQNState`` (one agent's, or a fleet's stacked [P, ...]) → the
+    port's on ``device``, drawing from ``draws`` from here on.  Integer
+    leaves become int64 (indices) or int32 (counters) as the port holds
+    them."""
+    dev = resolve_device(device)
+    t = lambda v, dtype=None: to_device(np.asarray(v), dev, dtype)  # noqa: E731
+    adam = state.opt_state
+    r, e = state.replay, state.env_states
+    return DQNState(
+        params=q_params_from_flax(state.params, device=dev),
+        target_params=q_params_from_flax(state.target_params, device=dev),
+        opt_state=AdamState(t(adam.count, torch.int32), _adam_moments(adam.mu, dev),
+                            _adam_moments(adam.nu, dev), {}),
+        replay=Replay(obs=t(r.obs, torch.float32), actions=t(r.actions, torch.int64),
+                      rewards=t(r.rewards, torch.float32),
+                      next_obs=t(r.next_obs, torch.float32), dones=t(r.dones, torch.bool),
+                      ptr=t(r.ptr, torch.int32), size=t(r.size, torch.int32)),
+        env_states=EnvState(t=t(e.t, torch.int64), start=t(e.start, torch.int64),
+                            in_pos=t(e.in_pos, torch.bool), entry=t(e.entry, torch.float32),
+                            balance=t(e.balance, torch.float32), scen=t(e.scen, torch.int64)),
+        obs=t(state.obs, torch.float32), epsilon=t(state.epsilon, torch.float32),
+        learn_steps=t(state.learn_steps, torch.int32), draws=draws)

@@ -17,7 +17,10 @@ the model zoo's and the pattern classifier's (`build_model`, `fit_scaler`,
 `predict_prices`, `predict_prices_batched`, `detect_patterns`, the
 classifiers' `_build`), their training (`train_model`, `EpochTrainer`,
 `optimize_hyperparameters`, `feature_importance`, `PredictionService`,
-`generate_dataset`, `train_pattern_model`, `load_checkpoint`), and the
+`generate_dataset`, `train_pattern_model`, `load_checkpoint`), the RL
+trainer's and its markets' (`make_env_params`, `hypers_from_config`,
+`path_params`, `gbm_candles`, `bootstrap_candles`, `flow_params`,
+`lob_candles`, `scenario_env_params`, `pbt_env_params`), and the
 `convert` functions —
 takes ``device=None``, which means the CUDA card, and moves its inputs
 there.  The CPU is used only when the caller asks for it with
@@ -28,8 +31,10 @@ nothing carries on quietly on the CPU.  The building blocks under them
 vote rules, `volume_profile`, the indicator combinations, `replay_step`,
 the GA's `_evolve_core`, `fleetscope.device_aggregates`, `mc.quantile`,
 the models' layers, `dropout`, `lstm_scan`, `Adam` and
-`patterns.preprocess_window`) compute on the device of the tensors they are
-given.
+`patterns.preprocess_window`; the env's `env_reset` / `env_step`, the
+DQN's and the fleet's functions after `dqn_init` / `pop_init`, `q_values`,
+`flow_step` and the `_traced` generators) compute on the device of the
+tensors they are given — ``dqn_init`` and ``pop_init`` on the env's.
 """
 
 from __future__ import annotations

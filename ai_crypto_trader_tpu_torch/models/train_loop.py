@@ -94,13 +94,44 @@ class AdamState(NamedTuple):
 # differences (eps_root is 0 and drops out: nu is never negative)
 B1, B2, EPS = (float(np.float32(v)) for v in (0.9, 0.999, 1e-8))
 C1, C2 = (float(np.float32(1.0) - np.float32(v)) for v in (0.9, 0.999))
+# plain ``optax.scale_by_adam()`` (the DQN's form) takes its defaults as
+# Python floats: 1 − b1 and 1 − b2 are Python differences, each rounded once
+# to float32 (1 − b1 = 0.1f, where the injected form has 0.100000024)
+PLAIN_C1, PLAIN_C2 = (float(np.float32(1.0 - v)) for v in (0.9, 0.999))
+
+
+@torch.no_grad()
+def adam_direction(grads: dict, count, mu: dict, nu: dict, c1: float = C1, c2: float = C2):
+    """One Adam step's moments and direction in optax's order of operations:
+    ``mu = c1·g + b1·mu``, ``nu = c2·g² + b2·nu``, ``count += 1``, ``u =
+    (mu / (1 − b1^count)) / (sqrt(nu / (1 − b2^count)) + eps)``.  ``count``
+    is an int32 tensor: 0-d, or [P] for a stack of P optimizers whose
+    moments lead with the member axis.  Returns (count, mu, nu, u)."""
+    count = count + 1
+    t = count.to(torch.float32)
+    bc1 = 1.0 - torch.pow(torch.full_like(t, B1), t)
+    bc2 = 1.0 - torch.pow(torch.full_like(t, B2), t)
+    new_mu, new_nu, u = {}, {}, {}
+    for k, g in grads.items():
+        lead = (1,) * (g.dim() - t.dim())
+        b1c, b2c = bc1.reshape(bc1.shape + lead), bc2.reshape(bc2.shape + lead)
+        new_mu[k] = c1 * g + B1 * mu[k]
+        new_nu[k] = c2 * (g * g) + B2 * nu[k]
+        u[k] = (new_mu[k] / b1c) / (correct_sqrt(new_nu[k] / b2c) + EPS)
+    return count, new_mu, new_nu, u
+
+
+def correct_sqrt(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``sqrt(x)`` rounded correctly, as XLA's: through float64,
+    whose root of a float32 value rounds to the float32 one.  PyTorch's
+    CPU ``sqrt`` of float32 misses by an ulp on ~0.7 % of inputs."""
+    return torch.sqrt(x.double()).float()
 
 
 class Adam:
     """optax ``inject_hyperparams(adam)(learning_rate)``: per update,
-    ``mu = (1−b1)·g + b1·mu``, ``nu = (1−b2)·g² + b2·nu``, ``count += 1``,
-    ``u = (mu / (1 − b1^count)) / (sqrt(nu / (1 − b2^count)) + eps)``,
-    ``p += (−lr)·u`` — in place on the parameters."""
+    `adam_direction` with the injected constants, then ``p += (−lr)·u`` —
+    in place on the parameters."""
 
     def __init__(self, learning_rate: float):
         self.learning_rate = learning_rate
@@ -116,17 +147,10 @@ class Adam:
     @torch.no_grad()
     def update(self, grads: dict, state: AdamState, params: dict) -> AdamState:
         """Apply one update to ``params`` in place; the new state."""
-        count = state.count + 1
-        t = count.to(torch.float32)
-        bc1 = 1.0 - torch.pow(torch.full_like(t, B1), t)
-        bc2 = 1.0 - torch.pow(torch.full_like(t, B2), t)
+        count, mu, nu, u = adam_direction(grads, state.count, state.mu, state.nu)
         neg_lr = -state.hyperparams["learning_rate"]
-        mu, nu = {}, {}
-        for k, g in grads.items():
-            mu[k] = C1 * g + B1 * state.mu[k]
-            nu[k] = C2 * (g * g) + B2 * state.nu[k]
-            u = (mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + EPS)
-            params[k].add_(neg_lr * u)
+        for k, uk in u.items():
+            params[k].add_(neg_lr * uk)
         return AdamState(count, mu, nu, state.hyperparams)
 
 

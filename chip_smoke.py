@@ -145,11 +145,31 @@ imports nothing of JAX or of the JAX package.  Phases, one JSON line each:
                 batched predict, a cycle inside half an interval, one HPO
                 request); the three pattern classifiers trained; feature
                 importance of the `cli train` model against the CPU;
- 13. kernels  — one line with each kernel's launches, error, times and
+ 13. rl       — the RL trainer on the card: (a) the bench's `rl` row
+                (the year's indicator table, episode 512, 256 envs ×
+                rollout 32, bench.py:695-723): env steps/s of 20 iterations
+                in one `train_iterations` call, one host read and no other
+                sync a call, torch.profiler over one iteration, and one
+                iteration against the port's CPU run on the same state and
+                draws (actions, replay writes, ε and learn steps equal but
+                for a reported near-tie; parameters and moments within
+                1e-5); (b) the `pbt` row (bench.py:726-834): its order-flow
+                markets at 16 × 1,024 built on the card against the CPU run
+                on the same draws (grid-roll flips reported and bounded),
+                K2's two launches there held against the plain EWMA, then
+                16 members × 3 generations × 64 iterations: fleet env
+                steps/s, the single agent's over 192 iterations and
+                `speedup_vs_single`, one host read a generation and no
+                other sync; (c) the P = 1 fleet bit for bit against the
+                single agent; (d) a NaN member quarantined, masked and
+                healed; (e) `cli rl` at its defaults and with `--dynamics
+                gbm` as subprocesses (4 generation rows, 8 members, one
+                winner each), with K2 held at `cli rl`'s 8 × 1,024;
+ 14. kernels  — one line with each kernel's launches, error, times and
                 bound, at the main path's shapes, and each kernel's GA,
-                tick, portfolio, tenant, `cli train` and training launches
-                (`ga_tables`, `ga_rows`, `tick`, `portfolio`, `tenant`,
-                `nn_cli_train`, `nn_train`).
+                tick, portfolio, tenant, `cli train`, training and RL
+                launches (`ga_tables`, `ga_rows`, `tick`, `portfolio`,
+                `tenant`, `nn_cli_train`, `nn_train`, `rl`).
 
 Any failed check raises, so the script exits non-zero and never prints its
 last line, ``{"ok": true, "device": {...}}``.  Times are CUDA-event times
@@ -208,6 +228,13 @@ LSTM_GRAD_RTOL = 1e-5                # LSTMScan's gradients against the plain lo
 CLI_TRAIN_EPOCHS = 2                 # cli train's 5 epochs, cut
 SVC_SYMBOLS, SVC_ROWS = 8, 256       # the service's pairs: symbols × (1m, 5m); kline rows
 IMPORTANCE_WINDOWS, IMPORTANCE_STEPS, IMPORTANCE_ATOL = 64, 32, 1e-5
+RL_EPISODE, RL_ENVS, RL_ROLLOUT, RL_ITERS = 512, 256, 32, 20   # the bench's rl row (bench.py:695-723)
+PBT_S, PBT_T, PBT_EPISODE = 16, 1024, 256      # the pbt row's markets (bench.py:746-747)
+PBT_P, PBT_G, PBT_I, PBT_EVAL = 16, 3, 64, 4    # its fleet (bench.py:739-767)
+RL_ATOL = 1e-5                 # parameters, target, moments: the card against the CPU
+RL_TIE_RTOL = 1e-5             # a differing greedy action is a near-tie within this of scale
+ULP = 2.0 ** -24
+LOB_LEVELS = 32
 # per element and output of the EWMA: the element map (select, multiply)
 # and the recursion (multiply, add) and the NaN mask
 EWMA_OPS = 5
@@ -2384,7 +2411,7 @@ def batched_check(results, feats, label):
     return got[0], errs
 
 
-def cli_train_k2(stacked, ind, recorded):
+def cli_train_k2(stacked, ind, recorded, label="nn: cli train's", case="cli_train"):
     """K2 where `cli train` reads it, at 64 × 43,200.  Each of the two
     launches that `compute_indicators` made (``recorded``: its jobs'
     inputs) is run again through the kernel and held against the plain
@@ -2397,7 +2424,9 @@ def cli_train_k2(stacked, ind, recorded):
     range) within e; the MACD line (EMA-12 − EMA-26 of the close) within
     2e-3 + 4e-5·max(close); RSI = 100·g/(g + l) within the widest move of
     that ratio with its gain g and loss l each off by its e, plus 1e-4 for
-    the two float32 evaluations (each within 3 ulps of 100)."""
+    the two float32 evaluations (each within 3 ulps of 100).  Phase `rl`
+    holds the RL markets' tables ([S, 1024]) the same way; ``label`` and
+    ``case`` name the caller in messages and checks."""
     import torch
 
     from ai_crypto_trader_tpu_torch.ops import compute_indicators
@@ -2408,7 +2437,7 @@ def cli_train_k2(stacked, ind, recorded):
     for i, jobs in enumerate(recorded):
         named = [(f"job{j}_K{len(a)}_start{st}", x.reshape(-1, x.shape[-1]), a, st)
                  for j, (x, a, st) in enumerate(jobs)]
-        check = ewma_check(named, f"cli_train_launch{i}")
+        check = ewma_check(named, f"{case}_launch{i}")
         args = [(x, a, st) for _, x, a, st in named]
         checks.append({**check, "ms": cuda_ms(lambda: fused_ewma_jobs(args, device="cuda"), 20),
                        "plain_ms": sum(cuda_ms(lambda: fused_ewma_plain(x, a, st), 3)
@@ -2423,10 +2452,10 @@ def cli_train_k2(stacked, ind, recorded):
     finally:
         ind_mod.fused_ewma, ind_mod.fused_ewma_jobs = entries
     if fused_ewma.launches != before:
-        fail(f"nn: the plain cli train columns launched K2 {fused_ewma.launches - before} times")
+        fail(f"{label} plain columns launched K2 {fused_ewma.launches - before} times")
     for k in ("close", "volume", "bb_position", "stoch_k"):
         if not same_bits(ind[k], plain[k]):
-            fail(f"nn: cli train's {k}, which no EWMA feeds, differs with the plain EWMA")
+            fail(f"{label} {k}, which no EWMA feeds, differs with the plain EWMA")
     # RSI's gain and loss: the plain Wilder EWMA of the first launch's stacked moves
     x, alphas, start = recorded[0][1]
     g, l = fused_ewma_plain(x.reshape(-1, x.shape[-1]), alphas, start)[0].reshape(
@@ -2449,7 +2478,7 @@ def cli_train_k2(stacked, ind, recorded):
             worst = float((diff / bounds[k]).max())
             columns[k]["max_diff_over_bound"] = worst
             if not worst <= 1.0:
-                fail(f"nn: cli train's {k} is {float(diff.max()):.3g} off its plain-EWMA "
+                fail(f"{label} {k} is {float(diff.max()):.3g} off its plain-EWMA "
                      f"column, beyond the bound K2's tolerance gives ({worst:.3g} of it)")
     return {"ms": sum(c["ms"] for c in checks), "ms_per_launch": [c["ms"] for c in checks],
             "plain_ms": sum(c["plain_ms"] for c in checks),
@@ -3038,6 +3067,403 @@ def phase_train(info):
     return entry
 
 
+class FixedDraws:
+    """A market provider that hands out the same recorded `FlowDraws` (moved
+    to the caller's device) to every caller: the card's and the CPU's runs
+    of one market on the same draws."""
+
+    def __init__(self, draws):
+        self.draws = draws
+
+    def flow(self, B, T, levels):
+        return self.draws
+
+
+class ReplayDraws:
+    """A DQN provider that hands out one iteration's recorded rollout and
+    replay draws: the card's and the CPU's `train_iteration` on the same
+    draws."""
+
+    def __init__(self, rollout, idx):
+        self.rollout_draws, self.idx = rollout, idx
+
+    def rollout(self, R, P, N, n_actions, bounds):
+        return self.rollout_draws
+
+    def replay_indices(self, L, batch, size):
+        return self.idx
+
+
+def lob_held(card, cpu):
+    """The order-flow candles of the card against the port's CPU run on the
+    same draws (tests/test_torch_sim.py's bounds, u = 2^-24): open and close
+    within 4·(t + 1)·u relative over the whole run; every grid-roll flip
+    reported and within 4 ulps of the ratio (4·2^-23/tick ticks) of a half
+    tick; up to each scenario's first flip high and low within that bound
+    plus 4u, volume and the touch depth within L·u·D absolute (D the steady
+    book's depth), the spread bit for bit."""
+    import numpy as np
+
+    g = {k: v.cpu().numpy() for k, v in card.items()}
+    r = {k: v.numpy() for k, v in cpu.items()}
+    B, T = r["close"].shape
+    bound = 4.0 * (np.arange(T) + 1) * ULP
+    worst = {}
+    for k in ("open", "close"):
+        rel = np.abs(g[k].astype(np.float64) - r[k]) / np.abs(r[k])
+        worst[k] = float((rel / bound).max())
+        if worst[k] > 1.0:
+            fail(f"rl: the card's LOB {k} is {worst[k]:.3g} of its bound off the CPU run's")
+    tick = np.float32(1e-4)
+    rr = (r["close"] / r["open"] - np.float32(1)) / tick
+    rg = (g["close"] / g["open"] - np.float32(1)) / tick
+    flips = np.argwhere(np.round(rr) != np.round(rg))
+    dist = [float(abs(abs(rr[b, t] - np.trunc(rr[b, t])) - 0.5)) for b, t in flips]
+    limit = 4 * 2.0 ** -23 / 1e-4
+    if any(d > limit for d in dist):
+        fail(f"rl: a LOB grid-roll flip sits {max(dist):.3g} ticks from a half tick "
+             f"(> {limit:.3g}): {flips.tolist()}")
+    atol = LOB_LEVELS * ULP * float((2.0 * np.exp(-0.12 * np.arange(LOB_LEVELS)) / 0.08).sum())
+    for b in range(B):
+        f = int(flips[flips[:, 0] == b, 1].min()) if (flips[:, 0] == b).any() else T
+        for k in ("high", "low"):
+            rel = np.abs(g[k][b, :f].astype(np.float64) - r[k][b, :f]) / r[k][b, :f]
+            if not (rel <= bound[:f] + 4 * ULP).all():
+                fail(f"rl: the card's LOB {k} of scenario {b} is off the CPU run's before "
+                     f"its first flip")
+        for k in ("volume", "cap"):
+            if np.abs(g[k][b, :f] - r[k][b, :f]).max(initial=0.0) > atol:
+                fail(f"rl: the card's LOB {k} of scenario {b} is off the CPU run's before "
+                     f"its first flip")
+        if not np.array_equal(g["spread"][b, :f], r["spread"][b, :f]):
+            fail(f"rl: the card's LOB spread of scenario {b} differs from the CPU run's")
+    return {"shape": [B, T], "flips": flips.tolist(), "flip_distance_ticks": dist,
+            "mid_worst_over_bound": worst}
+
+
+def quiet_counted_read(module, reads):
+    """``module.host_read`` wrapped to count its calls and to run with the
+    sync debug mode off (the one sanctioned sync); returns the original."""
+    import torch
+
+    real = module.host_read
+
+    def read(*a, **k):
+        reads.append(1)
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            return real(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode("warn")
+
+    module.host_read = read
+    return real
+
+
+def rl_row(d):
+    """The bench's `rl` row (bench.py:695-723) on the card: the year's
+    indicator table, `make_env_params(episode_len=512)`, `DQNConfig(num_envs
+    =256, rollout_len=32)`; a warm `train_iterations(20)`, then a timed one
+    ending in its one `host_read` (env steps/s); one more with its reads
+    counted and torch's sync debug mode on (one read, no other sync);
+    torch.profiler over one iteration; then one `train_iteration` from the
+    same state on the same recorded draws on the card and on the port's CPU
+    (the same env tables): actions, the replay's writes, ε and learn steps
+    equal (a differing action counts as a near-tie only if its Q gap is
+    within RL_TIE_RTOL of scale; the comparison stops there), parameters,
+    target and moments within RL_ATOL."""
+    import torch
+
+    from ai_crypto_trader_tpu_torch.ops import compute_indicators
+    from ai_crypto_trader_tpu_torch.rl import dqn
+    from ai_crypto_trader_tpu_torch.rl.draws import RolloutDraws
+    from ai_crypto_trader_tpu_torch.rl.env import make_env_params, reset_bounds
+
+    env = make_env_params(compute_indicators(d, device="cuda"), episode_len=RL_EPISODE,
+                          device="cuda")
+    cfg = dqn.DQNConfig(num_envs=RL_ENVS, rollout_len=RL_ROLLOUT)
+    st = dqn.dqn_init(torch.Generator(device="cuda").manual_seed(0), env, cfg)
+    st, _ = dqn.train_iterations(env, st, cfg, n_iters=RL_ITERS)          # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, m = dqn.train_iterations(env, st, cfg, n_iters=RL_ITERS)
+    host = dqn.host_read(m)
+    wall = time.perf_counter() - t0
+    reads = []
+    real = quiet_counted_read(dqn, reads)
+    try:
+        box = {}
+
+        def run():
+            box["st"], mm = dqn.train_iterations(env, st, cfg, n_iters=RL_ITERS)
+            box["host"] = dqn.host_read(mm)
+        syncs = sync_calls(run)
+    finally:
+        dqn.host_read = real
+    if len(reads) != 1 or syncs:
+        fail(f"rl: train_iterations made {len(reads)} host reads and {len(syncs)} other "
+             f"synchronizing calls ({syncs[:2]}), not 1 and 0")
+    st = box["st"]
+    try:
+        profile = device_profile(lambda: dqn.train_iterations(env, st, cfg, n_iters=1))
+    except Exception as ex:  # noqa: BLE001 — a profiler that cannot trace is reported
+        profile = {"measured": False, "reason": repr(ex)[:300]}
+
+    # one iteration on the card and on the CPU, same state, same draws
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    from ai_crypto_trader_tpu_torch.rl.draws import GeneratorDraws
+    rec = GeneratorDraws(gen)
+    roll = rec.rollout(cfg.rollout_len, 1, cfg.num_envs, cfg.n_actions, reset_bounds(env))
+    size = torch.clamp_max(st.replay.size + cfg.rollout_len * cfg.num_envs,
+                           cfg.replay_capacity).reshape(1)
+    idx = rec.replay_indices(cfg.learn_steps_per_iter, cfg.batch_size, size)
+    card_st = st._replace(draws=ReplayDraws(roll, idx))
+    cpu_env = env._replace(close=env.close.cpu(), obs_table=env.obs_table.cpu(),
+                           fee_rate=env.fee_rate.cpu())
+    cpu_st = dqn.map_state(lambda x: x.cpu(), st)._replace(draws=ReplayDraws(
+        RolloutDraws(*(x.cpu() for x in roll)), idx.cpu()))
+    card_out, _ = dqn.train_iteration(env, card_st, cfg)
+    t0 = time.perf_counter()
+    cpu_out, _ = dqn.train_iteration(cpu_env, cpu_st, cfg)
+    cpu_s = time.perf_counter() - t0
+    got = {k: v.cpu() for k, v in dqn.tensor_leaves(card_out).items()}
+    ref = dqn.tensor_leaves(cpu_out)
+    n = cfg.rollout_len * cfg.num_envs
+    slots = (int(st.replay.ptr) + torch.arange(n)) % cfg.replay_capacity
+    ga, ra = got["replay.actions"][slots], ref["replay.actions"][slots]
+    tie = None
+    if not torch.equal(ga, ra):
+        i = int(torch.nonzero(ga != ra)[0])
+        q = dqn.q_values({k: v.cpu() for k, v in st.params.items()},
+                         ref["replay.obs"][slots[i]][None])[0]
+        gap = float((q[ga[i]] - q[ra[i]]).abs() / q.abs().max())
+        if gap > RL_TIE_RTOL:
+            fail(f"rl: the card's action {int(ga[i])} at transition {i} differs from the "
+                 f"CPU's {int(ra[i])}, Q gap {gap:.3g} of scale: not a near-tie")
+        tie = {"transition": i, "q_gap_over_scale": gap}
+    errs = {}
+    if tie is None:
+        for k, r in ref.items():
+            g = got[k]
+            if k.startswith(("params", "target_params", "opt_state.mu", "opt_state.nu")):
+                errs[k] = float((g - r).abs().max())
+                if errs[k] > RL_ATOL:
+                    fail(f"rl: the card's {k} is {errs[k]:.3g} off the CPU's (atol {RL_ATOL})")
+            elif not torch.equal(g, r):
+                fail(f"rl: the card's {k} differs from the CPU's after one iteration")
+    if not all(torch.isfinite(torch.as_tensor(v)).all() for v in box["host"].values()):
+        fail(f"rl: train_iterations' metrics are not finite: {box['host']}")
+    return {"episode_len": RL_EPISODE, "num_envs": RL_ENVS, "rollout_len": RL_ROLLOUT,
+            "iters": RL_ITERS, "T": int(env.close.shape[-1]), "seconds": wall,
+            "env_steps_per_sec": RL_ITERS * RL_ENVS * RL_ROLLOUT / wall,
+            "reads_per_call": len(reads), "other_syncs": len(syncs),
+            "metrics_last": {k: float(v[-1]) for k, v in host.items()},
+            "profile_one_iteration": profile, "cpu_one_iteration_s": cpu_s,
+            "near_tie": tie, "param_max_abs_vs_cpu": max(errs.values()) if errs else None,
+            "atol": RL_ATOL}
+
+
+def rl_markets(seed, scenarios, label):
+    """The RL fleet's LOB markets at [scenarios, 1024]: the flow draws
+    recorded from a CUDA generator; `lob_candles` on the card (timed: the
+    LOB market build ms) against the port's CPU run on the same draws
+    (`lob_held`); `compute_indicators` of the card's candles with its 2 K2
+    launches recorded and held against the plain EWMA (`cli_train_k2`);
+    then `pbt_env_params` on the same draws (episode 256), with exactly 2
+    K2 launches.  Returns (report, K2 entry, env)."""
+    import torch
+
+    from ai_crypto_trader_tpu_torch.ops import compute_indicators
+    from ai_crypto_trader_tpu_torch.ops.ewma import fused_ewma
+    from ai_crypto_trader_tpu_torch.rl import pbt_env_params
+    from ai_crypto_trader_tpu_torch.sim import lob, mixed_schedules
+
+    sched, _ = mixed_schedules(None, scenarios, PBT_T, seed=0)
+    draws = lob.flow_draws(torch.Generator(device="cuda").manual_seed(seed), scenarios, PBT_T,
+                           LOB_LEVELS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = lob.lob_candles(FixedDraws(draws), sched, device="cuda")
+    torch.cuda.synchronize()
+    build_ms = 1e3 * (time.perf_counter() - t0)
+    cpu = lob.lob_candles(FixedDraws(lob.FlowDraws(*(x.cpu() for x in draws))), sched,
+                          device="cpu")
+    held = lob_held(card, cpu)
+    ohlcv = {k: card[k] for k in ("open", "high", "low", "close", "volume")}
+    with recording_ewma([]) as recorded:
+        ind = compute_indicators(ohlcv, device="cuda")
+    k2 = cli_train_k2(ohlcv, ind, recorded, label=f"rl: the {label} markets'", case=label)
+    fused_ewma.launches = 0
+    t0 = time.perf_counter()
+    env, labels = pbt_env_params(FixedDraws(draws), num_scenarios=scenarios, steps=PBT_T,
+                                 episode_len=PBT_EPISODE, dynamics="lob", device="cuda")
+    torch.cuda.synchronize()
+    env_s = time.perf_counter() - t0
+    if fused_ewma.launches != 2 or len(recorded) != 2:
+        fail(f"rl: the {label} markets' indicators made {fused_ewma.launches} K2 launches, "
+             f"not 2")
+    if not (torch.isfinite(env.obs_table).all() and torch.isfinite(env.trade_cost).all()):
+        fail(f"rl: the {label} env tables are not finite")
+    report = {"shape": [scenarios, PBT_T], "lob_build_ms": build_ms, "env_build_s": env_s,
+              "labels": labels, "card_vs_cpu": held, "obs_width": int(env.obs_table.shape[-1])}
+    entry = {"launches": 2, **{k: v for k, v in k2.items() if k != "launch_checks"},
+             "shape": f"compute_indicators over {scenarios} x {PBT_T} ({label})"}
+    return report, entry, env
+
+
+def pbt_row(env):
+    """The bench's `pbt` row (bench.py:726-834) on the card: 16 members
+    (state 12, one env, rollout 8, hidden 16, replay 128, batch 8, one learn
+    step), 3 generations × 64 iterations, eval 4 steps; a warm 1-generation
+    run, then three timed runs interleaved with the single agent's 192
+    iterations (medians, as the bench's): fleet env steps/s, the single
+    agent's and `speedup_vs_single`; one read a generation and no other sync
+    (a run with torch's sync debug mode on)."""
+    import numpy as np
+    import torch
+
+    from ai_crypto_trader_tpu_torch.rl import dqn, obs_size, population
+
+    cfg = dqn.DQNConfig(state_size=obs_size(env), num_envs=1, rollout_len=8, hidden=(16,),
+                        replay_capacity=128, batch_size=8, learn_steps_per_iter=1)
+    pcfg = population.PBTConfig(population=PBT_P, generations=PBT_G,
+                                iters_per_generation=PBT_I, eval_steps=PBT_EVAL)
+    gen = lambda seed: torch.Generator(device="cuda").manual_seed(seed)  # noqa: E731
+    t0 = time.perf_counter()
+    population.train_pbt(gen(0), env, cfg, pcfg._replace(generations=1))
+    warm_s = time.perf_counter() - t0
+    n_iters = PBT_G * PBT_I
+    st = dqn.dqn_init(gen(0), env, cfg)
+    st, m = dqn.train_iterations(env, st, cfg, n_iters=n_iters)              # warm
+    dqn.host_read(m)
+    pop_s, single_s, res = [], [], None
+    for i in range(3):
+        t0 = time.perf_counter()
+        res = population.train_pbt(gen(1 + i), env, cfg, pcfg)
+        pop_s.append(time.perf_counter() - t0)
+        st = dqn.dqn_init(gen(1 + i), env, cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, m = dqn.train_iterations(env, st, cfg, n_iters=n_iters)
+        dqn.host_read(m)
+        single_s.append(time.perf_counter() - t0)
+    reads = []
+    real = quiet_counted_read(population, reads)
+    try:
+        syncs = sync_calls(lambda: population.train_pbt(gen(9), env, cfg, pcfg))
+    finally:
+        population.host_read = real
+    if len(reads) != PBT_G or syncs:
+        fail(f"rl: train_pbt made {len(reads)} host reads in {PBT_G} generations and "
+             f"{len(syncs)} other synchronizing calls ({syncs[:2]})")
+    if not np.isfinite(res.fitness).all() or len(res.history) != PBT_G:
+        fail(f"rl: the pbt row's fleet gave {res.fitness} over {len(res.history)} generations")
+    dt, single_dt = float(np.median(pop_s)), float(np.median(single_s))
+    steps = PBT_P * n_iters * cfg.num_envs * cfg.rollout_len / dt
+    single = n_iters * cfg.num_envs * cfg.rollout_len / single_dt
+    return {"population": PBT_P, "generations": PBT_G, "iters_per_generation": PBT_I,
+            "warm_1_generation_s": warm_s, "fleet_s": pop_s, "single_s": single_s,
+            "fleet_env_steps_per_sec": steps, "single_agent_steps_per_sec": single,
+            "speedup_vs_single": steps / single, "reads_per_generation": len(reads) / PBT_G,
+            "other_syncs": len(syncs), "best_fitness": float(res.fitness.max()),
+            "history_exploited": [h["n_exploited"] for h in res.history]}
+
+
+def pbt_oracle_and_containment(env):
+    """(c) `train_pbt` at P = 1, 2 generations × 3 iterations against the
+    single agent's `train_iterations(6)` from the same generator, bit for
+    bit in every DQNState leaf; (d) a NaN written into member 3 of an
+    8-member fleet: quarantined by the next generation (and never a donor),
+    frozen through its cooldown, healed by the forced exploit after it."""
+    import torch
+
+    from ai_crypto_trader_tpu_torch.rl import dqn, obs_size, population
+
+    cfg = dqn.DQNConfig(state_size=obs_size(env), num_envs=1, rollout_len=8, hidden=(16,),
+                        replay_capacity=128, batch_size=8, learn_steps_per_iter=1)
+    gen = lambda seed: torch.Generator(device="cuda").manual_seed(seed)  # noqa: E731
+    one = population.PBTConfig(population=1, generations=2, iters_per_generation=3,
+                               eval_steps=PBT_EVAL)
+    res = population.train_pbt(gen(11), env, cfg, one)
+    single, _ = dqn.train_iterations(env, dqn.dqn_init(gen(11), env, cfg), cfg, n_iters=6)
+    got = dqn.tensor_leaves(dqn._drop(res.state.members))
+    differ = [k for k, v in dqn.tensor_leaves(single).items() if not torch.equal(got[k], v)]
+    if differ:
+        fail(f"rl: the P = 1 fleet differs from the single agent in {differ[:4]}")
+
+    pcfg = population.PBTConfig(population=8, generations=1, iters_per_generation=2,
+                                eval_steps=PBT_EVAL)
+    pop = population.pop_init(gen(12), env, cfg, pcfg)
+    params = dict(pop.members.params)
+    params["Dense_0.kernel"] = params["Dense_0.kernel"].clone()
+    params["Dense_0.kernel"][3, 0, 0] = float("nan")
+    pop = pop._replace(members=pop.members._replace(params=params))
+    rows = []
+    for g in range(3):
+        r = population.train_pbt(None, env, cfg, pcfg, init_pop=pop, start_generation=g)
+        pop = r.state
+        rows.append(r.history[0])
+    donors0 = {d for i, d in enumerate(rows[0]["lineage"]) if d != i}
+    ok = (rows[0]["quarantined"][3] and rows[0]["n_tripped"] == 1
+          and rows[0]["lineage"][3] == 3 and 3 not in donors0
+          and rows[1]["lineage"][3] != 3 and not rows[1]["quarantined"][3]
+          and rows[1]["n_healed"] == 1 and rows[2]["n_quarantined"] == 0
+          and all(bool(torch.isfinite(v).all()) for v in pop.members.params.values()))
+    if not ok:
+        fail(f"rl: containment on the card: {[{k: r[k] for k in ('lineage', 'quarantined', 'n_tripped', 'n_healed')} for r in rows]}")
+    return {"p1_oracle": "bit for bit in every leaf", "leaves": len(got),
+            "containment": [{k: r[k] for k in ("lineage", "quarantined", "n_tripped",
+                                               "n_healed", "best_fitness")} for r in rows]}
+
+
+def cli_rl_tables(argv):
+    """`python -m ai_crypto_trader_tpu_torch.cli rl` with ``argv`` as a
+    subprocess on the card: exit 0, the generation table's rows and the
+    final fleet's, with one winner; its seconds."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "ai_crypto_trader_tpu_torch.cli", "rl", *argv],
+                          cwd=root, capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"rl: cli rl {argv} exited {proc.returncode}: {proc.stderr[-800:]}")
+    lines = proc.stdout.splitlines()
+    try:
+        head = next(i for i, ln in enumerate(lines) if ln.split()[:2] == ["gen", "src"])
+        fleet = next(i for i, ln in enumerate(lines) if ln.split()[:2] == ["member", "fitness"])
+    except StopIteration:
+        fail(f"rl: cli rl {argv} printed no tables: {proc.stdout[-800:]}")
+    gens = [ln.split() for ln in lines[head + 1:] if ln.strip() and ln.split()[0].isdigit()
+            and len(ln.split()) == 7]
+    members = [ln for ln in lines[fleet + 1:] if ln.strip()]
+    return {"argv": argv, "seconds": wall, "header": lines[0], "generations": len(gens),
+            "members": len(members), "winners": sum("*" in ln for ln in members),
+            "best": [float(g[2]) for g in gens]}
+
+
+def phase_rl(info, d):
+    """The RL trainer on the card: (a) the bench's `rl` row, (b) the `pbt`
+    row with its LOB markets, (c) the P = 1 oracle, (d) containment, (e)
+    `cli rl` at its defaults and with ``--dynamics gbm``.  Returns the K2
+    entries of the RL markets for the kernels line."""
+    t_phase = time.perf_counter()
+    report = {"phase": "rl", "card": info["nvidia_smi"], "rl_row": rl_row(d)}
+    report["pbt_markets"], pbt_k2, env = rl_markets(7, PBT_S, "pbt")
+    report["cli_markets"], cli_k2, _ = rl_markets(0, 8, "cli_rl")
+    report["pbt_row"] = pbt_row(env)
+    report["oracle_and_containment"] = pbt_oracle_and_containment(env)
+    report["cli_rl"] = [cli_rl_tables([]), cli_rl_tables(["--dynamics", "gbm"])]
+    for run in report["cli_rl"]:
+        if (run["generations"], run["members"], run["winners"]) != (4, 8, 1):
+            fail(f"rl: cli rl {run['argv']} printed {run['generations']} generations, "
+                 f"{run['members']} members and {run['winners']} winners, not 4, 8 and 1")
+    report["phase_s"] = time.perf_counter() - t_phase
+    emit(report)
+    return {"pbt_16x1024": pbt_k2, "cli_rl_8x1024": cli_k2}
+
+
 def main():
     import torch
 
@@ -3071,6 +3497,7 @@ def main():
     nn = phase_nn(info)
     phase_patterns(info)
     nn_train = phase_train(info)
+    rl = phase_rl(info, d)
     bound_ms, bound_by, stepped_bound_ms = replay_bound_ms(stats, B_FULL, T_FULL)
     checks += full
     kernels = [
@@ -3092,6 +3519,7 @@ def main():
          "tenant": tenant,
          "nn_cli_train": nn,
          "nn_train": nn_train,
+         "rl": rl,
          "shape": "the two launches of compute_indicators at T=525600, summed "
                   "(A: close K=2 + up/dn/tr K=1; B: MACD line K=1)"},
         {"name": "replay_sweep", "route": "cuda",

@@ -43,6 +43,10 @@ from ai_crypto_trader_tpu_torch.risk import (
     historical_var, social_risk_adjustment, stress_var_cvar, trailing_stop_init,
     trailing_stop_update)
 from ai_crypto_trader_tpu_torch.risk.social import SocialSnapshot
+from ai_crypto_trader_tpu_torch.rl import DQNConfig, hypers_from_config, make_env_params, pbt_env_params
+from ai_crypto_trader_tpu_torch.sim.engine import scenario_env_params
+from ai_crypto_trader_tpu_torch.sim.lob import flow_params, lob_candles
+from ai_crypto_trader_tpu_torch.sim.paths import bootstrap_candles, gbm_candles, path_params
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -64,10 +68,20 @@ expected = {"config", "ops.dynamic", "backtest.evolvable", "evolve", "evolve.ga"
             "risk.stops", "risk.social", "risk.var", "sim.scenarios", "mc.engine",
             "models", "models.fused_lstm", "models.zoo", "models.train", "patterns",
             "patterns.model", "models.train_loop", "models.importance", "models.hpo",
-            "models.service", "utils.checkpoint", "patterns.synthetic"}
+            "models.service", "utils.checkpoint", "patterns.synthetic", "rl", "rl.env",
+            "rl.dqn", "rl.draws", "rl.population", "sim.paths", "sim.lob", "sim.engine",
+            "parallel", "parallel.partitioner"}
 missing = sorted(e for e in expected if pkg.__name__ + "." + e not in names)
 print(missing)
-sys.exit(1 if bad or missing or len(names) < 54 else 0)
+from ai_crypto_trader_tpu_torch import cli
+cli.main(["rl", "--device", "cpu", "--population", "2", "--generations", "1", "--iters", "1",
+          "--envs", "2", "--rollout", "2", "--scenarios", "2", "--steps", "96",
+          "--episode-len", "16"])
+bad += sorted(m for m in sys.modules
+              if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
+              or re.match(r"ai_crypto_trader_tpu(?!_torch)(\.|$)", m))
+print(bad)
+sys.exit(1 if bad or missing or len(names) < 64 else 0)
 """
 
 
@@ -160,7 +174,28 @@ _ENTRY_POINTS = {
     "generate_dataset": lambda: generate_dataset(torch.Generator(), 2),
     "train_pattern_model": lambda: train_pattern_model(torch.Generator(), n_per_class=2,
                                                        epochs=1),
+    "make_env_params": lambda: make_env_params(compute_indicators(_small(), device="cpu")),
+    "hypers_from_config": lambda: hypers_from_config(DQNConfig()),
+    "path_params": lambda: path_params(),
+    "gbm_candles": lambda: gbm_candles(torch.Generator(), _schedule()),
+    "bootstrap_candles": lambda: bootstrap_candles(torch.Generator(),
+                                                   np.zeros(16, np.float32), _schedule()),
+    "flow_params": lambda: flow_params(),
+    "lob_candles": lambda: lob_candles(torch.Generator(), _schedule()),
+    "scenario_env_params": lambda: scenario_env_params(torch.Generator(), num_scenarios=2,
+                                                       steps=64),
+    "pbt_env_params": lambda: pbt_env_params(torch.Generator(), num_scenarios=2, steps=64),
+    "env_params_from_numpy": lambda: convert.env_params_from_numpy(
+        make_env_params(compute_indicators(_small(), device="cpu"), device="cpu")),
+    "q_params_from_flax": lambda: convert.q_params_from_flax(
+        {"params": {"Dense_0": {"kernel": np.ones((2, 3), np.float32),
+                                "bias": np.zeros(3, np.float32)}}}),
 }
+
+
+def _schedule():
+    from ai_crypto_trader_tpu_torch.sim import mixed_schedules
+    return mixed_schedules(None, 2, 64)[0]
 
 
 
