@@ -326,6 +326,14 @@ def _per_series(run, inputs: BacktestInputs, params: StrategyParams,
     return stats, put_back([c for _, c in outs], (int(inputs.close.shape[-1]),))
 
 
+def launches_kernel(dev: torch.device) -> bool:
+    """Whether `run_backtest` launches the replay kernel on ``dev`` (in the
+    modes it has a kernel for): on a CUDA device.  A module-level seam, so
+    a CPU test can route a call through the launching branch to a stub
+    kernel and count its launches."""
+    return dev.type == "cuda"
+
+
 def run_backtest(inputs: BacktestInputs, params: StrategyParams | None = None, *,
                  initial_balance: float = 10_000.0,
                  ai_confidence_threshold: float = 0.7,
@@ -350,7 +358,7 @@ def run_backtest(inputs: BacktestInputs, params: StrategyParams | None = None, *
     kw = dict(initial_balance=initial_balance,
               ai_confidence_threshold=ai_confidence_threshold,
               min_signal_strength=min_signal_strength, warmup=warmup)
-    if dev.type == "cuda" and use_param_sl_tp and not sell_exits:
+    if launches_kernel(dev) and use_param_sl_tp and not sell_exits:
         if params is None:
             raise ValueError("use_param_sl_tp needs StrategyParams")
         if max(inputs.close.ndim, inputs.volume.ndim) > 1:

@@ -24,7 +24,13 @@ Two kinds of state come over:
     fleet's with every leaf stacked [P, ...] — the port's
     (`dqn_state_from_jax`: parameters, target, Adam's count and moments,
     the replay ring, env states, observations, ε and learn steps; the key
-    stays behind, as the port's draws come from a provider).
+    stays behind, as the port's draws come from a provider);
+  * the simulator's knobs (it has no learned weights): a JAX
+    ``SimStrategy``, ``FillParams`` or ``FlowParams`` becomes the port's of
+    float32 tensors (`sim_strategy_from_jax`, `fill_params_from_jax`,
+    `flow_params_from_jax`), so both packages roll out with the same
+    knobs; a stacked StrategyParams population for
+    `backtest_under_stress` comes over through `params_from_numpy`.
 """
 
 from __future__ import annotations
@@ -47,6 +53,8 @@ from ai_crypto_trader_tpu_torch.models.train_loop import AdamState
 from ai_crypto_trader_tpu_torch.patterns.model import PatternRecognizer, _build
 from ai_crypto_trader_tpu_torch.rl.dqn import DQNState, Replay
 from ai_crypto_trader_tpu_torch.rl.env import EnvParams, EnvState
+from ai_crypto_trader_tpu_torch.sim.engine import FillParams, SimStrategy
+from ai_crypto_trader_tpu_torch.sim.lob import FlowParams
 
 _INT_FIELDS = frozenset({"signal", "decision", "total_trades", "winning_trades",
                          "losing_trades", "n_r", "max_win_streak",
@@ -98,6 +106,29 @@ def stats_to_numpy(stats: BacktestStats) -> dict:
     """BacktestStats of tensors → {field: np.ndarray}."""
     return {k: getattr(stats, k).detach().cpu().numpy()
             for k in BacktestStats._fields}
+
+
+def _knobs(kind, tree, device):
+    dev = resolve_device(device)
+    return kind(**{k: to_device(v, dev, torch.float32)
+                   for k, v in _fields(tree, kind._fields).items()})
+
+
+def sim_strategy_from_jax(strategy, device=None) -> SimStrategy:
+    """A JAX ``sim.engine.SimStrategy`` (or a dict of its fields) → the
+    port's, float32 tensors on ``device``."""
+    return _knobs(SimStrategy, strategy, device)
+
+
+def fill_params_from_jax(fill_params, device=None) -> FillParams:
+    """A JAX ``sim.engine.FillParams`` → the port's on ``device``."""
+    return _knobs(FillParams, fill_params, device)
+
+
+def flow_params_from_jax(flow, device=None) -> FlowParams:
+    """A JAX ``sim.lob.FlowParams`` (a fitted one from `sim.calibrate`
+    too) → the port's on ``device``."""
+    return _knobs(FlowParams, flow, device)
 
 
 # -- weights: flax parameter trees → the port's modules ----------------------

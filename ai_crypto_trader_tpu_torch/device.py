@@ -20,8 +20,11 @@ classifiers' `_build`), their training (`train_model`, `EpochTrainer`,
 `generate_dataset`, `train_pattern_model`, `load_checkpoint`), the RL
 trainer's and its markets' (`make_env_params`, `hypers_from_config`,
 `path_params`, `gbm_candles`, `bootstrap_candles`, `flow_params`,
-`lob_candles`, `scenario_env_params`, `pbt_env_params`), and the
-`convert` functions —
+`lob_candles`, `scenario_env_params`, `pbt_env_params`), the simulator's
+(`exchange.init_state`, `exchange.no_action`, `default_strategy`,
+`fill_params`, `rollout_candles`, `sim.engine.sweep`,
+`backtest_under_stress`, `rollout_lob`, `lob_sweep`, `fit_flow_params`),
+and the `convert` functions —
 takes ``device=None``, which means the CUDA card, and moves its inputs
 there.  The CPU is used only when the caller asks for it with
 ``device="cpu"`` (the tests do; there every kernel wrapper takes its plain
@@ -33,8 +36,10 @@ the GA's `_evolve_core`, `fleetscope.device_aggregates`, `mc.quantile`,
 the models' layers, `dropout`, `lstm_scan`, `Adam` and
 `patterns.preprocess_window`; the env's `env_reset` / `env_step`, the
 DQN's and the fleet's functions after `dqn_init` / `pop_init`, `q_values`,
-`flow_step` and the `_traced` generators) compute on the device of the
-tensors they are given — ``dqn_init`` and ``pop_init`` on the env's.
+`flow_step` and the `_traced` generators, and the exchange's steps
+`settle_pending`, `match_candle`, `apply_action` and `equity`) compute on
+the device of the tensors they are given — ``dqn_init`` and ``pop_init``
+on the env's.
 """
 
 from __future__ import annotations
@@ -63,6 +68,19 @@ def to_device(value, device, dtype=None):
     handed over from JAX are read-only."""
     t = value if torch.is_tensor(value) else torch.from_numpy(np.array(value))
     return t.to(device=device, dtype=dtype or t.dtype)
+
+
+def upload(value, device, dtype=None):
+    """``value`` (a tensor or anything NumPy takes) as a tensor on
+    ``device``, cast to ``dtype`` if given.  A host array goes to the card
+    from pinned memory with a non-blocking copy, so the upload makes the
+    host wait for nothing (`to_device` copies from pageable memory, which
+    synchronizes)."""
+    t = value if torch.is_tensor(value) else torch.from_numpy(np.array(value))
+    dtype = dtype or t.dtype
+    if device.type == "cuda" and t.device.type == "cpu":
+        return t.to(dtype).pin_memory().to(device, non_blocking=True)
+    return t.to(device=device, dtype=dtype)
 
 
 # Division by a constant.  The JAX package's compiled programs divide by a
@@ -95,11 +113,20 @@ def minus_product(c, a, b):
     """``c − a·b`` rounded once, as the fused multiply-add XLA forms on the
     CPU for this pattern.  The float32 product is exact in float64, so the
     result differs from one rounding only where the float64 difference
-    lands exactly halfway between two float32 values.  ``b`` may be a
-    tensor or a float32-exact Python float.  The same bits on every
+    lands exactly halfway between two float32 values.  ``b`` and ``c`` may
+    be tensors or float32-exact Python floats.  The same bits on every
     device."""
     b = b.double() if torch.is_tensor(b) else float(b)
-    return (c.double() - a.double() * b).to(torch.float32)
+    c = c.double() if torch.is_tensor(c) else float(c)
+    return (c - a.double() * b).to(torch.float32)
+
+
+def plus_product(c, a, b):
+    """``c + a·b`` rounded once, as the fused multiply-add XLA forms on the
+    CPU for this pattern (`minus_product`'s sibling, the same argument)."""
+    b = b.double() if torch.is_tensor(b) else float(b)
+    c = c.double() if torch.is_tensor(c) else float(c)
+    return (c + a.double() * b).to(torch.float32)
 
 
 # The matmul-precision knob's vocabulary: the port's copy of the JAX

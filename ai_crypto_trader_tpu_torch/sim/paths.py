@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from ai_crypto_trader_tpu_torch.data.synthetic import REGIME_DRIFT_MULT, REGIME_VOL_MULT
-from ai_crypto_trader_tpu_torch.device import resolve_device, to_device
+from ai_crypto_trader_tpu_torch.device import resolve_device, upload
 
 
 class PathParams(NamedTuple):
@@ -115,8 +115,17 @@ def _candle_dict(open_, high, low, close, volume, regime):
             "regime": regime}
 
 
-def _vol_mult_table(device):
-    return torch.as_tensor(REGIME_VOL_MULT.astype(np.float32)).to(device)
+_REGIME_TABLES: dict = {}
+
+
+def _regime_tables(device):
+    """(drift, vol) multipliers per regime on ``device``, uploaded once per
+    device (a copy inside every call would wait on the card)."""
+    key = str(device)
+    if key not in _REGIME_TABLES:
+        _REGIME_TABLES[key] = tuple(upload(m.astype(np.float32), device)
+                                    for m in (REGIME_DRIFT_MULT, REGIME_VOL_MULT))
+    return _REGIME_TABLES[key]
 
 
 def gbm_candles_traced(draws: GbmDraws, logret_shift, vol_mult, p: PathParams) -> dict:
@@ -124,8 +133,9 @@ def gbm_candles_traced(draws: GbmDraws, logret_shift, vol_mult, p: PathParams) -
     dev = logret_shift.device
     B = logret_shift.shape[0]
     regime = regime_chain(draws.switch_u < p.regime_switch_p, draws.choices)
-    drift_mult = torch.as_tensor(REGIME_DRIFT_MULT.astype(np.float32)).to(dev)[regime.long()]
-    vm = _vol_mult_table(dev)[regime.long()]
+    drift_table, vol_table = _regime_tables(dev)
+    drift_mult = drift_table[regime.long()]
+    vm = vol_table[regime.long()]
     vol = p.base_vol * vm * vol_mult
     rets = p.base_drift * drift_mult + vol * draws.z + logret_shift
     close = p.s0 * torch.exp(torch.cumsum(rets, dim=-1))
@@ -137,8 +147,8 @@ def gbm_candles_traced(draws: GbmDraws, logret_shift, vol_mult, p: PathParams) -
 
 
 def _schedule(schedule, dev):
-    return (to_device(schedule.logret_shift, dev, torch.float32),
-            to_device(schedule.vol_mult, dev, torch.float32))
+    return (upload(schedule.logret_shift, dev, torch.float32),
+            upload(schedule.vol_mult, dev, torch.float32))
 
 
 def gbm_candles(key, schedule, params: PathParams | None = None, device=None) -> dict:
@@ -172,7 +182,7 @@ def bootstrap_candles(key, returns, schedule, params: PathParams | None = None,
     """[B, T] bootstrapped-historical candles under a ShockSchedule."""
     dev = resolve_device(device)
     p = params or path_params(device=dev)
-    rets = to_device(returns, dev, torch.float32)
+    rets = upload(returns, dev, torch.float32)
     shift, vm = _schedule(schedule, dev)
     B, T = shift.shape
     n = rets.shape[-1]

@@ -90,7 +90,7 @@ imports nothing of JAX or of the JAX package.  Phases, one JSON line each:
                 all symbols (graph-replayed), all S launches timed
                 together beside the sum of their bounds; the
                 sizer-ladder silos and the shared pool (both equity
-                cadences), plain loops on the card at T = 2,048, against
+                cadences), plain loops on the card at T = 1,024, against
                 the port's CPU run of the same inputs;
   8. tenant   — the live decision path at full width: the tick phase's
                 tape through a `TickEngine` into a `TenantEngine` of 256
@@ -123,14 +123,14 @@ imports nothing of JAX or of the JAX package.  Phases, one JSON line each:
                 against the port's CPU run (scaled outputs atol 1e-5,
                 prices rtol 1e-5), one host read and no other sync a call,
                 three lanes of `predict_prices` equal to the batch, p50/p99
-                of 20 calls; torch.profiler over one lstm call and cuDNN's
+                of 10 calls; torch.profiler over one lstm call and cuDNN's
                 `nn.LSTM` over the same windows as the library's time; then
                 `cli train`'s seven feature columns over 64 symbols ×
                 43,200 candles (exactly 2 K2 launches) and its lstm group;
  11. patterns — the three chart-pattern classifiers' `detect_patterns`
                 over the 64 symbols' 256-candle `5m` windows against the
                 port's CPU run (probabilities atol 1e-5, the same top 3 but
-                for near-ties, counted), p50/p99 of 20 rounds;
+                for near-ties, counted), p50/p99 of 10 rounds;
  12. train    — training on the card: the bench's `nn` row (the zoo lstm,
                 B 32 × T 60 × F 8, 32 batches an epoch, through
                 `EpochTrainer`: ms per step amortised over 3 epochs, one
@@ -165,11 +165,31 @@ imports nothing of JAX or of the JAX package.  Phases, one JSON line each:
                 healed; (e) `cli rl` at its defaults and with `--dynamics
                 gbm` as subprocesses (4 generation rows, 8 members, one
                 winner each), with K2 held at `cli rl`'s 8 × 1,024;
- 14. kernels  — one line with each kernel's launches, error, times and
+ 14. sim      — the adversarial simulator on the card: (a) the bench's
+                `sim_sweep` row (4096 mixed scenarios × 512 candles, log
+                capacity 128, bench.py:872-909): scenarios/s and
+                candle-steps/s of 3 timed `sweep` calls after a warm one,
+                one host read and no other sync, the first 256 scenarios'
+                rollout equal bit for bit to the port's CPU run on the
+                card's candles, dispatches a candle and torch.profiler over
+                32 candles; (b) the `lob_events_per_sec` row (1024 × 256 ×
+                32 levels, bench.py:911-950): events/s the same way, one
+                read and no other sync, `rollout_lob` on recorded draws bit
+                for bit against the CPU's, `lob_sweep` equal to it; (c)
+                `backtest_under_stress` at its defaults (256 × 1024) for
+                both market dynamics, with the sizer ladder (2 K2 launches,
+                no K1) and a population of 64 (2 K2 and exactly 256 K1
+                launches, one per scenario): K2's launches against the
+                plain EWMA and its signal flips held to their thresholds,
+                K1 bit for bit against the graph-replayed plain loop over
+                all 16,384 rows, K1's 256 launches timed and profiled, the
+                plain sizer-ladder loop timed;
+ 15. kernels  — one line with each kernel's launches, error, times and
                 bound, at the main path's shapes, and each kernel's GA,
-                tick, portfolio, tenant, `cli train`, training and RL
-                launches (`ga_tables`, `ga_rows`, `tick`, `portfolio`,
-                `tenant`, `nn_cli_train`, `nn_train`, `rl`).
+                tick, portfolio, tenant, `cli train`, training, RL and
+                simulator launches (`ga_tables`, `ga_rows`, `tick`,
+                `portfolio`, `tenant`, `nn_cli_train`, `nn_train`, `rl`,
+                `sim`).
 
 Any failed check raises, so the script exits non-zero and never prints its
 last line, ``{"ok": true, "device": {...}}``.  Times are CUDA-event times
@@ -210,7 +230,7 @@ S_TICK, T_TICK = 64, 256  # the bench's tick_pipeline row (bench.py:1323-1337)
 TICK_FRAMES = ("1m", "3m", "5m", "15m")
 TICK_POLLS = 20
 S_PORT = 8                # portfolio symbols
-T_PORT_K1, T_PORT_PLAIN = 8192, 2048   # K1's check; the plain-loop modes
+T_PORT_K1, T_PORT_PLAIN = 8192, 1024   # K1's check; the plain-loop modes (depth cut)
 N_TENANT = 256            # the capacity row's vmapped tenant cap (bench.py:1734)
 S_CAP = 4                 # the capacity row's symbols (bench.py:1735)
 TENANT_POLLS = 20
@@ -219,7 +239,7 @@ MC_CALLS = 20
 MC_RTOL = 1e-5
 STOP_GRID, STOP_PRICES = (256, 64), 20
 NN_UNITS, NN_SEQ = 64, 60          # build_model's defaults, the service's window
-NN_CALLS = 20
+NN_CALLS = 10                      # calls or rounds a p50/p99 takes (depth cut from 20)
 NN_ATOL, NN_RTOL = 1e-5, 1e-5      # scaled outputs / probabilities; prices
 CLI_TRAIN_COLUMNS = ("close", "volume", "rsi", "macd", "bb_position", "stoch_k", "atr")
 TRAIN_B, TRAIN_F, TRAIN_BATCHES = 32, 8, 32   # the bench's nn row (bench.py:1154-1262)
@@ -235,6 +255,12 @@ RL_ATOL = 1e-5                 # parameters, target, moments: the card against t
 RL_TIE_RTOL = 1e-5             # a differing greedy action is a near-tie within this of scale
 ULP = 2.0 ** -24
 LOB_LEVELS = 32
+SIM_B, SIM_T, SIM_LOG = 4096, 512, 128      # the bench's sim_sweep row (bench.py:883-884)
+SIM_CPU_B = 256                              # its first scenarios rolled out again on the CPU
+LOB_B, LOB_T = 1024, 256                     # the bench's lob_events_per_sec row (bench.py:922-924)
+STRESS_B, STRESS_T, STRESS_P = 256, 1024, 64  # backtest_under_stress's defaults; a population
+SIM_REPS = 3
+SIM_Q0 = 10_000.0                            # the rollouts' quote balance
 # per element and output of the EWMA: the element map (select, multiply)
 # and the recursion (multiply, add) and the NaN mask
 EWMA_OPS = 5
@@ -664,45 +690,39 @@ def recording_ewma(launches):
         ind_mod.fused_ewma, ind_mod.fused_ewma_jobs = entries["fused_ewma"], entries["fused_ewma_jobs"]
 
 
-def phase_flips(d, params):
-    """K2's rounding where the backtest reads it.  The kernel composes a
-    chunk's affine maps in another order than `fused_ewma_plain`, which
-    replays the JAX package's scan tree bit for bit.  MACD (two EMAs that
-    nearly cancel) and RSI feed the signal's votes and its strength, and
-    ATR the sizer's volatility buckets.  The year's table is built twice on
-    the card, its EMA family once through the kernel and once through the
-    plain version.  Every candle whose signal, strength gate (>= 70) or
-    sizer bucket differs must sit within 1e-4 of a threshold on its input's
-    scale — |macd| <= 1e-4·close (the vote is macd > 0, and the strength
-    term min(|macd|, 1)·20 moves only below 1, which is below 1e-4 of any
-    price here), RSI within 1e-2 of 35 or 45, strength within 1e-2 of 70,
-    volatility within a relative 1e-4 of 0.01 or 0.02 — and each kind must
-    be rare: at most one candle in 1,000.  The sweep over both inputs then
-    counts the strategies that the differences change (reported only)."""
-    import torch
-
-    from ai_crypto_trader_tpu_torch.backtest import (
-        compute_signal_features, prepare_inputs, sweep)
+def plain_table(ohlcv, label):
+    """`compute_indicators` on the card with every EWMA entry it calls
+    patched to the plain version; fails if that table launched K2."""
     from ai_crypto_trader_tpu_torch.ops import compute_indicators
     from ai_crypto_trader_tpu_torch.ops import indicators as ind_mod
     from ai_crypto_trader_tpu_torch.ops.ewma import fused_ewma
 
-    tab_k = compute_indicators(d, device="cuda")
-    # every EWMA entry compute_indicators calls, patched to the plain version
-    kernel_entries = ind_mod.fused_ewma, ind_mod.fused_ewma_jobs
+    entries, before = (ind_mod.fused_ewma, ind_mod.fused_ewma_jobs), fused_ewma.launches
     ind_mod.fused_ewma, ind_mod.fused_ewma_jobs = ewma_plain, jobs_plain
-    before = fused_ewma.launches
     try:
-        tab_p = compute_indicators(d, device="cuda")
+        table = compute_indicators(ohlcv, device="cuda")
     finally:
-        ind_mod.fused_ewma, ind_mod.fused_ewma_jobs = kernel_entries
+        ind_mod.fused_ewma, ind_mod.fused_ewma_jobs = entries
     if fused_ewma.launches != before:
-        fail(f"ewma flips: the plain table launched the kernel "
-             f"{fused_ewma.launches - before} times")
+        fail(f"{label}: the plain table launched K2 {fused_ewma.launches - before} times")
+    return table
+
+
+def signal_flips(tab_k, tab_p, phase):
+    """The flips that K2's rounding makes where the backtest reads it, over
+    two indicator tables of any leading shape (``tab_k`` with K2's EWMAs,
+    ``tab_p`` with the plain version's): every candle whose signal,
+    decision, strength gate (>= 70) or sizer bucket differs, each marked
+    far if it sits farther than 1e-4 from a threshold on its input's scale
+    (`phase_flips` states the rule).  Returns (report, inputs from
+    ``tab_k``, inputs from ``tab_p``); `hold_flips` fails on the report."""
+    import torch
+
+    from ai_crypto_trader_tpu_torch.backtest import compute_signal_features, prepare_inputs
+
     inp_k, inp_p = (prepare_inputs(t, device="cuda") for t in (tab_k, tab_p))
     f = compute_signal_features(tab_p)
-    T = int(f.close.shape[-1])
-
+    n = int(f.close.numel())
     near_macd = torch.abs(f.macd) <= 1e-4 * f.close
     near_rsi = torch.minimum(torch.abs(f.rsi - 35.0), torch.abs(f.rsi - 45.0)) <= 1e-2
     near_str = torch.abs(inp_p.strength - 70.0) <= 1e-2
@@ -719,28 +739,62 @@ def phase_flips(d, params):
                          near_vol),
     }
     entry = lambda i: (i.signal == i.decision) & (i.decision == 1) & (i.strength >= 70.0)  # noqa: E731
-    report = {"phase": "ewma_flips", "T": T, "limit_per_kind": T // 1000,
+    report = {"phase": phase, "candles": n, "limit_per_kind": n // 1000,
               "plain_table_launches": 0,
               "entry_gate_differs": int((entry(inp_k) != entry(inp_p)).sum())}
+    flat = lambda x: x.reshape(-1)  # noqa: E731
     for kind, (diff, near) in kinds.items():
-        where = torch.nonzero(diff).flatten()
+        where = torch.nonzero(flat(diff)).flatten()
         report[kind] = {
             "count": int(where.numel()), "far_from_threshold": int((diff & ~near).sum()),
-            "examples": [{"t": int(t), "close": float(f.close[t]), "macd": float(f.macd[t]),
-                          "rsi": float(f.rsi[t]), "strength": [float(inp_p.strength[t]),
-                                                                float(inp_k.strength[t])],
-                          "volatility": float(vol_p[t])} for t in where[:3]]}
+            "examples": [{"at": int(t), "close": float(flat(f.close)[t]),
+                          "macd": float(flat(f.macd)[t]), "rsi": float(flat(f.rsi)[t]),
+                          "strength": [float(flat(inp_p.strength)[t]),
+                                       float(flat(inp_k.strength)[t])],
+                          "volatility": float(flat(vol_p)[t])} for t in where[:3]]}
+    return report, inp_k, inp_p
+
+
+def hold_flips(report, label):
+    """Fail if a flip of ``report`` sits far from its threshold, or a kind
+    has more than one flip in 1,000 candles."""
+    for kind in ("signal", "decision", "strength_gate", "sizer_bucket"):
+        if report[kind]["far_from_threshold"]:
+            fail(f"{label}: {report[kind]['far_from_threshold']} {kind} differences "
+                 "sit farther than 1e-4 from any threshold")
+        if report[kind]["count"] > report["limit_per_kind"]:
+            fail(f"{label}: {report[kind]['count']} {kind} differences, over one in 1,000 "
+                 "candles")
+
+
+def phase_flips(d, params):
+    """K2's rounding where the backtest reads it.  The kernel composes a
+    chunk's affine maps in another order than `fused_ewma_plain`, which
+    replays the JAX package's scan tree bit for bit.  MACD (two EMAs that
+    nearly cancel) and RSI feed the signal's votes and its strength, and
+    ATR the sizer's volatility buckets.  The year's table is built twice on
+    the card, its EMA family once through the kernel and once through the
+    plain version.  Every candle whose signal, strength gate (>= 70) or
+    sizer bucket differs must sit within 1e-4 of a threshold on its input's
+    scale — |macd| <= 1e-4·close (the vote is macd > 0, and the strength
+    term min(|macd|, 1)·20 moves only below 1, which is below 1e-4 of any
+    price here), RSI within 1e-2 of 35 or 45, strength within 1e-2 of 70,
+    volatility within a relative 1e-4 of 0.01 or 0.02 — and each kind must
+    be rare: at most one candle in 1,000.  The sweep over both inputs then
+    counts the strategies that the differences change (reported only)."""
+    from ai_crypto_trader_tpu_torch.backtest import sweep
+    from ai_crypto_trader_tpu_torch.ops import compute_indicators
+
+    tab_k = compute_indicators(d, device="cuda")
+    tab_p = plain_table(d, "ewma flips")
+    report, inp_k, inp_p = signal_flips(tab_k, tab_p, "ewma_flips")
+    report["T"] = report["candles"]
     st_k, st_p = (sweep(i, params, device="cuda") for i in (inp_k, inp_p))
     report["strategies_changed"] = int(((st_k.total_trades != st_p.total_trades)
                                         | (st_k.final_balance != st_p.final_balance)).sum())
     report["strategies"] = int(params.stop_loss.shape[0])
     emit(report)
-    for kind in kinds:
-        if report[kind]["far_from_threshold"]:
-            fail(f"ewma flips: {report[kind]['far_from_threshold']} {kind} differences "
-                 "sit farther than 1e-4 from any threshold")
-        if report[kind]["count"] > T // 1000:
-            fail(f"ewma flips: {report[kind]['count']} {kind} differences, over T/1000")
+    hold_flips(report, "ewma flips")
     return report
 
 
@@ -1843,7 +1897,7 @@ def phase_portfolio(info):
     capital silos in param-SL/TP mode at T = 8,192 with one K1 launch per
     symbol, bit for bit against the plain loop over all S symbols at once
     (replayed from CUDA graphs); the sizer-ladder silos and the shared pool
-    (both equity cadences), plain loops on the card at T = 2,048, against
+    (both equity cadences), plain loops on the card at T = 1,024, against
     the port's CPU run of the same inputs."""
     import torch
 
@@ -2429,9 +2483,8 @@ def cli_train_k2(stacked, ind, recorded, label="nn: cli train's", case="cli_trai
     ``case`` name the caller in messages and checks."""
     import torch
 
-    from ai_crypto_trader_tpu_torch.ops import compute_indicators
     from ai_crypto_trader_tpu_torch.ops import indicators as ind_mod
-    from ai_crypto_trader_tpu_torch.ops.ewma import fused_ewma, fused_ewma_jobs, fused_ewma_plain
+    from ai_crypto_trader_tpu_torch.ops.ewma import fused_ewma_jobs, fused_ewma_plain
 
     checks = []
     for i, jobs in enumerate(recorded):
@@ -2445,14 +2498,7 @@ def cli_train_k2(stacked, ind, recorded, label="nn: cli train's", case="cli_trai
     all_jobs = [(x.reshape(-1, x.shape[-1]), a, st) for jobs in recorded for x, a, st in jobs]
     b_ms, o_ms = ewma_jobs_bound(all_jobs)
 
-    entries, before = (ind_mod.fused_ewma, ind_mod.fused_ewma_jobs), fused_ewma.launches
-    ind_mod.fused_ewma, ind_mod.fused_ewma_jobs = ewma_plain, jobs_plain
-    try:
-        plain = compute_indicators(stacked, device="cuda")
-    finally:
-        ind_mod.fused_ewma, ind_mod.fused_ewma_jobs = entries
-    if fused_ewma.launches != before:
-        fail(f"{label} plain columns launched K2 {fused_ewma.launches - before} times")
+    plain = plain_table(stacked, f"{label} plain columns")
     for k in ("close", "volume", "bb_position", "stoch_k"):
         if not same_bits(ind[k], plain[k]):
             fail(f"{label} {k}, which no EWMA feeds, differs with the plain EWMA")
@@ -2499,7 +2545,7 @@ def phase_nn(info):
     the card against the port's CPU run (scaled outputs within NN_ATOL,
     prices within NN_RTOL), one host read and no other sync a call, three
     lanes through `predict_prices` equal to their lanes of the batch (rtol
-    NN_RTOL, the JAX package's own test's), p50/p99 over 20 calls after a
+    NN_RTOL, the JAX package's own test's), p50/p99 over 10 calls after a
     warm one.  torch.profiler over one `lstm` call, and cuDNN's
     `nn.LSTM` (2 layers × 64, one weight set) over the same 256 windows as
     the library's time for that layer.  Then `cli train`'s feature set:
@@ -2663,7 +2709,7 @@ def phase_patterns(info):
     verdict and the same top 3 except where two neighbouring probabilities
     lie within NN_ATOL of each other (counted).  Seeded weights detect
     nothing at the default threshold, so each classifier runs the detected
-    branch too (`detected_branch`).  The p50 and p99 over 20 rounds of the
+    branch too (`detected_branch`).  The p50 and p99 over 10 rounds of the
     64 symbols."""
     import numpy as np
     import torch
@@ -3464,6 +3510,288 @@ def phase_rl(info, d):
     return {"pbt_16x1024": pbt_k2, "cli_rl_8x1024": cli_k2}
 
 
+def same_host_bits(g, r):
+    """NumPy arrays equal bit for bit (float32 through their bits)."""
+    import numpy as np
+
+    g, r = np.asarray(g), np.asarray(r)
+    if g.shape != r.shape:
+        return False
+    if g.dtype == np.float32:
+        return bool(np.array_equal(g.view(np.int32), r.view(np.int32)))
+    return bool(np.array_equal(g, r))
+
+
+def sim_sweep_row():
+    """The bench's `sim_sweep` row (bench.py:872-909) on the card: 4096 mixed
+    scenarios × 512 candles, log capacity 128, schedules built on the host
+    first; a warm `sweep`, then 3 timed (the median of `stats["wall_s"]`:
+    scenarios/s and candle-steps/s); one more with its reads counted and
+    torch's sync debug mode on (one read, no other sync); the first 256
+    scenarios of that run rolled out again on the port's CPU on the card's
+    candles — summary, fill logs and equity curves bit for bit; dispatches
+    counted over one candle (a sweep of T = 1) and torch.profiler over a
+    sweep of 32 candles."""
+    import numpy as np
+    import torch
+
+    from ai_crypto_trader_tpu_torch.sim import ShockSchedule, engine, mixed_schedules
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    gen = lambda seed: torch.Generator(device="cuda").manual_seed(seed)  # noqa: E731
+    scheds = [mixed_schedules(None, SIM_B, SIM_T, seed=i)[0] for i in range(4)]
+    kw = dict(log_capacity=SIM_LOG, device="cuda")
+    t0 = time.perf_counter()
+    engine.sweep(gen(0), scenario=scheds[3], **kw)
+    warm_s = time.perf_counter() - t0
+    reps = [engine.sweep(gen(i + 1), scenario=scheds[i], **kw)["stats"]["wall_s"]
+            for i in range(SIM_REPS)]
+    dt = float(np.median(reps))
+    reads, box = [], {}
+    real = quiet_counted_read(engine, reads)
+    try:
+        syncs = sync_calls(lambda: box.update(out=engine.sweep(gen(9), scenario=scheds[0], **kw)))
+    finally:
+        engine.host_read = real
+    if len(reads) != 1 or syncs:
+        fail(f"sim: sweep made {len(reads)} host reads and {len(syncs)} other synchronizing "
+             f"calls ({syncs[:2]}), not 1 and 0")
+    out = box["out"]
+    s = out["summary"]
+    if not all(np.isfinite(v).all() for v in s.values()) or (s["n_fills"] > 0).mean() < 0.2:
+        fail(f"sim: the sweep's summary is not finite or barely trades "
+             f"({float((s['n_fills'] > 0).mean()):.2f} of scenarios traded)")
+
+    n = SIM_CPU_B
+    candles = {k: v[:n].cpu() for k, v in out["device"]["candles"].items()}
+    sub = ShockSchedule(*(getattr(scheds[0], k)[:n] for k in ShockSchedule._fields))
+    t0 = time.perf_counter()
+    cpu = engine.rollout_candles(candles, schedule=sub, log_capacity=SIM_LOG, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    for k, v in cpu["summary"].items():
+        if not same_host_bits(s[k][:n], v):
+            fail(f"sim: the card's sweep {k} differs from the CPU's rollout on its candles")
+    for k, g in (("fills", out["device"]["fills"]), ("equity_curve", out["device"]["equity_curve"])):
+        if not same_host_bits(g[:n].cpu().numpy(), cpu[k]):
+            fail(f"sim: the card's {k} differs from the CPU's rollout on its candles")
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    def count(T):
+        one = mixed_schedules(None, SIM_B, T, seed=5)[0]
+        Count.n = 0
+        with Count():
+            engine.sweep(gen(5), scenario=one, **kw)
+        return Count.n
+
+    ops_per_candle = count(33) - count(1)
+    ops_per_candle /= 32
+    try:
+        short = mixed_schedules(None, SIM_B, 32, seed=6)[0]
+        profile = device_profile(lambda: engine.sweep(gen(6), scenario=short, **kw))
+    except Exception as ex:  # noqa: BLE001 — a profiler that cannot trace is reported
+        profile = {"measured": False, "reason": repr(ex)[:300]}
+    return {"scenarios": SIM_B, "steps": SIM_T, "log_capacity": SIM_LOG, "warm_s": warm_s,
+            "wall_s": reps, "sweep_ms": 1e3 * dt, "scenarios_per_sec": SIM_B / dt,
+            "candle_steps_per_sec": SIM_B * SIM_T / dt, "reads_per_call": len(reads),
+            "other_syncs": len(syncs), "traded_share": float((s["n_fills"] > 0).mean()),
+            "dropped_share": float((s["dropped_fills"] > 0).mean()),
+            "card_vs_cpu": {"scenarios": n, "bits": "equal", "cpu_s": cpu_s},
+            "dispatches_per_candle": ops_per_candle, "profile_32_candles": profile}
+
+
+def lob_sweep_row():
+    """The bench's `lob_events_per_sec` row (bench.py:911-950) on the card:
+    1024 mixed scenarios × 256 steps × 32 levels; a warm `lob_sweep`, then 3
+    timed (events/s = B·T·(4L + 2) over the median wall); one with its reads
+    counted and the sync debug mode on; then `rollout_lob` on draws recorded
+    from a CUDA generator, on the card and on the port's CPU, bit for bit in
+    every output (summary, fill logs, the per-step market and equity:
+    `sim.lob` rounds its ``exp`` and its sums from float64, so no grid roll
+    or trigger can tip), and `lob_sweep` on the same draws equal to the
+    card's `rollout_lob` bit for bit."""
+    import numpy as np
+    import torch
+
+    from ai_crypto_trader_tpu_torch.sim import lob, mixed_schedules
+    from ai_crypto_trader_tpu_torch.sim.engine import flatten
+
+    gen = lambda seed: torch.Generator(device="cuda").manual_seed(seed)  # noqa: E731
+    scheds = [mixed_schedules(None, LOB_B, LOB_T, seed=i)[0] for i in range(4)]
+    t0 = time.perf_counter()
+    lob.lob_sweep(gen(0), scenario=scheds[3], levels=LOB_LEVELS, device="cuda")
+    warm_s = time.perf_counter() - t0
+    reps, out = [], None
+    for i in range(SIM_REPS):
+        out = lob.lob_sweep(gen(i + 1), scenario=scheds[i], levels=LOB_LEVELS, device="cuda")
+        reps.append(out["stats"]["wall_s"])
+    dt = float(np.median(reps))
+    events = out["stats"]["events"]
+    if events != LOB_B * LOB_T * (4 * LOB_LEVELS + 2):
+        fail(f"sim: lob_sweep counts {events} events, not B·T·(4L + 2)")
+    reads, box = [], {}
+    real = quiet_counted_read(lob, reads)
+    try:
+        syncs = sync_calls(lambda: box.update(out=lob.lob_sweep(
+            gen(9), scenario=scheds[0], levels=LOB_LEVELS, device="cuda")))
+    finally:
+        lob.host_read = real
+    if len(reads) != 1 or syncs:
+        fail(f"sim: lob_sweep made {len(reads)} host reads and {len(syncs)} other "
+             f"synchronizing calls ({syncs[:2]}), not 1 and 0")
+    s = box["out"]["summary"]
+    if not all(np.isfinite(v).all() for v in s.values()):
+        fail("sim: lob_sweep's summary is not finite")
+
+    draws = lob.flow_draws(gen(7), LOB_B, LOB_T, LOB_LEVELS)
+    card = lob.rollout_lob(FixedDraws(draws), scheds[0], device="cuda")
+    t0 = time.perf_counter()
+    cpu = lob.rollout_lob(FixedDraws(lob.FlowDraws(*(x.cpu() for x in draws))), scheds[0],
+                          device="cpu")
+    cpu_s = time.perf_counter() - t0
+    flat = lambda r: dict(flatten(r))  # noqa: E731
+    got, ref = flat(card), flat(cpu)
+    differ = [k for k in ref if not same_host_bits(got[k], ref[k])]
+    if differ or set(got) != set(ref):
+        fail(f"sim: the card's rollout_lob differs from the CPU's on the same draws in {differ[:4]}")
+    if (card["summary"]["n_fills"] > 0).mean() < 0.2:
+        fail("sim: the LOB agent barely trades: the comparison is vacuous")
+    swept = lob.lob_sweep(FixedDraws(draws), scenario=scheds[0], levels=LOB_LEVELS,
+                          device="cuda")
+    for k, v in card["summary"].items():
+        if not same_host_bits(swept["summary"][k], v):
+            fail(f"sim: lob_sweep's {k} differs from rollout_lob's on the same draws")
+    return {"scenarios": LOB_B, "steps": LOB_T, "levels": LOB_LEVELS, "warm_s": warm_s,
+            "wall_s": reps, "sweep_ms": 1e3 * dt, "events": events,
+            "events_per_sec": events / dt, "scenarios_per_sec": LOB_B / dt,
+            "reads_per_call": len(reads), "other_syncs": len(syncs),
+            "traded_share": float((s["n_fills"] > 0).mean()),
+            "card_vs_cpu": {"scenarios": LOB_B, "bits": "equal", "outputs": len(ref),
+                            "fills": int(cpu["summary"]["n_fills"].sum()), "cpu_s": cpu_s}}
+
+
+def stress_k1(stats, inputs, params, label):
+    """K1 on the stress path, held and timed: the population's [B, P] stats
+    from `backtest_under_stress` (B launches of P rows) against the plain
+    loop over all B·P rows at once (replayed from CUDA graphs), bit for bit;
+    the B launches timed together beside the sum of their bounds (CUDA
+    events around the loop that issues them: the wrappers' host work is in
+    it), and their device busy time and idle share under torch.profiler."""
+    from ai_crypto_trader_tpu_torch.backtest import BacktestStats
+    from ai_crypto_trader_tpu_torch.ops.replay import sweep_kernel
+
+    B, P = stats.final_balance.shape
+    rows = type(inputs)(*(x.unsqueeze(1).expand(B, P, x.shape[-1]).reshape(B * P, -1)
+                          for x in inputs))
+    tiled = params._replace(stop_loss=params.stop_loss.repeat(B),
+                            take_profit=params.take_profit.repeat(B))
+    plain, plain_ms = timed(lambda: sweep_plain_graphed(rows, tiled))
+    check = compare_stats(stats, BacktestStats(*(v.reshape(B, P) for v in plain)), label)
+    per = [type(inputs)(*(x[b] for x in inputs)) for b in range(B)]
+    launch_all = lambda: [sweep_kernel(r, params, device="cuda") for r in per]  # noqa: E731
+    ms = cuda_ms(launch_all, 5)
+    try:
+        profile = device_profile(launch_all)
+    except Exception as ex:  # noqa: BLE001 — a profiler that cannot trace is reported
+        profile = {"measured": False, "reason": repr(ex)[:300]}
+    bounds = [replay_bound_ms(BacktestStats(*(v[b] for v in stats)), P, int(inputs.close.shape[-1]))
+              for b in range(B)]
+    return {"launches": B, "ms": ms, "ms_per_launch": ms / B, "plain_ms": plain_ms,
+            "device_busy_ms": profile.get("device_busy_ms"),
+            "device_idle_share": profile.get("device_idle_share"),
+            "bound_ms": sum(b[0] for b in bounds), "bound_by": max(bounds)[1],
+            "library_ms": None, "max_abs_err": check["max_abs_err"], "trades": check["trades"],
+            "shape": f"{B} launches of B={P} x T={int(inputs.close.shape[-1])}; ms, plain_ms "
+                     "and bound_ms each cover all of them",
+            "plain": "the engine's loop over all B·P rows, 32 candles a CUDA graph"}
+
+
+def stress_row(dynamics, seed, params):
+    """`backtest_under_stress` at its defaults (256 scenarios × 1024
+    candles) on the card for one market dynamics: with ``params=None`` (the
+    sizer ladder: K2's 2 launches, no K1) and with the P = 64 population (2
+    K2 and exactly 256 K1 launches), timed; then the same candles again
+    (the generator reseeded) for the holds: K2's two launches against the
+    plain EWMA (`cli_train_k2`), the signals of both tables (`signal_flips`),
+    K1 bit for bit (`stress_k1`), and the plain sizer-ladder loop timed."""
+    import numpy as np
+    import torch
+
+    from ai_crypto_trader_tpu_torch.ops import compute_indicators
+    from ai_crypto_trader_tpu_torch.ops.ewma import fused_ewma
+    from ai_crypto_trader_tpu_torch.ops.replay import sweep_kernel
+    from ai_crypto_trader_tpu_torch.sim import engine, mixed_schedules
+
+    gen = lambda: torch.Generator(device="cuda").manual_seed(seed)  # noqa: E731
+    kw = dict(num_scenarios=STRESS_B, steps=STRESS_T, dynamics=dynamics, device="cuda")
+    runs = {}
+    for mode, p in (("ladder", None), ("population", params)):
+        fused_ewma.launches = sweep_kernel.launches = 0
+        t0 = time.perf_counter()
+        stats, summary = engine.backtest_under_stress(gen(), params=p, **kw)
+        wall = time.perf_counter() - t0
+        k1 = STRESS_B if p is not None else 0
+        if fused_ewma.launches != 2 or sweep_kernel.launches != k1:
+            fail(f"sim: backtest_under_stress ({dynamics}, {mode}) made {fused_ewma.launches} "
+                 f"K2 and {sweep_kernel.launches} K1 launches, not 2 and {k1}")
+        shape = (STRESS_B, STRESS_P) if p is not None else (STRESS_B,)
+        if tuple(stats.final_balance.shape) != shape or not all(
+                np.isfinite(v) for k, v in summary.items() if k != "labels"):
+            fail(f"sim: backtest_under_stress ({dynamics}, {mode}) gave stats "
+                 f"{tuple(stats.final_balance.shape)} and summary {summary}")
+        runs[mode] = {"stats": stats, "wall_s": wall, "k2_launches": fused_ewma.launches,
+                      "k1_launches": sweep_kernel.launches,
+                      "summary": {k: v for k, v in summary.items() if k != "labels"}}
+
+    sched, _ = mixed_schedules(None, STRESS_B, STRESS_T, seed=0)
+    candles = engine._stress_candles(gen(), sched, dynamics, None, device="cuda")
+    ohlcv = {k: candles[k] for k in ("open", "high", "low", "close", "volume")}
+    with recording_ewma([]) as recorded:
+        ind = compute_indicators(ohlcv, device="cuda")
+    label = f"sim: the {dynamics} stress markets'"
+    k2 = cli_train_k2(ohlcv, ind, recorded, label=label, case=f"stress_{dynamics}")
+    flips, _, _ = signal_flips(ind, plain_table(ohlcv, label), f"stress_flips_{dynamics}")
+    hold_flips(flips, f"{label} flips")
+    inputs = engine.stress_inputs(candles, device="cuda")
+    k1 = stress_k1(runs["population"]["stats"], inputs, params, f"stress_{dynamics}_k1")
+    plain_ladder, ladder_ms = timed(lambda: engine.stress_backtest(inputs, None, device="cuda"))
+    if not all(torch.equal(a, b) for a, b in zip(plain_ladder, runs["ladder"]["stats"])):
+        fail(f"sim: the {dynamics} sizer ladder differs between two runs on the same candles")
+    report = {"dynamics": dynamics, "shape": [STRESS_B, STRESS_T], "population": STRESS_P,
+              "ladder_loop_ms": ladder_ms, "flips": flips,
+              **{f"{m}_{k}": v for m, r in runs.items() for k, v in r.items() if k != "stats"}}
+    k2_entry = {"launches": 2, **{k: v for k, v in k2.items() if k != "launch_checks"},
+                "shape": f"compute_indicators over {STRESS_B} x {STRESS_T} ({dynamics} stress)"}
+    return report, k1, k2_entry
+
+
+def phase_sim(info):
+    """The adversarial simulator on the card: the bench's `sim_sweep` and
+    `lob_events_per_sec` rows, and `backtest_under_stress` for both market
+    dynamics.  Returns the K1 and K2 entries of the stress path."""
+    import torch
+
+    from ai_crypto_trader_tpu_torch.backtest import sample_params
+
+    t_phase = time.perf_counter()
+    report = {"phase": "sim", "card": info["nvidia_smi"], "sweep": sim_sweep_row(),
+              "lob_sweep": lob_sweep_row()}
+    params = sample_params(torch.Generator(device="cuda").manual_seed(0), STRESS_P,
+                           device="cuda")
+    k1, k2 = {}, {}
+    for dynamics, seed in (("gbm", 21), ("lob", 22)):
+        report[f"stress_{dynamics}"], k1[f"stress_{dynamics}"], k2[f"stress_{dynamics}"] = \
+            stress_row(dynamics, seed, params)
+    report["phase_s"] = time.perf_counter() - t_phase
+    emit(report)
+    return k1, k2
+
+
 def main():
     import torch
 
@@ -3498,6 +3826,7 @@ def main():
     phase_patterns(info)
     nn_train = phase_train(info)
     rl = phase_rl(info, d)
+    sim_k1, sim_k2 = phase_sim(info)
     bound_ms, bound_by, stepped_bound_ms = replay_bound_ms(stats, B_FULL, T_FULL)
     checks += full
     kernels = [
@@ -3520,6 +3849,7 @@ def main():
          "nn_cli_train": nn,
          "nn_train": nn_train,
          "rl": rl,
+         "sim": sim_k2,
          "shape": "the two launches of compute_indicators at T=525600, summed "
                   "(A: close K=2 + up/dn/tr K=1; B: MACD line K=1)"},
         {"name": "replay_sweep", "route": "cuda",
@@ -3547,6 +3877,7 @@ def main():
                          "walk_rows_curve": registers(libraries, "replay_sweep",
                                                       "replay_walk_kernelILb1ELb1E")}},
          "portfolio": portfolio,
+         "sim": sim_k1,
          "shape": f"B={B_FULL} x T={T_FULL}",
          "plain": "the engine's loop, 32 candles a CUDA graph"},
     ]

@@ -44,8 +44,11 @@ from ai_crypto_trader_tpu_torch.risk import (
     trailing_stop_update)
 from ai_crypto_trader_tpu_torch.risk.social import SocialSnapshot
 from ai_crypto_trader_tpu_torch.rl import DQNConfig, hypers_from_config, make_env_params, pbt_env_params
+from ai_crypto_trader_tpu_torch.sim import calibrate as sim_calibrate
+from ai_crypto_trader_tpu_torch.sim import engine as sim_engine
+from ai_crypto_trader_tpu_torch.sim import exchange as sim_exchange
 from ai_crypto_trader_tpu_torch.sim.engine import scenario_env_params
-from ai_crypto_trader_tpu_torch.sim.lob import flow_params, lob_candles
+from ai_crypto_trader_tpu_torch.sim.lob import flow_params, lob_candles, lob_sweep, rollout_lob
 from ai_crypto_trader_tpu_torch.sim.paths import bootstrap_candles, gbm_candles, path_params
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -70,7 +73,7 @@ expected = {"config", "ops.dynamic", "backtest.evolvable", "evolve", "evolve.ga"
             "patterns.model", "models.train_loop", "models.importance", "models.hpo",
             "models.service", "utils.checkpoint", "patterns.synthetic", "rl", "rl.env",
             "rl.dqn", "rl.draws", "rl.population", "sim.paths", "sim.lob", "sim.engine",
-            "parallel", "parallel.partitioner"}
+            "parallel", "parallel.partitioner", "sim.exchange", "sim.calibrate"}
 missing = sorted(e for e in expected if pkg.__name__ + "." + e not in names)
 print(missing)
 from ai_crypto_trader_tpu_torch import cli
@@ -190,6 +193,25 @@ _ENTRY_POINTS = {
     "q_params_from_flax": lambda: convert.q_params_from_flax(
         {"params": {"Dense_0": {"kernel": np.ones((2, 3), np.float32),
                                 "bias": np.zeros(3, np.float32)}}}),
+    "exchange.init_state": lambda: sim_exchange.init_state(),
+    "exchange.no_action": lambda: sim_exchange.no_action(2),
+    "default_strategy": lambda: sim_engine.default_strategy(),
+    "fill_params": lambda: sim_engine.fill_params(),
+    "rollout_candles": lambda: sim_engine.rollout_candles(
+        {k: np.full((1, 64), 100.0, np.float32) for k in ("open", "high", "low", "close")}),
+    "sim_sweep": lambda: sim_engine.sweep(torch.Generator(), num_scenarios=2, steps=64),
+    "backtest_under_stress": lambda: sim_engine.backtest_under_stress(
+        torch.Generator(), num_scenarios=2, steps=256),
+    "rollout_lob": lambda: rollout_lob(torch.Generator(), _schedule()),
+    "lob_sweep": lambda: lob_sweep(torch.Generator(), num_scenarios=2, steps=64),
+    "fit_flow_params": lambda: sim_calibrate.fit_flow_params(
+        [{"symbol": "X", "kind": "snapshot", "bids": [[100.0 - i, 1.0] for i in range(4)],
+          "asks": [[101.0 + i, 1.0] for i in range(4)]}] * 3),
+    "sim_strategy_from_jax": lambda: convert.sim_strategy_from_jax(
+        sim_engine.default_strategy(device="cpu")),
+    "fill_params_from_jax": lambda: convert.fill_params_from_jax(
+        sim_engine.fill_params(device="cpu")),
+    "flow_params_from_jax": lambda: convert.flow_params_from_jax(flow_params(device="cpu")),
 }
 
 
