@@ -32,6 +32,7 @@ import torch
 from ai_crypto_trader_tpu_torch.backtest import signals as sig
 from ai_crypto_trader_tpu_torch.backtest.strategy import StrategyParams
 from ai_crypto_trader_tpu_torch.device import resolve_device, to_device
+from ai_crypto_trader_tpu_torch.parallel.partitioner import require_single
 
 
 class BacktestInputs(NamedTuple):
@@ -403,13 +404,11 @@ def sweep(inputs: BacktestInputs, params: StrategyParams,
 
     ``unroll`` is accepted for the JAX package's signature and ignored: it
     unrolls a `lax.scan`, and the kernel walks from event to event, with
-    nothing to unroll.  ``partitioner`` must be None: the population is
-    not split over several cards yet (ROADMAP item 15)."""
+    nothing to unroll.  ``partitioner`` is None or the single-device seam
+    (`parallel.get_partitioner()`); a population split over several cards
+    is not ported yet and raises (ROADMAP item 15)."""
     del unroll
-    if partitioner is not None:
-        raise NotImplementedError(
-            "sweep over a partitioner (several cards) is not ported yet: "
-            "ROADMAP item 15")
+    require_single(partitioner)
     dev = resolve_device(device)
     inputs = _on(inputs, dev)
     params = _on(params, dev)

@@ -24,9 +24,10 @@ individual 0, its draws from a ``torch.Generator`` seeded with ``--seed``,
 and prints the history and the best parameters.  ``rl`` PBT-trains a DQN
 fleet inside simulated markets (order-flow book or GBM), the markets and
 the fleet each drawn from a ``torch.Generator`` seeded with ``--seed``, and
-prints the generation table and the final fleet; its ``--registry``,
-``--checkpoint`` and ``--resume`` wait for the trainer service's port
-(ROADMAP Queue 1) and raise ``NotImplementedError``.
+prints the generation table and the final fleet; ``--checkpoint`` journals
+the fleet every ``--checkpoint-every`` generations, ``--resume`` continues
+from a journal's newest intact checkpoint (draw streams included), and
+``--registry`` registers the winner through the scorecard's adoption gate.
 """
 
 from __future__ import annotations
@@ -152,20 +153,14 @@ def cmd_evolve(args):
 
 def cmd_rl(args):
     """Population-based RL inside the simulated markets: the JAX package's
-    `cli rl` table, trained on ``--device``."""
+    `cli rl` table, trained on ``--device``; ``--checkpoint`` journals the
+    fleet, ``--resume`` continues from the newest intact checkpoint and
+    ``--registry`` gates the winner into a model registry."""
     from ai_crypto_trader_tpu_torch import resolve_device
     from ai_crypto_trader_tpu_torch.parallel import get_partitioner
     from ai_crypto_trader_tpu_torch.rl import (
-        DQNConfig, PBTConfig, obs_size, pbt_env_params, train_pbt)
+        DQNConfig, PBTConfig, adopt_winner, obs_size, pbt_env_params, train_pbt)
 
-    for flag, item in (("registry", "the model registry and scorecard, ROADMAP Queue 1 "
-                        "(`adopt_winner` with strategy/registry.py and obs/scorecard.py)"),
-                       ("checkpoint", "the trainer service's checkpoint codec and "
-                        "utils/journal.SnapshotJournal, ROADMAP Queue 1"),
-                       ("resume", "the trainer service's checkpoint codec and "
-                        "utils/journal.SnapshotJournal, ROADMAP Queue 1")):
-        if getattr(args, flag):
-            raise NotImplementedError(f"cli rl --{flag} waits for the port of {item}")
     dev = resolve_device(args.device)
     env, _labels = pbt_env_params(torch.Generator(device=dev).manual_seed(args.seed),
                                   num_scenarios=args.scenarios, steps=args.steps,
@@ -176,15 +171,60 @@ def cmd_rl(args):
     pcfg = PBTConfig(population=args.population, generations=args.generations,
                      iters_per_generation=args.iters)
     partitioner = get_partitioner()
+
+    # --resume: the fleet and its draw streams from the newest intact
+    # checkpoint, on the absolute generation counter — the run goes on as
+    # one that never died would; drift is refused by restore_checkpoint
+    init_pop, start_gen, prior_history = None, 0, []
+    if args.resume:
+        from ai_crypto_trader_tpu_torch.rl import load_checkpoint, restore_checkpoint
+
+        payload, stats = load_checkpoint(args.resume)
+        if payload is None:
+            raise SystemExit(
+                f"no intact checkpoint in {args.resume} "
+                f"(corrupt_records={stats['corrupt_records']}, "
+                f"torn_tail={stats['torn_tail']})")
+        init_pop = restore_checkpoint(payload, cfg, pcfg, env)
+        start_gen = int(payload["generation"])
+        prior_history = list(payload.get("history") or [])
+
+    # --checkpoint: the fleet journaled every N generations through the
+    # trainer service's codec
+    on_generation, journal = None, None
+    full_history = list(prior_history)
+    if args.checkpoint:
+        from ai_crypto_trader_tpu_torch.rl.trainer_service import (
+            PBT_CHECKPOINT_KIND, checkpoint_payload)
+        from ai_crypto_trader_tpu_torch.utils.journal import SnapshotJournal
+
+        journal = SnapshotJournal(args.checkpoint, kind=PBT_CHECKPOINT_KIND)
+
+        def on_generation(g, pop, row):
+            full_history.append(row)
+            if (g + 1) % max(args.checkpoint_every, 1) == 0:
+                journal.write(checkpoint_payload(
+                    pop, generation=g + 1, cfg=cfg, pcfg=pcfg, seed=args.seed,
+                    history=full_history))
+
     res = train_pbt(torch.Generator(device=dev).manual_seed(args.seed), env, cfg, pcfg,
-                    partitioner=partitioner)
+                    partitioner=partitioner, init_pop=init_pop, start_generation=start_gen,
+                    on_generation=on_generation)
+    if journal is not None:
+        journal.close()
 
     print(f"population={pcfg.population} devices={partitioner.device_count} "
           f"dynamics={args.dynamics} scenarios={args.scenarios}")
+    if args.resume:
+        print(f"resumed@gen={start_gen} from {args.resume} "
+              f"({len(prior_history)} prior generations)")
+    # 'src': ckpt rows come from the resumed checkpoint's history, live
+    # rows were trained by this process
     print(f"{'gen':>3} {'src':>4} {'best':>9} {'mean':>9} {'exploited':>9} "
           f"{'quar':>4} {'loss':>9}")
-    for h in res.history:
-        print(f"{h['generation']:>3} {'live':>4} {h['best_fitness']:>9.4f} "
+    for h in prior_history + res.history:
+        src = "ckpt" if h["generation"] < start_gen else "live"
+        print(f"{h['generation']:>3} {src:>4} {h['best_fitness']:>9.4f} "
               f"{h['mean_fitness']:>9.4f} {h['n_exploited']:>9} "
               f"{h.get('n_quarantined', 0):>4} {h['loss']:>9.4f}")
     last = res.history[-1]
@@ -201,6 +241,14 @@ def cmd_rl(args):
               f"{hy['epsilon_decay'][i]:>10.5f} "
               f"{hy['epsilon_min'][i]:>8.4f} "
               f"{int(hy['target_sync_every'][i]):>5}")
+    if args.registry:
+        from ai_crypto_trader_tpu_torch.obs import Scorecard
+        from ai_crypto_trader_tpu_torch.strategy import ModelRegistry
+
+        out = adopt_winner(res, ModelRegistry(path=args.registry), Scorecard())
+        print(f"\nregistered {out['version']} "
+              f"({'ACTIVE' if out['adopted'] else 'SHADOW'}: "
+              f"{out['reason']}) fitness={out['fitness']:.4f}")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -251,14 +299,14 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--seed", type=int, default=0)
     sp.add_argument("--registry", default=None,
                     help="register + scorecard-gate the winner into this "
-                         "registry JSON (not ported yet)")
+                         "registry JSON")
     sp.add_argument("--checkpoint", default=None,
                     help="journal full fleet snapshots to this path every "
-                         "--checkpoint-every generations (not ported yet)")
+                         "--checkpoint-every generations")
     sp.add_argument("--checkpoint-every", type=int, default=1)
     sp.add_argument("--resume", default=None,
                     help="resume from the newest intact checkpoint in this "
-                         "journal (not ported yet)")
+                         "journal")
     sp.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     sp.set_defaults(fn=cmd_rl)
     return p

@@ -24,7 +24,14 @@ Two kinds of state come over:
     fleet's with every leaf stacked [P, ...] — the port's
     (`dqn_state_from_jax`: parameters, target, Adam's count and moments,
     the replay ring, env states, observations, ε and learn steps; the key
-    stays behind, as the port's draws come from a provider);
+    stays behind, as the port's draws come from a provider), and a JAX PBT
+    fleet — a ``PopState`` or a trainer checkpoint's payload — the port's
+    `PopState` (`pop_state_from_jax`, its PRNG-key leaves skipped);
+  * the regime models: a JAX ``Standardizer``, ``PCA``, ``KMeans``,
+    ``GMM`` or ``HMM`` becomes the port's (`standardizer_from_jax`,
+    `pca_from_jax`, `kmeans_from_jax`, `gmm_from_jax`, `hmm_from_jax`), so
+    the port's predictions, posteriors and Viterbi run on JAX-fitted
+    models;
   * the simulator's knobs (it has no learned weights): a JAX
     ``SimStrategy``, ``FillParams`` or ``FlowParams`` becomes the port's of
     float32 tensors (`sim_strategy_from_jax`, `fill_params_from_jax`,
@@ -51,7 +58,9 @@ from ai_crypto_trader_tpu_torch.models.train import Scaler, TrainResult
 from ai_crypto_trader_tpu_torch.models.zoo import build_model
 from ai_crypto_trader_tpu_torch.models.train_loop import AdamState
 from ai_crypto_trader_tpu_torch.patterns.model import PatternRecognizer, _build
-from ai_crypto_trader_tpu_torch.rl.dqn import DQNState, Replay
+from ai_crypto_trader_tpu_torch.regime.cluster import GMM, PCA, KMeans, Standardizer
+from ai_crypto_trader_tpu_torch.regime.hmm import HMM
+from ai_crypto_trader_tpu_torch.rl.dqn import DQNState, Hypers, Replay
 from ai_crypto_trader_tpu_torch.rl.env import EnvParams, EnvState
 from ai_crypto_trader_tpu_torch.sim.engine import FillParams, SimStrategy
 from ai_crypto_trader_tpu_torch.sim.lob import FlowParams
@@ -329,3 +338,121 @@ def dqn_state_from_jax(state, draws, device=None) -> DQNState:
                             balance=t(e.balance, torch.float32), scen=t(e.scen, torch.int64)),
         obs=t(state.obs, torch.float32), epsilon=t(state.epsilon, torch.float32),
         learn_steps=t(state.learn_steps, torch.int32), draws=draws)
+
+
+# -- the PBT fleet ------------------------------------------------------------
+
+def _jax_pop_leaf_names(n_layers: int) -> list:
+    """The leaf paths of a JAX ``PopState`` in ``jax.tree.leaves`` order
+    (dict keys sorted, NamedTuple fields in order)."""
+    layers = sorted(f"Dense_{i}" for i in range(n_layers))
+    tree = [f"{layer}/{leaf}" for layer in layers for leaf in ("bias", "kernel")]
+    names = [f"params/{t}" for t in tree] + [f"target_params/{t}" for t in tree]
+    names += ["opt_state/count"] + [f"opt_state/mu/{t}" for t in tree] + \
+        [f"opt_state/nu/{t}" for t in tree]
+    names += [f"replay/{f}" for f in Replay._fields]
+    names += [f"env_states/{f}" for f in EnvState._fields]
+    names += ["obs", "epsilon", "learn_steps", "key"]
+    return [f"members/{n}" for n in names] + [f"hypers/{f}" for f in Hypers._fields] + \
+        ["quarantined", "cooldown"]
+
+
+def _jax_members(leaves: dict, n_layers: int):
+    """A JAX ``DQNState``-shaped view of named member leaves, as
+    `dqn_state_from_jax` reads one."""
+    from types import SimpleNamespace as NS
+
+    def tree(prefix):
+        return {"params": {f"Dense_{i}": {k: leaves[f"{prefix}/Dense_{i}/{k}"]
+                                          for k in ("kernel", "bias")}
+                           for i in range(n_layers)}}
+
+    return NS(params=tree("members/params"), target_params=tree("members/target_params"),
+              opt_state=NS(count=leaves["members/opt_state/count"],
+                           mu=tree("members/opt_state/mu"), nu=tree("members/opt_state/nu")),
+              replay=NS(**{f: leaves[f"members/replay/{f}"] for f in Replay._fields}),
+              env_states=NS(**{f: leaves[f"members/env_states/{f}"]
+                               for f in EnvState._fields}),
+              obs=leaves["members/obs"], epsilon=leaves["members/epsilon"],
+              learn_steps=leaves["members/learn_steps"])
+
+
+def pop_state_from_jax(payload_or_popstate, cfg, pcfg, env_params, draws, device=None):
+    """A JAX PBT fleet → the port's `PopState` on ``device``, drawing from
+    ``draws`` (a provider; the fleet's PRNG keys are skipped).  Takes a JAX
+    ``PopState`` (NumPy or JAX leaves) or a JAX trainer checkpoint's
+    payload (its ``arrays``, `pack_array` records in ``jax.tree.leaves``
+    order).  Refuses a population, config or leaf-count drift and any leaf
+    whose shape is not the port fleet's for ``cfg`` / ``pcfg`` on
+    ``env_params``."""
+    from ai_crypto_trader_tpu_torch.rl.population import PopState, pop_init
+    from ai_crypto_trader_tpu_torch.rl.trainer_service import _cfg_identity, pop_leaves
+    from ai_crypto_trader_tpu_torch.utils.journal import unpack_array
+
+    dev = resolve_device(device)
+    n_layers = len(cfg.hidden) + 1
+    names = _jax_pop_leaf_names(n_layers)
+    if isinstance(payload_or_popstate, dict):
+        payload = payload_or_popstate
+        if int(payload.get("population", -1)) != int(pcfg.population):
+            raise ValueError(f"checkpoint population {payload.get('population')} != "
+                             f"{pcfg.population}")
+        if (payload.get("cfg") or {}) != _cfg_identity(cfg):
+            raise ValueError(f"checkpoint config {payload.get('cfg')} does not fit {cfg}")
+        arrays = [unpack_array(a) for a in payload["arrays"]]
+        if len(arrays) != len(names):
+            raise ValueError(f"checkpoint carries {len(arrays)} arrays, a JAX fleet of "
+                             f"{n_layers} layers has {len(names)}")
+        leaves = dict(zip(names, arrays))
+        members = _jax_members(leaves, n_layers)
+        hypers = {f: leaves[f"hypers/{f}"] for f in Hypers._fields}
+        quarantined, cooldown = leaves["quarantined"], leaves["cooldown"]
+    else:
+        pop = payload_or_popstate
+        members, quarantined, cooldown = pop.members, pop.quarantined, pop.cooldown
+        hypers = {f: getattr(pop.hypers, f) for f in Hypers._fields}
+    t = lambda v, dtype: to_device(np.asarray(v), dev, dtype)  # noqa: E731
+    out = PopState(
+        members=dqn_state_from_jax(members, draws, device=dev),
+        hypers=Hypers(**{f: t(v, torch.int32 if f == "target_sync_every" else torch.float32)
+                         for f, v in hypers.items()}),
+        quarantined=t(quarantined, torch.bool), cooldown=t(cooldown, torch.int32))
+    template = pop_leaves(pop_init(torch.Generator(env_params.close.device).manual_seed(0),
+                                   env_params, cfg, pcfg))
+    for name, got in pop_leaves(out).items():
+        if tuple(got.shape) != tuple(template[name].shape):
+            raise ValueError(f"{name} is {tuple(got.shape)}, the fleet needs "
+                             f"{tuple(template[name].shape)}")
+    return out
+
+
+# -- the regime models --------------------------------------------------------
+
+def _f32(value, dev):
+    return to_device(np.asarray(value), dev, torch.float32)
+
+
+def standardizer_from_jax(std, device=None) -> Standardizer:
+    dev = resolve_device(device)
+    return Standardizer(_f32(std.mean, dev), _f32(std.std, dev))
+
+
+def pca_from_jax(pca, device=None) -> PCA:
+    dev = resolve_device(device)
+    return PCA(components=_f32(pca.components, dev), mean=_f32(pca.mean, dev))
+
+
+def kmeans_from_jax(km, device=None) -> KMeans:
+    return KMeans(_f32(km.centroids, resolve_device(device)))
+
+
+def gmm_from_jax(gmm, device=None) -> GMM:
+    dev = resolve_device(device)
+    return GMM(weights=_f32(gmm.weights, dev), means=_f32(gmm.means, dev),
+               vars=_f32(gmm.vars, dev))
+
+
+def hmm_from_jax(hmm, device=None) -> HMM:
+    dev = resolve_device(device)
+    return HMM(log_pi=_f32(hmm.log_pi, dev), log_A=_f32(hmm.log_A, dev),
+               means=_f32(hmm.means, dev), vars=_f32(hmm.vars, dev))

@@ -11,8 +11,9 @@ fitness is one evaluation of the whole population (a [pop] batch, where the
 JAX package vmaps), history stays on the device, and one `host_read` at the
 end brings the results back — the port's counterpart of the JAX package's
 one compiled scan.  `run_ga_legacy` reads the history every generation, as
-its JAX counterpart does.  On one card the single-device seam is the whole
-of the partitioner, so neither takes one.
+its JAX counterpart does.  `run_ga` takes the JAX package's ``partitioner``
+keyword: None or the single-device seam (on one card the population is one
+batch); a mesh of several cards raises (ROADMAP item 15).
 
 Random draws.  `jax.random` streams cannot be replayed in PyTorch, so the
 GA takes its draws from a provider with two methods: ``init(pop)`` returns
@@ -52,6 +53,7 @@ from ai_crypto_trader_tpu_torch.backtest.strategy import (
 from ai_crypto_trader_tpu_torch.config import GAParams
 from ai_crypto_trader_tpu_torch.device import resolve_device, to_device
 from ai_crypto_trader_tpu_torch.evolve.selection import tournament
+from ai_crypto_trader_tpu_torch.parallel.partitioner import require_single
 
 _SQRT2 = float(np.sqrt(np.float32(2.0), dtype=np.float32))
 
@@ -213,7 +215,7 @@ def _history(rows) -> list:
 
 
 def run_ga(draws, fitness_fn: Callable, cfg: GAParams,
-           seed_params: StrategyParams | None = None, device=None):
+           seed_params: StrategyParams | None = None, partitioner=None, device=None):
     """The GA (`genetic_algorithm.py:254-291`): returns (best
     StrategyParams of CPU tensors, history list of per-generation records).
 
@@ -222,7 +224,9 @@ def run_ga(draws, fitness_fn: Callable, cfg: GAParams,
     ``device`` (default: the CUDA card), as `backtest_fitness` builds it.
     The generations run on the device with nothing read back until the one
     `host_read` at the end.  Given the same draws it follows
-    `run_ga_legacy` genome for genome."""
+    `run_ga_legacy` genome for genome.  ``partitioner``: None or the
+    single-device seam; any other raises."""
+    require_single(partitioner)
     dev = resolve_device(device)
     draws = _provider(draws)
     state = _init_state(draws, fitness_fn, cfg, seed_params, dev)

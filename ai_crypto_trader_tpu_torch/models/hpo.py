@@ -10,8 +10,9 @@ same order, so for equal validation losses the trial sequence is the JAX
 one.  Each trial trains through the port's `train_model`.
 
 The JAX package farms trials over a mesh's devices (``partitioner=``);
-that needs the port of `parallel/partitioner.py` (ROADMAP item 15), so
-only ``partitioner=None`` is taken here.
+the port takes None or the single-device seam (`parallel.
+get_partitioner()`), and trials run in turn on the one card.  A mesh of
+several cards is ROADMAP item 15.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import numpy as np
 
 from ai_crypto_trader_tpu_torch.device import resolve_device
 from ai_crypto_trader_tpu_torch.models.train import train_model
+from ai_crypto_trader_tpu_torch.parallel.partitioner import require_single
 
 SEARCH_SPACE = {
     # neural_network_service.py:604-640 (Optuna suggest_* calls)
@@ -161,12 +163,9 @@ def optimize_hyperparameters(
     results so far; ``"random"`` disables the surrogate.  Every trial runs
     `train_model` on ``device`` (None: the CUDA card) with its draws from
     ``generator`` (a ``torch.Generator``, or a draw provider, shared by the
-    trials in turn); ``precision`` goes to both rungs.  ``partitioner``
-    must be None (ROADMAP item 15)."""
-    if partitioner is not None:
-        raise NotImplementedError(
-            "optimize_hyperparameters over a partitioner's devices waits for the port of "
-            "parallel/partitioner.py (ROADMAP item 15); pass partitioner=None")
+    trials in turn); ``precision`` goes to both rungs.  ``partitioner`` is
+    None or the single-device seam; any other raises (ROADMAP item 15)."""
+    require_single(partitioner)
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
     results = []

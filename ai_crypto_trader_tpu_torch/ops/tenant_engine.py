@@ -69,6 +69,7 @@ from ai_crypto_trader_tpu_torch.obs import fleetscope
 from ai_crypto_trader_tpu_torch.obs.flightrec import GATES, VETO_ORDER
 from ai_crypto_trader_tpu_torch.ops.tick_engine import Readback, read_packed
 from ai_crypto_trader_tpu_torch.ops.tick_engine import _pad_symbols as _pad_pow2
+from ai_crypto_trader_tpu_torch.parallel.partitioner import require_single
 from ai_crypto_trader_tpu_torch.utils.journal import pack_array, unpack_array
 
 #: gate id for "no gate fired: the decision is executable"
@@ -286,8 +287,8 @@ class TenantEngine:
     mirror when the venue disagrees with the engine's optimistic entry,
     and the next decide re-seeds the device state from it.
 
-    ``partitioner`` must be None (splitting the tenant axis over several
-    cards is ROADMAP item 15).  ``precision`` takes the JAX package's
+    ``partitioner`` is None or the single-device seam (splitting the
+    tenant axis over several cards is ROADMAP item 15).  ``precision`` takes the JAX package's
     matmul-precision vocabulary (`device.PRECISIONS`); the decide has no
     matrix product, so no value changes with it.  ``device=None`` means
     the CUDA card (``RuntimeError`` without one); ``device="cpu"`` runs
@@ -300,10 +301,7 @@ class TenantEngine:
                  pad_pow2: bool = True, containment: bool = True,
                  quarantine_cooldown: int = DEFAULT_QUARANTINE_COOLDOWN,
                  precision: str | None = None, device=None):
-        if partitioner is not None:
-            raise NotImplementedError(
-                "a TenantEngine over a partitioner (several cards) is not "
-                "ported yet: ROADMAP item 15")
+        require_single(partitioner)
         canonical_precision(precision)         # validate eagerly, fail loud
         self.precision = precision
         self.device = resolve_device(device)

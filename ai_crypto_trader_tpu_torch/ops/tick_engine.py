@@ -104,20 +104,45 @@ def stage(packed: torch.Tensor, layout) -> Readback:
     return Readback(host, event, layout)
 
 
+def stage_bytes(tensors: dict) -> Readback:
+    """``tensors`` ({name: tensor}, any dtypes, all on one device) on their
+    way to the host as ONE copy of their raw bytes, concatenated: `stage`
+    for values that float32 does not carry exactly (a checkpoint's
+    parameters, int64 indices, generator states).  `read_packed` gives
+    each back bit for bit with its dtype and shape."""
+    flat = torch.cat([t.detach().contiguous().reshape(-1).view(torch.uint8)
+                      for t in tensors.values()])
+    layout = [(name, tuple(t.shape), torch.empty((), dtype=t.dtype).numpy().dtype)
+              for name, t in tensors.items()]
+    if flat.device.type != "cuda":
+        return Readback(flat, None, layout)
+    host = torch.empty(flat.shape, dtype=torch.uint8, pin_memory=True)
+    host.copy_(flat, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return Readback(host, event, layout)
+
+
 def read_packed(readback: Readback) -> dict:
     """Wait for ``readback``'s copy and unpack it: the body of the tick
     engine's and the tenant engine's `host_read` seams.  A leaf named
     ``group/leaf`` lands in ``out[group][leaf]``; every value float32
-    carries must be exact in it (small integers, booleans)."""
+    carries must be exact in it (small integers, booleans).  A byte pack
+    (`stage_bytes`) unpacks to each leaf's own dtype, bit for bit."""
     t0 = time.perf_counter()
     if readback.event is not None:
         readback.event.synchronize()
     readback.wait_s = time.perf_counter() - t0
     flat = readback.host.numpy()
+    raw = flat.dtype == np.uint8
     out, i = {}, 0
     for name, shape, dtype in readback.layout:
         n = math.prod(shape)
-        value = flat[i:i + n].reshape(shape).astype(dtype)   # a copy
+        if raw:
+            n *= np.dtype(dtype).itemsize
+            value = np.frombuffer(flat[i:i + n].tobytes(), dtype).reshape(shape).copy()
+        else:
+            value = flat[i:i + n].reshape(shape).astype(dtype)   # a copy
         i += n
         group, _, leaf = name.rpartition("/")
         (out.setdefault(group, {}) if group else out)[leaf] = value

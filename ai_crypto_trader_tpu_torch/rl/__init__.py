@@ -1,6 +1,6 @@
-"""Reinforcement learning on the card: the trading env, the DQN and the
-PBT fleet (the JAX package's `rl` exports that are ported; the trainer
-service and `adopt_winner` are not yet, ROADMAP Queue 1)."""
+"""Reinforcement learning on the card: the trading env, the DQN, the PBT
+fleet with its winner's adoption, and the continuous trainer service (the
+JAX package's `rl` exports)."""
 
 from ai_crypto_trader_tpu_torch.rl.env import (  # noqa: F401
     EnvParams,
@@ -28,8 +28,16 @@ from ai_crypto_trader_tpu_torch.rl.population import (  # noqa: F401
     PBTConfig,
     PBTResult,
     PopState,
+    adopt_winner,
     best_params,
     pbt_env_params,
     pop_init,
     train_pbt,
+)
+from ai_crypto_trader_tpu_torch.rl.trainer_service import (  # noqa: F401
+    PBT_CHECKPOINT_KIND,
+    PBTTrainerService,
+    checkpoint_payload,
+    load_checkpoint,
+    restore_checkpoint,
 )

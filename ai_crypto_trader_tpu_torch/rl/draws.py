@@ -23,6 +23,10 @@ needs) is a no-op here.
 A replay index is ``floor(u · max(size, 1))`` for a uniform u, computed on
 the card from the ring's size there: reading the size would sync.
 
+`GeneratorDraws.get_state` / `from_state` carry the three streams' states
+through a checkpoint (`rl.trainer_service`), so a resumed fleet draws what
+an unbroken one would.
+
 A provider for tests implements the same methods (``init_params``,
 ``resets``, ``rollout``, ``replay_indices``, ``eval_resets``,
 ``exchange``, ``fork``) and may hand over the JAX package's own draws.
@@ -99,6 +103,23 @@ class GeneratorDraws:
 
     def fork(self, lineage: torch.Tensor) -> None:
         """Clones already draw at slots of their own: nothing to do."""
+
+    STREAMS = ("train", "eval", "exchange_gen")
+
+    def get_state(self) -> dict:
+        """The three streams' states ({stream: uint8 tensor on the CPU},
+        ``torch.Generator.get_state``): what a checkpoint must carry for a
+        resumed fleet to draw what an unbroken one would."""
+        return {name: getattr(self, name).get_state() for name in self.STREAMS}
+
+    @classmethod
+    def from_state(cls, states: dict, device) -> "GeneratorDraws":
+        """A provider on ``device`` whose three streams continue from
+        ``states`` (`get_state`'s, from a generator of that device type)."""
+        draws = cls(torch.Generator(device))
+        for name in cls.STREAMS:
+            getattr(draws, name).set_state(states[name])
+        return draws
 
 
 def as_draws(key):

@@ -1,9 +1,7 @@
 """Population-based RL: a DQN fleet trained inside the simulated markets,
 with PBT exploit/explore between generations.
 
-Port of `ai_crypto_trader_tpu/rl/population.py` (but `adopt_winner`, which
-waits for the model registry and the scorecard: ROADMAP Queue 1).  The
-fleet is one `DQNState` whose every tensor leads with the [P] member axis
+Port of `ai_crypto_trader_tpu/rl/population.py`.  The fleet is one `DQNState` whose every tensor leads with the [P] member axis
 (`rl.dqn._fleet_iteration` steps all members at once), and the PBT loop of
 Fast PBT (arXiv 2206.08888) runs on top:
 
@@ -27,6 +25,11 @@ At P = 1 the exploit bracket is empty, the exchange does nothing, and G
 generations of I iterations are bit-identical to the single agent's
 `train_iterations(n_iters=G·I)` from the same draws: the evaluation and the
 exchange draw from streams of their own (`rl.draws`).
+
+The winning member closes the loop: `adopt_winner` registers it in the
+model registry (`strategy.registry`) and runs it through the scorecard's
+adoption gate (`obs.scorecard`, on simulator fitness) before it may go
+active; a policy worse than the incumbent lands as shadow.
 
 On one card the partitioner is the single-device seam
 (`parallel.partitioner`); any other raises (ROADMAP item 15).
@@ -267,6 +270,57 @@ def train_pbt(key, env_params: EnvParams, cfg: DQNConfig, pcfg: PBTConfig,
 def best_params(result: PBTResult) -> dict:
     """The winning member's Q-network parameters (on the card)."""
     return {k: v[result.best_member] for k, v in result.state.members.params.items()}
+
+
+def adopt_winner(result: PBTResult, registry, scorecard=None, *, kind: str = "rl_policy",
+                 symbol: str = "SIM", interval: str = "pbt",
+                 checkpoint_path: str | None = None) -> dict:
+    """Register the winning policy and run it through the scorecard's
+    adoption gate before it may go active (the JAX package's verdict, on
+    the same fitness): the gate compares the candidate's simulator fitness
+    with the registry's best incumbent of ``kind``; a worse candidate is
+    registered as shadow, never made active.  With ``checkpoint_path`` the
+    winner's Q-network is saved there (`utils.checkpoint.save_checkpoint`).
+    The winner's hypers come from the last generation's host read (no
+    read of the card), the fitness from ``result.fitness``."""
+    best = result.best_member
+    if result.history:
+        hypers = result.history[-1]["hypers"]
+    else:
+        hypers = {k: v.cpu().tolist() for k, v in result.state.hypers._asdict().items()}
+    hy = {k: float(hypers[k][best]) for k in Hypers._fields}
+    fitness = float(result.fitness[best])
+
+    incumbent = registry.best(kind, metric="fitness")
+    allowed, reason = True, "no_scorecard"
+    if scorecard is not None:
+        allowed, reason = scorecard.adoption_gate(
+            "dqn_pbt:candidate",
+            incumbent["version"] if incumbent else "dqn_pbt:none",
+            symbol, interval, candidate_score=fitness,
+            incumbent_score=(incumbent or {}).get("performance", {}).get("fitness"))
+
+    payload = dict(hy, arch="dqn_pbt", state_size=result.cfg.state_size,
+                   hidden=str(result.cfg.hidden), fitness=fitness)
+    if checkpoint_path is not None:
+        from ai_crypto_trader_tpu_torch.utils.checkpoint import save_checkpoint
+
+        save_checkpoint(checkpoint_path, tree=best_params(result),
+                        metadata={"kind": kind, "fitness": fitness})
+        payload["checkpoint"] = checkpoint_path
+    # exact duplicates only: a winner that cleared its gate gets its own version
+    vid = registry.register(kind, payload, metadata={
+        "arch": "dqn_pbt",
+        "population": result.pcfg.population,
+        "generations": result.pcfg.generations,
+        "dynamics": "lob",
+        "adoption": "adopted" if allowed else "blocked_by_scorecard",
+        "adoption_reason": reason,
+    }, similarity_threshold=1.0)
+    registry.update_performance(vid, {"fitness": fitness,
+                                      "mean_fitness": float(result.fitness.mean())})
+    registry.set_status(vid, "active" if allowed else "shadow")
+    return {"version": vid, "adopted": allowed, "reason": reason, "fitness": fitness}
 
 
 def pbt_env_params(key, scenario="mixed", num_scenarios: int = 32, steps: int = 1024,

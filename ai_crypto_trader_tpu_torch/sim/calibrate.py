@@ -25,8 +25,8 @@ The fit is host NumPy in float64, as the JAX package's; the FlowParams it
 returns are float32 tensors on ``device``.  The report's book analytics
 (near-book pressure, microprice tilt, the impact curve over the whole
 window) are batched float32 tensor programs over the [F] frames, on
-``device``, the JAX package's `ops.orderbook.pressure_metrics` and
-`price_impact` math.
+``device``, through `ops.orderbook` (its `pressure_metrics` and
+`price_impact` math).
 """
 
 from __future__ import annotations
@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from ai_crypto_trader_tpu_torch.device import resolve_device
+from ai_crypto_trader_tpu_torch.ops.orderbook import _impact, _pressure
 from ai_crypto_trader_tpu_torch.sim.lob import FlowParams, flow_params
 
 
@@ -182,36 +183,6 @@ def fit_flow_params(records, levels: int | None = None, symbol: str | None = Non
 
 def fit_report_only(records, **kw) -> dict:
     return fit_flow_params(records, **kw)[1]
-
-
-def _pressure(bids: torch.Tensor, asks: torch.Tensor, near_levels: int = 5) -> dict:
-    """Near-book pressure over [F] books [F, N, 2]: the top levels' volume
-    imbalance and the microprice's tilt from the mid, in bps."""
-    nb = bids[..., :near_levels, 1].sum(dim=-1)
-    na = asks[..., :near_levels, 1].sum(dim=-1)
-    total = nb + na
-    denom = torch.where(total == 0, 1.0, total)
-    best_bid, best_ask = bids[..., 0, 0], asks[..., 0, 0]
-    micro = (best_bid * na + best_ask * nb) / denom
-    mid = (best_bid + best_ask) / 2.0
-    return {"near_pressure": (nb - na) / denom,
-            "microprice_tilt_bps": (micro - mid) / mid * 10_000.0}
-
-
-def _impact(levels: torch.Tensor, sizes: torch.Tensor) -> torch.Tensor:
-    """[F, n_sizes] relative impact of market orders of each quote-value
-    size walking one side of each of the [F] books [F, N, 2]: the
-    quote-value-weighted average fill price against the best price."""
-    price = levels[..., 0]
-    values = price * levels[..., 1]
-    cum = torch.cumsum(values, dim=-1)
-    prev = torch.cat([torch.zeros_like(cum[..., :1]), cum[..., :-1]], dim=-1).unsqueeze(-2)
-    take = torch.minimum(torch.clamp_min(sizes[:, None] - prev, 0.0),
-                         values.unsqueeze(-2))                # [F, S, N]
-    filled = take.sum(dim=-1)
-    avg = (take * price.unsqueeze(-2)).sum(dim=-1) / torch.where(filled == 0, 1.0, filled)
-    best = price[..., :1]
-    return torch.abs(avg - best) / best
 
 
 def _book_analytics(bids: np.ndarray, asks: np.ndarray, device) -> dict:

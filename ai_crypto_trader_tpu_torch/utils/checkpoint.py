@@ -20,9 +20,15 @@ import torch
 from ai_crypto_trader_tpu_torch.device import resolve_device
 
 
-def save_checkpoint(path: str, params: dict, metadata: dict | None = None) -> str:
+def save_checkpoint(path: str, params: dict | None = None, metadata: dict | None = None,
+                    *, tree: dict | None = None) -> str:
     """Atomically save ``params`` ({name: tensor}) and JSON ``metadata`` to
-    ``path`` (a directory); returns its absolute path."""
+    ``path`` (a directory); returns its absolute path.  The parameter set
+    may also be passed as ``tree=``, the JAX package's name for it (its
+    second argument is a pytree); pass one of the two."""
+    if (params is None) == (tree is None):
+        raise TypeError("save_checkpoint takes the parameters once: params or tree")
+    params = tree if params is None else params
     path = os.path.abspath(path)
     tmp = path + ".tmp"
     if os.path.exists(tmp):

@@ -184,12 +184,32 @@ imports nothing of JAX or of the JAX package.  Phases, one JSON line each:
                 K1 bit for bit against the graph-replayed plain loop over
                 all 16,384 rows, K1's 256 launches timed and profiled, the
                 plain sizer-ladder loop timed;
- 15. kernels  — one line with each kernel's launches, error, times and
+ 15. service  — the services on the card: (a) the continuous PBT trainer
+                at the `pbt` row's width (16 members on 16 × 1,024 LOB
+                markets, 4 ticks of 8 iterations, depth cut): a service
+                killed after tick 2 and resumed from its journal bit for
+                bit against an unbroken one, one host read a generation and
+                one a checkpoint, a checkpoint write and the bench's
+                `pbt_recovery_ms` row (P = 8) timed with the first resumed
+                generation, an `adopt_winner` verdict into a registry, a
+                recalibration from a depth journal of the book's own frames
+                and one from that journal corrupted (last-good kept), and
+                `cli rl --checkpoint / --resume / --registry`; (b) the
+                regime service over 64 symbols' 1,000-candle 1m histories
+                (k-means rounds timed, 4 K2 launches a `regime_features`
+                call counted and one call's held against the plain EWMA,
+                card-vs-CPU label flips per method, each near a tie, the
+                GMM's, HMM's and rules' fits timed); (c) the order book
+                (64 books of 100 levels: the signal and the clusters; a
+                1,024-frame window: impact and pressure) against the CPU;
+                (d) `ChartPatternService` over the 64 symbols' `5m`
+                windows, its analyses and signals against the CPU;
+ 16. kernels  — one line with each kernel's launches, error, times and
                 bound, at the main path's shapes, and each kernel's GA,
-                tick, portfolio, tenant, `cli train`, training, RL and
-                simulator launches (`ga_tables`, `ga_rows`, `tick`,
-                `portfolio`, `tenant`, `nn_cli_train`, `nn_train`, `rl`,
-                `sim`).
+                tick, portfolio, tenant, `cli train`, training, RL,
+                simulator and regime launches (`ga_tables`, `ga_rows`,
+                `tick`, `portfolio`, `tenant`, `nn_cli_train`, `nn_train`,
+                `rl`, `sim`, `regime`).
 
 Any failed check raises, so the script exits non-zero and never prints its
 last line, ``{"ok": true, "device": {...}}``.  Times are CUDA-event times
@@ -261,6 +281,11 @@ LOB_B, LOB_T = 1024, 256                     # the bench's lob_events_per_sec ro
 STRESS_B, STRESS_T, STRESS_P = 256, 1024, 64  # backtest_under_stress's defaults; a population
 SIM_REPS = 3
 SIM_Q0 = 10_000.0                            # the rollouts' quote balance
+SVC_TICKS, SVC_ITERS = 4, 8                  # the trainer service: ticks; iterations (depth cut)
+REC_P, REC_S, REC_T, REC_EPISODE, REC_ITERS = 8, 8, 512, 128, 4   # pbt_recovery (bench.py:1087-1150)
+REGIME_S, REGIME_T, REGIME_ROUNDS = 64, 1000, 5   # tick universe; the venue's klines cap
+REGIME_TIE_RTOL = 1e-3                       # a card-vs-CPU label flip's margin to a tie
+BOOK_N, BOOK_LEVELS, BOOK_FRAMES = 64, 100, 1024  # books; the venue's default depth; window
 # per element and output of the EWMA: the element map (select, multiply)
 # and the recursion (multiply, add) and the NaN mask
 EWMA_OPS = 5
@@ -2763,9 +2788,9 @@ def phase_patterns(info):
 
 
 class MemoryBus:
-    """The prediction service's bus in memory (the service uses get, set
-    and an async publish), standing in for Redis as the tests' fake
-    transports do; published events are recorded."""
+    """The services' bus in memory (they use get, set, keys and an async
+    publish), standing in for Redis as the tests' fake transports do;
+    published events are recorded."""
 
     def __init__(self):
         self.kv, self.events = {}, []
@@ -2775,6 +2800,11 @@ class MemoryBus:
 
     def set(self, key, value):
         self.kv[key] = value
+
+    def keys(self, pattern="*"):
+        import fnmatch
+
+        return [k for k in self.kv if fnmatch.fnmatchcase(k, pattern)]
 
     async def publish(self, channel, event):
         self.events.append((channel, event))
@@ -3792,6 +3822,646 @@ def phase_sim(info):
     return k1, k2
 
 
+def svc_fleet_config(env, population, iters):
+    """The bench's `pbt` row DQNConfig (bench.py:739-767) and a PBTConfig of
+    one generation a tick."""
+    from ai_crypto_trader_tpu_torch.rl import dqn, obs_size, population as pop_mod
+
+    cfg = dqn.DQNConfig(state_size=obs_size(env), num_envs=1, rollout_len=8, hidden=(16,),
+                        replay_capacity=128, batch_size=8, learn_steps_per_iter=1)
+    return cfg, pop_mod.PBTConfig(population=population, generations=1,
+                                  iters_per_generation=iters, eval_steps=PBT_EVAL)
+
+
+def same_fleet(a, b):
+    """Two fleets (and their draw streams) equal bit for bit: the names of
+    the tensors that differ."""
+    import torch
+
+    from ai_crypto_trader_tpu_torch.rl.trainer_service import pop_leaves
+
+    la, lb = pop_leaves(a), pop_leaves(b)
+    differ = [k for k in la if la[k].dtype != lb[k].dtype or not torch.equal(la[k], lb[k])]
+    sa, sb = a.members.draws.get_state(), b.members.draws.get_state()
+    return differ + [f"draws.{k}" for k in sa if not torch.equal(sa[k], sb[k])]
+
+
+def depth_journal(path, flip_crc=False):
+    """A depth-capture journal of the order-flow book's own frames: a
+    300-step calm `rollout_lob` with its book (a liquid flow: limit rate 3,
+    depth decay 0.15, cancel rate 0.1, no drift), through
+    `sim.calibrate.records_from_lob_series`, one ``depth`` record a frame;
+    with ``flip_crc`` every line's CRC is wrong.  Returns the record count."""
+    import json
+
+    import torch
+
+    from ai_crypto_trader_tpu_torch.sim import calibrate, lob, scenarios
+    from ai_crypto_trader_tpu_torch.utils.journal import WriteAheadJournal
+
+    out = lob.rollout_lob(torch.Generator(device="cuda").manual_seed(3),
+                          scenarios.compile_schedules("calm", 1, 300, seed=2),
+                          flow=lob.flow_params(limit_rate=3.0, depth_decay=0.15,
+                                               cancel_rate=0.1, vol=0.0, device="cuda"),
+                          return_book=True, device="cuda")
+    records = calibrate.records_from_lob_series(out["series"], tick=1e-4)
+    j = WriteAheadJournal(path, fsync_every=64)
+    for rec in records:
+        j.append("depth", rec)
+    j.close()
+    if flip_crc:
+        with open(path) as f:
+            lines = [json.loads(ln) for ln in f.read().splitlines()]
+        with open(path, "w") as f:
+            f.writelines(json.dumps(dict(r, crc=r["crc"] ^ 1)) + "\n" for r in lines)
+    return len(records)
+
+
+def service_trainer(tmp):
+    """(a) The continuous PBT trainer at the bench's `pbt` row width (16
+    members on `pbt_env_params` 16 × 1,024 LOB markets, the row's
+    DQNConfig; depth cut to SVC_TICKS generations of SVC_ITERS iterations):
+    an unbroken service of SVC_TICKS ticks against one killed after tick 2
+    (checkpoint and adoption every generation) and resumed from its journal
+    for the rest — history, fitness, hypers, every fleet tensor and the draw
+    streams bit for bit on the card; one host read a generation and one a
+    checkpoint.  A checkpoint write timed at P = 16; the bench's
+    `pbt_recovery_ms` row (bench.py:1087-1150: P = 8, 8 × 512 markets)
+    timed: `load_checkpoint` + `restore_checkpoint`, then the first resumed
+    generation; one `adopt_winner` verdict into a `ModelRegistry`; one
+    recalibration from a depth journal and one from the same journal
+    corrupted (the last-good flow kept, the failure counted)."""
+    import asyncio
+    import os
+
+    import torch
+
+    from ai_crypto_trader_tpu_torch.obs import Scorecard
+    from ai_crypto_trader_tpu_torch.ops.ewma import fused_ewma
+    from ai_crypto_trader_tpu_torch.rl import adopt_winner, pbt_env_params
+    from ai_crypto_trader_tpu_torch.rl import population
+    from ai_crypto_trader_tpu_torch.rl.trainer_service import (
+        PBTTrainerService, checkpoint_payload, load_checkpoint, restore_checkpoint)
+    from ai_crypto_trader_tpu_torch.strategy import ModelRegistry
+    from ai_crypto_trader_tpu_torch.utils.journal import SnapshotJournal
+
+    gen = lambda seed: torch.Generator(device="cuda").manual_seed(seed)  # noqa: E731
+    env, _ = pbt_env_params(gen(7), num_scenarios=PBT_S, steps=PBT_T, episode_len=PBT_EPISODE,
+                            dynamics="lob", device="cuda")
+    cfg, pcfg = svc_fleet_config(env, PBT_P, SVC_ITERS)
+    path = os.path.join(tmp, "pbt.journal")
+
+    def service(**kw):
+        return PBTTrainerService(cfg=cfg, pcfg=pcfg, env_params=env, seed=0,
+                                 now_fn=lambda: 1000.0, device="cuda", **kw)
+
+    def tick(svc):
+        t0 = time.perf_counter()
+        out = asyncio.run(svc.run_once())
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    with counted(population, "host_read") as reads:
+        unbroken = service()
+        gen_ms = [tick(unbroken)[1] for _ in range(SVC_TICKS)]
+        unbroken_reads = len(reads)
+        reads.clear()
+        killed = service(checkpoint_path=path, registry=ModelRegistry(
+            path=os.path.join(tmp, "registry.json")), scorecard=Scorecard())
+        for _ in range(2):
+            tick(killed)
+        killed_reads = len(reads)
+        killed.close()
+        reads.clear()
+        resumed = service(checkpoint_path=path, registry=ModelRegistry(
+            path=os.path.join(tmp, "registry.json")), scorecard=Scorecard())
+        first, first_ms = tick(resumed)
+        rest_ms = [tick(resumed)[1] for _ in range(SVC_TICKS - 3)]
+        resumed_reads = len(reads)
+        reads.clear()
+        t0 = time.perf_counter()
+        unbroken.checkpoint_path = os.path.join(tmp, "write.journal")
+        unbroken.checkpoint()
+        checkpoint_ms = 1e3 * (time.perf_counter() - t0)
+        checkpoint_reads = len(reads)
+    resumed_ticks = SVC_TICKS - 2
+    if (unbroken_reads, killed_reads, resumed_reads, checkpoint_reads) != (
+            SVC_TICKS, 4, 2 * resumed_ticks, 1):
+        fail(f"service: host reads {unbroken_reads} for {SVC_TICKS} generations, "
+             f"{killed_reads} for 2 generations + 2 checkpoints, {resumed_reads} after the "
+             f"resume, {checkpoint_reads} for a checkpoint: not one a generation and one a "
+             f"checkpoint")
+    if first.get("bootstrap") != {"resumed": True, "generation": 2}:
+        fail(f"service: the restarted service did not resume at generation 2: {first}")
+    differ = same_fleet(resumed._pop, unbroken._pop)
+    if differ or resumed.history != unbroken.history:
+        fail(f"service: the resumed fleet differs from the unbroken one on the card in "
+             f"{differ[:4]} (history equal: {resumed.history == unbroken.history})")
+    if len(resumed.adoptions) != SVC_TICKS or not resumed.registry.entries:
+        fail(f"service: {len(resumed.adoptions)} adoption verdicts and "
+             f"{len(resumed.registry.entries)} registry entries after {SVC_TICKS} generations")
+
+    # the bench's pbt_recovery_ms row
+    renv, _ = pbt_env_params(gen(7), num_scenarios=REC_S, steps=REC_T, episode_len=REC_EPISODE,
+                             dynamics="lob", device="cuda")
+    rcfg, rpcfg = svc_fleet_config(renv, REC_P, REC_ITERS)
+    res = population.train_pbt(gen(0), renv, rcfg, rpcfg)
+    rpath = os.path.join(tmp, "recovery.journal")
+    journal = SnapshotJournal(rpath, kind="pbt_lineage")
+    for _ in range(3):
+        journal.write(checkpoint_payload(res.state, generation=1, cfg=rcfg, pcfg=rpcfg,
+                                         history=res.history))
+    journal.close()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    payload, stats = load_checkpoint(rpath)
+    pop = restore_checkpoint(payload, rcfg, rpcfg, renv)
+    torch.cuda.synchronize()
+    recovery_ms = 1e3 * (time.perf_counter() - t0)
+    if same_fleet(pop, res.state):
+        fail("service: the pbt_recovery fleet restored is not the saved one")
+    t0 = time.perf_counter()
+    res2 = population.train_pbt(None, renv, rcfg, rpcfg, init_pop=pop,
+                                start_generation=int(payload["generation"]))
+    torch.cuda.synchronize()
+    first_resumed_ms = 1e3 * (time.perf_counter() - t0)
+    if res2.history[0]["generation"] != 1:
+        fail("service: the pbt_recovery fleet did not resume at generation 1")
+    verdict = adopt_winner(res2, ModelRegistry(path=os.path.join(tmp, "adopt.json")),
+                           Scorecard(), checkpoint_path=os.path.join(tmp, "winner"))
+    if not verdict["adopted"] or not os.path.isdir(os.path.join(tmp, "winner")):
+        fail(f"service: adopt_winner into an empty registry gave {verdict}")
+
+    # recalibration: from the book's own depth frames, then from the journal corrupted
+    depth = os.path.join(tmp, "depth.journal")
+    frames = depth_journal(depth)
+    resumed.depth_source = depth
+    fused_ewma.launches = 0
+    t0 = time.perf_counter()
+    good = resumed._recalibrate()
+    torch.cuda.synchronize()
+    recal_ms = 1e3 * (time.perf_counter() - t0)
+    recal_k2 = fused_ewma.launches
+    flow, env_good = resumed.flow, resumed.env_params
+    if not good["ok"] or good["records"] != frames or flow is None \
+            or env_good.close.shape != env.close.shape:
+        fail(f"service: recalibration from the depth journal gave {good}")
+    depth_journal(depth, flip_crc=True)
+    bad = resumed._recalibrate()
+    if bad["ok"] or resumed.flow is not flow or resumed.env_params is not env_good \
+            or resumed.recalibration_failures != 1:
+        fail(f"service: a corrupted depth journal gave {bad}; the last-good flow was not kept")
+    tick(resumed)                           # a generation on the re-fitted markets
+    return {"population": PBT_P, "markets": [PBT_S, PBT_T], "ticks": SVC_TICKS,
+            "iters_per_generation": SVC_ITERS, "generation_ms": gen_ms,
+            "resume": "history, fitness, hypers, fleet tensors and draw streams bit for bit",
+            "reads": {"per_generation": 1, "per_checkpoint": 1},
+            "first_resumed_tick_ms": first_ms, "later_resumed_ticks_ms": rest_ms,
+            "checkpoint_write_ms_p16": checkpoint_ms,
+            "pbt_recovery": {"population": REC_P, "markets": [REC_S, REC_T],
+                             "arrays": len(payload["arrays"]),
+                             "packed_mb": sum(len(a["data"]) for a in payload["arrays"]) / 1e6,
+                             "snapshot_records": stats["replayed"],
+                             "load_and_restore_ms": recovery_ms,
+                             "first_resumed_generation_ms": first_resumed_ms},
+            "adoption": {k: verdict[k] for k in ("adopted", "reason", "fitness")},
+            "recalibration": {"frames": frames, "ms": recal_ms, "k2_launches": recal_k2,
+                              "corrupt": bad["reason"][:120],
+                              "failures": resumed.recalibration_failures},
+            "status": {k: v for k, v in resumed.status().items() if k != "adoptions"}}
+
+
+def cli_rl_service(tmp):
+    """`cli rl --checkpoint` and then `cli rl --checkpoint --resume
+    --registry` as subprocesses on the card: the resumed run names its
+    generation and prints the checkpoint's row as ``ckpt`` beside its own
+    ``live`` one, and registers the winner."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    path, reg = os.path.join(tmp, "cli.journal"), os.path.join(tmp, "cli_registry.json")
+    argv = ["--population", "4", "--generations", "1", "--iters", "2", "--scenarios", "4",
+            "--steps", "256", "--episode-len", "64"]
+    runs = []
+    for extra in (["--checkpoint", path],
+                  ["--checkpoint", path, "--resume", path, "--registry", reg]):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "ai_crypto_trader_tpu_torch.cli", "rl",
+                               *argv, *extra], cwd=root, capture_output=True, text=True,
+                              timeout=300)
+        if proc.returncode != 0:
+            fail(f"service: cli rl {extra} exited {proc.returncode}: {proc.stderr[-800:]}")
+        runs.append((proc.stdout, time.perf_counter() - t0))
+    out = runs[1][0]
+    rows = [ln.split()[:2] for ln in out.splitlines()
+            if len(ln.split()) == 7 and ln.split()[0].isdigit()]
+    if f"resumed@gen=1 from {path}" not in out or rows != [["0", "ckpt"], ["1", "live"]] \
+            or "registered " not in out:
+        fail(f"service: cli rl --resume --registry printed {out[-800:]}")
+    return {"seconds": [r[1] for r in runs], "rows": rows,
+            "registered": next(ln for ln in out.splitlines() if "registered " in ln).strip()}
+
+
+def regime_histories():
+    """The regime service's 64 symbols' 1-minute klines: REGIME_T candles of
+    `generate_ohlcv` with a seed a symbol (rows [open time, o, h, l, c, v])."""
+    import numpy as np
+
+    from ai_crypto_trader_tpu_torch.data import generate_ohlcv
+
+    out = {}
+    for i in range(REGIME_S):
+        d = generate_ohlcv(n=REGIME_T, seed=100 + i)
+        ts = np.arange(REGIME_T, dtype=np.int64) * 60_000
+        out[f"R{i:02d}USDC"] = np.column_stack(
+            [ts] + [d[k] for k in ("open", "high", "low", "close", "volume")]).tolist()
+    return out
+
+
+def regime_arrays(klines):
+    import numpy as np
+
+    arr = np.asarray([row[1:6] for row in klines], np.float32)
+    return {k: arr[:, i] for i, k in enumerate(("open", "high", "low", "close", "volume"))}
+
+
+def regime_k2(recorded):
+    """The K2 launches of one `regime_features` call (``recorded``: each
+    launch's jobs), each held against the plain EWMA of its inputs at K2's
+    tolerance (`ewma_check`) and timed beside the plain version; the bound
+    of all of them together."""
+    from ai_crypto_trader_tpu_torch.ops.ewma import fused_ewma_jobs, fused_ewma_plain
+
+    checks = []
+    for i, jobs in enumerate(recorded):
+        named = [(f"job{j}_K{len(a)}_start{st}", x.reshape(-1, x.shape[-1]), a, st)
+                 for j, (x, a, st) in enumerate(jobs)]
+        args = [(x, a, st) for _, x, a, st in named]
+        check = ewma_check(named, f"regime_launch{i}")
+        checks.append({**check, "ms": cuda_ms(lambda: fused_ewma_jobs(args, device="cuda"), 20),
+                       "plain_ms": sum(cuda_ms(lambda: fused_ewma_plain(x, a, st), 5)
+                                       for x, a, st in args)})
+    b_ms, o_ms = ewma_jobs_bound([(x.reshape(-1, x.shape[-1]), a, st)
+                                  for jobs in recorded for x, a, st in jobs])
+    return {"ms": sum(c["ms"] for c in checks), "ms_per_launch": [c["ms"] for c in checks],
+            "plain_ms": sum(c["plain_ms"] for c in checks),
+            "bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else "operations",
+            "library_ms": None,
+            "max_abs_err": max(j["max_abs_err"] for c in checks for j in c["jobs"]),
+            "max_rel_err": max(j["max_rel_err"] for c in checks for j in c["jobs"]),
+            "launch_shapes": [[j["shape"] for j in c["jobs"]] for c in checks]}
+
+
+def regime_flips(method, arrays, key):
+    """`label_series` and `detect` of one symbol fitted on the card (the
+    fit's and a detect's time taken) and on the CPU from the same
+    first-centroid index: every candle whose label
+    differs must sit near a tie of the CPU's model — for k-means the two
+    clusters' squared distances within REGIME_TIE_RTOL of their mean, for
+    the GMM and the HMM the two states' probabilities (posteriors) within
+    REGIME_TIE_RTOL, for the rules the volatility or the slope within four
+    times the card's feature difference of its threshold."""
+    import numpy as np
+    import torch
+
+    from ai_crypto_trader_tpu_torch.mc.engine import quantile
+    from ai_crypto_trader_tpu_torch.regime import RegimeDetector, regime_features
+    from ai_crypto_trader_tpu_torch.regime import cluster as cl
+    from ai_crypto_trader_tpu_torch.regime import hmm as hmm_mod
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = RegimeDetector(method=method, key=key, device="cuda").fit(arrays)
+    torch.cuda.synchronize()
+    fit_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    card.detect(arrays)
+    detect_ms = 1e3 * (time.perf_counter() - t0)
+    cpu = RegimeDetector(method=method, key=key, device="cpu").fit(arrays)
+    got, ref = card.label_series(arrays), cpu.label_series(arrays)
+    feats_c = regime_features(arrays, device="cuda").cpu()
+    feats = regime_features(arrays, device="cpu")
+    flips = np.flatnonzero(got != ref)
+    margins = []
+    if len(flips) and method != "rules":
+        _, z = cpu._project(arrays)
+        model, inv = cpu._state["model"], {int(m): c for c, m in
+                                           enumerate(cpu._state["mapping"])}
+        for t in flips:
+            a, b = inv.get(int(got[t])), inv.get(int(ref[t]))
+            if a is None:
+                fail(f"service: regime {method} label {got[t]} of the card names no CPU cluster")
+            if method == "kmeans":
+                d = cl._sq_dists(z[t:t + 1], model.centroids)[0]
+                margins.append(float((d[a] - d[b]).abs() / d.mean()))
+            else:
+                p = (cl.gmm_predict_proba(model, z[t:t + 1])[0] if method == "gmm"
+                     else hmm_mod.hmm_posteriors(model, z)[0][t])
+                margins.append(float((p[a] - p[b]).abs()))
+        if max(margins) > REGIME_TIE_RTOL:
+            fail(f"service: regime {method} flips {flips.tolist()[:8]} card vs CPU, margins "
+                 f"{margins[:8]}: not near a tie")
+    elif len(flips):
+        tol = 4.0 * float((feats_c - feats).abs().amax(dim=0)[1:3].max())
+        q_c, q = float(quantile(feats_c[:, 1], 0.8)), float(quantile(feats[:, 1], 0.8))
+        for t in flips:
+            vol, slope = float(feats[t, 1]), float(feats[t, 2])
+            margin = min(abs(vol - q) - abs(q - q_c), abs(abs(slope) - 5e-5))
+            margins.append(margin)
+            if margin > tol:
+                fail(f"service: the rules flip at candle {t} sits {margin:.3g} from a "
+                     f"threshold (tolerance {tol:.3g})")
+    a, b = card.detect(arrays), cpu.detect(arrays)
+    if a["regime"] != b["regime"] and not (len(flips) and flips[-1] == len(got) - 1):
+        fail(f"service: regime {method} detects {a['regime']} on the card, {b['regime']} on "
+             f"the CPU, with the last candle's label equal")
+    prob = max(abs(a["probabilities"][k] - b["probabilities"][k]) for k in a["probabilities"])
+    return {"fit_ms": fit_ms, "detect_ms": detect_ms,
+            "flips": len(flips), "candles": len(got), "margins": margins[:16],
+            "detect": [a["regime"], b["regime"]], "detect_prob_max_abs_diff": prob,
+            "feature_max_abs_diff": [float(x) for x in (feats_c - feats).abs().amax(dim=0)]}
+
+
+def service_regime(info):
+    """(b) `MarketRegimeService` over the 64 symbols' 1,000-candle 1m
+    histories on a bus in memory, the default k-means: a first round (each
+    symbol fitted, then detected) and REGIME_ROUNDS - 1 steady rounds (the
+    detectors kept), update and round times; the K2 launches of that run
+    counted and one `regime_features` call's held against the plain EWMA;
+    torch.profiler over one steady update; card against CPU label flips
+    per method on two symbols (the HMM on one: its fit is the sequential
+    recursion, ~T steps × 2 directions × 30 iterations), with each card
+    fit's and detect's time."""
+    import asyncio
+
+    import numpy as np
+
+    from ai_crypto_trader_tpu_torch.ops.ewma import fused_ewma
+    from ai_crypto_trader_tpu_torch.regime import MarketRegimeService
+
+    histories = regime_histories()
+    bus = MemoryBus()
+    for s, rows in histories.items():
+        bus.set(f"historical_data_{s}_1m", rows)
+    svc = MarketRegimeService(bus, now_fn=lambda: 5000.0, device="cuda")
+
+    def timed_update(s):
+        t0 = time.perf_counter()
+        out = asyncio.run(svc.update(s))
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    fused_ewma.launches = 0
+    with recording_ewma([]) as recorded:
+        rounds, first_updates, updates = [], [], []
+        for r in range(REGIME_ROUNDS):
+            t0 = time.perf_counter()
+            for s in histories:
+                out, ms = timed_update(s)
+                (first_updates if r == 0 else updates).append(ms)
+            rounds.append(1e3 * (time.perf_counter() - t0))
+    launches = fused_ewma.launches
+    want = REGIME_S * 4 * (REGIME_ROUNDS + 1)       # fit + detect, then detects
+    if launches != want or len(recorded) != want:
+        fail(f"service: the regime rounds made {launches} K2 launches ({len(recorded)} "
+             f"recorded), not {want} (4 a regime_features call)")
+    regimes = [svc.regimes[s]["regime"] for s in histories]
+    if len(bus.events) != REGIME_S * REGIME_ROUNDS or len(svc.detectors) != REGIME_S:
+        fail(f"service: {len(bus.events)} regime updates published, {len(svc.detectors)} "
+             f"detectors")
+    k2 = regime_k2(recorded[-4:])
+    first = next(iter(histories))
+    try:
+        profile = device_profile(lambda: asyncio.run(svc.update(first)))
+    except Exception as ex:  # noqa: BLE001 — a profiler that cannot trace is reported
+        profile = {"measured": False, "reason": repr(ex)[:300]}
+
+    flips = {}
+    rng = np.random.default_rng(0)
+    for method, n in (("kmeans", 2), ("gmm", 2), ("hmm", 1), ("rules", 2)):
+        flips[method] = [regime_flips(method, regime_arrays(histories[s]),
+                                      int(rng.integers(0, REGIME_T)))
+                         for s in list(histories)[:n]]
+    entry = {"launches": launches, **{k: v for k, v in k2.items() if k != "launch_shapes"},
+             "shape": f"regime_features over {REGIME_S} symbols x {REGIME_T} candles, "
+                      f"{REGIME_ROUNDS} rounds (4 launches a call; ms/plain_ms/bound of one "
+                      f"call's 4 launches)"}
+    return {"symbols": REGIME_S, "candles": REGIME_T, "method": "kmeans",
+            "first_round_ms": rounds[0], "first_update_ms_p50": percentile(first_updates, 50),
+            "first_update_ms_p99": percentile(first_updates, 99),
+            "round_ms_p50": percentile(rounds[1:], 50), "round_ms_p99": percentile(rounds[1:], 99),
+            "update_ms_p50": percentile(updates, 50), "update_ms_p99": percentile(updates, 99),
+            "regime_counts": {r: regimes.count(r) for r in sorted(set(regimes))},
+            "k2_launches": launches, "k2": k2, "profile_one_update": profile,
+            "card_vs_cpu": flips}, entry
+
+
+def synthetic_books(rng, n, levels, mid=40_000.0, tick=0.5):
+    """``n`` books of ``levels`` a side: (price, size) rows, bids
+    descending from half a tick under ``mid``, asks ascending, lognormal
+    sizes with a few walls."""
+    import numpy as np
+
+    sizes = rng.lognormal(0.0, 0.6, (n, 2, levels))
+    walls = rng.integers(0, levels, (n, 2, 3))
+    np.put_along_axis(sizes, walls, np.take_along_axis(sizes, walls, -1) * 12.0, -1)
+    off = tick / 2 + tick * np.arange(levels)
+    mids = mid * (1.0 + 1e-3 * rng.standard_normal(n))[:, None]
+    bids = np.stack([np.broadcast_to(mids - off, (n, levels)), sizes[:, 0]], -1)
+    asks = np.stack([np.broadcast_to(mids + off, (n, levels)), sizes[:, 1]], -1)
+    return bids.astype(np.float32), asks.astype(np.float32)
+
+
+def held(got, want, label, rtol=1e-5, atol=0.0):
+    """The card's value against the CPU's within atol + rtol·|CPU|; returns
+    the largest difference as a share of that bound."""
+    import numpy as np
+
+    g, w = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    worst = float((np.abs(g - w) / (atol + rtol * np.abs(w) + 1e-300)).max(initial=0.0))
+    if worst > 1.0:
+        fail(f"service: the card's {label} is {float(np.abs(g - w).max()):.3g} off the CPU's "
+             f"({worst:.3g} of its bound)")
+    return worst
+
+
+def service_orderbook():
+    """(c) `orderbook_signal` and `cluster_orders` on 64 books of 100
+    levels a side (the venue's default depth), and `price_impact` and
+    `pressure_metrics` batched over a 1,024-frame capture window: the card
+    against the CPU at float32 tolerance (rtol 1e-5, and for the values
+    that cancel — the imbalances, the score and the Gini, differences of
+    sums over levels; the microprice tilt and the impact, differences of
+    two prices — within 8 ulps of their operands' scale, 16 for the Gini),
+    the signal's label and the cluster labels equal; times."""
+    import numpy as np
+    import torch
+
+    from ai_crypto_trader_tpu_torch.ops import orderbook as ob
+
+    rng = np.random.default_rng(17)
+    bids, asks = synthetic_books(rng, BOOK_N, BOOK_LEVELS)
+    u = 2.0 ** -23
+    tilt_atol = 8 * u * 1e4
+    atol = {"imbalance": 8 * u, "near_pressure": 8 * u, "score": 8 * u,
+            "gini_bids": 16 * u, "gini_asks": 16 * u, "microprice_tilt_bps": tilt_atol}
+    sig_ms, clu_ms, err, labels = [], [], 0.0, {}
+    for i in range(BOOK_N):
+        t0 = time.perf_counter()
+        got = ob.orderbook_signal(bids[i], asks[i], device="cuda")
+        sig_ms.append(1e3 * (time.perf_counter() - t0))
+        ref = ob.orderbook_signal(bids[i], asks[i], device="cpu")
+        if got["signal"] != ref["signal"] or (got["bid_walls"], got["ask_walls"]) != \
+                (ref["bid_walls"], ref["ask_walls"]):
+            fail(f"service: book {i}: signal {got['signal']} on the card, {ref['signal']} on "
+                 f"the CPU")
+        labels[got["signal"]] = labels.get(got["signal"], 0) + 1
+        for group in ("imbalance", "pressure"):
+            for k, v in ref[group].items():
+                err = max(err, held(got[group][k], v, f"{group}.{k}", atol=atol.get(k, 0.0)))
+        for k in ("score", "gini_bids", "gini_asks"):
+            err = max(err, held(got[k], ref[k], k, atol=atol[k]))
+        key = int(rng.integers(0, BOOK_LEVELS))
+        t0 = time.perf_counter()
+        c = ob.cluster_orders(bids[i], k=3, key=key, device="cuda")
+        clu_ms.append(1e3 * (time.perf_counter() - t0))
+        if not np.array_equal(c["labels"], ob.cluster_orders(bids[i], k=3, key=key,
+                                                             device="cpu")["labels"]):
+            fail(f"service: book {i}'s order clusters differ between the card and the CPU")
+    fb, fa = synthetic_books(rng, BOOK_FRAMES, BOOK_LEVELS)
+    sizes = np.array(ob.DEFAULT_TRADE_SIZES, np.float32)
+    b_c, a_c = torch.from_numpy(fb).cuda(), torch.from_numpy(fa).cuda()
+    s_c = torch.from_numpy(sizes).cuda()
+    impact = ob.price_impact(a_c, s_c, device="cuda").cpu().numpy()
+    held(impact, ob.price_impact(fa, sizes, device="cpu").numpy(), "price_impact",
+         atol=8 * 2.0 ** -23)
+    pres = ob.pressure_metrics(b_c, a_c, device="cuda")
+    pres_cpu = ob.pressure_metrics(fb, fa, device="cpu")
+    for k, v in pres_cpu.items():
+        held(pres[k].cpu().numpy(), v.numpy(), k, atol=atol.get(k, 0.0))
+    n_bytes = fa.nbytes + sizes.nbytes + impact.nbytes
+    return {"books": BOOK_N, "levels": BOOK_LEVELS, "signals": labels,
+            "orderbook_signal_ms_p50": percentile(sig_ms, 50),
+            "orderbook_signal_ms_p99": percentile(sig_ms, 99),
+            "cluster_orders_ms_p50": percentile(clu_ms, 50), "worst_over_bound": err,
+            "window": {"frames": BOOK_FRAMES, "price_impact_ms": cuda_ms(
+                lambda: ob.price_impact(a_c, s_c, device="cuda"), 20),
+                "price_impact_bytes_ms": 1e3 * n_bytes / HBM_BYTES_PER_S,
+                "pressure_metrics_ms": cuda_ms(
+                    lambda: ob.pressure_metrics(b_c, a_c, device="cuda"), 20)}}
+
+
+def service_patterns():
+    """(d) `ChartPatternService`: one round over the tick tape's 64
+    symbols' 256-candle `5m` klines with phase `patterns`' cnn classifier
+    (seed 200) on the card, and the same round on the CPU, each on its own
+    bus in memory; then the same with the no-pattern output bias lowered by
+    10 and the threshold at 0, so that the detected branch and the signal
+    derivation run.  The analyses (verdict, primary, completion; confidence
+    within NN_ATOL) and the signals must equal the CPU's, but where the
+    CPU's two leading patterns, or its probabilities at the two windows the
+    completions name, lie within NN_ATOL (near ties, counted); a strength,
+    rounded to 2 decimals, within one step."""
+    import asyncio
+
+    import numpy as np
+    import torch
+
+    from ai_crypto_trader_tpu_torch.patterns import PatternRecognizer
+    from ai_crypto_trader_tpu_torch.patterns.model import PATTERN_CLASSES, _build, _window_probs
+    from ai_crypto_trader_tpu_torch.patterns.service import ChartPatternService
+
+    tape = TickTape(S_TICK, T_TICK)
+    model = _build("cnn", generator=torch.Generator().manual_seed(200), device="cuda")
+    params = {k: v.detach() for k, v in model.named_parameters()}
+    head = [k for k, v in params.items() if k.endswith("bias")
+            and v.shape == (len(PATTERN_CLASSES),)][0]
+    lowered = dict(params)
+    lowered[head] = params[head].clone()
+    lowered[head][PATTERN_CLASSES.index("no_pattern")] -= 10.0
+    report = {}
+    for label, p, threshold in (("seeded", params, 0.5), ("no_pattern_lowered", lowered, 0.0)):
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            bus = MemoryBus()
+            for i, s in enumerate(tape.symbols):
+                bus.set(f"historical_data_{s}_5m", tape.klines(i, "5m", tape.n - 64, T_TICK))
+            rec = PatternRecognizer("cnn", {k: v.to(dev) for k, v in p.items()})
+            svc = ChartPatternService(bus, rec, list(tape.symbols), now_fn=lambda: 1e6,
+                                      confidence_threshold=threshold, device=dev)
+            t0 = time.perf_counter()
+            out = asyncio.run(svc.run_once())
+            runs[dev] = (svc, bus, out, 1e3 * (time.perf_counter() - t0))
+        (card, cbus, cout, ms), (cpu, pbus, pout, cpu_ms) = runs["cuda"], runs["cpu"]
+        ties = 0
+        for i, s in enumerate(tape.symbols):
+            a, b = card.pattern_data[s], cpu.pattern_data[s]
+            if a["detected"] != b["detected"]:
+                fail(f"service: pattern {label} {s}: detected {a['detected']} on the card, "
+                     f"{b['detected']} on the CPU")
+            tie = False
+            if a.get("primary_pattern") != b.get("primary_pattern"):
+                top = np.sort(np.array(list(b["all_probabilities"].values())))[::-1]
+                if top[0] - top[1] > NN_ATOL:
+                    fail(f"service: pattern {label} {s}: primary {a.get('primary_pattern')} "
+                         f"on the card, {b.get('primary_pattern')} on the CPU")
+                tie = True
+            elif a.get("completion") != b.get("completion"):
+                w = np.asarray([row[1:6] for row in pbus.get(f"historical_data_{s}_5m")],
+                               np.float32)
+                per = _window_probs(cpu.recognizer.params, "cnn", torch.as_tensor(w), NN_SEQ, 5)[
+                    :, PATTERN_CLASSES.index(b["primary_pattern"])].numpy()
+                at = [round(c * per.size) - 1 for c in (a["completion"], b["completion"])]
+                if abs(per[at[0]] - per[at[1]]) > NN_ATOL:
+                    fail(f"service: pattern {label} {s}: completion {a['completion']} on the "
+                         f"card, {b['completion']} on the CPU")
+                tie = True
+            if abs(a.get("confidence", 0.0) - b.get("confidence", 0.0)) > NN_ATOL:
+                fail(f"service: pattern {label} {s}: confidence {a.get('confidence')} on the "
+                     f"card, {b.get('confidence')} on the CPU")
+            ties += tie
+            x, y = cbus.get(f"pattern_signals_{s}"), pbus.get(f"pattern_signals_{s}")
+            if not tie and ((x is None) != (y is None) or (x is not None and (
+                    {k: v for k, v in x.items() if k != "strength"} !=
+                    {k: v for k, v in y.items() if k != "strength"}
+                    or abs(x["strength"] - y["strength"]) > 0.01))):
+                fail(f"service: pattern {label} {s}: signal {x} on the card, {y} on the CPU")
+        if not ties and cout != pout:
+            fail(f"service: pattern round {label}: {cout} on the card, {pout} on the CPU")
+        report[label] = {"round_ms": ms, "cpu_round_ms": cpu_ms, **cout, "near_ties": ties,
+                         "detected": sum(a["detected"] for a in card.pattern_data.values())}
+    if not report["no_pattern_lowered"]["detected"]:
+        fail("service: the lowered-bias pattern round detected no pattern")
+    return report
+
+
+def phase_service(info):
+    """The services on the card: (a) the continuous PBT trainer (and `cli
+    rl --checkpoint / --resume / --registry`), (b) the regime service,
+    (c) the order book, (d) the chart-pattern service.  Returns the
+    regime path's K2 entry for the kernels line."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    report = {"phase": "service", "card": info["nvidia_smi"]}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        report["trainer"] = service_trainer(tmp)
+        report["cli_rl"] = cli_rl_service(tmp)
+        report["trainer_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    report["regime"], regime_entry = service_regime(info)
+    report["regime_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    report["orderbook"] = service_orderbook()
+    report["orderbook_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    report["patterns"] = service_patterns()
+    report["patterns_s"] = time.perf_counter() - t0
+    report["phase_s"] = time.perf_counter() - t_phase
+    emit(report)
+    return regime_entry
+
+
 def main():
     import torch
 
@@ -3827,6 +4497,7 @@ def main():
     nn_train = phase_train(info)
     rl = phase_rl(info, d)
     sim_k1, sim_k2 = phase_sim(info)
+    regime = phase_service(info)
     bound_ms, bound_by, stepped_bound_ms = replay_bound_ms(stats, B_FULL, T_FULL)
     checks += full
     kernels = [
@@ -3850,6 +4521,7 @@ def main():
          "nn_train": nn_train,
          "rl": rl,
          "sim": sim_k2,
+         "regime": regime,
          "shape": "the two launches of compute_indicators at T=525600, summed "
                   "(A: close K=2 + up/dn/tr K=1; B: MACD line K=1)"},
         {"name": "replay_sweep", "route": "cuda",

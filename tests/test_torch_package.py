@@ -9,6 +9,7 @@ CUDA card unless called with device="cpu".  These tests run on the CPU.
 import os
 import subprocess
 import sys
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -43,7 +44,14 @@ from ai_crypto_trader_tpu_torch.risk import (
     historical_var, social_risk_adjustment, stress_var_cvar, trailing_stop_init,
     trailing_stop_update)
 from ai_crypto_trader_tpu_torch.risk.social import SocialSnapshot
-from ai_crypto_trader_tpu_torch.rl import DQNConfig, hypers_from_config, make_env_params, pbt_env_params
+from ai_crypto_trader_tpu_torch.ops import orderbook
+from ai_crypto_trader_tpu_torch.parallel import get_partitioner
+from ai_crypto_trader_tpu_torch.patterns.service import ChartPatternService
+from ai_crypto_trader_tpu_torch.regime import (
+    MarketRegimeService, RegimeDetector, gmm_fit, hmm_fit, kmeans_fit, pca_fit, regime_features,
+    standardize_fit)
+from ai_crypto_trader_tpu_torch.rl import (
+    DQNConfig, PBTConfig, PBTTrainerService, hypers_from_config, make_env_params, pbt_env_params)
 from ai_crypto_trader_tpu_torch.sim import calibrate as sim_calibrate
 from ai_crypto_trader_tpu_torch.sim import engine as sim_engine
 from ai_crypto_trader_tpu_torch.sim import exchange as sim_exchange
@@ -73,8 +81,18 @@ expected = {"config", "ops.dynamic", "backtest.evolvable", "evolve", "evolve.ga"
             "patterns.model", "models.train_loop", "models.importance", "models.hpo",
             "models.service", "utils.checkpoint", "patterns.synthetic", "rl", "rl.env",
             "rl.dqn", "rl.draws", "rl.population", "sim.paths", "sim.lob", "sim.engine",
-            "parallel", "parallel.partitioner", "sim.exchange", "sim.calibrate"}
+            "parallel", "parallel.partitioner", "sim.exchange", "sim.calibrate",
+            "utils", "obs.scorecard", "strategy", "strategy.registry", "rl.trainer_service",
+            "regime", "regime.cluster", "regime.hmm", "regime.detector", "regime.collector",
+            "regime.service", "ops.orderbook", "patterns.service"}
 missing = sorted(e for e in expected if pkg.__name__ + "." + e not in names)
+print(missing)
+from ai_crypto_trader_tpu_torch import obs, utils
+exports = {"obs": {"DRIFT_FEATURES", "N_BINS", "PSI_ALERT_THRESHOLD", "reference_histogram",
+                   "FleetScope", "Scorecard"},
+           "utils": {"save_checkpoint", "load_checkpoint"}}
+missing += sorted(f"{m}.{n}" for m, names in exports.items() for n in names
+                  if not hasattr({"obs": obs, "utils": utils}[m], n))
 print(missing)
 from ai_crypto_trader_tpu_torch import cli
 cli.main(["rl", "--device", "cpu", "--population", "2", "--generations", "1", "--iters", "1",
@@ -84,7 +102,7 @@ bad += sorted(m for m in sys.modules
               if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
               or re.match(r"ai_crypto_trader_tpu(?!_torch)(\.|$)", m))
 print(bad)
-sys.exit(1 if bad or missing or len(names) < 64 else 0)
+sys.exit(1 if bad or missing or len(names) < 77 else 0)
 """
 
 
@@ -212,7 +230,30 @@ _ENTRY_POINTS = {
     "fill_params_from_jax": lambda: convert.fill_params_from_jax(
         sim_engine.fill_params(device="cpu")),
     "flow_params_from_jax": lambda: convert.flow_params_from_jax(flow_params(device="cpu")),
+    "PBTTrainerService": lambda: PBTTrainerService(DQNConfig(), PBTConfig()),
+    "regime_features": lambda: regime_features(_small()),
+    "RegimeDetector": lambda: RegimeDetector(),
+    "standardize_fit": lambda: standardize_fit(np.ones((8, 2), np.float32)),
+    "pca_fit": lambda: pca_fit(np.ones((8, 3), np.float32), 2),
+    "kmeans_fit": lambda: kmeans_fit(0, np.ones((8, 2), np.float32), 2),
+    "gmm_fit": lambda: gmm_fit(0, np.ones((8, 2), np.float32), 2),
+    "hmm_fit": lambda: hmm_fit(0, np.ones((8, 2), np.float32), 2),
+    "MarketRegimeService": lambda: MarketRegimeService(None),
+    "imbalance": lambda: orderbook.imbalance(_BOOK, _BOOK),
+    "price_impact": lambda: orderbook.price_impact(_BOOK, [1.0]),
+    "find_walls": lambda: orderbook.find_walls(_BOOK),
+    "pressure_metrics": lambda: orderbook.pressure_metrics(_BOOK, _BOOK),
+    "gini_concentration": lambda: orderbook.gini_concentration(_BOOK),
+    "cluster_orders": lambda: orderbook.cluster_orders(_BOOK),
+    "orderbook_signal": lambda: orderbook.orderbook_signal(_BOOK, _BOOK),
+    "ChartPatternService": lambda: ChartPatternService(None, PatternRecognizer("cnn", {}), []),
+    "kmeans_from_jax": lambda: convert.kmeans_from_jax(SimpleNamespace(
+        centroids=np.ones((2, 2), np.float32))),
+    "standardizer_from_jax": lambda: convert.standardizer_from_jax(SimpleNamespace(
+        mean=np.ones(2, np.float32), std=np.ones(2, np.float32))),
 }
+
+_BOOK = np.stack([np.arange(8, dtype=np.float32) + 1, np.ones(8, np.float32)], axis=1)
 
 
 def _schedule():
@@ -346,7 +387,47 @@ def test_jax_signature_keywords_unroll_and_partitioner(fn_name):
         a, b = getattr(base, f), getattr(unrolled, f)
         assert a.dtype == b.dtype and torch.equal(a.view(-1), b.view(-1)), f
     if fn_name == "sweep":
-        for f, v in run(partitioner=None)._asdict().items():
-            assert torch.equal(v, getattr(base, f)), f
+        for partitioner in (None, get_partitioner()):
+            for f, v in run(partitioner=partitioner)._asdict().items():
+                assert torch.equal(v, getattr(base, f)), f
         with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
             run(partitioner=object())
+
+
+def _mesh_partitioner():
+    """The JAX package's partitioner over a one-device mesh: a foreign
+    object to the port."""
+    import jax
+
+    from ai_crypto_trader_tpu.parallel.partitioner import MeshPartitioner
+
+    return MeshPartitioner(jax.sharding.Mesh(np.array(jax.devices()[:1]), ("data",)))
+
+
+_SEAM_CASES = {
+    "sweep": lambda p: sweep(
+        prepare_inputs(compute_indicators(_small(), device="cpu"), device="cpu"),
+        default_params((2,), device="cpu"), partitioner=p, device="cpu").total_trades,
+    "optimize_hyperparameters": lambda p: optimize_hyperparameters(
+        torch.Generator(), np.linspace(1, 2, 400, dtype=np.float32)[:, None].repeat(5, 1),
+        n_trials=1, rung_epochs=(1, 1), seq_len=8, partitioner=p, device="cpu")["best_val_loss"],
+    "TenantEngine": lambda p: TenantEngine(["BTCUSDC"], 4, partitioner=p, device="cpu").S,
+    "run_ga": lambda p: run_ga(torch.Generator().manual_seed(0),
+                               backtest_fitness(_small(), device="cpu"),
+                               GAParams(population_size=4, generations=1),
+                               partitioner=p, device="cpu")[1],
+}
+
+
+@pytest.mark.parametrize("entry", sorted(_SEAM_CASES))
+def test_partitioner_seam_takes_the_single_device_partitioner(entry):
+    """`get_partitioner()`'s single-device seam runs as None does; a mesh
+    partitioner, a foreign object and a mesh for `get_partitioner` raise."""
+    run = _SEAM_CASES[entry]
+    a, b = run(None), run(get_partitioner())
+    assert (torch.equal(a, b) if torch.is_tensor(a) else a == b)
+    for foreign in (object(), _mesh_partitioner()):
+        with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
+            run(foreign)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
+        get_partitioner(mesh=object())

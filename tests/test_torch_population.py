@@ -279,12 +279,13 @@ def test_cli_rl_parser_matches_jax():
     assert flags == jflags
 
 
-def test_cli_rl_runs_on_the_cpu_and_refuses_what_is_not_ported():
+def test_cli_rl_runs_on_the_cpu_and_refuses_what_is_not_ported(tmp_path):
     out = io.StringIO()
+    small = ["rl", "--device", "cpu", "--population", "4", "--generations", "2",
+             "--iters", "1", "--envs", "4", "--rollout", "4", "--scenarios", "4",
+             "--steps", "128", "--episode-len", "32"]
     with contextlib.redirect_stdout(out):
-        cli.main(["rl", "--device", "cpu", "--population", "4", "--generations", "2",
-                  "--iters", "1", "--envs", "4", "--rollout", "4", "--scenarios", "4",
-                  "--steps", "128", "--episode-len", "32"])
+        cli.main(small)
     lines = out.getvalue().splitlines()
     assert lines[0] == "population=4 devices=1 dynamics=lob scenarios=4"
     head = lines.index(f"{'gen':>3} {'src':>4} {'best':>9} {'mean':>9} {'exploited':>9} "
@@ -295,6 +296,12 @@ def test_cli_rl_runs_on_the_cpu_and_refuses_what_is_not_ported():
                               f"{'gamma':>7} {'eps_decay':>10} {'eps_min':>8} "
                               f"{'sync':>5}") + 1:]
     assert len(fleet) == 4 and sum("*" in ln for ln in fleet) == 1
-    for flag in ("--registry", "--checkpoint", "--resume"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cli.main(["rl", "--device", "cpu", flag, "x"])
+    # --registry, --checkpoint and --resume are ported (the trainer service's
+    # codec); what the JAX CLI refuses, a journal with no intact checkpoint,
+    # the port refuses too
+    journal, registry = tmp_path / "pbt.journal", tmp_path / "registry.json"
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli.main(small + ["--checkpoint", str(journal), "--registry", str(registry)])
+    assert journal.stat().st_size > 0 and registry.stat().st_size > 0
+    with pytest.raises(SystemExit, match="no intact checkpoint"):
+        cli.main(["rl", "--device", "cpu", "--resume", str(tmp_path / "missing.journal")])
