@@ -266,14 +266,17 @@ def replay(inputs: BacktestInputs, params: StrategyParams | None = None, *,
            reference_quirks: bool = False, use_param_sl_tp: bool = False,
            return_curve: bool = False, sell_exits: bool = False):
     """The plain loop over T on the inputs' device.  The carry takes the
-    broadcast of the inputs' leading shape and the params' shape."""
+    broadcast of every stream's leading shape and the params' shapes, so a
+    batch carried only by the signals (the structure search's [F, N] lanes
+    over a shared close) has its shape from the first candle."""
     if use_param_sl_tp and params is None:
         raise ValueError("use_param_sl_tp needs StrategyParams")
     dev = inputs.close.device
     T = inputs.close.shape[-1]
-    shape = inputs.close.shape[:-1]
+    shape = torch.broadcast_shapes(*(x.shape[:-1] for x in inputs))
     if params is not None:
-        shape = torch.broadcast_shapes(shape, params.stop_loss.shape)
+        shape = torch.broadcast_shapes(shape, params.stop_loss.shape,
+                                       params.take_profit.shape)
     step = replay_step(
         params, warmup=warmup,
         ai_confidence_threshold=ai_confidence_threshold,

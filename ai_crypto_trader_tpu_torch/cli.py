@@ -1,14 +1,15 @@
 """Command-line interface of the port: the ``backtest``, ``train``,
-``evolve`` and ``rl`` subcommands.
+``evolve``, ``rl`` and ``generate`` subcommands.
 
 Same flags and output as ``python -m ai_crypto_trader_tpu.cli backtest`` /
-``train`` / ``evolve`` / ``rl``, plus ``--device {cuda,cpu}`` (default
-cuda):
+``train`` / ``evolve`` / ``rl`` / ``generate``, plus ``--device
+{cuda,cpu}`` (default cuda):
 
     python -m ai_crypto_trader_tpu_torch.cli backtest --days 365 --sweep 4096
     python -m ai_crypto_trader_tpu_torch.cli train --days 7 --model lstm --epochs 5
     python -m ai_crypto_trader_tpu_torch.cli evolve --days 30 --population 256 --generations 3
     python -m ai_crypto_trader_tpu_torch.cli rl --population 8 --dynamics lob
+    python -m ai_crypto_trader_tpu_torch.cli generate --days 7 --registry registry.json
 
 A CSV at ``backtesting/data/market/<symbol>/<symbol>_1m.csv`` is used when
 present; otherwise the deterministic synthetic series is generated.
@@ -28,6 +29,9 @@ prints the generation table and the final fleet; ``--checkpoint`` journals
 the fleet every ``--checkpoint-every`` generations, ``--resume`` continues
 from a journal's newest intact checkpoint (draw streams included), and
 ``--registry`` registers the winner through the scorecard's adoption gate.
+``generate`` searches strategy structures (rule compositions) with
+cross-validated backtests, registers each improvement in ``--registry``
+and prints the held-out comparison of the seed and the best structure.
 """
 
 from __future__ import annotations
@@ -251,6 +255,40 @@ def cmd_rl(args):
               f"{out['reason']}) fitness={out['fitness']:.4f}")
 
 
+def cmd_generate(args):
+    """Strategy-structure generation (`ai_strategy_evaluator.py:732`):
+    search rule compositions with real CV backtests on ``--device``,
+    register improvements, report the held-out comparison."""
+    import asyncio
+
+    from ai_crypto_trader_tpu_torch import resolve_device
+    from ai_crypto_trader_tpu_torch.parallel import get_partitioner
+    from ai_crypto_trader_tpu_torch.strategy.generator import StrategyGenerator
+    from ai_crypto_trader_tpu_torch.strategy.registry import ModelRegistry
+
+    dev = resolve_device(args.device)
+    d = _load_or_generate(args.symbol, args.days * 1440, args.seed)
+    reg = ModelRegistry(path=args.registry)
+    gen = StrategyGenerator(registry=reg, cv_folds=args.folds,
+                            pool_size=args.pool, max_rounds=args.rounds,
+                            seed=args.seed, partitioner=get_partitioner(), device=dev)
+    out = asyncio.run(gen.generate(d))
+
+    def finite(x):
+        # -inf marks a never-trading structure; json.dumps would print an
+        # invalid `-Infinity` for it
+        return float(x) if np.isfinite(x) else None
+
+    print(json.dumps({
+        "best_structure": out["structure"].to_payload(),
+        "cv_sharpe": finite(out["cv_sharpe"]),
+        "seed_cv_sharpe": finite(out["seed_cv_sharpe"]),
+        "holdout_sharpe_seed": finite(out["holdout_sharpe_seed"]),
+        "holdout_sharpe_best": finite(out["holdout_sharpe_best"]),
+        "versions": out["versions"], "rounds": out["rounds"],
+    }, indent=2))
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="ai_crypto_trader_tpu_torch",
                                 description=__doc__,
@@ -309,6 +347,17 @@ def build_parser() -> argparse.ArgumentParser:
                          "journal")
     sp.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     sp.set_defaults(fn=cmd_rl)
+    sp = sub.add_parser("generate",
+                        help="generate strategy structures (real-CV search)")
+    sp.add_argument("--folds", type=int, default=3)
+    sp.add_argument("--pool", type=int, default=16)
+    sp.add_argument("--rounds", type=int, default=6)
+    sp.add_argument("--registry", default="registry.json")
+    sp.add_argument("--symbol", default="BTCUSDC")
+    sp.add_argument("--days", type=int, default=7)
+    sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    sp.set_defaults(fn=cmd_generate)
     return p
 
 

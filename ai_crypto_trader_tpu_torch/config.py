@@ -1,10 +1,11 @@
 """Configuration of the port: trading, trailing-stop, social-risk,
-Monte-Carlo and GA parameters.
+Monte-Carlo, GA, strategy-evolution and LLM parameters.
 
-The port's own copies of `ai_crypto_trader_tpu/config.py:29-140`
-(`TradingParams`, `TrailingStopParams`, `SocialRiskParams`,
-`MonteCarloParams`, `GAParams`), with the same defaults: the port imports
-nothing of the JAX package, not even its jax-free modules.
+The port's own copies of `ai_crypto_trader_tpu/config.py:29-140` and
+`:222-318` (`TradingParams`, `TrailingStopParams`, `SocialRiskParams`,
+`MonteCarloParams`, `GAParams`, `EvolutionParams`, `LLMParams` with its
+prompt templates), with the same defaults: the port imports nothing of the
+JAX package, not even its jax-free modules.
 """
 
 from __future__ import annotations
@@ -108,3 +109,97 @@ class GAParams:
     crossover_rate: float = 0.7
     mutation_rate: float = 0.2
     mutation_scale: float = 0.2  # fraction of range
+
+
+@dataclass(frozen=True)
+class EvolutionParams:
+    """Mirrors `evolution` (config.json:207-294): hybrid GA/RL/LLM dispatch,
+    monitoring thresholds, and the 18-dim strategy parameter space ranges
+    (strategy_evolution_service.py:98-117)."""
+
+    method: str = "hybrid"  # ga | rl | llm | hybrid
+    monitor_frequency_s: float = 3600.0
+    min_sharpe: float = 1.2
+    max_drawdown: float = 0.15
+    min_win_rate: float = 0.52
+    min_profit_factor: float = 1.2
+    ga: GAParams = field(default_factory=GAParams)
+
+
+@dataclass(frozen=True)
+class LLMParams:
+    """LLM client settings and prompts-as-config, mirroring the reference's
+    `openai` block (config.json:112-121): model/temperature/max_tokens plus
+    the five prompt templates AITrader formats (analysis, explainable
+    analysis, risk sizing, market-wide, explainable market-wide —
+    `services/ai_trader.py:36-342`).  Templates are re-derived with the same
+    placeholder fields and the same required JSON reply contract; missing
+    context keys degrade to the raw-JSON context block (the reference wraps
+    `.format` in try/except and logs, ai_trader.py:81-85)."""
+
+    model: str = "gpt-4o"
+    temperature: float = 0.7
+    max_tokens: int = 2000
+    base_url: str = "https://api.openai.com/v1"
+    api_key_env: str = "OPENAI_API_KEY"   # never the key itself in config
+    explainable: bool = True              # prefer explainable_* templates
+    analysis_prompt: str = (
+        "You are an expert cryptocurrency trading analyst. Evaluate {symbol}.\n"
+        "Price ${price:.8f}, 24h volume ${volume:.2f}; change 1m "
+        "{price_change_1m:.2f}% / 3m {price_change_3m:.2f}% / 5m "
+        "{price_change_5m:.2f}% / 15m {price_change_15m:.2f}%.\n"
+        "Indicators: RSI {rsi:.2f}, stochastic %K {stoch:.2f}, MACD "
+        "{macd:.8f}, Williams %R {williams_r:.2f}, Bollinger position "
+        "{bb_position:.4f}.\nTrend: {trend} (strength {trend_strength:.4f}).\n"
+        "Combined indicator read: {combined_summary}\n"
+        "Social: volume {social_volume}, engagement {social_engagement}, "
+        "contributors {social_contributors}, sentiment {social_sentiment}.\n"
+        "Recent news: {recent_news}\nMarket context: {market_context}\n"
+        "Weigh price momentum, trend, combined signals, social/news impact, "
+        "volume, and risk. Reply with ONLY a JSON object with keys: "
+        "decision ('BUY'|'SELL'|'HOLD'), confidence (0-1), reasoning, "
+        "risk_level ('LOW'|'MEDIUM'|'HIGH'), key_indicators (list).")
+    explainable_analysis_prompt: str = (
+        "You are an expert cryptocurrency trading analyst. Evaluate {symbol}.\n"
+        "Price ${price:.8f}, 24h volume ${volume:.2f}; change 1m "
+        "{price_change_1m:.2f}% / 3m {price_change_3m:.2f}% / 5m "
+        "{price_change_5m:.2f}% / 15m {price_change_15m:.2f}%.\n"
+        "Indicators: RSI {rsi:.2f}, stochastic %K {stoch:.2f}, MACD "
+        "{macd:.8f}, Williams %R {williams_r:.2f}, Bollinger position "
+        "{bb_position:.4f}.\nTrend: {trend} (strength {trend_strength:.4f}).\n"
+        "Combined indicator read: {combined_summary}\n"
+        "Social: volume {social_volume}, engagement {social_engagement}, "
+        "contributors {social_contributors}, sentiment {social_sentiment}.\n"
+        "Recent news: {recent_news}\nMarket context: {market_context}\n"
+        "Weigh price momentum, trend, combined signals, social/news impact, "
+        "volume, and risk. Reply with ONLY a JSON object with keys: "
+        "decision ('BUY'|'SELL'|'HOLD'), confidence (0-1), reasoning, "
+        "risk_level ('LOW'|'MEDIUM'|'HIGH'), key_indicators (list), "
+        "explanation (object with summary, technical_factors, social_factors,"
+        " news_analysis, key_indicators list, risk_assessment), and "
+        "factor_weights (object with technical_indicators {{rsi, macd, "
+        "bollinger_bands, price_action, other}}, price_action {{momentum, "
+        "volatility, volume}}, social_metrics {{sentiment, volume, "
+        "engagement}}, news_analysis {{sentiment, relevance, recency}}, "
+        "market_context — every weight in 0-1).")
+    risk_prompt: str = (
+        "Size a {symbol} position. Available capital ${capital:.2f}, "
+        "volatility {volatility:.2f}, price ${price:.8f}, trend strength "
+        "{trend_strength:.4f}.\nReply with ONLY a JSON object with keys: "
+        "position_size (decimal 0-1 of capital), stop_loss_pct, "
+        "take_profit_pct, reasoning.")
+    market_prompt: str = (
+        "Assess overall cryptocurrency market conditions from this data:\n"
+        "{market_data}\nReply with ONLY a JSON object with keys: "
+        "market_sentiment ('BULLISH'|'BEARISH'|'NEUTRAL'), "
+        "top_opportunities (list of symbols), risks (list), reasoning.")
+    explainable_market_prompt: str = (
+        "Assess overall cryptocurrency market conditions from this data:\n"
+        "{market_data}\nReply with ONLY a JSON object with keys: "
+        "market_sentiment ('BULLISH'|'BEARISH'|'NEUTRAL'), "
+        "top_opportunities (list of symbols), risks (list), reasoning, "
+        "explanation (object with summary, market_factors, key_trends list, "
+        "risk_factors list, sentiment_indicators list, "
+        "recommendation_rationale), and factor_weights (object with "
+        "price_action, technical_indicators, volume_analysis, "
+        "social_sentiment, market_trends — every weight in 0-1).")

@@ -18,6 +18,9 @@ Two kinds of state come over:
     leaf's shape is checked against the shape that name must have before
     its layout is turned into torch's.  Every flax leaf is used exactly
     once, or the conversion raises;
+  * the long-context transformer's weights: a flax tree of
+    `LongContextTransformer` becomes the port's module of the same widths
+    (`long_context_from_flax`, the same names-to-modules map);
   * the RL trainer's state: a flax QNetwork tree becomes the DQN's
     parameter dict (`q_params_from_flax`), a JAX ``EnvParams`` the port's
     (`env_params_from_numpy`), and a JAX ``DQNState`` — one agent's, or a
@@ -52,6 +55,7 @@ from ai_crypto_trader_tpu_torch.backtest.evolvable import IndicatorTables
 from ai_crypto_trader_tpu_torch.backtest.strategy import StrategyParams
 from ai_crypto_trader_tpu_torch.device import resolve_device, to_device
 from ai_crypto_trader_tpu_torch.models.fused_lstm import FusedLSTM
+from ai_crypto_trader_tpu_torch.models.long_context import LongContextTransformer
 from ai_crypto_trader_tpu_torch.models.layers import (
     Conv, Dense, GRUCell, LayerNorm, MultiHeadDotProductAttention)
 from ai_crypto_trader_tpu_torch.models.train import Scaler, TrainResult
@@ -242,6 +246,20 @@ def model_from_flax(model_type: str, params, model_kwargs: dict | None = None, *
     module of that architecture holding those weights, on ``device``."""
     dev = resolve_device(device)
     model = build_model(model_type, **(model_kwargs or {}), features=features, device="cpu")
+    model.load_state_dict(state_from_flax(model, params))
+    return model.to(dev)
+
+
+def long_context_from_flax(params, *, features: int, d_model: int = 64, num_heads: int = 4,
+                           num_blocks: int = 2, ff_dim: int = 128,
+                           device=None) -> LongContextTransformer:
+    """A flax parameter tree of the JAX package's `LongContextTransformer`
+    (as its ``init`` gives it, leaves anything NumPy takes) over
+    ``features`` input columns → the port's `LongContextTransformer` of the
+    same widths holding those weights, on ``device``."""
+    dev = resolve_device(device)
+    model = LongContextTransformer(features, d_model, num_heads, num_blocks, ff_dim,
+                                   device="cpu")
     model.load_state_dict(state_from_flax(model, params))
     return model.to(dev)
 

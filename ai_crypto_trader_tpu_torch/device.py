@@ -24,7 +24,13 @@ trainer's and its markets' (`make_env_params`, `hypers_from_config`,
 (`exchange.init_state`, `exchange.no_action`, `default_strategy`,
 `fill_params`, `rollout_candles`, `sim.engine.sweep`,
 `backtest_under_stress`, `rollout_lob`, `lob_sweep`, `fit_flow_params`),
-and the `convert` functions —
+the strategy layer's (`fold_features`, `evaluate_structures`,
+`StrategyGenerator`, `GeneratorService`, `cross_validate`,
+`compare_strategies`, `StrategyEvolver`), the long-context transformer
+(`LongContextTransformer`), the social analyzer's (`normalize_metrics`,
+`fit_anomaly_model`, `detect_anomalies`, `lead_lag_correlation`,
+`sentiment_accuracy`, `adaptive_source_weights`), and the `convert`
+functions —
 takes ``device=None``, which means the CUDA card, and moves its inputs
 there.  The CPU is used only when the caller asks for it with
 ``device="cpu"`` (the tests do; there every kernel wrapper takes its plain
@@ -36,8 +42,10 @@ the GA's `_evolve_core`, `fleetscope.device_aggregates`, `mc.quantile`,
 the models' layers, `dropout`, `lstm_scan`, `Adam` and
 `patterns.preprocess_window`; the env's `env_reset` / `env_step`, the
 DQN's and the fleet's functions after `dqn_init` / `pop_init`, `q_values`,
-`flow_step` and the `_traced` generators, and the exchange's steps
-`settle_pending`, `match_candle`, `apply_action` and `equity`) compute on
+`flow_step` and the `_traced` generators, the exchange's steps
+`settle_pending`, `match_candle`, `apply_action` and `equity`, the
+structure search's `blend_signals`, `reference_attention` and
+`long_context_loss`) compute on
 the device of the tensors they are given — ``dqn_init`` and ``pop_init``
 on the env's.
 """

@@ -1,8 +1,9 @@
 """The price-prediction model zoo of the port: its modules (`models.zoo`,
 `models.fused_lstm`, `models.layers`), training and prediction
 (`models.train`, `models.train_loop`), HPO (`models.hpo`), feature
-importance (`models.importance`) and the prediction service
-(`models.service`)."""
+importance (`models.importance`), the prediction service
+(`models.service`) and the long-context transformer
+(`models.long_context`)."""
 
 from ai_crypto_trader_tpu_torch.models.zoo import (  # noqa: F401
     MODEL_REGISTRY,
@@ -23,3 +24,9 @@ from ai_crypto_trader_tpu_torch.models.train_loop import (  # noqa: F401
     snapshot_params,
 )
 from ai_crypto_trader_tpu_torch.models.importance import feature_importance  # noqa: F401
+from ai_crypto_trader_tpu_torch.models.long_context import (  # noqa: F401
+    LongContextBlock,
+    LongContextTransformer,
+    RingSelfAttention,
+    long_context_loss,
+)

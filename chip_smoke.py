@@ -204,12 +204,34 @@ imports nothing of JAX or of the JAX package.  Phases, one JSON line each:
                 1,024-frame window: impact and pressure) against the CPU;
                 (d) `ChartPatternService` over the 64 symbols' `5m`
                 windows, its analyses and signals against the CPU;
- 16. kernels  — one line with each kernel's launches, error, times and
+ 16. strategy — the strategy layer, the long-context model and the
+                social analyzer on the card: (a) `cli generate` at its
+                defaults (BTCUSDC, 7 days, 3 folds, pool 16, 6 rounds) as a
+                subprocess, its JSON keys, rounds and registered versions;
+                (b) `evaluate_structures` at that fold shape (3 × 2,352
+                candles, the seed and 16 mutants): one host read a call,
+                Sharpe ratios and trades bit for bit against the port's CPU
+                run on the same fold features, dispatches a candle and
+                torch.profiler over one call on 256-candle folds; (c) K2:
+                one `fold_features` call's 3 launches and a
+                `cross_validate` call's, each held against the plain EWMA,
+                and the pool's signal flips on plain fold features held to
+                their thresholds; (d) K1: `cross_validate(k=5)` over 43,200
+                candles (5 launches) and `compare_strategies` over 8
+                parameter sets (one rows launch), each bit for bit against
+                the plain loop; `StrategyEvolver.evolve` through the GA at
+                `EvolutionParams()` (11 K1 and 5 K2 launches, one read) and
+                one `SystematicImprover` iteration, timed; (e) the
+                long-context transformer at its defaults over 16,384 × 8:
+                forward and loss + gradient times and peak memory, and at
+                T = 2,048 against the CPU; (f) the social analyzer over 720
+                × 8 hourly metrics against the CPU, times;
+ 17. kernels  — one line with each kernel's launches, error, times and
                 bound, at the main path's shapes, and each kernel's GA,
                 tick, portfolio, tenant, `cli train`, training, RL,
-                simulator and regime launches (`ga_tables`, `ga_rows`,
-                `tick`, `portfolio`, `tenant`, `nn_cli_train`, `nn_train`,
-                `rl`, `sim`, `regime`).
+                simulator, regime and strategy launches (`ga_tables`,
+                `ga_rows`, `tick`, `portfolio`, `tenant`, `nn_cli_train`,
+                `nn_train`, `rl`, `sim`, `regime`, `strategy`).
 
 Any failed check raises, so the script exits non-zero and never prints its
 last line, ``{"ok": true, "device": {...}}``.  Times are CUDA-event times
@@ -286,6 +308,16 @@ REC_P, REC_S, REC_T, REC_EPISODE, REC_ITERS = 8, 8, 512, 128, 4   # pbt_recovery
 REGIME_S, REGIME_T, REGIME_ROUNDS = 64, 1000, 5   # tick universe; the venue's klines cap
 REGIME_TIE_RTOL = 1e-3                       # a card-vs-CPU label flip's margin to a tie
 BOOK_N, BOOK_LEVELS, BOOK_FRAMES = 64, 100, 1024  # books; the venue's default depth; window
+GEN_DAYS, GEN_SEED, GEN_FOLDS, GEN_POOL = 7, 0, 3, 16   # cli generate's defaults (cli.py:1101-1107)
+GEN_SHORT_T = 256                            # the short folds torch.profiler traces
+FLIP_MARGIN = 1e-4                           # a K2 signal flip's distance to its threshold
+T_CV, CV_K, CMP_S = 43_200, 5, 8             # cross_validate's and compare_strategies' cases
+LC_F, LC_T, LC_T_CPU = 8, 16_384, 2_048      # the long-context model: features, T, CPU check
+LC_ATOL, LC_GRAD_RTOL = 1e-5, 1e-4           # outputs; gradients, of each parameter's scale
+SOC_T, SOC_F, SOC_LAG = 720, 8, 24           # 30 days of hourly social metrics
+SOC_RTOL = 1e-4                              # anomaly scores, card against CPU
+
+
 # per element and output of the EWMA: the element map (select, multiply)
 # and the recursion (multiply, add) and the NaN mask
 EWMA_OPS = 5
@@ -715,22 +747,31 @@ def recording_ewma(launches):
         ind_mod.fused_ewma, ind_mod.fused_ewma_jobs = entries["fused_ewma"], entries["fused_ewma_jobs"]
 
 
-def plain_table(ohlcv, label):
-    """`compute_indicators` on the card with every EWMA entry it calls
-    patched to the plain version; fails if that table launched K2."""
-    from ai_crypto_trader_tpu_torch.ops import compute_indicators
+@contextlib.contextmanager
+def plain_ewma(label):
+    """Every EWMA entry of `ops.indicators` (which compute_indicators and
+    the combination scores call) patched to the plain version; fails if K2
+    launched inside."""
     from ai_crypto_trader_tpu_torch.ops import indicators as ind_mod
     from ai_crypto_trader_tpu_torch.ops.ewma import fused_ewma
 
     entries, before = (ind_mod.fused_ewma, ind_mod.fused_ewma_jobs), fused_ewma.launches
     ind_mod.fused_ewma, ind_mod.fused_ewma_jobs = ewma_plain, jobs_plain
     try:
-        table = compute_indicators(ohlcv, device="cuda")
+        yield
     finally:
         ind_mod.fused_ewma, ind_mod.fused_ewma_jobs = entries
     if fused_ewma.launches != before:
         fail(f"{label}: the plain table launched K2 {fused_ewma.launches - before} times")
-    return table
+
+
+def plain_table(ohlcv, label):
+    """`compute_indicators` on the card with every EWMA entry it calls
+    patched to the plain version; fails if that table launched K2."""
+    from ai_crypto_trader_tpu_torch.ops import compute_indicators
+
+    with plain_ewma(label):
+        return compute_indicators(ohlcv, device="cuda")
 
 
 def signal_flips(tab_k, tab_p, phase):
@@ -4085,11 +4126,12 @@ def regime_arrays(klines):
     return {k: arr[:, i] for i, k in enumerate(("open", "high", "low", "close", "volume"))}
 
 
-def regime_k2(recorded):
-    """The K2 launches of one `regime_features` call (``recorded``: each
-    launch's jobs), each held against the plain EWMA of its inputs at K2's
-    tolerance (`ewma_check`) and timed beside the plain version; the bound
-    of all of them together."""
+def recorded_k2(recorded, case="regime"):
+    """K2 launches that a path made (``recorded``: each launch's jobs, as
+    `recording_ewma` keeps them), each held against the plain EWMA of its
+    inputs at K2's tolerance (`ewma_check`) and timed beside the plain
+    version; the bound of all of them together.  ``case`` names the path in
+    messages."""
     from ai_crypto_trader_tpu_torch.ops.ewma import fused_ewma_jobs, fused_ewma_plain
 
     checks = []
@@ -4097,7 +4139,7 @@ def regime_k2(recorded):
         named = [(f"job{j}_K{len(a)}_start{st}", x.reshape(-1, x.shape[-1]), a, st)
                  for j, (x, a, st) in enumerate(jobs)]
         args = [(x, a, st) for _, x, a, st in named]
-        check = ewma_check(named, f"regime_launch{i}")
+        check = ewma_check(named, f"{case}_launch{i}")
         checks.append({**check, "ms": cuda_ms(lambda: fused_ewma_jobs(args, device="cuda"), 20),
                        "plain_ms": sum(cuda_ms(lambda: fused_ewma_plain(x, a, st), 5)
                                        for x, a, st in args)})
@@ -4228,7 +4270,7 @@ def service_regime(info):
     if len(bus.events) != REGIME_S * REGIME_ROUNDS or len(svc.detectors) != REGIME_S:
         fail(f"service: {len(bus.events)} regime updates published, {len(svc.detectors)} "
              f"detectors")
-    k2 = regime_k2(recorded[-4:])
+    k2 = recorded_k2(recorded[-4:])
     first = next(iter(histories))
     try:
         profile = device_profile(lambda: asyncio.run(svc.update(first)))
@@ -4462,6 +4504,544 @@ def phase_service(info):
     return regime_entry
 
 
+@contextlib.contextmanager
+def recording_k1(calls):
+    """`ops.replay.sweep_kernel` wrapped to record each launch's (inputs,
+    params, keywords, stats); `sweep_kernel.launches` keeps counting (the
+    kernel adds to the module's `sweep_kernel`, the wrapper while it is
+    installed)."""
+    from ai_crypto_trader_tpu_torch.ops import replay
+
+    real = replay.sweep_kernel
+
+    def call(inputs, params, **kw):
+        out = real(inputs, params, **kw)
+        calls.append((inputs, params, kw, out))
+        return out
+
+    call.launches = real.launches
+    replay.sweep_kernel = call
+    try:
+        yield calls
+    finally:
+        real.launches = call.launches
+        replay.sweep_kernel = real
+
+
+def held_k1(calls, label):
+    """Each recorded K1 launch's stats against the plain loop on its own
+    inputs (graph-replayed), bit for bit; all launches timed together
+    beside the plain loops and the sum of their bounds."""
+    import torch
+
+    from ai_crypto_trader_tpu_torch.backtest import BacktestStats
+    from ai_crypto_trader_tpu_torch.ops.replay import sweep_kernel
+
+    plain_kw = ("initial_balance", "ai_confidence_threshold", "min_signal_strength", "warmup")
+    gots, refs, plain_ms, bounds = [], [], 0.0, []
+    for inputs, params, kw, out in calls:
+        ref, ms = timed(lambda: sweep_plain_graphed(inputs, params,
+                                                    **{k: kw[k] for k in plain_kw}))
+        plain_ms += ms
+        gots.append(out)
+        refs.append(ref)
+        bounds.append(replay_rows_bound_ms(out, inputs, kw["warmup"]))
+    cat = lambda xs: BacktestStats(*(torch.cat([getattr(s, f).reshape(-1) for s in xs])  # noqa: E731
+                                     for f in BacktestStats._fields))
+    check = compare_stats(cat(gots), cat(refs), label)
+    launch_all = lambda: [sweep_kernel(i, p, **kw) for i, p, kw, _ in calls]  # noqa: E731
+    return {"launches": len(calls), "ms": cuda_ms(launch_all, 5), "plain_ms": plain_ms,
+            "bound_ms": sum(b[0] for b in bounds), "bound_by": max(bounds)[1],
+            "library_ms": None, "max_abs_err": check["max_abs_err"], "trades": check["trades"],
+            "shapes": [f"B={int(p.stop_loss.numel())} x T={int(i.close.shape[-1])}"
+                       for i, p, _, _ in calls]}
+
+
+def cli_generate(tmp):
+    """(a) `python -m ai_crypto_trader_tpu_torch.cli generate` at its
+    defaults (BTCUSDC, 7 days, seed 0, 3 folds, pool 16, 6 rounds) as a
+    subprocess on the card, its registry in ``tmp``: exit 0, the JSON keys
+    of the JAX package's command, at least one round and one registered
+    version; its wall time, rounds and holdout Sharpes."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    registry = os.path.join(tmp, "registry.json")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "ai_crypto_trader_tpu_torch.cli", "generate",
+                           "--registry", registry], cwd=root, capture_output=True, text=True,
+                          timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"strategy: cli generate exited {proc.returncode}: {proc.stderr[-800:]}")
+    try:
+        out = json.loads(proc.stdout)
+    except json.JSONDecodeError:
+        fail(f"strategy: cli generate printed no JSON: {proc.stdout[-800:]}")
+    keys = {"best_structure", "cv_sharpe", "seed_cv_sharpe", "holdout_sharpe_seed",
+            "holdout_sharpe_best", "versions", "rounds"}
+    with open(registry) as f:
+        entries = json.load(f)
+    if set(out) != keys or out["rounds"] < 1 or len(out["versions"]) < 1 or \
+            not all(v in json.dumps(entries) for v in out["versions"]):
+        fail(f"strategy: cli generate gave {out}")
+    return {"seconds": wall, "rounds": out["rounds"], "versions": len(out["versions"]),
+            "seed_cv_sharpe": out["seed_cv_sharpe"], "cv_sharpe": out["cv_sharpe"],
+            "holdout_sharpe_seed": out["holdout_sharpe_seed"],
+            "holdout_sharpe_best": out["holdout_sharpe_best"],
+            "best_rules": sorted(out["best_structure"]["rules"])}
+
+
+def generate_folds(device, n_fold=None):
+    """`cli generate`'s folds of its default candles (7 days, seed 0, 70 %
+    searched, 3 folds of 2,352), or their first ``n_fold`` candles, as
+    `fold_features` builds them on ``device``."""
+    from ai_crypto_trader_tpu_torch.data import generate_ohlcv
+    from ai_crypto_trader_tpu_torch.strategy.generator import fold_features
+
+    d = {k: v for k, v in generate_ohlcv(n=GEN_DAYS * 1440, seed=GEN_SEED).items()
+         if k != "regime"}
+    fold_len = int(GEN_DAYS * 1440 * 0.7) // GEN_FOLDS
+    n = n_fold or fold_len
+    return [fold_features({k: v[i * fold_len:i * fold_len + n] for k, v in d.items()},
+                          device=device) for i in range(GEN_FOLDS)]
+
+
+def generate_pool():
+    """The seed and 16 mutants of it (`mutate`, numpy seed 0): a round's pool."""
+    import numpy as np
+
+    from ai_crypto_trader_tpu_torch.strategy.generator import default_seed, mutate
+
+    rng = np.random.default_rng(GEN_SEED)
+    return [default_seed()] + [mutate(rng, default_seed(), 1) for _ in range(GEN_POOL)]
+
+
+def strategy_evaluate():
+    """(b) `evaluate_structures` at `cli generate`'s fold shape (3 × 2,352,
+    the seed and 16 mutants): one host read a call; the card's packed
+    Sharpe ratios and trade counts against the port's CPU run on the card's
+    fold features copied to the CPU, bit for bit; dispatches a candle, the
+    wall of a call, and torch.profiler over one call on 3 × 256-candle
+    folds.  Returns the report and the card's folds."""
+    import numpy as np
+    import torch
+
+    from ai_crypto_trader_tpu_torch.strategy import generator as gen
+
+    folds, pool = generate_folds("cuda"), generate_pool()
+    packed = {}
+    real = gen.host_read
+
+    def read(t):
+        packed.setdefault(t.device.type, []).append(real(t))
+        return packed[t.device.type][-1]
+
+    gen.host_read = read
+    try:
+        gen.evaluate_structures(folds, pool, device="cuda")          # warm
+        torch.cuda.synchronize()
+        packed.clear()
+        t0 = time.perf_counter()
+        scores = gen.evaluate_structures(folds, pool, device="cuda")
+        wall = time.perf_counter() - t0
+        reads = len(packed["cuda"])
+        cpu_folds = [{k: v.cpu() for k, v in f.items()} for f in folds]
+        t0 = time.perf_counter()
+        cpu_scores = gen.evaluate_structures(cpu_folds, pool, device="cpu")
+        cpu_wall = time.perf_counter() - t0
+    finally:
+        gen.host_read = real
+    if reads != 1:
+        fail(f"strategy: evaluate_structures read the card {reads} times, not once")
+    card, cpu = packed["cuda"][-1], packed["cpu"][-1]
+    if not np.array_equal(card[1], cpu[1]):
+        fail(f"strategy: trade counts differ card against CPU: {card[1].tolist()} vs "
+             f"{cpu[1].tolist()}")
+    if not same_host_bits(card[0], cpu[0]) or not same_host_bits(scores, cpu_scores):
+        fail(f"strategy: Sharpe ratios not bit for bit card against CPU (max abs diff "
+             f"{float(np.abs(card[0] - cpu[0]).max())})")
+    if not np.isfinite(scores).any() or card[1].sum() <= 0:
+        fail(f"strategy: no candidate trades: scores {scores.tolist()}")
+    short = generate_folds("cuda", GEN_SHORT_T)
+    try:
+        profile = device_profile(lambda: gen.evaluate_structures(short, pool, device="cuda"))
+    except Exception as ex:  # noqa: BLE001 — a profiler that cannot trace is reported
+        profile = {"measured": False, "reason": repr(ex)[:300]}
+    T = int(folds[0]["close"].shape[-1])
+    report = {"folds": GEN_FOLDS, "candles": T, "pool": len(pool), "call_s": wall,
+              "cpu_call_s": cpu_wall, "reads_per_call": reads, "card_vs_cpu": "bit for bit",
+              "trades": int(card[1].sum()), "scores": [float(s) for s in scores],
+              "profile_short": {"candles": GEN_SHORT_T, **profile}}
+    if profile.get("measured"):
+        report["dispatches_per_candle"] = profile["device_ops"] / GEN_SHORT_T
+    return report, folds, pool
+
+
+def structure_flips(folds_k, folds_p, pool):
+    """The pool's signals on K2's fold features against those on the plain
+    EWMA's: every flip must sit within FLIP_MARGIN of a threshold on the
+    plain blend, and a kind may flip at most once in 1,000 candles."""
+    import torch
+
+    from ai_crypto_trader_tpu_torch.strategy.generator import _candidates, blend_signals
+
+    cand = _candidates(pool, torch.device("cuda"))
+    buy, sell = cand[2][:, None], cand[3][:, None]
+    flips = far = 0
+    stack_diff = 0.0
+    n = 0
+    for fk, fp in zip(folds_k, folds_p):
+        _, sig_k, _ = blend_signals(fk["stack"][None], *cand[:4])
+        blend_p, sig_p, _ = blend_signals(fp["stack"][None], *cand[:4])
+        diff = sig_k[0] != sig_p[0]
+        margin = torch.minimum(torch.abs(blend_p[0] - buy), torch.abs(blend_p[0] + sell))
+        flips += int(diff.sum())
+        far += int((diff & (margin > FLIP_MARGIN)).sum())
+        stack_diff = max(stack_diff, float(torch.abs(fk["stack"] - fp["stack"]).max()))
+        n += int(diff.numel())
+    if far or flips > n // 1000:
+        fail(f"strategy: {flips} signal flips with K2's fold features, {far} of them farther "
+             f"than {FLIP_MARGIN} from a threshold")
+    return {"signals": n, "flips": flips, "far_from_threshold": far,
+            "stack_max_abs_diff": stack_diff}
+
+
+def strategy_k2(d_year):
+    """(c) K2 on this path: one `fold_features` call's launches (exactly 3:
+    the indicator table's 2 and the combination scores' fast RSI) and a
+    `cross_validate(k=5)` call's — its `RegimeDetector` (fit and labels, 4
+    each) and each fold's period indicators (`ops.dynamic`) — counted and
+    each held against the plain EWMA; the pool's signals on K2 fold
+    features against plain fold features (`structure_flips`)."""
+    from ai_crypto_trader_tpu_torch.backtest import default_params
+    from ai_crypto_trader_tpu_torch.data import generate_ohlcv
+    from ai_crypto_trader_tpu_torch.ops import dynamic
+    from ai_crypto_trader_tpu_torch.ops.ewma import fused_ewma
+    from ai_crypto_trader_tpu_torch.strategy import cross_validate
+    from ai_crypto_trader_tpu_torch.strategy.generator import fold_features
+
+    d = {k: v[:int(GEN_DAYS * 1440 * 0.7) // GEN_FOLDS]
+         for k, v in generate_ohlcv(n=GEN_DAYS * 1440, seed=GEN_SEED).items() if k != "regime"}
+    fused_ewma.launches = 0
+    with recording_ewma([]) as rec_fold:
+        fold_features(d, device="cuda")
+    fold_launches = fused_ewma.launches
+    if fold_launches != 3 or len(rec_fold) != 3:
+        fail(f"strategy: fold_features made {fold_launches} K2 launches, not 3")
+
+    rec_dyn, kernel_entry = [], dynamic.fused_ewma_jobs
+
+    def recording(jobs, device=None):
+        rec_dyn.append([(x, a, st) for x, a, st in jobs])
+        return kernel_entry(jobs, device=device)
+
+    arrays = {k: v[:T_CV] for k, v in d_year.items()}
+    fused_ewma.launches = 0
+    dynamic.fused_ewma_jobs = recording
+    try:
+        with recording_ewma([]) as rec_regime:
+            cross_validate(arrays, default_params(device="cuda"), k=CV_K, device="cuda")
+    finally:
+        dynamic.fused_ewma_jobs = kernel_entry
+    cv_launches = fused_ewma.launches
+    if len(rec_regime) != 8 or not rec_dyn or len(rec_dyn) % CV_K or \
+            cv_launches != len(rec_regime) + len(rec_dyn):
+        fail(f"strategy: cross_validate made {cv_launches} K2 launches: {len(rec_regime)} "
+             f"in its regime detector (8 expected), {len(rec_dyn)} in its {CV_K} folds")
+    fold_k2 = recorded_k2(rec_fold, "fold_features")
+    cv_k2 = recorded_k2(rec_regime + rec_dyn, "cross_validate")
+    folds_k = generate_folds("cuda")
+    with plain_ewma("strategy: the plain fold features"):
+        folds_p = generate_folds("cuda")
+    flips = structure_flips(folds_k, folds_p, generate_pool())
+    return {"fold_features_launches": fold_launches, "cross_validate_launches": cv_launches,
+            "cross_validate_regime_launches": len(rec_regime),
+            "cross_validate_fold_launches": len(rec_dyn),
+            "fold_features": {k: v for k, v in fold_k2.items() if k != "launch_shapes"},
+            "cross_validate": {k: v for k, v in cv_k2.items() if k != "launch_shapes"},
+            "flips": flips}, fold_k2, cv_k2
+
+
+def strategy_k1(d_year):
+    """(d) K1 on this path: `cross_validate(k=5)` over 43,200 candles at
+    `default_params` (exactly 5 launches) and `compare_strategies` over 8
+    parameter sets (exactly one rows launch), each launch held bit for bit
+    against the plain loop (`held_k1`); one `StrategyEvolver.evolve`
+    through the GA path at `EvolutionParams()`'s GA (20 × 10: exactly G + 1
+    = 11 K1 launches, 5 K2, one host read), and one `SystematicImprover`
+    iteration, timed."""
+    import asyncio
+
+    import torch
+
+    from ai_crypto_trader_tpu_torch.backtest import default_params, sample_params
+    from ai_crypto_trader_tpu_torch.config import EvolutionParams
+    from ai_crypto_trader_tpu_torch.evolve import ga
+    from ai_crypto_trader_tpu_torch.ops.ewma import fused_ewma
+    from ai_crypto_trader_tpu_torch.ops.replay import sweep_kernel
+    from ai_crypto_trader_tpu_torch.strategy import (
+        StrategyEvolver, compare_strategies, cross_validate)
+    from ai_crypto_trader_tpu_torch.strategy.improver import SystematicImprover
+
+    arrays = {k: v[:T_CV] for k, v in d_year.items()}
+    report = {"candles": T_CV}
+    sweep_kernel.launches = 0
+    with recording_k1([]) as cv_calls:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cv = cross_validate(arrays, default_params(device="cuda"), k=CV_K, device="cuda")
+        report["cross_validate_ms"] = 1e3 * (time.perf_counter() - t0)
+    if sweep_kernel.launches != CV_K or len(cv_calls) != CV_K:
+        fail(f"strategy: cross_validate(k={CV_K}) made {sweep_kernel.launches} K1 launches")
+    report["cross_validate"] = {"mean_sharpe": cv["mean_sharpe"],
+                                "regimes": [f["regime"] for f in cv["folds"]],
+                                **held_k1(cv_calls, "strategy_cross_validate")}
+    params = sample_params(torch.Generator(device="cuda").manual_seed(1), CMP_S - 1,
+                           device="cuda")
+    named = {f"sampled_{i}": params._replace(**{f: getattr(params, f)[i]
+                                                for f in params._fields})
+             for i in range(CMP_S - 1)}
+    named["default"] = default_params(device="cuda")
+    sweep_kernel.launches = 0
+    with recording_k1([]) as cmp_calls:
+        t0 = time.perf_counter()
+        cmp = compare_strategies(arrays, named, device="cuda")
+        report["compare_strategies_ms"] = 1e3 * (time.perf_counter() - t0)
+    if sweep_kernel.launches != 1 or int(cmp_calls[0][1].stop_loss.numel()) != CMP_S:
+        fail(f"strategy: compare_strategies made {sweep_kernel.launches} K1 launches")
+    report["compare_strategies"] = {"best": cmp["best"], "ranked": cmp["ranked"],
+                                    **held_k1(cmp_calls, "strategy_compare")}
+
+    cfg = EvolutionParams()
+    evolver = StrategyEvolver(MemoryBus(), cfg=cfg, now_fn=lambda: 0.0, device="cuda")
+    sweep_kernel.launches = fused_ewma.launches = 0
+    with counted(ga, "host_read") as reads:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = asyncio.run(evolver.evolve(arrays, regime="bear"))
+        evolve_s = time.perf_counter() - t0
+    want = cfg.ga.generations + 1
+    if out["method"] != "ga" or sweep_kernel.launches != want or fused_ewma.launches != 5 \
+            or len(reads) != 1:
+        fail(f"strategy: the evolver's GA ({out['method']}) made {sweep_kernel.launches} K1 "
+             f"and {fused_ewma.launches} K2 launches and {len(reads)} reads, not {want}, 5, 1")
+    report["evolver_ga"] = {"population": cfg.ga.population_size,
+                            "generations": cfg.ga.generations, "seconds": evolve_s,
+                            "k1_launches": sweep_kernel.launches,
+                            "k2_launches": fused_ewma.launches, "reads": len(reads),
+                            "best_fitness": out["detail"]["history"][-1]["best_fitness"]}
+    improver = SystematicImprover(StrategyEvolver(MemoryBus(), cfg=cfg, now_fn=lambda: 0.0,
+                                                  device="cuda"),
+                                  max_iterations=1, target_sharpe=1e9)
+    sweep_kernel.launches = 0
+    t0 = time.perf_counter()
+    imp = asyncio.run(improver.improve(arrays, regime="bear"))
+    report["improver"] = {"seconds": time.perf_counter() - t0, "iterations": imp["iterations"],
+                          "k1_launches": sweep_kernel.launches,
+                          "mean_sharpe": imp["evaluation"]["mean_sharpe"]}
+    if imp["iterations"] != 1:
+        fail(f"strategy: the improver ran {imp['iterations']} iterations, not 1")
+    return report
+
+
+def strategy_long_context():
+    """(e) `LongContextTransformer` at its defaults (d_model 64, 4 heads, 2
+    blocks, ff 128) over T = 16,384 candles × 8 features from a seed: the
+    forward and a `long_context_loss` + gradient, each timed (host clock
+    around synchronised work, after a warm run) with its peak memory; then
+    at T = 2,048 the card against the port's CPU (outputs within LC_ATOL,
+    gradients within LC_GRAD_RTOL of each parameter's largest)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from ai_crypto_trader_tpu_torch.models import LongContextTransformer, long_context_loss
+
+    rng = np.random.default_rng(5)
+    model = LongContextTransformer(LC_F, generator=torch.Generator().manual_seed(5),
+                                   device="cuda")
+    params = dict(model.named_parameters())
+
+    def data(T):
+        x = rng.normal(size=(T, LC_F)).astype(np.float32)
+        y = (rng.normal(size=(T, 1)) * 1e-3).astype(np.float32)
+        y[:16], y[-1] = np.nan, np.nan
+        return torch.from_numpy(x), torch.from_numpy(y)
+
+    def step(m, p, x, y):
+        loss = long_context_loss(m, p, x, y)
+        return loss, torch.autograd.grad(loss, list(p.values()))
+
+    x, y = (v.cuda() for v in data(LC_T))
+    report = {"T": LC_T, "features": LC_F, "d_model": 64, "heads": 4, "blocks": 2}
+    for name, fn in (("forward", lambda: model(x)["mean"]),
+                     ("loss_and_grad", lambda: step(model, params, x, y))):
+        if name == "forward":
+            with torch.no_grad():
+                fn()
+        else:
+            fn()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if name == "forward":
+            with torch.no_grad():
+                out = fn()
+        else:
+            out = fn()
+        torch.cuda.synchronize()
+        report[f"{name}_ms"] = 1e3 * (time.perf_counter() - t0)
+        report[f"{name}_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        vals = [out] if name == "forward" else [out[0], *out[1]]
+        if not all(bool(torch.isfinite(v).all()) for v in vals):
+            fail(f"strategy: the long-context {name} at T={LC_T} is not finite")
+    xs, ys = data(LC_T_CPU)
+    cpu_model = copy.deepcopy(model).cpu()
+    cpu_params = dict(cpu_model.named_parameters())
+    with torch.no_grad():
+        out_c, out_p = model(xs.cuda())["mean"].cpu(), cpu_model(xs)["mean"]
+    err = float(torch.abs(out_c - out_p).max())
+    if err > LC_ATOL:
+        fail(f"strategy: the long-context forward at T={LC_T_CPU} is {err:.3g} off the CPU's")
+    (lc, gc), (lp, gp) = step(model, params, xs.cuda(), ys.cuda()), step(
+        cpu_model, cpu_params, xs, ys)
+    worst = 0.0
+    for name, a, b in zip(params, gc, gp):
+        scale = float(torch.abs(b).max())
+        rel = float(torch.abs(a.cpu() - b).max()) / max(scale, 1e-30)
+        worst = max(worst, rel)
+        if float(torch.abs(a.cpu() - b).max()) > 1e-6 + LC_GRAD_RTOL * scale:
+            fail(f"strategy: the long-context gradient of {name} at T={LC_T_CPU} is off the "
+                 f"CPU's by {rel:.3g} of its scale")
+    report["card_vs_cpu"] = {"T": LC_T_CPU, "out_max_abs_err": err,
+                             "loss": [lc.item(), lp.item()], "grad_worst_of_scale": worst}
+    return report
+
+
+def strategy_social():
+    """(f) The social analyzer over 30 days of hourly metrics (720 × 8, a
+    seed): `normalize_metrics`, `fit_anomaly_model`, `detect_anomalies`,
+    `lead_lag_correlation(max_lag=24)` and `adaptive_source_weights` over 3
+    sources on the card against the CPU — normalised metrics equal, anomaly
+    scores within SOC_RTOL and flags equal but within SOC_RTOL of the
+    threshold, the lead-lag argmax equal, the weights within 1e-6 — and each
+    call's time (p50 of 5 after a warm one)."""
+    import numpy as np
+    import torch
+
+    from ai_crypto_trader_tpu_torch.social import analyzer as sa
+
+    rng = np.random.default_rng(30)
+    x = rng.lognormal(2.0, 0.6, size=(SOC_T, SOC_F)).astype(np.float32)
+    x[rng.integers(0, SOC_T, 20), rng.integers(0, SOC_F, 20)] *= 25.0
+    close = (40_000.0 * np.cumprod(1.0 + rng.normal(scale=0.004, size=SOC_T))).astype(
+        np.float32)
+    ret = np.diff(close, prepend=close[0]) / close
+    social = (np.roll(ret, 6) * 50.0 + rng.normal(scale=0.2, size=SOC_T)).astype(np.float32)
+    fwd = np.roll(close, -12) / close - 1.0
+    sources = {"twitter": np.clip(0.5 + 30.0 * fwd, 0, 1).astype(np.float32),
+               "reddit": rng.uniform(size=SOC_T).astype(np.float32),
+               "news": np.clip(0.5 - 10.0 * fwd, 0, 1).astype(np.float32)}
+    xc = torch.from_numpy(x).cuda()
+    calls = {
+        "normalize_metrics": lambda dev, a: sa.normalize_metrics(a, device=dev),
+        "fit_anomaly_model": lambda dev, a: sa.fit_anomaly_model(a, device=dev),
+        "lead_lag_correlation": lambda dev, a: sa.lead_lag_correlation(
+            social, ret, max_lag=SOC_LAG, device=dev),
+        "adaptive_source_weights": lambda dev, a: sa.adaptive_source_weights(
+            sources, close, device=dev),
+    }
+    out, times = {}, {}
+    for name, fn in calls.items():
+        fn("cuda", xc)
+        ms = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = fn("cuda", xc)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        times[f"{name}_ms_p50"] = percentile(ms, 50)
+        out[name] = (got, fn("cpu", x))
+    card, cpu = out["normalize_metrics"]
+    if not same_bits(card.cpu(), cpu):
+        fail("strategy: normalize_metrics differs card against CPU")
+    (mc, mp) = out["fit_anomaly_model"]
+    t0 = time.perf_counter()
+    flags_c, score_c = sa.detect_anomalies(mc, xc, device="cuda")
+    flags_c, score_c = flags_c.cpu().numpy(), score_c.cpu().numpy()
+    times["detect_anomalies_ms"] = 1e3 * (time.perf_counter() - t0)
+    flags_p, score_p = (v.numpy() for v in sa.detect_anomalies(mp, x, device="cpu"))
+    rel = float(np.max(np.abs(score_c - score_p) / np.maximum(np.abs(score_p), 1e-30)))
+    differ = np.flatnonzero(flags_c != flags_p)
+    if rel > SOC_RTOL or np.any(np.abs(score_p[differ] - 1.0) > SOC_RTOL):
+        fail(f"strategy: anomaly scores {rel:.3g} off the CPU's, flags differing at "
+             f"{differ.tolist()[:8]}")
+    (lags_c, corr_c), (lags_p, corr_p) = out["lead_lag_correlation"]
+    lead_c, lead_p = int(lags_c[torch.argmax(corr_c)]), int(lags_p[torch.argmax(corr_p)])
+    if lead_c != lead_p:
+        fail(f"strategy: the detected lead is {lead_c} on the card, {lead_p} on the CPU")
+    wc, wp = out["adaptive_source_weights"]
+    if max(abs(wc[k] - wp[k]) for k in wp) > 1e-6:
+        fail(f"strategy: source weights {wc} on the card, {wp} on the CPU")
+    return {"T": SOC_T, "features": SOC_F, "anomalies": int(flags_c.sum()),
+            "anomaly_flags_differing": len(differ), "score_max_rel_err": rel,
+            "lead": lead_c, "corr_max_abs_err": float(torch.abs(corr_c.cpu() - corr_p).max()),
+            "weights": wc, **times}
+
+
+def phase_strategy(info, d_year):
+    """The strategy layer, the long-context model and the social analyzer on
+    the card: (a) `cli generate` at its defaults, (b) `evaluate_structures`
+    at its fold shape, (c) K2 on this path, (d) K1 on this path with the
+    evolver's GA and the improver, (e) the long-context transformer, (f)
+    the social analyzer.  Returns the K1 and K2 entries of this path."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    report = {"phase": "strategy", "card": info["nvidia_smi"]}
+    with tempfile.TemporaryDirectory() as tmp:
+        report["cli_generate"] = cli_generate(tmp)
+    report["evaluate"], _, _ = strategy_evaluate()
+    report["k2"], fold_k2, cv_k2 = strategy_k2(d_year)
+    report["k1"] = strategy_k1(d_year)
+    report["long_context"] = strategy_long_context()
+    report["social"] = strategy_social()
+    report["phase_s"] = time.perf_counter() - t_phase
+    emit(report)
+    k1 = report["k1"]
+    held = (k1["cross_validate"], k1["compare_strategies"])
+    k1_entry = {
+        "launches": (sum(h["launches"] for h in held) + k1["evolver_ga"]["k1_launches"]
+                     + k1["improver"]["k1_launches"]),
+        "launches_by_path": {"cross_validate": held[0]["launches"],
+                             "compare_strategies": held[1]["launches"],
+                             "evolver_ga": k1["evolver_ga"]["k1_launches"],
+                             "improver": k1["improver"]["k1_launches"]},
+        **{k: sum(h[k] for h in held) for k in ("ms", "plain_ms", "bound_ms")},
+        "bound_by": max(held, key=lambda h: h["bound_ms"])["bound_by"], "library_ms": None,
+        "max_abs_err": max(h["max_abs_err"] for h in held),
+        "shape": f"cross_validate's {CV_K} launches (B=1 x T={T_CV // CV_K}) and "
+                 f"compare_strategies' one (B={CMP_S} x T={T_CV}); ms, plain_ms and "
+                 f"bound_ms cover these 6"}
+    k2 = report["k2"]
+    k2_entry = {
+        "launches": (k2["fold_features_launches"] + k2["cross_validate_launches"]
+                     + k1["evolver_ga"]["k2_launches"]),
+        "launches_by_path": {"fold_features": k2["fold_features_launches"],
+                             "cross_validate": k2["cross_validate_launches"],
+                             "evolver_ga_tables": k1["evolver_ga"]["k2_launches"]},
+        **{k: fold_k2[k] + cv_k2[k] for k in ("ms", "plain_ms", "bound_ms")},
+        "bound_by": fold_k2["bound_by"], "library_ms": None,
+        "max_abs_err": max(fold_k2["max_abs_err"], cv_k2["max_abs_err"]),
+        "shape": "one fold_features call's 3 launches (T=2352) and a cross_validate call's "
+                 f"(its regime detector's 8 over T={T_CV}, each fold's period indicators over "
+                 f"T={T_CV // CV_K}); ms, plain_ms and bound_ms cover these"}
+    return k1_entry, k2_entry
+
+
 def main():
     import torch
 
@@ -4498,6 +5078,7 @@ def main():
     rl = phase_rl(info, d)
     sim_k1, sim_k2 = phase_sim(info)
     regime = phase_service(info)
+    strat_k1, strat_k2 = phase_strategy(info, d)
     bound_ms, bound_by, stepped_bound_ms = replay_bound_ms(stats, B_FULL, T_FULL)
     checks += full
     kernels = [
@@ -4522,6 +5103,7 @@ def main():
          "rl": rl,
          "sim": sim_k2,
          "regime": regime,
+         "strategy": strat_k2,
          "shape": "the two launches of compute_indicators at T=525600, summed "
                   "(A: close K=2 + up/dn/tr K=1; B: MACD line K=1)"},
         {"name": "replay_sweep", "route": "cuda",
@@ -4550,6 +5132,7 @@ def main():
                                                       "replay_walk_kernelILb1ELb1E")}},
          "portfolio": portfolio,
          "sim": sim_k1,
+         "strategy": strat_k1,
          "shape": f"B={B_FULL} x T={T_FULL}",
          "plain": "the engine's loop, 32 candles a CUDA graph"},
     ]

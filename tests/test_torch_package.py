@@ -58,6 +58,11 @@ from ai_crypto_trader_tpu_torch.sim import exchange as sim_exchange
 from ai_crypto_trader_tpu_torch.sim.engine import scenario_env_params
 from ai_crypto_trader_tpu_torch.sim.lob import flow_params, lob_candles, lob_sweep, rollout_lob
 from ai_crypto_trader_tpu_torch.sim.paths import bootstrap_candles, gbm_candles, path_params
+from ai_crypto_trader_tpu_torch.models import LongContextTransformer
+from ai_crypto_trader_tpu_torch.social import analyzer as social_analyzer
+from ai_crypto_trader_tpu_torch.strategy import StrategyEvolver, compare_strategies, cross_validate
+from ai_crypto_trader_tpu_torch.strategy.generator import (
+    GeneratorService, StrategyGenerator, default_seed, evaluate_structures, fold_features)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -84,25 +89,44 @@ expected = {"config", "ops.dynamic", "backtest.evolvable", "evolve", "evolve.ga"
             "parallel", "parallel.partitioner", "sim.exchange", "sim.calibrate",
             "utils", "obs.scorecard", "strategy", "strategy.registry", "rl.trainer_service",
             "regime", "regime.cluster", "regime.hmm", "regime.detector", "regime.collector",
-            "regime.service", "ops.orderbook", "patterns.service"}
+            "regime.service", "ops.orderbook", "patterns.service", "utils.shapes",
+            "data.fetchers", "shell", "shell.llm", "strategy.generator",
+            "strategy.evaluation", "strategy.evolution", "strategy.improver",
+            "strategy.selection", "strategy.explain", "parallel.ring_attention",
+            "models.long_context", "social", "social.analyzer"}
 missing = sorted(e for e in expected if pkg.__name__ + "." + e not in names)
 print(missing)
 from ai_crypto_trader_tpu_torch import obs, utils
+from ai_crypto_trader_tpu_torch import models, social, strategy
 exports = {"obs": {"DRIFT_FEATURES", "N_BINS", "PSI_ALERT_THRESHOLD", "reference_histogram",
                    "FleetScope", "Scorecard"},
-           "utils": {"save_checkpoint", "load_checkpoint"}}
+           "utils": {"save_checkpoint", "load_checkpoint"},
+           "strategy": {"compare_strategies", "cross_validate", "trade_metrics",
+                        "StrategySelector", "StrategyEvolver", "ModelRegistry",
+                        "explain_signal", "GeneratorService", "StrategyGenerator",
+                        "StrategyStructure"},
+           "social": {"adaptive_source_weights", "detect_anomalies", "fit_anomaly_model",
+                      "lead_lag_correlation", "normalize_metrics", "sentiment_accuracy"},
+           "models": {"LongContextTransformer", "LongContextBlock", "RingSelfAttention",
+                      "long_context_loss"}}
+modules = {"obs": obs, "utils": utils, "strategy": strategy, "social": social,
+           "models": models}
 missing += sorted(f"{m}.{n}" for m, names in exports.items() for n in names
-                  if not hasattr({"obs": obs, "utils": utils}[m], n))
+                  if not hasattr(modules[m], n))
 print(missing)
 from ai_crypto_trader_tpu_torch import cli
 cli.main(["rl", "--device", "cpu", "--population", "2", "--generations", "1", "--iters", "1",
           "--envs", "2", "--rollout", "2", "--scenarios", "2", "--steps", "96",
           "--episode-len", "16"])
+import tempfile
+with tempfile.TemporaryDirectory() as tmp:
+    cli.main(["generate", "--device", "cpu", "--days", "1", "--folds", "2", "--pool", "2",
+              "--rounds", "1", "--registry", tmp + "/registry.json"])
 bad += sorted(m for m in sys.modules
               if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
               or re.match(r"ai_crypto_trader_tpu(?!_torch)(\.|$)", m))
 print(bad)
-sys.exit(1 if bad or missing or len(names) < 77 else 0)
+sys.exit(1 if bad or missing or len(names) < 91 else 0)
 """
 
 
@@ -247,6 +271,25 @@ _ENTRY_POINTS = {
     "cluster_orders": lambda: orderbook.cluster_orders(_BOOK),
     "orderbook_signal": lambda: orderbook.orderbook_signal(_BOOK, _BOOK),
     "ChartPatternService": lambda: ChartPatternService(None, PatternRecognizer("cnn", {}), []),
+    "fold_features": lambda: fold_features(_small()),
+    "evaluate_structures": lambda: evaluate_structures([], [default_seed()]),
+    "StrategyGenerator": lambda: StrategyGenerator(),
+    "GeneratorService": lambda: GeneratorService(None),
+    "StrategyEvolver": lambda: StrategyEvolver(None),
+    "cross_validate": lambda: cross_validate(_small(), default_params(device="cpu")),
+    "compare_strategies": lambda: compare_strategies(
+        _small(), {"a": default_params(device="cpu")}),
+    "LongContextTransformer": lambda: LongContextTransformer(4, d_model=8),
+    "long_context_from_flax": lambda: convert.long_context_from_flax({}, features=4),
+    "normalize_metrics": lambda: social_analyzer.normalize_metrics(np.ones((8, 2))),
+    "fit_anomaly_model": lambda: social_analyzer.fit_anomaly_model(np.ones((8, 2))),
+    "detect_anomalies": lambda: social_analyzer.detect_anomalies(
+        social_analyzer.AnomalyModel(np.zeros(2), np.eye(2), 1.0), np.ones((8, 2))),
+    "lead_lag_correlation": lambda: social_analyzer.lead_lag_correlation(
+        np.ones(8), np.ones(8), max_lag=2),
+    "sentiment_accuracy": lambda: social_analyzer.sentiment_accuracy(np.ones(8), np.ones(8)),
+    "adaptive_source_weights": lambda: social_analyzer.adaptive_source_weights(
+        {"a": np.ones(8)}, np.ones(8)),
     "kmeans_from_jax": lambda: convert.kmeans_from_jax(SimpleNamespace(
         centroids=np.ones((2, 2), np.float32))),
     "standardizer_from_jax": lambda: convert.standardizer_from_jax(SimpleNamespace(
@@ -353,7 +396,8 @@ def test_gate_vocabulary_is_the_jax_package_vocabulary():
 
 
 @pytest.mark.parametrize("name", ["TradingParams", "TrailingStopParams",
-                                  "SocialRiskParams", "MonteCarloParams", "GAParams"])
+                                  "SocialRiskParams", "MonteCarloParams", "GAParams",
+                                  "EvolutionParams", "LLMParams"])
 def test_config_defaults_are_the_jax_package_defaults(name):
     import dataclasses
 
@@ -412,6 +456,9 @@ _SEAM_CASES = {
         torch.Generator(), np.linspace(1, 2, 400, dtype=np.float32)[:, None].repeat(5, 1),
         n_trials=1, rung_epochs=(1, 1), seq_len=8, partitioner=p, device="cpu")["best_val_loss"],
     "TenantEngine": lambda p: TenantEngine(["BTCUSDC"], 4, partitioner=p, device="cpu").S,
+    "evaluate_structures": lambda p: evaluate_structures(
+        [fold_features(_small(), device="cpu")], [default_seed()], partitioner=p,
+        device="cpu").tolist(),
     "run_ga": lambda p: run_ga(torch.Generator().manual_seed(0),
                                backtest_fitness(_small(), device="cpu"),
                                GAParams(population_size=4, generations=1),
