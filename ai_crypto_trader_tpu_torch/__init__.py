@@ -1,7 +1,9 @@
 """PyTorch/CUDA port of ai_crypto_trader_tpu's population backtest, GA,
 live tick and decision path, portfolio backtest, risk layer, Monte-Carlo
 engine, price-model zoo and chart-pattern classifier (training and
-serving), and RL trainer (the DQN, the simulated markets, the PBT fleet).
+serving), RL trainer (the DQN, the simulated markets, the PBT fleet),
+and the live signal path (bus, paper exchange, monitor, analyzer,
+executor, scanner).
 
 The chains, module for module after the JAX package:
 
@@ -33,6 +35,12 @@ The chains, module for module after the JAX package:
         (rl.pbt_env_params) → rl.train_pbt (the DQN fleet over a member axis,
         rl.population's exchange on the card; one host read a generation);
         indicators → rl.make_env_params → rl.train_dqn
+    shell.FakeExchange → shell.ResilientExchange → shell.MarketMonitor.poll
+        (the TickEngine; one host read) → shell.EventBus (market_updates)
+        → shell.SignalAnalyzer → shell.TradeExecutor (float32 sizing and
+        trailing stops on the device; journal and recovery on the host)
+    exchange klines → shell.scanner.MarketScanner.scan (score_pairs over
+        [P, T] on the device; one host read) — `cli scan`
 
 Plain tensor code is PyTorch; the two Pallas kernels of the JAX package on
 these paths are CUDA C++ kernels for Hopper (``csrc/``), built with nvcc on

@@ -33,6 +33,7 @@ from ai_crypto_trader_tpu_torch.backtest import signals as sig
 from ai_crypto_trader_tpu_torch.backtest.strategy import StrategyParams
 from ai_crypto_trader_tpu_torch.device import resolve_device, to_device
 from ai_crypto_trader_tpu_torch.parallel.partitioner import require_single
+from ai_crypto_trader_tpu_torch.utils import tracing
 
 
 class BacktestInputs(NamedTuple):
@@ -338,13 +339,33 @@ def launches_kernel(dev: torch.device) -> bool:
     return dev.type == "cuda"
 
 
-def run_backtest(inputs: BacktestInputs, params: StrategyParams | None = None, *,
-                 initial_balance: float = 10_000.0,
-                 ai_confidence_threshold: float = 0.7,
-                 min_signal_strength: float = 70.0, warmup: int = 10,
-                 reference_quirks: bool = False, use_param_sl_tp: bool = False,
-                 return_curve: bool = False, sell_exits: bool = False,
-                 device=None):
+def _traced_entry(name: str, attrs_fn, call):
+    """Host-side span around an entry point (`utils.tracing.
+    traced_dispatch`, with the kernel-build-vs-execute breakdown); a plain
+    ``call()`` when tracing is off — no span, no sync."""
+    if tracing.active() is None:
+        return call()
+    return tracing.traced_dispatch(name, call, service="backtest",
+                                   attrs_fn=attrs_fn)
+
+
+def run_backtest(inputs: BacktestInputs, params: StrategyParams | None = None,
+                 **kw):
+    """One backtest (or a broadcast batch): `_run_backtest` (same keyword
+    arguments) under a ``backtest.run`` span when tracing is on, as the
+    JAX package's host entry."""
+    return _traced_entry(
+        "backtest.run", lambda: {"candles": int(inputs.close.shape[-1])},
+        lambda: _run_backtest(inputs, params, **kw))
+
+
+def _run_backtest(inputs: BacktestInputs, params: StrategyParams | None = None, *,
+                  initial_balance: float = 10_000.0,
+                  ai_confidence_threshold: float = 0.7,
+                  min_signal_strength: float = 70.0, warmup: int = 10,
+                  reference_quirks: bool = False, use_param_sl_tp: bool = False,
+                  return_curve: bool = False, sell_exits: bool = False,
+                  device=None):
     """One backtest (or a broadcast batch) on ``device`` (default: the CUDA
     card).  With ``use_param_sl_tp`` the StrategyParams stop_loss /
     take_profit (percent) override the sizer's volatility ladder;
@@ -367,7 +388,7 @@ def run_backtest(inputs: BacktestInputs, params: StrategyParams | None = None, *
             raise ValueError("use_param_sl_tp needs StrategyParams")
         if max(inputs.close.ndim, inputs.volume.ndim) > 1:
             # the kernel shares close and volume across its rows
-            return _per_series(lambda i, p: run_backtest(
+            return _per_series(lambda i, p: _run_backtest(
                 i, p, use_param_sl_tp=True, return_curve=return_curve, device=dev, **kw),
                 inputs, params, return_curve)
         # imported here: ops.replay imports this module
@@ -390,12 +411,23 @@ def run_backtest(inputs: BacktestInputs, params: StrategyParams | None = None, *
                   sell_exits=sell_exits, **kw)
 
 
-def sweep(inputs: BacktestInputs, params: StrategyParams,
-          initial_balance: float = 10_000.0,
-          ai_confidence_threshold: float = 0.7,
-          min_signal_strength: float = 70.0, warmup: int = 10,
-          reference_quirks: bool = False, return_curve: bool = False,
-          unroll: int = 8, partitioner=None, device=None):
+def sweep(inputs: BacktestInputs, params: StrategyParams, *args, **kw):
+    """The population sweep: `_sweep` (same arguments) under a
+    ``backtest.sweep`` span when tracing is on, as the JAX package's host
+    entry."""
+    return _traced_entry(
+        "backtest.sweep",
+        lambda: {"candles": int(inputs.close.shape[-1]),
+                 "population": int(params.stop_loss.shape[0]), "devices": 1},
+        lambda: _sweep(inputs, params, *args, **kw))
+
+
+def _sweep(inputs: BacktestInputs, params: StrategyParams,
+           initial_balance: float = 10_000.0,
+           ai_confidence_threshold: float = 0.7,
+           min_signal_strength: float = 70.0, warmup: int = 10,
+           reference_quirks: bool = False, return_curve: bool = False,
+           unroll: int = 8, partitioner=None, device=None):
     """The population sweep: every strategy of a stacked StrategyParams
     [B] over the same candles, in ``use_param_sl_tp`` mode.
 

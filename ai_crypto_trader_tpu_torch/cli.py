@@ -1,8 +1,8 @@
 """Command-line interface of the port: the ``backtest``, ``train``,
-``evolve``, ``rl`` and ``generate`` subcommands.
+``evolve``, ``rl``, ``generate`` and ``scan`` subcommands.
 
 Same flags and output as ``python -m ai_crypto_trader_tpu.cli backtest`` /
-``train`` / ``evolve`` / ``rl`` / ``generate``, plus ``--device
+``train`` / ``evolve`` / ``rl`` / ``generate`` / ``scan``, plus ``--device
 {cuda,cpu}`` (default cuda):
 
     python -m ai_crypto_trader_tpu_torch.cli backtest --days 365 --sweep 4096
@@ -10,6 +10,7 @@ Same flags and output as ``python -m ai_crypto_trader_tpu.cli backtest`` /
     python -m ai_crypto_trader_tpu_torch.cli evolve --days 30 --population 256 --generations 3
     python -m ai_crypto_trader_tpu_torch.cli rl --population 8 --dynamics lob
     python -m ai_crypto_trader_tpu_torch.cli generate --days 7 --registry registry.json
+    python -m ai_crypto_trader_tpu_torch.cli scan --pairs 64 --top 10
 
 A CSV at ``backtesting/data/market/<symbol>/<symbol>_1m.csv`` is used when
 present; otherwise the deterministic synthetic series is generated.
@@ -32,6 +33,9 @@ from a journal's newest intact checkpoint (draw streams included), and
 ``generate`` searches strategy structures (rule compositions) with
 cross-validated backtests, registers each improvement in ``--registry``
 and prints the held-out comparison of the seed and the best structure.
+``scan`` synthesizes a universe of ``--pairs`` pairs with varied
+volatility/volume profiles behind the paper exchange, scores every pair in
+one pass on ``--device`` and prints the ranked table and its JSON.
 """
 
 from __future__ import annotations
@@ -289,6 +293,41 @@ def cmd_generate(args):
     }, indent=2))
 
 
+def cmd_scan(args):
+    """Market-wide pair discovery + ranking (CryptoScanner.scan_market,
+    `binance_ml_strategy.py:293-468`). Paper mode synthesizes a universe of
+    pairs with varied volatility/volume profiles; a live run would inject a
+    real client behind the same adapter."""
+    from ai_crypto_trader_tpu_torch import resolve_device
+    from ai_crypto_trader_tpu_torch.data.ingest import from_dict
+    from ai_crypto_trader_tpu_torch.data.synthetic import generate_ohlcv
+    from ai_crypto_trader_tpu_torch.shell.exchange import make_exchange
+    from ai_crypto_trader_tpu_torch.shell.scanner import MarketScanner
+
+    dev = resolve_device(args.device)
+    n_hist = args.lookback + 8
+    series = {}
+    for i in range(args.pairs):
+        sym = f"A{i:03d}USDC"
+        d = generate_ohlcv(
+            n=n_hist, seed=args.seed + i, s0=100.0 * (1 + i),
+            base_vol=0.0004 * (1 + (i % 9)),
+            base_volume=40.0 * (1 + (i % 13)))
+        series[sym] = from_dict({k: v for k, v in d.items() if k != "regime"},
+                                symbol=sym)
+    ex = make_exchange("fake", series=series)
+    ex.advance(steps=n_hist)
+    sc = MarketScanner(ex, lookback=args.lookback, top_k=args.top, device=dev)
+    ranked = sc.scan()
+    print(f"{'symbol':<12}{'score':>8}{'vol':>9}{'qvol':>14}"
+          f"{'strength':>10}{'chg%':>8}")
+    for o in ranked:
+        print(f"{o['symbol']:<12}{o['score']:>8.3f}{o['volatility']:>9.4f}"
+              f"{o['quote_volume']:>14,.0f}{o['strength']:>10.1f}"
+              f"{o['change_pct']:>8.2f}")
+    print(json.dumps({"discovered": len(series), "ranked": ranked}))
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="ai_crypto_trader_tpu_torch",
                                 description=__doc__,
@@ -358,6 +397,14 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--seed", type=int, default=0)
     sp.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     sp.set_defaults(fn=cmd_generate)
+    sp = sub.add_parser("scan", help="discover + rank tradable pairs")
+    sp.add_argument("--pairs", type=int, default=64,
+                    help="synthetic universe size (paper mode)")
+    sp.add_argument("--lookback", type=int, default=256)
+    sp.add_argument("--top", type=int, default=10)
+    sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    sp.set_defaults(fn=cmd_scan)
     return p
 
 

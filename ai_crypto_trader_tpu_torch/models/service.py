@@ -24,8 +24,7 @@ Port of `ai_crypto_trader_tpu/models/service.py`.  Draws come from
 ``generator`` (a ``torch.Generator`` on the device, seeded 0 by default;
 each training continues its stream) where the JAX service splits a key.
 The bus is injected and used only through ``get``, ``set`` and ``await
-publish`` (the JAX package's ``EventBus`` or anything with those three;
-the bus itself is ported with the shell, ROADMAP item 16).
+publish`` (the port's `shell.EventBus`, or anything with those three).
 """
 
 from __future__ import annotations
@@ -44,6 +43,7 @@ from ai_crypto_trader_tpu_torch.models.train import (
     predict_prices_batched,
     train_model,
 )
+from ai_crypto_trader_tpu_torch.utils import tracing
 from ai_crypto_trader_tpu_torch.utils.checkpoint import save_checkpoint
 
 INTERVAL_SECONDS = {
@@ -125,10 +125,11 @@ class PredictionService:
 
     # -- tracing -------------------------------------------------------------
     def _traced_jax(self, name: str, attrs: dict, fn):
-        """The JAX service's span around one dispatch (name and attributes
-        kept at the call sites): the plain ``fn()`` until `utils/tracing`
-        is ported (ROADMAP item 16)."""
-        return fn()
+        """Span + kernel-build-vs-execute breakdown around one dispatch
+        (`utils.tracing.traced_dispatch`); a plain ``fn()`` when tracing is
+        off."""
+        return tracing.traced_dispatch(name, fn, service=self.name,
+                                       attrs_fn=lambda: attrs)
 
     # -- training ------------------------------------------------------------
     def _train_one(self, symbol: str, interval: str) -> TrainResult | None:

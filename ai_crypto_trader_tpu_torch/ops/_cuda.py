@@ -38,6 +38,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
+# Called as ``listener(name, seconds, cached)`` for every library that
+# `build` finds built (cached, 0 s) or compiles: the build monitor of
+# `utils.tracing` (KernelBuildMonitor) registers here.
+BUILD_LISTENERS: list = []
+
 
 def nvcc_path() -> str:
     for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
@@ -66,6 +71,8 @@ def build(names=SOURCES) -> dict:
         path = library_path(name)
         if path.exists():
             report[name] = {"seconds": 0.0, "cached": True}
+            for listener in BUILD_LISTENERS:
+                listener(name, 0.0, True)
             continue
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
@@ -83,6 +90,8 @@ def build(names=SOURCES) -> dict:
             continue
         os.replace(tmp, path)
         report[name] = {"seconds": seconds, "cached": False}
+        for listener in BUILD_LISTENERS:
+            listener(name, seconds, False)
     if failures:
         raise RuntimeError("\n".join(failures))
     return report

@@ -39,10 +39,18 @@ everything in flight and re-seeds both rings from the host mirror.
 
 Symbol count pads up to a power of two (at least 8) and frame count up to
 4, as in the JAX package, so nearby universe sizes share shapes; padded
-lanes are invalid.  The JAX package's observatories on this path
-(`obs.tickpath`, `utils.devprof`, `utils.meshprof`) are not part of the
-port yet: ``last_stats`` carries the keys the JAX step sets when none of
-them is active.
+lanes are invalid.
+
+While `obs.tickpath` is active the step feeds its phases as the JAX step
+does: ``scatter_build``, ``dispatch``, ``device_compute``, ``host_read``,
+the overlap headroom and (pipelined) the reclaimed overlap, and its first
+dispatch opens the cold-start window.  ``device_compute`` is the program's
+span on the card between two CUDA events recorded around it, read after
+the step's one host read has waited for the copy behind them — no second
+synchronizing call (on the CPU, where the program runs inside the
+dispatch, it is 0).  The overlap headroom is the host's wait in that read.
+The JAX package's other observatories on this path (`utils.devprof`,
+`utils.meshprof`) are not part of the port yet.
 """
 
 from __future__ import annotations
@@ -58,6 +66,7 @@ from ai_crypto_trader_tpu_torch.backtest.signals import (
     reference_signal,
 )
 from ai_crypto_trader_tpu_torch.device import canonical_precision, div_const, resolve_device
+from ai_crypto_trader_tpu_torch.obs import tickpath
 from ai_crypto_trader_tpu_torch.obs.drift import DRIFT_FEATURES, N_BINS, PSI_EPS
 from ai_crypto_trader_tpu_torch.ops.combinations import (
     combination_signal,
@@ -74,11 +83,21 @@ class Readback:
     """One tick's packed output on its way to the host: the host buffer
     its copy lands in, the event recorded after that copy (None on the
     CPU, where the copy is done when enqueued), and the layout that unpacks
-    it.  ``wait_s`` is what `host_read` spent waiting on the event."""
+    it.  ``wait_s`` is what `host_read` spent waiting on the event.
+    ``span`` is None or two timing events around the program, recorded
+    before ``event``: once `host_read` has waited, `device_s` reads the
+    program's time on the card without another sync."""
 
     def __init__(self, host, event, layout):
         self.host, self.event, self.layout = host, event, layout
         self.wait_s = 0.0
+        self.span = None
+
+    def device_s(self) -> float:
+        """The program's span on the card in seconds (0 without events)."""
+        if self.span is None:
+            return 0.0
+        return self.span[0].elapsed_time(self.span[1]) / 1e3
 
 
 def host_read(readback: Readback) -> dict:
@@ -527,21 +546,31 @@ class TickEngine:
             dst.copy_(src, non_blocking=True)
         return rows.nbytes + flat.nbytes
 
-    def _dispatch(self, i: int) -> Readback:
+    def _dispatch(self, i: int, timed: bool = False) -> Readback:
         """The tick program on ring ``i``, its output packed and its copy to
-        ring ``i``'s host buffer enqueued."""
+        ring ``i``'s host buffer enqueued.  ``timed`` (on the card) records
+        two timing events around the program (`Readback.span`)."""
         rows, flat, base, valid = self._dev_in
+        span = None
+        if timed and self.device.type == "cuda":
+            span = (torch.cuda.Event(enable_timing=True),
+                    torch.cuda.Event(enable_timing=True))
+            span[0].record()
         out = _tick_program(self._bufs[i], base, rows, flat, valid, self._drift_ref)
         packed, layout = _pack(out)
         if self.device.type != "cuda":
             return Readback(packed, None, layout)
+        if span is not None:
+            span[1].record()
         if self._out_host[i] is None or self._out_host[i].shape != packed.shape:
             self._out_host[i] = torch.empty(packed.shape, dtype=torch.float32,
                                             pin_memory=True)
         self._out_host[i].copy_(packed, non_blocking=True)
         event = torch.cuda.Event()
         event.record()
-        return Readback(self._out_host[i], event, layout)
+        readback = Readback(self._out_host[i], event, layout)
+        readback.span = span
+        return readback
 
     # -- step -----------------------------------------------------------------
     def step(self) -> dict | None:
@@ -576,14 +605,18 @@ class TickEngine:
         valid = self._count >= T
         if self._drift_ref is None:
             self._upload_drift_ref()
+        tp = tickpath.active()
         try:
-            readback = self._dispatch(0)
-            self.dispatch_count += 1
-            self._need_seed = False
-            self.last_valid = valid
-            t_hr = time.perf_counter()
-            host = host_read(readback)
-            host_read_s = time.perf_counter() - t_hr
+            with tickpath.coldstart("tick_engine", cold=self.dispatch_count == 0):
+                t_d0 = time.perf_counter()
+                readback = self._dispatch(0, timed=tp is not None)
+                t_d1 = time.perf_counter()
+                self.dispatch_count += 1
+                self._need_seed = False
+                self.last_valid = valid
+                t_hr = time.perf_counter()
+                host = host_read(readback)
+                host_read_s = time.perf_counter() - t_hr
         except Exception:
             # a mid-step abort leaves the ring in an unknown state; the host
             # mirror is authoritative, so the next step re-seeds (from fresh
@@ -600,6 +633,22 @@ class TickEngine:
             "scatter_capacity": int(W), "host_read_s": host_read_s,
             "step_s": time.perf_counter() - t_step0,
         }
+        if tp is not None:
+            scatter_build_s = t_d0 - t_step0
+            dispatch_s = t_d1 - t_d0
+            device_compute_s = readback.device_s()   # after the read: no sync
+            overlap_headroom_s = readback.wait_s
+            self.last_stats.update({
+                "scatter_build_s": scatter_build_s,
+                "dispatch_s": dispatch_s,
+                "device_compute_s": device_compute_s,
+                "overlap_headroom_s": overlap_headroom_s,
+            })
+            tp.observe_phase("scatter_build", scatter_build_s)
+            tp.observe_phase("dispatch", dispatch_s)
+            tp.observe_phase("device_compute", device_compute_s)
+            tp.observe_phase("host_read", host_read_s)
+            tp.observe_overlap(overlap_headroom_s)
         return host
 
     def _pop_drift(self, host: dict, valid: np.ndarray,
@@ -664,9 +713,11 @@ class TickEngine:
         valid = self._count >= T
         if self._drift_ref is None:
             self._upload_drift_ref()
+        tp = tickpath.active()
         t_d0 = time.perf_counter()
         try:
-            readback = self._dispatch(cur)
+            with tickpath.coldstart("tick_engine", cold=self.dispatch_count == 0):
+                readback = self._dispatch(cur, timed=tp is not None)
         except Exception:
             self._abort_pipeline()
             raise
@@ -674,6 +725,9 @@ class TickEngine:
         self.dispatch_count += 1
         self._need_seed = False
         self._cur = 1 - cur
+        if tp is not None:
+            tp.observe_phase("scatter_build", t_d0 - t_step0)
+            tp.observe_phase("dispatch", t_d1 - t_d0)
         prev, self._inflight = self._inflight, {
             "readback": readback, "valid": valid, "seeded": bool(seeded),
             "n_writes": int(n_writes), "upload_bytes": int(upload_bytes),
@@ -699,7 +753,8 @@ class TickEngine:
         """Collect one in-flight dispatch's read: the async half of the
         pipelined step.  The wait inside `host_read` is the residual device
         time — what the host did since that dispatch returned overlapped
-        it."""
+        it.  With timing events (tickpath on) ``device_compute_s`` is the
+        program's span on the card, read after the wait."""
         t_drain0 = time.perf_counter()
         try:
             host = host_read(inflight["readback"])
@@ -709,7 +764,10 @@ class TickEngine:
             self._abort_pipeline()
             raise
         host_read_s = time.perf_counter() - t_drain0
-        device_compute_s = inflight["readback"].wait_s
+        readback = inflight["readback"]
+        wait_s = readback.wait_s
+        device_compute_s = wait_s if readback.span is None else readback.device_s()
+        reclaimed_s = max(t_drain0 - inflight["t_disp_ret"], 0.0)
         valid = inflight["valid"]
         self._pop_drift(host, valid, inflight["ref_set"])
         self.last_valid = valid
@@ -723,11 +781,17 @@ class TickEngine:
             "scatter_build_s": inflight["scatter_build_s"],
             "dispatch_s": inflight["dispatch_s"],
             "device_compute_s": device_compute_s,
-            "overlap_headroom_s": device_compute_s,
-            "overlap_reclaimed_s": max(t_drain0 - inflight["t_disp_ret"], 0.0),
+            "overlap_headroom_s": wait_s,
+            "overlap_reclaimed_s": reclaimed_s,
             "host_read_s": host_read_s,
             "step_s": time.perf_counter() - t_drain0,
         }
+        tp = tickpath.active()
+        if tp is not None:
+            tp.observe_phase("device_compute", device_compute_s)
+            tp.observe_phase("host_read", host_read_s)
+            tp.observe_overlap(wait_s)
+            tp.observe_reclaimed(reclaimed_s)
         return host
 
     def flush(self) -> dict | None:

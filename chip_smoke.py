@@ -226,12 +226,29 @@ imports nothing of JAX or of the JAX package.  Phases, one JSON line each:
                 forward and loss + gradient times and peak memory, and at
                 T = 2,048 against the CPU; (f) the social analyzer over 720
                 × 8 hourly metrics against the CPU, times;
- 17. kernels  — one line with each kernel's launches, error, times and
+ 17. live     — the live signal path at the `tick_pipeline` width (64
+                symbols × 1m/3m/5m/15m × 256 candles on the resilient paper
+                exchange, a virtual clock, bench_recovery's trading
+                parameters): 20 ticks of advance → `MarketMonitor.poll` →
+                `SignalAnalyzer` → `TradeExecutor` → `on_price`, each poll
+                with exactly 3 K2 launches and one host read and no other
+                sync, every launch held against the plain EWMA; the same
+                ticks timed (tickpath's split of the poll, the stages,
+                torch.profiler over one tick) and on the CPU (payloads
+                within tests/test_torch_tick.py's bounds, label flips only
+                near a threshold, trades equal where the decisions agree);
+                the pipelined monitor over 5 ticks against the serial one
+                shifted by one tick; the per-symbol path for one symbol
+                (12 K2 launches); `cli scan` at its defaults (2 K2
+                launches, the CPU's ranking); journal recovery of 1,000
+                trades;
+ 18. kernels  — one line with each kernel's launches, error, times and
                 bound, at the main path's shapes, and each kernel's GA,
                 tick, portfolio, tenant, `cli train`, training, RL,
-                simulator, regime and strategy launches (`ga_tables`,
-                `ga_rows`, `tick`, `portfolio`, `tenant`, `nn_cli_train`,
-                `nn_train`, `rl`, `sim`, `regime`, `strategy`).
+                simulator, regime, strategy and live launches
+                (`ga_tables`, `ga_rows`, `tick`, `portfolio`, `tenant`,
+                `nn_cli_train`, `nn_train`, `rl`, `sim`, `regime`,
+                `strategy`, `live`).
 
 Any failed check raises, so the script exits non-zero and never prints its
 last line, ``{"ok": true, "device": {...}}``.  Times are CUDA-event times
@@ -271,6 +288,8 @@ GA_CURVE_B = 32           # strategies whose curve the rows checks hold
 S_TICK, T_TICK = 64, 256  # the bench's tick_pipeline row (bench.py:1323-1337)
 TICK_FRAMES = ("1m", "3m", "5m", "15m")
 TICK_POLLS = 20
+LIVE_TICKS = 20           # ticks of the live path (phase live)
+LIVE_PIPE_TICKS = 5       # its pipelined monitor's ticks against the serial run's
 S_PORT = 8                # portfolio symbols
 T_PORT_K1, T_PORT_PLAIN = 8192, 1024   # K1's check; the plain-loop modes (depth cut)
 N_TENANT = 256            # the capacity row's vmapped tenant cap (bench.py:1734)
@@ -2828,27 +2847,13 @@ def phase_patterns(info):
     return report
 
 
-class MemoryBus:
-    """The services' bus in memory (they use get, set, keys and an async
-    publish), standing in for Redis as the tests' fake transports do;
-    published events are recorded."""
+def recording_bus():
+    """The port's EventBus and a "*" subscriber that records every event
+    published on it (its queue holds more than any phase publishes)."""
+    from ai_crypto_trader_tpu_torch.shell import EventBus
 
-    def __init__(self):
-        self.kv, self.events = {}, []
-
-    def get(self, key):
-        return self.kv.get(key)
-
-    def set(self, key, value):
-        self.kv[key] = value
-
-    def keys(self, pattern="*"):
-        import fnmatch
-
-        return [k for k in self.kv if fnmatch.fnmatchcase(k, pattern)]
-
-    async def publish(self, channel, event):
-        self.events.append((channel, event))
+    bus = EventBus(max_queue=1 << 20)
+    return bus, bus.subscribe("*")
 
 
 @contextlib.contextmanager
@@ -3051,7 +3056,7 @@ def train_service(info):
     from ai_crypto_trader_tpu_torch.models.service import PredictionService
 
     tape = TickTape(SVC_SYMBOLS, T_TICK)
-    bus, clock = MemoryBus(), [1_000_000.0]
+    (bus, events), clock = recording_bus(), [1_000_000.0]
     for i, sym in enumerate(tape.symbols):
         for iv in ("1m", "5m"):
             bus.set(f"historical_data_{sym}_{iv}", tape.klines(i, iv, tape.n - 64, SVC_ROWS))
@@ -3091,7 +3096,7 @@ def train_service(info):
                                                             else str(v))
                                                         for k, v in rec["best"].items()},
                      "val_loss": rec["val_loss"], "adoption": rec["adoption"]}
-    report["events"] = len(bus.events)
+    report["events"] = events.qsize()
     return report
 
 
@@ -4242,7 +4247,7 @@ def service_regime(info):
     from ai_crypto_trader_tpu_torch.regime import MarketRegimeService
 
     histories = regime_histories()
-    bus = MemoryBus()
+    bus, events = recording_bus()
     for s, rows in histories.items():
         bus.set(f"historical_data_{s}_1m", rows)
     svc = MarketRegimeService(bus, now_fn=lambda: 5000.0, device="cuda")
@@ -4267,8 +4272,8 @@ def service_regime(info):
         fail(f"service: the regime rounds made {launches} K2 launches ({len(recorded)} "
              f"recorded), not {want} (4 a regime_features call)")
     regimes = [svc.regimes[s]["regime"] for s in histories]
-    if len(bus.events) != REGIME_S * REGIME_ROUNDS or len(svc.detectors) != REGIME_S:
-        fail(f"service: {len(bus.events)} regime updates published, {len(svc.detectors)} "
+    if events.qsize() != REGIME_S * REGIME_ROUNDS or len(svc.detectors) != REGIME_S:
+        fail(f"service: {events.qsize()} regime updates published, {len(svc.detectors)} "
              f"detectors")
     k2 = recorded_k2(recorded[-4:])
     first = next(iter(histories))
@@ -4424,7 +4429,7 @@ def service_patterns():
     for label, p, threshold in (("seeded", params, 0.5), ("no_pattern_lowered", lowered, 0.0)):
         runs = {}
         for dev in ("cuda", "cpu"):
-            bus = MemoryBus()
+            bus, _ = recording_bus()
             for i, s in enumerate(tape.symbols):
                 bus.set(f"historical_data_{s}_5m", tape.klines(i, "5m", tape.n - 64, T_TICK))
             rec = PatternRecognizer("cnn", {k: v.to(dev) for k, v in p.items()})
@@ -4814,7 +4819,7 @@ def strategy_k1(d_year):
                                     **held_k1(cmp_calls, "strategy_compare")}
 
     cfg = EvolutionParams()
-    evolver = StrategyEvolver(MemoryBus(), cfg=cfg, now_fn=lambda: 0.0, device="cuda")
+    evolver = StrategyEvolver(recording_bus()[0], cfg=cfg, now_fn=lambda: 0.0, device="cuda")
     sweep_kernel.launches = fused_ewma.launches = 0
     with counted(ga, "host_read") as reads:
         torch.cuda.synchronize()
@@ -4831,7 +4836,7 @@ def strategy_k1(d_year):
                             "k1_launches": sweep_kernel.launches,
                             "k2_launches": fused_ewma.launches, "reads": len(reads),
                             "best_fitness": out["detail"]["history"][-1]["best_fitness"]}
-    improver = SystematicImprover(StrategyEvolver(MemoryBus(), cfg=cfg, now_fn=lambda: 0.0,
+    improver = SystematicImprover(StrategyEvolver(recording_bus()[0], cfg=cfg, now_fn=lambda: 0.0,
                                                   device="cuda"),
                                   max_iterations=1, target_sharpe=1e9)
     sweep_kernel.launches = 0
@@ -5042,6 +5047,564 @@ def phase_strategy(info, d_year):
     return k1_entry, k2_entry
 
 
+# --- phase live: the live signal path ---------------------------------------
+
+LIVE_TRADING = {"ai_confidence_threshold": 0.0, "min_signal_strength": 0.0,
+                "min_trade_amount": 1.0}          # bench_recovery's (bench.py:974-975)
+LIVE_LABELS = ("symbol", "signal", "trend", "top_family")
+LIVE_FRAME_LABELS = tuple(f"signal_{iv}" for iv in TICK_FRAMES[1:])
+
+
+def live_tolerance(key, ref):
+    """(rtol, atol) of a market_updates field of one device's run against
+    another's: 1e-5 relative, and the bounds tests/test_torch_tick.py
+    derives for the fields that carry MACD (its 1e-3 + 2e-6·|close|; the
+    signal strength's min(|MACD|, 1)·20 term; the 2e-3 of the families and
+    the confluence that carry its tanh) or the long SMAs (the trend
+    strength's 5e-5).  The frames' MACD is bounded by the 1m close (the
+    frames' last bar closes there)."""
+    close, macd = abs(ref["current_price"]), abs(ref["macd"])
+    if key == "signal_strength":
+        return 1e-5, 1e-4 + (20 * (1e-3 + 2e-6 * close) if macd < 1.0 else 0.0)
+    if key.startswith("macd"):
+        return 2e-5, 1e-3 + 2e-6 * close
+    if key in ("confluence", "top_family_score"):
+        return 1e-5, 2e-3
+    if key == "trend_strength":
+        return 1e-5, 5e-5
+    return 1e-5, 1e-6
+
+
+def near_threshold(update, suffix=""):
+    """A signal's vote sits on a threshold: its MACD within 1e-4·close of 0,
+    or its RSI within 1e-2 of 35 or 45 (phase tick's rule)."""
+    macd, rsi = update["macd" + suffix], update["rsi" + suffix]
+    return (abs(macd) <= 1e-4 * update["current_price"]
+            or min(abs(rsi - 35.0), abs(rsi - 45.0)) <= 1e-2)
+
+
+def compare_updates(got, ref, label, flips):
+    """One symbol's market_updates payload of two runs: labels equal but for
+    flips near a threshold (counted into ``flips``, their strength skipped),
+    floats within `live_tolerance`, the volume profile at 1e-5."""
+    if set(got) != set(ref):
+        fail(f"{label}: payload keys differ: {sorted(set(got) ^ set(ref))}")
+    skip = set()
+    for key in LIVE_LABELS + LIVE_FRAME_LABELS:
+        if key in ref and got[key] != ref[key]:
+            suffix = key[len("signal"):] if key.startswith("signal_") else ""
+            if key == "top_family":
+                # the strongest of 15 family scores: a near-tie within the
+                # families' bound may change hands
+                gs, rs = got["top_family_score"], ref["top_family_score"]
+                if abs(gs - rs) > 2e-3 + 1e-5 * abs(rs):
+                    fail(f"{label}: top family {got[key]} ({gs}) against {ref[key]} ({rs})")
+            elif key not in ("signal", "trend") + LIVE_FRAME_LABELS or \
+                    not near_threshold(ref, suffix):
+                fail(f"{label}: {key} {got[key]} against {ref[key]}, not near a threshold")
+            flips.append({"where": label, "key": key, "got": got[key], "ref": ref[key]})
+            skip.add("signal_strength")
+    for key, r in ref.items():
+        if key in LIVE_LABELS + LIVE_FRAME_LABELS or key in skip or isinstance(r, str):
+            continue
+        g = got[key]
+        if isinstance(r, dict):
+            for k2, r2 in r.items():
+                if abs(g[k2] - r2) > 1e-6 + 1e-5 * abs(r2):
+                    fail(f"{label}: {key}.{k2} {g[k2]} against {r2}")
+            continue
+        rtol, atol = live_tolerance(key, ref)
+        if not abs(g - r) <= atol + rtol * abs(r):
+            fail(f"{label}: {key} {g} against {r} (rtol {rtol}, atol {atol})")
+
+
+class LiveRig:
+    """The live path on one device at the bench's `tick_pipeline` width:
+    the tape's symbols on `make_exchange("fake", resilient=True)` as `cmd_trade`
+    builds it (cli.py:393-406: a virtual clock the adapter's sleeps
+    advance), the port's EventBus, MarketMonitor (frames 1m/3m/5m/15m, a
+    256-candle window), SignalAnalyzer (the rule backend) and TradeExecutor
+    with bench_recovery's trading parameters."""
+
+    def __init__(self, tape, device, cursor, pipelined=False, fused=True, symbols=None,
+                 executor=True):
+        from ai_crypto_trader_tpu_torch.config import TradingParams
+        from ai_crypto_trader_tpu_torch.data.ingest import OHLCV
+        from ai_crypto_trader_tpu_torch.shell import (
+            EventBus, LLMTrader, MarketMonitor, SignalAnalyzer, TradeExecutor, make_exchange)
+
+        self.clock = [1_000_000.0]
+        clock = self.clock
+        series = {s: OHLCV(timestamp=tape.ts, open=c[0], high=c[1], low=c[2], close=c[3],
+                           volume=c[4], symbol=s) for s, c in zip(tape.symbols, tape.cols)}
+        self.ex = make_exchange(
+            "fake", resilient=True, series=series,
+            resilient_opts={"now_fn": lambda: clock[0],
+                            "sleep": lambda s: clock.__setitem__(0, clock[0] + s)})
+        self.ex.advance(steps=cursor)
+        self.bus = EventBus(now_fn=lambda: clock[0])
+        self.updates = self.bus.subscribe("market_updates")
+        self.signals = self.bus.subscribe("trading_signals")
+        self.monitor = MarketMonitor(self.bus, self.ex, symbols=list(symbols or tape.symbols),
+                                     intervals=TICK_FRAMES, kline_limit=T_TICK,
+                                     now_fn=lambda: clock[0], pipelined=pipelined, fused=fused,
+                                     device=device)
+        self.analyzer = SignalAnalyzer(self.bus, trader=LLMTrader(model_version="chip_smoke"),
+                                       now_fn=lambda: clock[0])
+        self.executor = (TradeExecutor(self.bus, self.ex, trading=TradingParams(**LIVE_TRADING),
+                                       now_fn=lambda: clock[0], device=device)
+                         if executor else None)
+        self.payloads, self.decisions, self.fill_counts, self.poll_clocks = [], [], [], []
+
+    def advance(self):
+        self.ex.advance()
+        self.clock[0] += 60.0
+
+    def poll(self):
+        import asyncio
+
+        self.poll_clocks.append(self.clock[0])
+        return asyncio.run(self.monitor.poll())
+
+    def drain_updates(self):
+        q = self.updates
+        self.payloads.append({e["data"]["symbol"]: e["data"]
+                              for e in (q.get_nowait() for _ in range(q.qsize()))})
+
+    def analyze(self):
+        import asyncio
+
+        asyncio.run(self.analyzer.run_once())
+        q = self.signals
+        self.decisions.append([(e["data"]["symbol"], e["data"]["decision"],
+                                e["data"]["confidence"])
+                               for e in (q.get_nowait() for _ in range(q.qsize()))])
+
+    def execute(self):
+        """The executor's drain, then `on_price` for each open trade at the
+        close the monitor published (the launcher's stage order)."""
+        import asyncio
+
+        async def go():
+            await self.executor.run_once()
+            for s in list(self.executor.active_trades):
+                await self.executor.on_price(
+                    s, self.bus.get(f"market_data_{s}")["current_price"])
+
+        asyncio.run(go())
+        self.fill_counts.append(len(self.ex.fills))
+
+    def tick(self):
+        self.advance()
+        self.poll()
+        self.drain_updates()
+        self.analyze()
+        self.execute()
+
+    def books(self):
+        """A copy of the trades so far: fills, balances, resting orders,
+        closures and open trades."""
+        import copy
+
+        ex, exe = self.ex, self.executor
+        return copy.deepcopy({"fills": ex.fills, "balances": ex.get_balances(),
+                              "open_orders": ex.list_open_orders(),
+                              "closed": exe.closed_trades,
+                              "active": exe.snapshot_state()["active"]})
+
+
+def live_run(tape, cursor):
+    """Run A: LIVE_TICKS ticks on the card in the launcher's stage order,
+    each poll with its K2 launches recorded, its tick-engine host reads
+    counted and torch's sync debug mode on (the one read exempt); the
+    executor's sizing and stop reads counted apart.  `obs.tickpath` is on
+    (the poll's phases; the program's CUDA-event span is read after the
+    poll's one read) and each stage is timed on the host clock, the sync
+    check's own probes outside the timers; then torch.profiler over one
+    more whole tick for the device's idle share."""
+    import torch
+
+    from ai_crypto_trader_tpu_torch.obs import tickpath
+    from ai_crypto_trader_tpu_torch.ops import tick_engine
+    from ai_crypto_trader_tpu_torch.ops.ewma import fused_ewma
+    from ai_crypto_trader_tpu_torch.shell import executor as executor_mod
+
+    rig = LiveRig(tape, "cuda", cursor)
+    scope = tickpath.TickPathScope()
+    reads, launches, exe_reads = [], [], []
+    real_read, real_exe_read = tick_engine.host_read, executor_mod.host_read
+
+    def quiet_read(readback):                  # the poll's one sanctioned sync
+        reads.append(1)
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            return real_read(readback)
+        finally:
+            torch.cuda.set_sync_debug_mode("warn")
+
+    def counted_exe_read(values):
+        exe_reads.append(1)
+        return real_exe_read(values)
+
+    marks, per_poll = {}, []
+
+    def timed_poll():
+        marks["t0"] = time.perf_counter()
+        rig.poll()
+        marks["t1"] = time.perf_counter()
+
+    tick_engine.host_read, executor_mod.host_read = quiet_read, counted_exe_read
+    try:
+        with tickpath.use(scope):
+            for t in range(LIVE_TICKS):
+                rig.advance()
+                n_reads, n_rec = len(reads), len(launches)
+                fused_ewma.launches = 0
+                with recording_ewma(launches):
+                    syncs = sync_calls(timed_poll)
+                p = {"k2": fused_ewma.launches, "recorded": len(launches) - n_rec,
+                     "host_reads": len(reads) - n_reads, "syncs": syncs,
+                     "poll_ms": 1e3 * (marks["t1"] - marks["t0"])}
+                t1 = time.perf_counter()
+                rig.drain_updates()
+                rig.analyze()
+                t2 = time.perf_counter()
+                n_exe = len(exe_reads)
+                rig.execute()
+                t3 = time.perf_counter()
+                p.update({"executor_reads": len(exe_reads) - n_exe,
+                          "analyzer_ms": 1e3 * (t2 - t1), "executor_ms": 1e3 * (t3 - t2),
+                          "tick_ms": p["poll_ms"] + 1e3 * (t3 - t1)})
+                per_poll.append(p)
+    finally:
+        tick_engine.host_read, executor_mod.host_read = real_read, real_exe_read
+    for t, p in enumerate(per_poll):
+        if (p["k2"], p["recorded"], p["host_reads"]) != (3, 3, 1):
+            fail(f"live: poll {t} made {p['k2']} K2 launches ({p['recorded']} recorded) and "
+                 f"{p['host_reads']} tick-engine host reads, not 3 and 1")
+        if p["syncs"]:
+            fail(f"live: poll {t} made {len(p['syncs'])} synchronizing calls besides its "
+                 f"read: {p['syncs'][:3]}")
+    keys = ("poll_ms", "analyzer_ms", "executor_ms", "tick_ms")
+    timing = {k: {"p50": percentile([p[k] for p in per_poll], 50),
+                  "p99": percentile([p[k] for p in per_poll], 99)} for k in keys}
+    status = scope.status()
+    timing["poll_phases_ms"] = {k: {"p50": v["p50_ms"], "p99": v["p99_ms"], "count": v["count"]}
+                                for k, v in status["phases"].items() if v["count"]}
+    timing["overlap_headroom_ms"] = status["overlap_headroom_ms"]
+    timing["cold_start"] = scope.coldstart_status()
+    payloads, books = list(rig.payloads), rig.books()
+    decisions, fill_counts = list(rig.decisions), list(rig.fill_counts)
+    try:
+        timing["profile_one_tick"] = device_profile(rig.tick)
+    except Exception as ex:  # noqa: BLE001 — a profiler that cannot trace is reported, not fatal
+        timing["profile_one_tick"] = {"measured": False, "reason": repr(ex)[:300]}
+    run = {"payloads": payloads, "books": books, "decisions": decisions,
+           "fill_counts": fill_counts, "poll_clocks": list(rig.poll_clocks)}
+    return run, launches, per_poll, timing
+
+
+def live_k2(launches, label):
+    """Every recorded K2 launch held against the plain version job by job
+    and launched twice for the same bits (`ewma_check`); the first poll's
+    three launches timed beside the plain version, the barrier floor and
+    the bound."""
+    from ai_crypto_trader_tpu_torch.ops.ewma import (
+        barrier_launch, fused_ewma_jobs, fused_ewma_plain, tile_count)
+
+    checks = []
+    for i, jobs in enumerate(launches):
+        named = [(f"job{j}_K{len(a)}_start{st}", x.reshape(-1, x.shape[-1]), a, st)
+                 for j, (x, a, st) in enumerate(jobs)]
+        checks.append(ewma_check(named, f"{label}_launch{i}"))
+    timed = []
+    per_poll = 3 if label == "live_poll" else len(launches)
+    for jobs in launches[:per_poll]:
+        args = [(x.reshape(-1, x.shape[-1]), a, st) for x, a, st in jobs]
+        n_tiles = tile_count([x.shape for x, _, _ in args])
+        kmax = max(len(a) for _, a, _ in args)
+        b_ms, o_ms = ewma_jobs_bound(args)
+        timed.append({"ms": cuda_ms(lambda: fused_ewma_jobs(args, device="cuda"), 20),
+                      "barrier_only_ms": cuda_ms(lambda: barrier_launch(n_tiles, kmax), 20),
+                      "plain_ms": sum(cuda_ms(lambda: fused_ewma_plain(x, a, st), 3)
+                                      for x, a, st in args),
+                      "bytes_bound_ms": b_ms, "operations_bound_ms": o_ms})
+    all_jobs = [(x.reshape(-1, x.shape[-1]), a, st)
+                for jobs in launches[:per_poll] for x, a, st in jobs]
+    b_ms, o_ms = ewma_jobs_bound(all_jobs)
+    return {"launches_held": len(checks), "ms": sum(t["ms"] for t in timed),
+            "ms_per_launch": [t["ms"] for t in timed],
+            "plain_ms": sum(t["plain_ms"] for t in timed),
+            "barrier_only_ms": sum(t["barrier_only_ms"] for t in timed),
+            "bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else "operations",
+            "max_abs_err": max(j["max_abs_err"] for c in checks for j in c["jobs"]),
+            "max_rel_err": max(j["max_rel_err"] for c in checks for j in c["jobs"]),
+            "plans": [c["plan"] for c in checks[:per_poll]]}
+
+
+def live_per_symbol(tape, cursor, fused_payload):
+    """The per-symbol path (`fused=False`) for one symbol × 4 frames on the
+    card at the cursor of run A's last poll: its K2 launches recorded and
+    held, its payload against the fused path's within `live_tolerance`."""
+    from ai_crypto_trader_tpu_torch.ops.ewma import fused_ewma
+
+    sym = tape.symbols[0]
+    rig = LiveRig(tape, "cuda", cursor, fused=False, symbols=[sym], executor=False)
+    rig.clock[0] = fused_payload["timestamp"]
+    launches = []
+    fused_ewma.launches = 0
+    with recording_ewma(launches):
+        t0 = time.perf_counter()
+        n = rig.poll()
+        ms = 1e3 * (time.perf_counter() - t0)
+    n_launch = fused_ewma.launches
+    want = 3 * len(TICK_FRAMES)        # compute_indicators' 2 and rsi(close, 7) a frame
+    if n != 1 or n_launch != want or len(launches) != want:
+        fail(f"live: the per-symbol poll published {n} updates with {n_launch} K2 launches "
+             f"({len(launches)} recorded), not 1 and {want}")
+    rig.drain_updates()
+    flips = []
+    compare_updates(rig.payloads[-1][sym], fused_payload, f"live per-symbol {sym}", flips)
+    k2 = live_k2(launches, "live_per_symbol")
+    return {"symbol": sym, "poll_ms": ms, "k2_launches": n_launch, "flips_vs_fused": flips,
+            "k2": k2}
+
+
+def live_scan():
+    """`cli scan` at its defaults (64 pairs × 256 candles): as a subprocess
+    on the card (exit 0, its JSON), in this process on the card with its K2
+    launches recorded (exactly 2) and held, and on the CPU: the ranking
+    equal, in the same order."""
+    import contextlib as ctx
+    import io
+    import os
+
+    from ai_crypto_trader_tpu_torch import cli
+    from ai_crypto_trader_tpu_torch.ops.ewma import fused_ewma
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "ai_crypto_trader_tpu_torch.cli", "scan"],
+                          cwd=root, capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"live: cli scan exited {proc.returncode}: {proc.stderr[-800:]}")
+    sub = json.loads(proc.stdout.strip().splitlines()[-1])
+
+    def in_process(argv):
+        buf = io.StringIO()
+        with ctx.redirect_stdout(buf):
+            t = time.perf_counter()
+            cli.main(argv)
+            ms = 1e3 * (time.perf_counter() - t)
+        return json.loads(buf.getvalue().strip().splitlines()[-1]), ms
+
+    launches = []
+    fused_ewma.launches = 0
+    with recording_ewma(launches):
+        card, card_ms = in_process(["scan"])
+    n_launch = fused_ewma.launches
+    if n_launch != 2 or len(launches) != 2:
+        fail(f"live: cli scan made {n_launch} K2 launches ({len(launches)} recorded), not 2")
+    cpu, cpu_ms = in_process(["scan", "--device", "cpu"])
+    order = [o["symbol"] for o in cpu["ranked"]]
+    for name, run in (("subprocess", sub), ("in-process", card)):
+        if [o["symbol"] for o in run["ranked"]] != order or run["discovered"] != 64:
+            fail(f"live: cli scan's {name} ranking on the card differs from the CPU's: "
+                 f"{[o['symbol'] for o in run['ranked']]} against {order}")
+    score_diff = max((abs(a["score"] - b["score"]) for a, b in zip(card["ranked"], cpu["ranked"])),
+                     default=0.0)
+    return {"exit_code": proc.returncode, "subprocess_s": wall, "discovered": sub["discovered"],
+            "ranked": order, "k2_launches": n_launch, "card_ms": card_ms, "cpu_ms": cpu_ms,
+            "max_score_diff_card_cpu": score_diff, "k2": live_k2(launches, "live_scan")}
+
+
+def live_recovery():
+    """Recovery at bench_recovery's shape (bench.py:953-1018): 1,000
+    journaled trades (entry, close) by an executor on the card, then a
+    fresh executor on the card recovers from the journal; its books must
+    equal the writer's."""
+    import asyncio
+    import os
+    import tempfile
+
+    from ai_crypto_trader_tpu_torch.config import TradingParams
+    from ai_crypto_trader_tpu_torch.data import from_dict, generate_ohlcv
+    from ai_crypto_trader_tpu_torch.shell import EventBus, FakeExchange, TradeExecutor
+    from ai_crypto_trader_tpu_torch.utils.journal import WriteAheadJournal
+
+    n_trades = 1_000
+    clock = {"t": 0.0}
+    series = from_dict(generate_ohlcv(n=2 * n_trades + 200, seed=11), symbol="BTCUSDC")
+    ex = FakeExchange({"BTCUSDC": series}, quote_balance=1e9, fee_rate=0.0)
+    ex.advance(steps=64)
+    trading = TradingParams(**LIVE_TRADING)
+
+    def executor(journal):
+        return TradeExecutor(EventBus(now_fn=lambda: clock["t"]), ex, trading=trading,
+                             now_fn=lambda: clock["t"], journal=journal, device="cuda")
+
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "trades.journal")
+        writer = executor(WriteAheadJournal(path))
+        writer.COMPACT_EVERY = 10 ** 9
+
+        async def drive():
+            for _ in range(n_trades):
+                price = ex.get_ticker("BTCUSDC")["price"]
+                trade = await writer.handle_signal({
+                    "symbol": "BTCUSDC", "signal": "BUY", "decision": "BUY",
+                    "confidence": 1.0, "signal_strength": 100.0, "current_price": price,
+                    "volatility": 0.015, "avg_volume": 60_000.0})
+                ex.advance()
+                clock["t"] += 60.0
+                if trade is not None:
+                    await writer.close_trade("BTCUSDC", ex.get_ticker("BTCUSDC")["price"],
+                                             "Bench")
+
+        t0 = time.perf_counter()
+        asyncio.run(drive())
+        write_s = time.perf_counter() - t0
+        writer.journal.flush()
+        n_records = writer.journal.seq
+        t0 = time.perf_counter()
+        fresh = executor(None)
+        journal = WriteAheadJournal(path)
+        fresh.journal = journal
+        report = asyncio.run(fresh.recover_from_journal(journal))
+        ms = 1e3 * (time.perf_counter() - t0)
+        journal.close()
+    want, got = writer.snapshot_state(), fresh.snapshot_state()
+    if len(writer.closed_trades) != n_trades or got != want:
+        fail(f"live: recovery rebuilt {got['closed_total_n']} closed trades and "
+             f"{len(got['active'])} open, the writer {want['closed_total_n']} and "
+             f"{len(want['active'])}; books equal: {got == want}")
+    return {"trades": n_trades, "journal_records": n_records,
+            "replayed_records": report["replayed_records"], "recovery_ms": ms,
+            "write_s": write_s, "books_equal_writer": True}
+
+
+def phase_live(info):
+    """The live signal path on the card at the bench's `tick_pipeline` width
+    (64 symbols × frames 1m/3m/5m/15m × a 256-candle window on the
+    resilient paper exchange): LIVE_TICKS ticks of ex.advance → monitor.poll
+    → analyzer.run_once → executor.run_once → on_price, checked (3 K2
+    launches and one host read a poll, no other sync, every launch held
+    against the plain EWMA) and timed (tickpath's split of the poll,
+    torch.profiler over one more tick); the same ticks on the CPU (payloads
+    within `live_tolerance`, label flips only near a threshold, trades
+    equal where the decisions agree); the pipelined monitor's payloads over
+    LIVE_PIPE_TICKS ticks against the serial ones shifted by one tick; the
+    per-symbol path; `cli scan`; journal recovery at bench_recovery's
+    shape.  Returns K2's entry for the kernels line."""
+    import asyncio
+
+    t_phase = time.perf_counter()
+    tape = TickTape(S_TICK, T_TICK)
+    # every frame full; the tape's first BUY run starts at its 4th tick (all
+    # 64 symbols are one series scaled, so they signal together), and 26
+    # candles are left after the 21 ticks
+    cursor = tape.n - 48
+    run_a, launches, per_poll, timing = live_run(tape, cursor)
+
+    # --- the CPU run of the same ticks ------------------------------------
+    rig_c = LiveRig(tape, "cpu", cursor)
+    t0 = time.perf_counter()
+    for _ in range(LIVE_TICKS):
+        rig_c.tick()
+    cpu_s = time.perf_counter() - t0
+    flips = []
+    for t, (card, cpu) in enumerate(zip(run_a["payloads"], rig_c.payloads)):
+        if set(card) != set(cpu) or len(card) != S_TICK:
+            fail(f"live: tick {t} published {len(card)} updates on the card, {len(cpu)} on "
+                 "the CPU")
+        for s in cpu:
+            compare_updates(card[s], cpu[s], f"live tick {t} {s}", flips)
+    n_labels = LIVE_TICKS * S_TICK * len(TICK_FRAMES)
+    if len(flips) > n_labels // 1000:
+        fail(f"live: {len(flips)} label flips card vs CPU, over one in 1,000 of {n_labels}")
+    # trades: equal wherever the decisions agree — all of them when every
+    # tick's decisions agree, else the fills made before the first tick
+    # whose decisions differ
+    card_books, cpu_books = run_a["books"], rig_c.books()
+    diverge = next((t for t, (a, b) in enumerate(zip(run_a["decisions"], rig_c.decisions))
+                    if a != b), None)
+    if diverge is None:
+        if card_books != cpu_books:
+            fail("live: the decisions agree but the trades on the card differ from the CPU's")
+        compared_fills = len(card_books["fills"])
+    else:
+        compared_fills = run_a["fill_counts"][diverge - 1] if diverge else 0
+        if card_books["fills"][:compared_fills] != cpu_books["fills"][:compared_fills] or \
+                (diverge and rig_c.fill_counts[diverge - 1] != compared_fills):
+            fail(f"live: the trades before tick {diverge}, where the decisions agree, differ")
+    entries = sum(f["side"] == "BUY" for f in card_books["fills"][:compared_fills])
+    if entries < 1:
+        fail("live: no entry where the decisions agree: the trade comparison is vacuous")
+    if not all(math.isfinite(u[k]) for p in run_a["payloads"] for u in p.values()
+               for k in ("current_price", "rsi", "macd", "confluence")):
+        fail("live: a published value is not finite")
+
+    # --- pipelined against serial, shifted by one tick --------------------
+    rig_p = LiveRig(tape, "cuda", cursor, pipelined=True, executor=False)
+    for t in range(LIVE_PIPE_TICKS):
+        rig_p.advance()
+        # the serial run's clock at this poll: its executor's venue calls
+        # moved the virtual clock (rate-limit sleeps), and a payload is
+        # stamped with the clock at its poll
+        rig_p.clock[0] = run_a["poll_clocks"][t]
+        rig_p.poll()
+        rig_p.drain_updates()
+    asyncio.run(rig_p.monitor.flush_pipeline())
+    rig_p.drain_updates()
+    serial = run_a["payloads"][:LIVE_PIPE_TICKS]
+    if rig_p.payloads[0] or rig_p.payloads[1:] != serial:
+        where = next(((t, sym, k) for t, (p, a) in enumerate(zip(rig_p.payloads[1:], serial))
+                      for sym in a for k in a[sym] if p.get(sym, {}).get(k) != a[sym][k]),
+                     None)
+        fail("live: the pipelined monitor's payloads differ from the serial ones shifted by "
+             f"one tick (first at tick, symbol, key {where}; {len(rig_p.payloads)} drains)")
+
+    per_symbol = live_per_symbol(tape, cursor + LIVE_TICKS,
+                                 run_a["payloads"][-1][tape.symbols[0]])
+    k2 = live_k2(launches, "live_poll")
+    scan = live_scan()
+    recovery = live_recovery()
+    exe_reads = [p["executor_reads"] for p in per_poll]
+    report = {"phase": "live", "card": info["nvidia_smi"], "symbols": S_TICK,
+              "frames": list(TICK_FRAMES), "window": T_TICK, "ticks": LIVE_TICKS,
+              "k2_launches_per_poll": 3, "host_reads_per_poll": 1,
+              "host_syncs_per_poll_besides_read": 0,
+              "executor_reads_per_tick": exe_reads, "k2": k2,
+              "timing": timing, "cpu_run_s": cpu_s,
+              "card_vs_cpu": {"label_flips": len(flips), "labels": n_labels,
+                              "flips": flips[:5], "decisions_diverge_at_tick": diverge,
+                              "fills_compared": compared_fills,
+                              "trades_equal": card_books == cpu_books},
+              "entries": entries, "closed_trades": len(card_books["closed"]),
+              "open_trades": len(card_books["active"]),
+              "pipelined_equal_serial_shifted": True, "pipelined_ticks": LIVE_PIPE_TICKS,
+              "per_symbol": per_symbol,
+              "scan": scan, "recovery": recovery,
+              "phase_s": time.perf_counter() - t_phase}
+    emit(report)
+    return {"launches_per_poll": 3, "polls": LIVE_TICKS,
+            "launches": 3 * LIVE_TICKS + per_symbol["k2_launches"] + scan["k2_launches"],
+            "launches_by_path": {"monitor_polls": 3 * LIVE_TICKS,
+                                 "per_symbol_poll": per_symbol["k2_launches"],
+                                 "cli_scan": scan["k2_launches"]},
+            **{k: k2[k] for k in ("ms", "ms_per_launch", "plain_ms", "barrier_only_ms",
+                                  "bound_ms", "bound_by", "max_abs_err", "max_rel_err")},
+            "library_ms": None,
+            "per_symbol": {k: per_symbol["k2"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                                             "bound_by", "max_abs_err")},
+            "scan": {k: scan["k2"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                 "max_abs_err")},
+            "poll_ms_p50": timing["poll_ms"]["p50"], "tick_ms_p50": timing["tick_ms"]["p50"],
+            "shape": f"a poll's 3 launches at S={S_TICK} x F={len(TICK_FRAMES)} x T={T_TICK}; "
+                     "per_symbol: one symbol's 12 (3 a frame); scan: 2 over [64, 256]"}
+
+
 def main():
     import torch
 
@@ -5079,6 +5642,7 @@ def main():
     sim_k1, sim_k2 = phase_sim(info)
     regime = phase_service(info)
     strat_k1, strat_k2 = phase_strategy(info, d)
+    live = phase_live(info)
     bound_ms, bound_by, stepped_bound_ms = replay_bound_ms(stats, B_FULL, T_FULL)
     checks += full
     kernels = [
@@ -5104,6 +5668,7 @@ def main():
          "sim": sim_k2,
          "regime": regime,
          "strategy": strat_k2,
+         "live": live,
          "shape": "the two launches of compute_indicators at T=525600, summed "
                   "(A: close K=2 + up/dn/tr K=1; B: MACD line K=1)"},
         {"name": "replay_sweep", "route": "cuda",

@@ -57,6 +57,9 @@ from ai_crypto_trader_tpu_torch.sim import engine as sim_engine
 from ai_crypto_trader_tpu_torch.sim import exchange as sim_exchange
 from ai_crypto_trader_tpu_torch.sim.engine import scenario_env_params
 from ai_crypto_trader_tpu_torch.sim.lob import flow_params, lob_candles, lob_sweep, rollout_lob
+from ai_crypto_trader_tpu_torch import cli as port_cli
+from ai_crypto_trader_tpu_torch.shell import EventBus, FakeExchange, MarketMonitor, TradeExecutor
+from ai_crypto_trader_tpu_torch.shell.scanner import MarketScanner, score_pairs
 from ai_crypto_trader_tpu_torch.sim.paths import bootstrap_candles, gbm_candles, path_params
 from ai_crypto_trader_tpu_torch.models import LongContextTransformer
 from ai_crypto_trader_tpu_torch.social import analyzer as social_analyzer
@@ -93,14 +96,23 @@ expected = {"config", "ops.dynamic", "backtest.evolvable", "evolve", "evolve.ga"
             "data.fetchers", "shell", "shell.llm", "strategy.generator",
             "strategy.evaluation", "strategy.evolution", "strategy.improver",
             "strategy.selection", "strategy.explain", "parallel.ring_attention",
-            "models.long_context", "social", "social.analyzer"}
+            "models.long_context", "social", "social.analyzer", "utils.symbols",
+            "utils.circuit_breaker", "utils.rate_limiter", "utils.metrics", "utils.tracing",
+            "utils.devprof", "obs.tickpath", "shell.bus", "shell.exchange", "shell.monitor",
+            "shell.analyzer", "shell.executor", "shell.scanner"}
 missing = sorted(e for e in expected if pkg.__name__ + "." + e not in names)
 print(missing)
 from ai_crypto_trader_tpu_torch import obs, utils
-from ai_crypto_trader_tpu_torch import models, social, strategy
+from ai_crypto_trader_tpu_torch import models, shell, social, strategy
 exports = {"obs": {"DRIFT_FEATURES", "N_BINS", "PSI_ALERT_THRESHOLD", "reference_histogram",
                    "FleetScope", "Scorecard"},
-           "utils": {"save_checkpoint", "load_checkpoint"},
+           "utils": {"save_checkpoint", "load_checkpoint", "CircuitBreaker", "CircuitState",
+                     "get_circuit_breaker", "retry_with_backoff", "TokenBucket",
+                     "MetricsRegistry"},
+           "shell": {"EventBus", "ExchangeInterface", "ExchangeUnavailable", "FakeExchange",
+                     "ResilientExchange", "make_exchange", "LLMTrader", "OpenAIBackend",
+                     "TechnicalPolicyBackend", "UrllibPostTransport", "MarketMonitor",
+                     "SignalAnalyzer", "TradeExecutor"},
            "strategy": {"compare_strategies", "cross_validate", "trade_metrics",
                         "StrategySelector", "StrategyEvolver", "ModelRegistry",
                         "explain_signal", "GeneratorService", "StrategyGenerator",
@@ -110,7 +122,7 @@ exports = {"obs": {"DRIFT_FEATURES", "N_BINS", "PSI_ALERT_THRESHOLD", "reference
            "models": {"LongContextTransformer", "LongContextBlock", "RingSelfAttention",
                       "long_context_loss"}}
 modules = {"obs": obs, "utils": utils, "strategy": strategy, "social": social,
-           "models": models}
+           "models": models, "shell": shell}
 missing += sorted(f"{m}.{n}" for m, names in exports.items() for n in names
                   if not hasattr(modules[m], n))
 print(missing)
@@ -118,6 +130,7 @@ from ai_crypto_trader_tpu_torch import cli
 cli.main(["rl", "--device", "cpu", "--population", "2", "--generations", "1", "--iters", "1",
           "--envs", "2", "--rollout", "2", "--scenarios", "2", "--steps", "96",
           "--episode-len", "16"])
+cli.main(["scan", "--device", "cpu", "--pairs", "4", "--lookback", "32"])
 import tempfile
 with tempfile.TemporaryDirectory() as tmp:
     cli.main(["generate", "--device", "cpu", "--days", "1", "--folds", "2", "--pool", "2",
@@ -126,7 +139,7 @@ bad += sorted(m for m in sys.modules
               if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
               or re.match(r"ai_crypto_trader_tpu(?!_torch)(\.|$)", m))
 print(bad)
-sys.exit(1 if bad or missing or len(names) < 91 else 0)
+sys.exit(1 if bad or missing or len(names) < 104 else 0)
 """
 
 
@@ -294,6 +307,12 @@ _ENTRY_POINTS = {
         centroids=np.ones((2, 2), np.float32))),
     "standardizer_from_jax": lambda: convert.standardizer_from_jax(SimpleNamespace(
         mean=np.ones(2, np.float32), std=np.ones(2, np.float32))),
+    "MarketMonitor": lambda: MarketMonitor(EventBus(), FakeExchange({})),
+    "TradeExecutor": lambda: TradeExecutor(EventBus(), FakeExchange({})),
+    "MarketScanner": lambda: MarketScanner(FakeExchange({})),
+    "score_pairs": lambda: score_pairs({k: np.ones((2, 8), np.float32)
+                                        for k in ("open", "high", "low", "close", "volume")}),
+    "cli_scan": lambda: port_cli.main(["scan", "--pairs", "2", "--lookback", "16"]),
 }
 
 _BOOK = np.stack([np.arange(8, dtype=np.float32) + 1, np.ones(8, np.float32)], axis=1)
