@@ -2,8 +2,10 @@
 live tick and decision path, portfolio backtest, risk layer, Monte-Carlo
 engine, price-model zoo and chart-pattern classifier (training and
 serving), RL trainer (the DQN, the simulated markets, the PBT fleet),
-and the live signal path (bus, paper exchange, monitor, analyzer,
-executor, scanner).
+the live signal path (bus, paper exchange, monitor, analyzer, executor,
+scanner), and the trading system that wires it into one process with its
+observability rim (flight recorder, alerts, health, supervision,
+saturation, structured log, PnL attribution, dashboard).
 
 The chains, module for module after the JAX package:
 
@@ -41,6 +43,12 @@ The chains, module for module after the JAX package:
         trailing stops on the device; journal and recovery on the host)
     exchange klines → shell.scanner.MarketScanner.scan (score_pairs over
         [P, T] on the device; one host read) — `cli scan`
+    shell.launcher.TradingSystem.tick: the monitor → analyzer → executor
+        stages under utils.supervision, then obs.flightrec /
+        obs.attribution / obs.scorecard, the risk block (risk.var on the
+        device; one host read of its four figures, one of the correlation
+        matrix), utils.alerts, utils.saturation, shell.dashboard —
+        `cli trade --paper`, and `cli why` over the flight recorder's file
 
 Plain tensor code is PyTorch; the two Pallas kernels of the JAX package on
 these paths are CUDA C++ kernels for Hopper (``csrc/``), built with nvcc on

@@ -1,9 +1,10 @@
 """Command-line interface of the port: the ``backtest``, ``train``,
-``evolve``, ``rl``, ``generate`` and ``scan`` subcommands.
+``evolve``, ``rl``, ``generate``, ``scan``, ``trade`` and ``why``
+subcommands.
 
 Same flags and output as ``python -m ai_crypto_trader_tpu.cli backtest`` /
-``train`` / ``evolve`` / ``rl`` / ``generate`` / ``scan``, plus ``--device
-{cuda,cpu}`` (default cuda):
+``train`` / ``evolve`` / ``rl`` / ``generate`` / ``scan`` / ``trade`` /
+``why``, plus ``--device {cuda,cpu}`` (default cuda):
 
     python -m ai_crypto_trader_tpu_torch.cli backtest --days 365 --sweep 4096
     python -m ai_crypto_trader_tpu_torch.cli train --days 7 --model lstm --epochs 5
@@ -11,6 +12,8 @@ Same flags and output as ``python -m ai_crypto_trader_tpu.cli backtest`` /
     python -m ai_crypto_trader_tpu_torch.cli rl --population 8 --dynamics lob
     python -m ai_crypto_trader_tpu_torch.cli generate --days 7 --registry registry.json
     python -m ai_crypto_trader_tpu_torch.cli scan --pairs 64 --top 10
+    python -m ai_crypto_trader_tpu_torch.cli trade --paper --ticks 100 --flightrec decisions.jsonl
+    python -m ai_crypto_trader_tpu_torch.cli why BTCUSDC --file decisions.jsonl
 
 A CSV at ``backtesting/data/market/<symbol>/<symbol>_1m.csv`` is used when
 present; otherwise the deterministic synthetic series is generated.
@@ -36,13 +39,23 @@ and prints the held-out comparison of the seed and the best structure.
 ``scan`` synthesizes a universe of ``--pairs`` pairs with varied
 volatility/volume profiles behind the paper exchange, scores every pair in
 one pass on ``--device`` and prints the ranked table and its JSON.
+``trade --paper`` runs the trading system (`shell.launcher.TradingSystem`)
+for ``--ticks`` candles on a synthetic series behind the paper exchange,
+on a virtual clock every layer shares, and prints its final status JSON;
+``--journal`` makes its books crash-safe (an existing journal is replayed
+and reconciled first), ``--flightrec`` keeps the decision provenance that
+``why SYMBOL --file PATH`` prints.  The flags whose modules are not ported
+yet (``--full-stack``, ``--serve``, ``--devprof``, ``--meshprof``,
+``--aot-cache``) exit with code 2 and say so.
 """
 
 from __future__ import annotations
 
 import argparse
+import asyncio
 import json
 import os
+import sys
 import time
 
 import numpy as np
@@ -328,6 +341,140 @@ def cmd_scan(args):
     print(json.dumps({"discovered": len(series), "ranked": ranked}))
 
 
+# `trade` flags whose modules the port has not yet (ROADMAP item 16)
+_TRADE_NOT_PORTED = (("full_stack", "--full-stack"), ("serve", "--serve"),
+                     ("devprof", "--devprof"), ("meshprof", "--meshprof"),
+                     ("aot_cache", "--aot-cache"))
+
+
+def cmd_trade(args):
+    from ai_crypto_trader_tpu_torch.data.ingest import from_dict
+    from ai_crypto_trader_tpu_torch.data.synthetic import generate_ohlcv
+    from ai_crypto_trader_tpu_torch.shell.exchange import make_exchange
+    from ai_crypto_trader_tpu_torch.shell.launcher import TradingSystem
+
+    for attr, flag in _TRADE_NOT_PORTED:
+        if getattr(args, attr) not in (None, False):
+            print(f"trade {flag}: not ported to ai_crypto_trader_tpu_torch yet "
+                  "(ROADMAP item 16)", file=sys.stderr)
+            raise SystemExit(2)
+    if not args.paper:
+        print("live trading requires an injected exchange client; "
+              "use --paper in this environment")
+        return
+    d = generate_ohlcv(n=args.ticks + 600, seed=args.seed)
+    series = from_dict({k: v for k, v in d.items() if k != "regime"},
+                       symbol=args.symbol)
+    clock = {"t": 0.0}                   # virtual clock shared by all layers
+    # Paper mode rides the same resilient adapter seam as live trading
+    # (breaker + rate limit + retries around every exchange call), on the
+    # virtual clock so rate limiting never sleeps real wall-clock time.
+    ex = make_exchange(
+        "fake", resilient=True,
+        resilient_opts={"now_fn": lambda: clock["t"],
+                        "sleep": lambda s: clock.__setitem__("t", clock["t"] + s)},
+        series={args.symbol: series}, quote_balance=10_000.0)
+    ex.advance(args.symbol, steps=600)   # warm history so the monitor has a
+    #                                      full fixed-shape indicator window
+    resume = bool(args.journal) and os.path.exists(args.journal)
+    system = TradingSystem(ex, [args.symbol], now_fn=lambda: clock["t"],
+                           dashboard_path=args.dashboard,
+                           log_path=os.environ.get("LOG_PATH"),
+                           enable_tracing=bool(args.trace_jsonl),
+                           trace_jsonl=args.trace_jsonl,
+                           journal_path=args.journal,
+                           enable_fleetscope=args.fleetscope,
+                           flightrec_path=args.flightrec,
+                           pipelined=args.pipelined,
+                           precision=args.precision,
+                           device=args.device)
+    metrics_port = int(os.environ.get("METRICS_PORT", "0"))
+
+    async def go():
+        msrv = None
+        if resume:
+            # crash/restart recovery: replay the write-ahead journal, then
+            # reconcile the books against the exchange before trading
+            report = await system.recover()
+            print(json.dumps({"recovered": {
+                k: v for k, v in report.items() if k != "journal"}},
+                default=str), flush=True)
+        if metrics_port:
+            # Prometheus scrape target
+            msrv = await system.metrics.serve("0.0.0.0", metrics_port)
+            print(f"metrics: http://127.0.0.1:{metrics_port}/metrics",
+                  flush=True)
+        try:
+            for _ in range(args.ticks):
+                ex.advance(args.symbol)
+                clock["t"] += 60.0
+                await system.tick()
+                # tick()'s awaits all complete synchronously (in-process
+                # bus), so without an explicit suspension the loop never
+                # schedules the metrics server's connection handlers
+                await asyncio.sleep(0)
+            # pipelined tick path: the last dispatch is still in flight —
+            # drain it so its decisions publish before the status dump
+            await system.monitor.flush_pipeline()
+        finally:
+            if msrv is not None:
+                msrv.close()
+        print(json.dumps(system.status(), indent=2, default=str))
+
+    try:
+        asyncio.run(go())
+    finally:
+        system.shutdown()          # deactivate tracer + close span JSONL
+
+
+def cmd_why(args):
+    """Decision provenance for one symbol (obs/flightrec.py): the last N
+    decisions with their rejecting gate or execution chain
+    (signal → client_order_id → fill → closure PnL) plus the structured
+    explanation narrative.  Reads the checksummed decision JSONL a run
+    wrote (`trade --flightrec PATH`), or queries a live dashboard server's
+    /decisions endpoint with --url.  `--lane N` filters to one vmapped
+    tenant lane's sampled provenance.  Host code; ``--device`` is held
+    like every subcommand's (cuda without a card raises)."""
+    from ai_crypto_trader_tpu_torch import resolve_device
+    from ai_crypto_trader_tpu_torch.obs.flightrec import format_why, load_decisions
+
+    resolve_device(args.device)
+
+    if args.url:
+        import urllib.parse
+        import urllib.request
+
+        params = {"symbol": args.symbol, "limit": args.last}
+        if args.lane is not None:
+            params["lane"] = args.lane
+        query = urllib.parse.urlencode(params)
+        with urllib.request.urlopen(f"{args.url}/decisions?{query}",
+                                    timeout=10) as resp:
+            records = json.loads(resp.read())
+    else:
+        if not os.path.exists(args.file):
+            print(f"no decision journal at {args.file} — run "
+                  f"`trade --paper --flightrec {args.file}` first, "
+                  f"or query a live server with --url")
+            return
+        records, stats = load_decisions(args.file)
+        records = [r for r in records if r.get("symbol") == args.symbol]
+        if args.lane is not None:
+            records = [r for r in records if r.get("lane") == args.lane]
+        records = list(reversed(records[-args.last:]))
+        if stats.get("corrupt_records") or stats.get("torn_tail"):
+            print(f"(journal: {stats['corrupt_records']} corrupt records "
+                  f"skipped, torn tail={stats['torn_tail']})")
+    if not records:
+        where = f"{args.symbol}" + (f" lane {args.lane}"
+                                    if args.lane is not None else "")
+        print(f"no recorded decisions for {where}")
+        return
+    for line in format_why(records):
+        print(line)
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="ai_crypto_trader_tpu_torch",
                                 description=__doc__,
@@ -405,6 +552,70 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--seed", type=int, default=0)
     sp.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     sp.set_defaults(fn=cmd_scan)
+    sp = sub.add_parser("trade", help="run the live loop (paper mode)")
+    sp.add_argument("--symbol", default="BTCUSDC")
+    sp.add_argument("--days", type=int, default=7)
+    sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument("--paper", action="store_true")
+    sp.add_argument("--ticks", type=int, default=100)
+    sp.add_argument("--dashboard", default=None,
+                    help="write a static HTML snapshot per tick to this path")
+    sp.add_argument("--serve", type=int, default=None, metavar="PORT",
+                    help="serve the live dashboard on this port (not ported "
+                         "yet: exits 2)")
+    sp.add_argument("--full-stack", action="store_true",
+                    help="register the reference's full service roster "
+                         "(not ported yet: exits 2)")
+    sp.add_argument("--registry", default="models/registry.json",
+                    help="model-registry file for --full-stack versioning")
+    sp.add_argument("--trace-jsonl", default=None, metavar="PATH",
+                    help="enable end-to-end tracing and append every "
+                         "finished span to this JSONL file (utils/tracing.py)")
+    sp.add_argument("--journal", default=None, metavar="PATH",
+                    help="crash-safe state: write-ahead journal every "
+                         "order intent/ack/closure to PATH; if the file "
+                         "already exists, replay + reconcile it against "
+                         "the exchange before trading (utils/journal.py)")
+    sp.add_argument("--serve-hold-s", type=float, default=0.0,
+                    help="keep serving this many seconds after the ticks")
+    sp.add_argument("--devprof", action="store_true",
+                    help="device-runtime observatory (not ported yet: exits 2)")
+    sp.add_argument("--flightrec", default=None, metavar="PATH",
+                    help="persist the decision-provenance flight recorder "
+                         "(obs/flightrec.py) as checksummed JSONL to PATH "
+                         "— queryable offline via `why --file PATH`")
+    sp.add_argument("--meshprof", action="store_true",
+                    help="mesh runtime observatory (not ported yet: exits 2)")
+    sp.add_argument("--fleetscope", action="store_true",
+                    help="fleet observatory (obs/fleetscope.py): device-"
+                         "aggregated lane telemetry for any vmapped "
+                         "tenant engine in this process")
+    sp.add_argument("--pipelined", action="store_true",
+                    help="pipelined tick path (ops/tick_engine.py): "
+                         "double-buffered candle ring — publish tick T−1 "
+                         "while T computes on the card")
+    sp.add_argument("--precision", default=None,
+                    metavar="{f32,bf16,tf32}",
+                    help="matmul precision for the fused decide programs "
+                         "(default full f32)")
+    sp.add_argument("--aot-cache", default=None, metavar="DIR",
+                    help="persistent compile cache (not ported yet: exits 2)")
+    sp.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    sp.set_defaults(fn=cmd_trade)
+    sp = sub.add_parser("why", help="decision provenance for a symbol "
+                                    "(flight-recorder query)")
+    sp.add_argument("symbol")
+    sp.add_argument("--file", default="decisions.jsonl",
+                    help="decision JSONL written by trade --flightrec")
+    sp.add_argument("--url", default=None,
+                    help="query a live dashboard server instead "
+                         "(e.g. http://127.0.0.1:8050)")
+    sp.add_argument("--last", type=int, default=10)
+    sp.add_argument("--lane", type=int, default=None,
+                    help="filter to one vmapped tenant lane's sampled "
+                         "provenance")
+    sp.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    sp.set_defaults(fn=cmd_why)
     return p
 
 

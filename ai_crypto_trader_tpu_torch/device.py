@@ -31,7 +31,8 @@ the strategy layer's (`fold_features`, `evaluate_structures`,
 `fit_anomaly_model`, `detect_anomalies`, `lead_lag_correlation`,
 `sentiment_accuracy`, `adaptive_source_weights`), the live signal path's
 (`MarketMonitor`, `TradeExecutor`, `MarketScanner`, `score_pairs`, `cli
-scan`), and the `convert` functions —
+scan`), the trading system's (`TradingSystem`, `device_liveness`, `cli
+trade`, `cli why`), and the `convert` functions —
 takes ``device=None``, which means the CUDA card, and moves its inputs
 there.  The CPU is used only when the caller asks for it with
 ``device="cpu"`` (the tests do; there every kernel wrapper takes its plain

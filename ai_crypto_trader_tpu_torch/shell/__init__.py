@@ -1,7 +1,8 @@
 """The host shell of the port: the event bus, the exchange adapters, the
 LLM adapter, and the monitor → analyzer → executor services of the live
-signal path (with the market scanner in `shell.scanner`).  The launcher
-that wires them into one process is not ported yet."""
+signal path (with the market scanner in `shell.scanner`), the dashboard
+(`shell.dashboard`) and the trading system that wires them into one
+process (`shell.launcher.TradingSystem`)."""
 
 from ai_crypto_trader_tpu_torch.shell.bus import EventBus  # noqa: F401
 from ai_crypto_trader_tpu_torch.shell.exchange import (  # noqa: F401

@@ -9,8 +9,8 @@ technical signal (the executor cross-checks both, as in the reference).
 Port of `ai_crypto_trader_tpu/shell/analyzer.py`: host code, copied, over
 the port's `LLMTrader` (the offline `TechnicalPolicyBackend` by default),
 `strategy.explain` and `obs.tickpath`'s event age.  The trade-outcome gate
-and the flight recorder stay injected (``None`` by default): the JAX
-package's `FlightRecorder` is not ported yet.
+and the flight recorder stay injected (``None`` by default); the trading
+system (`shell.launcher`) wires its `obs.flightrec.FlightRecorder` in.
 """
 
 from __future__ import annotations

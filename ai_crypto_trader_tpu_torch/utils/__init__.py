@@ -1,6 +1,7 @@
 """Host utilities of the port: the circuit breaker and token bucket of the
 exchange seam, checkpoints, the metrics registry, tracing, the write-ahead
-journal and symbol helpers."""
+journal, symbol helpers, and the trading system's rim: alerts, health,
+saturation, stage supervision and the structured log."""
 
 from ai_crypto_trader_tpu_torch.utils.circuit_breaker import (  # noqa: F401
     CircuitBreaker,

@@ -242,13 +242,30 @@ imports nothing of JAX or of the JAX package.  Phases, one JSON line each:
                 (12 K2 launches); `cli scan` at its defaults (2 K2
                 launches, the CPU's ranking); journal recovery of 1,000
                 trades;
- 18. kernels  — one line with each kernel's launches, error, times and
+ 18. trade    — the trading system (`TradingSystem`) at the same width on
+                the same exchange, with a journal, a flight-recorder JSONL,
+                a trace JSONL and a dashboard, and a tight trailing stop so
+                that the tape's one BUY run opens and closes in the window:
+                8 ticks from candle 3,858, each with exactly 3 K2
+                launches (every one held against the plain EWMA), one
+                tick-engine read and two risk-block reads; the same ticks
+                on the CPU (each tick's return, status, trades, flight
+                records and file, PnL attribution, alerts and dashboard;
+                risk metrics and the correlation matrix within 1e-5; label
+                flips only near a threshold); a run that dies after tick 4
+                and a new system that recovers from its journal, its books
+                against the unbroken run's; `cli trade --paper --ticks 50`
+                and `cli why` as subprocesses against the same commands on
+                the CPU, `--full-stack` exiting 2; `device_liveness`;
+                the tick's p50/p99, tickpath's waterfall and bottleneck,
+                the stages' busy time and torch.profiler over one tick;
+ 19. kernels  — one line with each kernel's launches, error, times and
                 bound, at the main path's shapes, and each kernel's GA,
                 tick, portfolio, tenant, `cli train`, training, RL,
-                simulator, regime, strategy and live launches
+                simulator, regime, strategy, live and trade launches
                 (`ga_tables`, `ga_rows`, `tick`, `portfolio`, `tenant`,
                 `nn_cli_train`, `nn_train`, `rl`, `sim`, `regime`,
-                `strategy`, `live`).
+                `strategy`, `live`, `trade`).
 
 Any failed check raises, so the script exits non-zero and never prints its
 last line, ``{"ok": true, "device": {...}}``.  Times are CUDA-event times
@@ -263,6 +280,7 @@ import contextlib
 import ctypes
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -5318,7 +5336,7 @@ def live_k2(launches, label):
                  for j, (x, a, st) in enumerate(jobs)]
         checks.append(ewma_check(named, f"{label}_launch{i}"))
     timed = []
-    per_poll = 3 if label == "live_poll" else len(launches)
+    per_poll = 3 if label in ("live_poll", "trade_poll") else len(launches)
     for jobs in launches[:per_poll]:
         args = [(x.reshape(-1, x.shape[-1]), a, st) for x, a, st in jobs]
         n_tiles = tile_count([x.shape for x, _, _ in args])
@@ -5605,6 +5623,510 @@ def phase_live(info):
                      "per_symbol: one symbol's 12 (3 a frame); scan: 2 over [64, 256]"}
 
 
+# --- phase trade: the trading system ---------------------------------------
+
+TRADE_TICKS = 8           # ticks of the trading system (phase trade; cut from 16)
+TRADE_CUT = 4             # its recovery run dies after this tick
+TRADE_CLI_TICKS = 50      # `cli trade --paper --ticks`, as a user runs it (cut from 100)
+TRADE_CURSOR = 3_858      # the tape's candle before the first tick
+# a tight trailing stop, so that the tape's one BUY run (candle 3,860, the
+# window's tick 1) closes within the window (candle 3,866, its last tick):
+# activation, trail and floor at 0.05 %
+TRADE_TRAILING = {"activation_threshold_pct": 0.05, "trail_percent": 0.05,
+                  "min_trail_distance_pct": 0.05}
+
+
+class TradeRig:
+    """`TradingSystem` on one device at the bench's `tick_pipeline` width:
+    phase live's tape behind `make_exchange("fake", resilient=True)` on a
+    virtual clock, bench_recovery's trading parameters, a journal, a
+    flight-recorder JSONL and a dashboard (and, for the timed run, a trace
+    JSONL) under ``tmp``.  The wall clock that feeds alerts is pinned (a
+    frozen loop-lag probe, a tick budget no tick reaches) and ids are
+    counted, so the card's run and the CPU's can be held to each other;
+    the model version is fixed."""
+
+    def __init__(self, tape, device, cursor, tmp, tag, trace=False):
+        from ai_crypto_trader_tpu_torch.config import (
+            FrameworkConfig, RiskParams, TradingParams, TrailingStopParams)
+        from ai_crypto_trader_tpu_torch.data.ingest import OHLCV
+        from ai_crypto_trader_tpu_torch.shell import make_exchange
+        from ai_crypto_trader_tpu_torch.shell.launcher import TradingSystem
+
+        self.clock = [1_000_000.0]
+        clock = self.clock
+        series = {s: OHLCV(timestamp=tape.ts, open=c[0], high=c[1], low=c[2], close=c[3],
+                           volume=c[4], symbol=s) for s, c in zip(tape.symbols, tape.cols)}
+        self.ex = make_exchange(
+            "fake", resilient=True, series=series,
+            resilient_opts={"now_fn": lambda: clock[0],
+                            "sleep": lambda s: clock.__setitem__(0, clock[0] + s)})
+        self.ex.advance(steps=cursor)
+        self.paths = {k: f"{tmp}/{tag}.{k}" for k in ("journal", "decisions", "html", "spans")}
+        self.system = self.build(TradingSystem, tape.symbols, FrameworkConfig(
+            trading=TradingParams(**LIVE_TRADING),
+            risk=RiskParams(trailing_stop=TrailingStopParams(**TRADE_TRAILING))), device, trace)
+        self.returns, self.tick_ms = [], []
+
+    def build(self, cls, symbols, config, device, trace):
+        import itertools
+
+        from ai_crypto_trader_tpu_torch.shell import LLMTrader
+        from ai_crypto_trader_tpu_torch.utils.health import EventLoopLagProbe
+
+        system = cls(self.ex, list(symbols), config=config,
+                     now_fn=lambda: self.clock[0], device=device,
+                     journal_path=self.paths["journal"],
+                     flightrec_path=self.paths["decisions"],
+                     dashboard_path=self.paths["html"],
+                     trace_jsonl=self.paths["spans"] if trace else None,
+                     tick_budget_s=1e9)
+        ids = itertools.count(1)
+        system.flightrec._id_fn = lambda: f"d{next(ids):06d}"
+        if system.tracer is not None:
+            spans = itertools.count(1)
+            system.tracer._id_fn = lambda: f"{next(spans):016x}"
+        system.loop_lag = EventLoopLagProbe(clock=lambda: 0.0)
+        system.analyzer.trader = LLMTrader(model_version="chip_smoke")
+        return system
+
+    def tick(self):
+        import asyncio
+
+        self.ex.advance()
+        self.clock[0] += 60.0
+        t0 = time.perf_counter()
+        out = asyncio.run(self.system.tick())
+        self.tick_ms.append(1e3 * (time.perf_counter() - t0))
+        self.returns.append(out)
+        return out
+
+    def restart(self, device):
+        """A new system on this rig's exchange, clock and journal: the
+        process that replaces one which died without `shutdown()`."""
+        from ai_crypto_trader_tpu_torch.shell.launcher import TradingSystem
+
+        old = self.system
+        self.system = self.build(TradingSystem, old.symbols, old.config, device, False)
+        return self.system
+
+    def books(self):
+        import copy
+
+        ex, exe = self.ex, self.system.executor
+        return copy.deepcopy({"fills": ex.fills, "balances": ex.get_balances(),
+                              "open_orders": ex.list_open_orders(),
+                              "closed": exe.closed_trades,
+                              "active": exe.snapshot_state()["active"]})
+
+    def snapshot(self):
+        import copy
+
+        from ai_crypto_trader_tpu_torch.obs.flightrec import load_decisions
+
+        sys_ = self.system
+        sys_.flightrec.journal.flush()
+        with open(self.paths["html"]) as f:
+            html = f.read()
+        return copy.deepcopy({
+            "returns": self.returns, "status": sys_.status(), "books": self.books(),
+            "pnl_attribution": sys_.bus.get("pnl_attribution"),
+            "risk_metrics": sys_.bus.get("risk_metrics"),
+            "correlation_matrix": sys_.bus.get("correlation_matrix"),
+            "portfolio_value_history": sys_.bus.get("portfolio_value_history"),
+            "alerts": sys_.alerts.history, "records": sys_.flightrec.query(limit=0),
+            "file_records": load_decisions(self.paths["decisions"])[0],
+            "flightrec_status": {k: v for k, v in sys_.flightrec.status().items()
+                                 if k != "journal"},
+            "html": html,
+            "max_price": max(sys_.bus.get(f"market_data_{s}")["current_price"]
+                             for s in sys_.symbols)})
+
+
+_TEXT_NUM = re.compile(r"-?\d[\d,]*(?:\.\d+)?(?:e[-+]?\d+)?")
+
+
+def same_text(got, ref, rtol=1e-5, atol=0.0):
+    """Two texts equal but for their numbers, each within rtol, atol or one
+    unit of its last printed digit (a float32 ulp may round a digit the
+    other way).  Returns the first difference, or None."""
+    if _TEXT_NUM.split(got) != _TEXT_NUM.split(ref):
+        a, b = _TEXT_NUM.split(got), _TEXT_NUM.split(ref)
+        return next(((x[:80], y[:80]) for x, y in zip(a, b) if x != y), (len(a), len(b)))
+
+    def close(g, r):
+        gv, rv = float(g.replace(",", "")), float(r.replace(",", ""))
+        last = 10.0 ** -(len(r.split(".")[1]) if "." in r else 0)
+        return abs(gv - rv) <= rtol * abs(rv) + max(last, atol)
+
+    for g, r in zip(_TEXT_NUM.findall(got), _TEXT_NUM.findall(ref)):
+        # a comma is a thousands separator or a list's ("rgb(40,190,100)")
+        if g != r and not close(g, r) and not (
+                g.count(",") == r.count(",")
+                and all(close(x, y) for x, y in zip(g.split(","), r.split(",")))):
+            return g, r
+    return None
+
+
+def svg_geometry_stripped(html):
+    """The dashboard without its charts' geometry: every coordinate and size
+    attribute inside an ``<svg>`` emptied.  A chart scales its series to its
+    own range, so a float32 ulp in a nearly flat series (the VaR history)
+    moves a point by far more than the value's tolerance; the labels, the
+    tables and every number outside the charts stay."""
+    geometry = re.compile(r"""\b(points|d|x|y|x1|x2|y1|y2|cx|cy|width|height|r|fill)=(["'])[^"']*\2""")
+    return re.sub(r"<svg.*?</svg>", lambda m: geometry.sub(r"\1=\2\2", m.group(0)), html,
+                  flags=re.S)
+
+
+def trade_records(got, ref, flips):
+    """Flight-recorder records of two runs: equal but for the tick engine's
+    floats in a feature slice (within `live_tolerance`) and label flips near
+    a threshold (counted into ``flips``; that record's verdict and
+    narrative then skipped), the narrative's numbers within `same_text`."""
+    if len(got) != len(ref):
+        fail(f"trade: {len(got)} decision records on the card, {len(ref)} on the CPU")
+    for g, r in zip(got, ref):
+        if set(g) != set(r):
+            fail(f"trade: record keys differ: {sorted(set(g) ^ set(r))}")
+        gf, rf = g["features"], r["features"]
+        flipped = False
+        for k, rv in rf.items():
+            if isinstance(rv, str):
+                if gf[k] != rv:
+                    if k not in ("signal", "trend", "top_family") or not near_threshold(rf):
+                        fail(f"trade: record {r['id']} {k} {gf[k]} against {rv}, "
+                             "not near a threshold")
+                    flips.append({"record": r["id"], "key": k, "got": gf[k], "ref": rv})
+                    flipped = True
+            elif isinstance(rv, float):
+                rtol, atol = live_tolerance(k, rf)
+                if not abs(gf[k] - rv) <= atol + rtol * abs(rv):
+                    fail(f"trade: record {r['id']} feature {k} {gf[k]} against {rv}")
+            elif gf[k] != rv:
+                fail(f"trade: record {r['id']} feature {k} {gf[k]} against {rv}")
+        for k, rv in r.items():
+            if k == "features" or (flipped and k in ("verdict", "explanation")):
+                continue
+            if k in ("verdict", "explanation") and rv is not None:
+                diff = same_text(json.dumps(g[k], sort_keys=True),
+                                 json.dumps(rv, sort_keys=True))
+                if diff is not None:
+                    fail(f"trade: record {r['id']} {k} differs: {diff}")
+            elif g[k] != rv:
+                fail(f"trade: record {r['id']} {k} {g[k]} against {rv}")
+
+
+def trade_run(tape, device, tmp, tag, trace=False):
+    """TRADE_TICKS ticks of the trading system on ``device``; on the card
+    each tick's K2 launches recorded and counted (the counts set to 0 just
+    before the run and read just after) and its host reads counted by
+    seam: the tick engine's, the risk block's, the executor's."""
+    from ai_crypto_trader_tpu_torch.ops import tick_engine
+    from ai_crypto_trader_tpu_torch.ops.ewma import fused_ewma
+    from ai_crypto_trader_tpu_torch.shell import executor as executor_mod
+    from ai_crypto_trader_tpu_torch.shell import launcher as launcher_mod
+
+    rig = TradeRig(tape, device, TRADE_CURSOR, tmp, tag, trace=trace)
+    signals = rig.system.bus.subscribe("trading_signals")
+    reads = {"engine": [], "risk": [], "executor": []}
+    seams = {"engine": (tick_engine, "host_read"), "risk": (launcher_mod, "host_read"),
+             "executor": (executor_mod, "host_read")}
+    real = {k: getattr(m, n) for k, (m, n) in seams.items()}
+
+    def counted(kind):
+        def read(x):
+            reads[kind].append(1)
+            return real[kind](x)
+        return read
+
+    launches, per_tick, decisions, clocks, fill_counts = [], [], [], [], []
+    for k, (m, n) in seams.items():
+        setattr(m, n, counted(k))
+    fused_ewma.launches = 0
+    try:
+        with recording_ewma(launches):
+            for _ in range(TRADE_TICKS):
+                before = {k: len(v) for k, v in reads.items()}
+                n_k2, n_rec = fused_ewma.launches, len(launches)
+                rig.tick()
+                per_tick.append({"k2": fused_ewma.launches - n_k2,
+                                 "recorded": len(launches) - n_rec,
+                                 **{f"{k}_reads": len(v) - before[k] for k, v in reads.items()},
+                                 "tick_ms": rig.tick_ms[-1]})
+                decisions.append([(e["data"]["symbol"], e["data"]["decision"])
+                                  for e in (signals.get_nowait() for _ in range(signals.qsize()))])
+                clocks.append(rig.clock[0])
+                fill_counts.append(len(rig.ex.fills))
+        total_k2 = fused_ewma.launches
+    finally:
+        for k, (m, n) in seams.items():
+            setattr(m, n, real[k])
+    return rig, {"launches": launches, "per_tick": per_tick, "decisions": decisions,
+                 "clocks": clocks, "fill_counts": fill_counts, "k2_total": total_k2}
+
+
+def trade_cli(tmp):
+    """`cli trade --paper` and `cli why` as a user runs them: subprocesses
+    on the card (exit 0), against the same commands in this process on the
+    CPU.  Each run logs through LOG_PATH, so the alerts that read the wall
+    clock (the loop lag, the stage duty) are counted out of both statuses;
+    the rest is held exactly.  `--full-stack` exits 2 with its message."""
+    import contextlib as ctx
+    import io
+    import os
+
+    from ai_crypto_trader_tpu_torch import cli
+    from ai_crypto_trader_tpu_torch.obs.flightrec import format_why, load_decisions
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    wall_alerts = ("EventLoopLagHigh", "StageSaturated")
+
+    def argv(tag):
+        return ["trade", "--paper", "--ticks", str(TRADE_CLI_TICKS), "--journal",
+                f"{tmp}/cli_{tag}.journal", "--flightrec", f"{tmp}/cli_{tag}.decisions.jsonl"]
+
+    def status_of(out, log):
+        start = out.rindex("\n{\n") + 1 if "\n{\n" in out else out.index("{\n")
+        status = json.loads(out[start:])
+        with open(log) as f:
+            fired = [json.loads(line) for line in f]
+        wall = sum(1 for r in fired if r.get("msg") == "alert fired"
+                   and r.get("name") in wall_alerts)
+        status["alerts"] = [a for a in status["alerts"] if a not in wall_alerts]
+        status["channels"]["alerts"] = status["channels"].get("alerts", 0) - wall
+        return status, wall
+
+    env = {**os.environ, "LOG_PATH": f"{tmp}/card.log"}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "ai_crypto_trader_tpu_torch.cli", *argv("card")],
+                          cwd=root, capture_output=True, text=True, timeout=600, env=env)
+    trade_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"trade: cli trade exited {proc.returncode}: {proc.stderr[-800:]}")
+    card, card_wall = status_of(proc.stdout, f"{tmp}/card.log")
+
+    buf = io.StringIO()
+    os.environ["LOG_PATH"] = f"{tmp}/cpu.log"
+    try:
+        with ctx.redirect_stdout(buf):
+            t0 = time.perf_counter()
+            cli.main(argv("cpu") + ["--device", "cpu"])
+            cpu_s = time.perf_counter() - t0
+    finally:
+        os.environ.pop("LOG_PATH", None)
+    cpu, cpu_wall = status_of(buf.getvalue(), f"{tmp}/cpu.log")
+    if card != cpu:
+        fail(f"trade: cli trade's status on the card differs from the CPU's: {card} against "
+             f"{cpu}")
+    if card["channels"].get("market_updates") != TRADE_CLI_TICKS:
+        fail(f"trade: cli trade published {card['channels']} over {TRADE_CLI_TICKS} ticks")
+
+    t0 = time.perf_counter()
+    why = subprocess.run([sys.executable, "-m", "ai_crypto_trader_tpu_torch.cli", "why", "BTCUSDC",
+                          "--file", f"{tmp}/cli_card.decisions.jsonl"],
+                         cwd=root, capture_output=True, text=True, timeout=300)
+    why_s = time.perf_counter() - t0
+    if why.returncode != 0:
+        fail(f"trade: cli why exited {why.returncode}: {why.stderr[-800:]}")
+    records, _ = load_decisions(f"{tmp}/cli_cpu.decisions.jsonl")
+    want = format_why(list(reversed([r for r in records if r["symbol"] == "BTCUSDC"][-10:])))
+    got = why.stdout.splitlines()
+    diff = same_text("\n".join(got), "\n".join(want))
+    if not want or diff is not None:
+        fail(f"trade: cli why's lines differ from format_why over the CPU's records: {diff}")
+
+    err = io.StringIO()
+    with ctx.redirect_stderr(err):
+        try:
+            cli.main(["trade", "--paper", "--full-stack"])
+            code = 0
+        except SystemExit as ex:
+            code = ex.code
+    if code != 2 or "--full-stack" not in err.getvalue():
+        fail(f"trade: cli trade --full-stack exited {code}: {err.getvalue()!r}")
+    return {"ticks": TRADE_CLI_TICKS, "exit_code": proc.returncode, "subprocess_s": trade_s,
+            "cpu_in_process_s": cpu_s, "status_equal_cpu": True,
+            "wall_clock_alerts_fired": {"card": card_wall, "cpu": cpu_wall},
+            "closed_trades": card["closed_trades"], "why_exit_code": why.returncode,
+            "why_lines": len(got), "why_s": why_s, "full_stack_exit_code": code}
+
+
+def phase_trade(info):
+    """The trading system on the card at the bench's `tick_pipeline` width:
+    TRADE_TICKS ticks of `TradingSystem.tick` (the monitor's 3 K2 launches
+    a tick, each held against the plain EWMA; the host reads pinned: one of
+    the tick engine, two of the risk block a tick) against the same ticks
+    on the CPU (returns, status, trades, flight records, attribution,
+    dashboard; risk within 1e-5), with a trade opened and closed in the
+    window; a run that dies after TRADE_CUT ticks and a new system that
+    recovers from its journal, its books against the unbroken run's;
+    `cli trade --paper` and `cli why` as subprocesses; `device_liveness`.
+    Returns K2's `trade` block for the kernels line."""
+    import asyncio
+    import tempfile
+
+    import numpy as np
+
+    from ai_crypto_trader_tpu_torch.utils.health import device_liveness
+
+    t_phase = time.perf_counter()
+    tape = TickTape(S_TICK, T_TICK)
+    with tempfile.TemporaryDirectory() as tmp:
+        card_rig, card = trade_run(tape, "cuda", tmp, "card", trace=True)
+        a = card_rig.snapshot()
+        sys_ = card_rig.system
+        timing = {"tick_ms": {"p50": percentile(card_rig.tick_ms, 50),
+                              "p99": percentile(card_rig.tick_ms, 99)}}
+        tp = sys_.tickpath.status()
+        timing["waterfall_ms"] = {k: {"p50": v["p50_ms"], "p99": v["p99_ms"]}
+                                  for k, v in tp["phases"].items() if v["count"]}
+        timing["bottleneck"] = sys_.tickpath.bottleneck()
+        busy = sys_.saturation.status()["stage_busy_seconds_total"]
+        timing["stage_busy_ms_per_tick"] = {k: 1e3 * v / TRADE_TICKS for k, v in busy.items()}
+        timing["duty_of_a_1s_budget"] = {k: v / TRADE_TICKS for k, v in busy.items()}
+        try:
+            timing["profile_one_tick"] = device_profile(card_rig.tick)
+        except Exception as ex:  # noqa: BLE001 — a profiler that cannot trace is reported
+            timing["profile_one_tick"] = {"measured": False, "reason": repr(ex)[:300]}
+        with open(card_rig.paths["spans"]) as f:
+            spans = sum(1 for _ in f)
+        sys_.shutdown()
+
+        t0 = time.perf_counter()
+        cpu_rig, cpu = trade_run(tape, "cpu", tmp, "cpu", trace=True)
+        cpu_s = time.perf_counter() - t0
+        b = cpu_rig.snapshot()
+        cpu_rig.system.shutdown()
+
+        for t, p in enumerate(card["per_tick"]):
+            if (p["k2"], p["recorded"], p["engine_reads"], p["risk_reads"]) != (3, 3, 1, 2):
+                fail(f"trade: tick {t} made {p['k2']} K2 launches ({p['recorded']} recorded), "
+                     f"{p['engine_reads']} tick-engine and {p['risk_reads']} risk host reads, "
+                     "not 3, 1 and 2")
+        if card["k2_total"] != 3 * TRADE_TICKS:
+            fail(f"trade: {card['k2_total']} K2 launches in {TRADE_TICKS} ticks")
+        flips = []
+        diverge = next((t for t, (x, y) in enumerate(zip(card["decisions"], cpu["decisions"]))
+                        if x != y), None)
+        if diverge is None:
+            if a["returns"] != b["returns"] or a["status"] != b["status"]:
+                fail("trade: the ticks' returns or status on the card differ from the CPU's")
+            if a["books"] != b["books"]:
+                where = [k for k in a["books"] if a["books"][k] != b["books"][k]]
+                fail(f"trade: the decisions agree but the trades on the card differ ({where}): "
+                     f"{str([a['books'][k] for k in where])[:600]} against "
+                     f"{str([b['books'][k] for k in where])[:600]}")
+            for k in ("pnl_attribution", "portfolio_value_history", "alerts",
+                      "flightrec_status"):
+                if a[k] != b[k]:
+                    fail(f"trade: {k} on the card differs from the CPU's")
+            trade_records(a["records"], b["records"], flips)
+            trade_records(a["file_records"], b["file_records"], [])
+            if not flips:
+                # the page prints MACD (the explanations): its numbers are
+                # held to MACD's bound, 1e-3 + 2e-6·close (live_tolerance)
+                diff = same_text(svg_geometry_stripped(a["html"]),
+                                 svg_geometry_stripped(b["html"]),
+                                 atol=1e-3 + 2e-6 * b["max_price"])
+                if diff is not None:
+                    fail(f"trade: the dashboard differs from the CPU's: {diff}")
+            compared_fills = len(a["books"]["fills"])
+        else:
+            # phase live's rule: the first tick whose decisions differ holds
+            # a label flip near a threshold, and everything before it agrees
+            t_d = card["clocks"][diverge - 1] if diverge else -1.0
+            compared_fills = card["fill_counts"][diverge - 1] if diverge else 0
+            if (a["books"]["fills"][:compared_fills] != b["books"]["fills"][:compared_fills]
+                    or (diverge and cpu["fill_counts"][diverge - 1] != compared_fills)):
+                fail(f"trade: the trades before tick {diverge}, where the decisions agree, "
+                     "differ")
+            t_next = card["clocks"][diverge]
+            before = [[r for r in x["records"] if r["t"] <= t_d] for x in (a, b)]
+            at = [[r for r in x["records"] if t_d < r["t"] <= t_next] for x in (a, b)]
+            trade_records(*before, flips)
+            trade_records(*at, flips)
+            if not any(f["record"] in {r["id"] for r in at[1]} for f in flips):
+                fail(f"trade: the decisions differ from tick {diverge} with no label flip "
+                     "near a threshold there")
+            if not any(c["closed_at"] <= t_d for c in a["books"]["closed"]):
+                fail(f"trade: the decisions differ from tick {diverge}, before any closure")
+        ra, rb = a["risk_metrics"], b["risk_metrics"]
+        for k, v in rb.items():
+            if not abs(ra[k] - v) <= 1e-5 * abs(v):
+                fail(f"trade: risk_metrics {k} {ra[k]} against the CPU's {v}")
+        ca, cb = (np.asarray(x["matrix"]) for x in (a["correlation_matrix"],
+                                                    b["correlation_matrix"]))
+        if not np.allclose(ca, cb, rtol=1e-5, atol=1e-6):
+            fail(f"trade: the correlation matrix differs by {np.abs(ca - cb).max()}")
+        closed = a["books"]["closed"]
+        if not closed or not a["pnl_attribution"]:
+            fail("trade: no trade closed on the card: the closure path is untested")
+
+        # --- recovery on the card ------------------------------------------
+        rig = TradeRig(tape, "cuda", TRADE_CURSOR, tmp, "cut")
+        for _ in range(TRADE_CUT):
+            rig.tick()
+        rig.system.journal.simulate_crash()            # dies without shutdown()
+        t0 = time.perf_counter()
+        fresh = rig.restart("cuda")
+        report = asyncio.run(fresh.recover())
+        recover_ms = 1e3 * (time.perf_counter() - t0)
+        for _ in range(TRADE_TICKS - TRADE_CUT):
+            rig.tick()
+        got = rig.books()
+        fresh.shutdown()
+
+        def no_ids(trades):
+            # the new system numbers its decisions afresh, and its recovery's
+            # venue calls advance the virtual clock (rate-limit sleeps), so
+            # a later closure is stamped a little later
+            items = trades.items() if isinstance(trades, dict) else enumerate(trades)
+            return {k: {**t, "closed_at": None,
+                        "source": {**(t.get("source") or {}), "decision_id": None}}
+                    for k, t in items}
+
+        want = a["books"]
+        if (got["fills"] != want["fills"] or got["open_orders"] != want["open_orders"]
+                or got["balances"] != want["balances"]
+                or no_ids(got["active"]) != no_ids(want["active"])
+                or no_ids(got["closed"]) != no_ids(want["closed"])):
+            fail("trade: the recovered system's books differ from the unbroken run's")
+        recovery = {"cut_after_tick": TRADE_CUT, "recover_ms": recover_ms,
+                    **{k: v for k, v in report.items() if k != "journal"},
+                    "books_equal_unbroken": True, "closed_after_recovery": len(got["closed"])}
+
+        cli_report = trade_cli(tmp)
+    live = device_liveness()
+    if live != {"cuda:0": True}:
+        fail(f"trade: device_liveness() on the card: {live}")
+    k2 = live_k2(card["launches"][:3 * TRADE_TICKS], "trade_poll")
+    report = {"phase": "trade", "card": info["nvidia_smi"], "symbols": S_TICK,
+              "frames": list(TICK_FRAMES), "window": T_TICK, "ticks": TRADE_TICKS,
+              "cursor": TRADE_CURSOR, "k2_launches_per_tick": 3,
+              "host_reads_per_tick": {"tick_engine": 1, "risk": 2,
+                                      "executor": [p["executor_reads"]
+                                                   for p in card["per_tick"]]},
+              "k2": k2, "timing": timing, "cpu_run_s": cpu_s, "spans_written": spans,
+              "card_vs_cpu": {"decisions_diverge_at_tick": diverge, "label_flips": len(flips),
+                              "flips": flips[:5], "fills_compared": compared_fills,
+                              "trades_equal": a["books"] == b["books"],
+                              "records": len(a["records"])},
+              "entries": sum(f["side"] == "BUY" for f in a["books"]["fills"]),
+              "closed_trades": len(closed), "close_reasons": sorted({c["reason"] for c in closed}),
+              "pnl_attribution": a["pnl_attribution"], "risk_metrics": ra,
+              "recovery": recovery, "cli": cli_report, "device_liveness": live,
+              "phase_s": time.perf_counter() - t_phase}
+    emit(report)
+    return {"launches": card["k2_total"], "launches_per_tick": 3, "ticks": TRADE_TICKS,
+            **{k: k2[k] for k in ("ms", "ms_per_launch", "plain_ms", "barrier_only_ms",
+                                  "bound_ms", "bound_by", "max_abs_err", "max_rel_err")},
+            "launches_held": k2["launches_held"], "library_ms": None,
+            "tick_ms_p50": timing["tick_ms"]["p50"],
+            "shape": f"a tick's 3 launches at S={S_TICK} x F={len(TICK_FRAMES)} x T={T_TICK} "
+                     "(the monitor's poll inside TradingSystem.tick)"}
+
+
 def main():
     import torch
 
@@ -5643,6 +6165,7 @@ def main():
     regime = phase_service(info)
     strat_k1, strat_k2 = phase_strategy(info, d)
     live = phase_live(info)
+    trade = phase_trade(info)
     bound_ms, bound_by, stepped_bound_ms = replay_bound_ms(stats, B_FULL, T_FULL)
     checks += full
     kernels = [
@@ -5669,6 +6192,7 @@ def main():
          "regime": regime,
          "strategy": strat_k2,
          "live": live,
+         "trade": trade,
          "shape": "the two launches of compute_indicators at T=525600, summed "
                   "(A: close K=2 + up/dn/tr K=1; B: MACD line K=1)"},
         {"name": "replay_sweep", "route": "cuda",

@@ -99,13 +99,16 @@ expected = {"config", "ops.dynamic", "backtest.evolvable", "evolve", "evolve.ga"
             "models.long_context", "social", "social.analyzer", "utils.symbols",
             "utils.circuit_breaker", "utils.rate_limiter", "utils.metrics", "utils.tracing",
             "utils.devprof", "obs.tickpath", "shell.bus", "shell.exchange", "shell.monitor",
-            "shell.analyzer", "shell.executor", "shell.scanner"}
+            "shell.analyzer", "shell.executor", "shell.scanner", "shell.launcher",
+            "shell.dashboard", "obs.attribution", "utils.alerts", "utils.health",
+            "utils.saturation", "utils.supervision", "utils.structlog"}
 missing = sorted(e for e in expected if pkg.__name__ + "." + e not in names)
 print(missing)
 from ai_crypto_trader_tpu_torch import obs, utils
 from ai_crypto_trader_tpu_torch import models, shell, social, strategy
 exports = {"obs": {"DRIFT_FEATURES", "N_BINS", "PSI_ALERT_THRESHOLD", "reference_histogram",
-                   "FleetScope", "Scorecard"},
+                   "FleetScope", "Scorecard", "FlightRecorder", "PnLAttribution",
+                   "load_decisions"},
            "utils": {"save_checkpoint", "load_checkpoint", "CircuitBreaker", "CircuitState",
                      "get_circuit_breaker", "retry_with_backoff", "TokenBucket",
                      "MetricsRegistry"},
@@ -135,11 +138,14 @@ import tempfile
 with tempfile.TemporaryDirectory() as tmp:
     cli.main(["generate", "--device", "cpu", "--days", "1", "--folds", "2", "--pool", "2",
               "--rounds", "1", "--registry", tmp + "/registry.json"])
+    cli.main(["trade", "--paper", "--device", "cpu", "--ticks", "2", "--flightrec",
+              tmp + "/decisions.jsonl", "--journal", tmp + "/trades.journal"])
+    cli.main(["why", "BTCUSDC", "--device", "cpu", "--file", tmp + "/decisions.jsonl"])
 bad += sorted(m for m in sys.modules
               if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
               or re.match(r"ai_crypto_trader_tpu(?!_torch)(\.|$)", m))
 print(bad)
-sys.exit(1 if bad or missing or len(names) < 104 else 0)
+sys.exit(1 if bad or missing or len(names) < 112 else 0)
 """
 
 

@@ -138,7 +138,25 @@ def _tickpath_script(tickpath_mod, metrics_mod):
             tickpath_mod.observe_event_age(1.0), tickpath_mod.coldstart("x") is not None)
 
 
-def test_tickpath_scope_matches_jax():
+@pytest.fixture
+def no_tickpath_scope():
+    """Both packages' scripts start from the same global state: no active
+    `TickPathScope` in either module.  A trading system of either package
+    configures one process-wide and only its `shutdown()` releases it, so a
+    test elsewhere in the process may leave one set; the scopes found are
+    put back afterwards."""
+    saved = {mod: mod.active() for mod in (jtickpath, ttickpath)}
+    for mod in saved:
+        mod.disable()
+    yield
+    for mod, scope in saved.items():
+        if scope is None:
+            mod.disable()
+        else:
+            mod.configure(scope)
+
+
+def test_tickpath_scope_matches_jax(no_tickpath_scope):
     got = {pkg: _tickpath_script(tp_mod, m) for pkg, (_, m, tp_mod) in PKGS.items()}
     assert got["port"] == got["jax"]
     assert got["port"][2] == "publish"             # the drill names the bottleneck
