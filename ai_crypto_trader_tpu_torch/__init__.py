@@ -3,9 +3,12 @@ live tick and decision path, portfolio backtest, risk layer, Monte-Carlo
 engine, price-model zoo and chart-pattern classifier (training and
 serving), RL trainer (the DQN, the simulated markets, the PBT fleet),
 the live signal path (bus, paper exchange, monitor, analyzer, executor,
-scanner), and the trading system that wires it into one process with its
+scanner), the trading system that wires it into one process with its
 observability rim (flight recorder, alerts, health, supervision,
-saturation, structured log, PnL attribution, dashboard).
+saturation, structured log, PnL attribution, dashboard), and the full
+service roster around it (social, news, patterns, regime, nn, evolver,
+generator, grid and DCA; the social provider and strategy integrator;
+triangle arbitrage).
 
 The chains, module for module after the JAX package:
 
@@ -49,6 +52,14 @@ The chains, module for module after the JAX package:
         device; one host read of its four figures, one of the correlation
         matrix), utils.alerts, utils.saturation, shell.dashboard —
         `cli trade --paper`, and `cli why` over the flight recorder's file
+    shell.stack.build_full_stack: the nine cadence services on the
+        system's device, run after the stages every tick (social.service's
+        anomaly model and reports on the device, one read a poll;
+        risk.social over its snapshot in the executor) — `cli trade
+        --paper --full-stack`
+    daily social metrics → social.SocialDataProvider.social_inputs →
+        backtest.evolvable (the social vote axis); tickers →
+        strategy.find_triangle_arbitrage (the n³ cycle products, one read)
 
 Plain tensor code is PyTorch; the two Pallas kernels of the JAX package on
 these paths are CUDA C++ kernels for Hopper (``csrc/``), built with nvcc on

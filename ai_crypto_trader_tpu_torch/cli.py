@@ -13,6 +13,7 @@ Same flags and output as ``python -m ai_crypto_trader_tpu.cli backtest`` /
     python -m ai_crypto_trader_tpu_torch.cli generate --days 7 --registry registry.json
     python -m ai_crypto_trader_tpu_torch.cli scan --pairs 64 --top 10
     python -m ai_crypto_trader_tpu_torch.cli trade --paper --ticks 100 --flightrec decisions.jsonl
+    python -m ai_crypto_trader_tpu_torch.cli trade --paper --full-stack --registry models/registry.json
     python -m ai_crypto_trader_tpu_torch.cli why BTCUSDC --file decisions.jsonl
 
 A CSV at ``backtesting/data/market/<symbol>/<symbol>_1m.csv`` is used when
@@ -44,8 +45,11 @@ for ``--ticks`` candles on a synthetic series behind the paper exchange,
 on a virtual clock every layer shares, and prints its final status JSON;
 ``--journal`` makes its books crash-safe (an existing journal is replayed
 and reconciled first), ``--flightrec`` keeps the decision provenance that
-``why SYMBOL --file PATH`` prints.  The flags whose modules are not ported
-yet (``--full-stack``, ``--serve``, ``--devprof``, ``--meshprof``,
+``why SYMBOL --file PATH`` prints.  ``--full-stack`` registers the
+reference's whole roster of cadence services (`shell.stack.build_full_stack`:
+social, news, patterns, regime, nn, evolver, generator, grid, dca) on the
+system's device, versioned in ``--registry``.  The flags whose modules are
+not ported yet (``--serve``, ``--devprof``, ``--meshprof``,
 ``--aot-cache``) exit with code 2 and say so.
 """
 
@@ -342,9 +346,8 @@ def cmd_scan(args):
 
 
 # `trade` flags whose modules the port has not yet (ROADMAP item 16)
-_TRADE_NOT_PORTED = (("full_stack", "--full-stack"), ("serve", "--serve"),
-                     ("devprof", "--devprof"), ("meshprof", "--meshprof"),
-                     ("aot_cache", "--aot-cache"))
+_TRADE_NOT_PORTED = (("serve", "--serve"), ("devprof", "--devprof"),
+                     ("meshprof", "--meshprof"), ("aot_cache", "--aot-cache"))
 
 
 def cmd_trade(args):
@@ -388,6 +391,16 @@ def cmd_trade(args):
                            pipelined=args.pipelined,
                            precision=args.precision,
                            device=args.device)
+    if args.full_stack:
+        from ai_crypto_trader_tpu_torch.shell.stack import build_full_stack
+        from ai_crypto_trader_tpu_torch.strategy.registry import ModelRegistry
+
+        registry = ModelRegistry(path=args.registry)
+        system.registry = registry
+        names = [s.name for s in build_full_stack(
+            system, registry=registry, grid_symbol=args.symbol,
+            dca_symbol=args.symbol)]
+        print(f"full stack: {', '.join(names)}", flush=True)
     metrics_port = int(os.environ.get("METRICS_PORT", "0"))
 
     async def go():
@@ -565,7 +578,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "yet: exits 2)")
     sp.add_argument("--full-stack", action="store_true",
                     help="register the reference's full service roster "
-                         "(not ported yet: exits 2)")
+                         "(social/news/patterns/regime/NN/evolver/"
+                         "generator/grid/DCA) on the paper loop")
     sp.add_argument("--registry", default="models/registry.json",
                     help="model-registry file for --full-stack versioning")
     sp.add_argument("--trace-jsonl", default=None, metavar="PATH",

@@ -32,7 +32,10 @@ the strategy layer's (`fold_features`, `evaluate_structures`,
 `sentiment_accuracy`, `adaptive_source_weights`), the live signal path's
 (`MarketMonitor`, `TradeExecutor`, `MarketScanner`, `score_pairs`, `cli
 scan`), the trading system's (`TradingSystem`, `device_liveness`, `cli
-trade`, `cli why`), and the `convert` functions —
+trade`, `cli why`), the full roster's (`shell.stack.build_full_stack` on
+its system's device, `EvolverService`, `SocialMonitorService`,
+`SocialDataProvider.social_inputs`, `find_triangle_arbitrage`), and the
+`convert` functions —
 takes ``device=None``, which means the CUDA card, and moves its inputs
 there.  The CPU is used only when the caller asks for it with
 ``device="cpu"`` (the tests do; there every kernel wrapper takes its plain

@@ -19,7 +19,8 @@ tensors on ``device`` (None: the CUDA card): the position size
 (`position_plan`), the trailing-stop state (`risk.stops`) and the social
 adjustment (`risk.social`), so sizes, quantities, SL/TP and stops are the
 JAX package's bit for bit.  Every value read back to the host goes through
-`host_read` (one read per sizing, two per trailing-stop update).
+`host_read` (one read per sizing, one more for the social factors when
+the bus holds a `SocialSnapshot`, two per trailing-stop update).
 """
 
 from __future__ import annotations
@@ -51,6 +52,11 @@ def host_read(values: torch.Tensor) -> list:
     Python floats, in one copy.  A module-level seam, so a caller can wrap
     it to count the executor's reads."""
     return values.tolist()
+
+
+# `risk.social.social_risk_adjustment`'s factors, in its order
+_SOCIAL_FACTORS = ("position_size_factor", "stop_loss_factor", "take_profit_factor",
+                   "correlation_limit_factor")
 
 
 def position_plan(balance: float, volatility: float, volume: float,
@@ -228,9 +234,10 @@ class TradeExecutor:
             return {"position_size_factor": 1.0, "stop_loss_factor": 1.0,
                     "take_profit_factor": 1.0}
         if isinstance(snap, SocialSnapshot):
-            return {k: float(v) for k, v in
-                    social_risk_adjustment(snap, device=self.device).items()
-                    if k.endswith("_factor")}
+            # the factors in one host read
+            adj = social_risk_adjustment(snap, device=self.device)
+            return dict(zip(_SOCIAL_FACTORS, host_read(torch.stack(
+                [adj[k] for k in _SOCIAL_FACTORS]))))
         return snap
 
     async def handle_signal(self, signal: dict) -> ActiveTrade | None:

@@ -81,7 +81,8 @@ def fit_anomaly_model(x, contamination: float = 0.05, device=None) -> AnomalyMod
     mean = torch.mean(x, dim=0)
     xc = x - mean
     cov = div_const(xc.T @ xc, x.shape[0]) + 1e-6 * torch.eye(x.shape[1], device=x.device)
-    prec = torch.linalg.inv(cov)
+    # inv_ex: the inverse without inv's singularity check, a read to the host
+    prec = torch.linalg.inv_ex(cov).inverse
     d2 = _sq_distance(xc, prec)
     threshold = _percentile(d2, 100.0 * (1.0 - contamination))
     return AnomalyModel(mean, prec, threshold)

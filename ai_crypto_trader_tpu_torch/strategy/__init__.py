@@ -1,8 +1,10 @@
 """Strategy management of the port: evaluation (trade metrics,
 cross-validation, comparison), selection, the hybrid evolver, the model
-registry, explanations and the structure search with its service.  The
-JAX package's `integration`, `grid`, `grid_live`, `dca` and `arbitrage`
-are not ported yet (ROADMAP item 16)."""
+registry, explanations, the structure search with its service, grid and
+DCA trading (simulated and live) and triangle arbitrage — the JAX
+package's `strategy` exports but `FeatureImportanceIntegrator`, whose
+`integration` module waits for `models/trade_importance` (ROADMAP
+Queue 1)."""
 
 from ai_crypto_trader_tpu_torch.strategy.evaluation import (  # noqa: F401
     compare_strategies,
@@ -17,4 +19,13 @@ from ai_crypto_trader_tpu_torch.strategy.generator import (  # noqa: F401
     GeneratorService,
     StrategyGenerator,
     StrategyStructure,
+)
+from ai_crypto_trader_tpu_torch.strategy.grid import GridTrader  # noqa: F401
+from ai_crypto_trader_tpu_torch.strategy.grid_live import (  # noqa: F401
+    DCAService,
+    GridTraderService,
+)
+from ai_crypto_trader_tpu_torch.strategy.dca import DCAStrategy  # noqa: F401
+from ai_crypto_trader_tpu_torch.strategy.arbitrage import (  # noqa: F401
+    find_triangle_arbitrage,
 )

@@ -140,7 +140,8 @@ imports nothing of JAX or of the JAX package.  Phases, one JSON line each:
                 torch.profiler over one step, cuDNN's `nn.LSTM` forward +
                 backward beside it); `cli train` at its defaults (7 days,
                 epochs cut to 2; exactly 2 K2 launches, held against the
-                plain EWMA); `PredictionService` at its defaults over 8
+                plain EWMA); `PredictionService` at its defaults (epochs cut
+                to 5) over 8
                 symbols × 2 frames (the first cycle's 16 trainings and one
                 batched predict, a cycle inside half an interval, one HPO
                 request); the three pattern classifiers trained; feature
@@ -206,7 +207,8 @@ imports nothing of JAX or of the JAX package.  Phases, one JSON line each:
                 windows, its analyses and signals against the CPU;
  16. strategy — the strategy layer, the long-context model and the
                 social analyzer on the card: (a) `cli generate` at its
-                defaults (BTCUSDC, 7 days, 3 folds, pool 16, 6 rounds) as a
+                defaults (BTCUSDC, 7 days, 3 folds, pool 16; rounds cut
+                to 2) as a
                 subprocess, its JSON keys, rounds and registered versions;
                 (b) `evaluate_structures` at that fold shape (3 × 2,352
                 candles, the seed and 16 mutants): one host read a call,
@@ -229,7 +231,7 @@ imports nothing of JAX or of the JAX package.  Phases, one JSON line each:
  17. live     — the live signal path at the `tick_pipeline` width (64
                 symbols × 1m/3m/5m/15m × 256 candles on the resilient paper
                 exchange, a virtual clock, bench_recovery's trading
-                parameters): 20 ticks of advance → `MarketMonitor.poll` →
+                parameters): 10 ticks of advance → `MarketMonitor.poll` →
                 `SignalAnalyzer` → `TradeExecutor` → `on_price`, each poll
                 with exactly 3 K2 launches and one host read and no other
                 sync, every launch held against the plain EWMA; the same
@@ -256,16 +258,43 @@ imports nothing of JAX or of the JAX package.  Phases, one JSON line each:
                 and a new system that recovers from its journal, its books
                 against the unbroken run's; `cli trade --paper --ticks 50`
                 and `cli why` as subprocesses against the same commands on
-                the CPU, `--full-stack` exiting 2; `device_liveness`;
+                the CPU, `--serve` exiting 2; `device_liveness`;
                 the tick's p50/p99, tickpath's waterfall and bottleneck,
                 the stages' busy time and torch.profiler over one tick;
- 19. kernels  — one line with each kernel's launches, error, times and
+ 19. stack    — the full service roster (`shell.stack.build_full_stack`:
+                social, news, patterns, regime, nn, evolver, generator,
+                grid, dca): (a) `TradingSystem` with the roster over phase
+                trade's tape and exchange, 6 ticks from candle 3,854 on the
+                card and on the CPU (the prediction service's epochs, HPO
+                trials and frames cut; the evolver's GA at
+                `EvolutionParams()`'s 20 × 10 on the same draws; the pattern
+                classifier trained at start on the card, loaded from its
+                checkpoint on the CPU): the roster and heartbeats, the
+                social, news, grid and DCA state, the decisions (flips near
+                a threshold only), the trades within 1e-5, the executor's
+                social factors from a four-row snapshot; 3 monitor K2
+                launches a tick plus 4 a `regime_features` call and the GA
+                tables' 5, one tick-engine read a tick; the evolver's 11 K1
+                launches bit for bit against the plain loop and every
+                monitor and GA-table K2 launch against the plain EWMA; (b)
+                `SocialMonitorService` over the 64 symbols, 64 polls (the
+                anomaly model from poll 50, lead-lag and accuracy reports),
+                card against CPU, one read a poll and a report; (c)
+                `find_triangle_arbitrage` over 64 assets (262,144 cycles,
+                three planted): the cycle tensor bit for bit, the lists
+                equal, one read; (d) `SocialDataProvider.social_inputs` over
+                43,200 1m candles from 30 days into `evolvable_backtest(
+                social=...)` (16 genomes): its K1 launch bit for bit, its K2
+                launches held, the stats against the CPU's; (e) `cli trade
+                --paper --full-stack --ticks 20` as a subprocess in a
+                temporary cwd;
+ 20. kernels  — one line with each kernel's launches, error, times and
                 bound, at the main path's shapes, and each kernel's GA,
                 tick, portfolio, tenant, `cli train`, training, RL,
-                simulator, regime, strategy, live and trade launches
+                simulator, regime, strategy, live, trade and stack launches
                 (`ga_tables`, `ga_rows`, `tick`, `portfolio`, `tenant`,
                 `nn_cli_train`, `nn_train`, `rl`, `sim`, `regime`,
-                `strategy`, `live`, `trade`).
+                `strategy`, `live`, `trade`, `stack`).
 
 Any failed check raises, so the script exits non-zero and never prints its
 last line, ``{"ok": true, "device": {...}}``.  Times are CUDA-event times
@@ -306,7 +335,7 @@ GA_CURVE_B = 32           # strategies whose curve the rows checks hold
 S_TICK, T_TICK = 64, 256  # the bench's tick_pipeline row (bench.py:1323-1337)
 TICK_FRAMES = ("1m", "3m", "5m", "15m")
 TICK_POLLS = 20
-LIVE_TICKS = 20           # ticks of the live path (phase live)
+LIVE_TICKS = 10           # ticks of the live path (phase live; cut from 20)
 LIVE_PIPE_TICKS = 5       # its pipelined monitor's ticks against the serial run's
 S_PORT = 8                # portfolio symbols
 T_PORT_K1, T_PORT_PLAIN = 8192, 1024   # K1's check; the plain-loop modes (depth cut)
@@ -326,6 +355,7 @@ TRAIN_RTOL, TRAIN_ATOL = 1e-5, 1e-5  # epoch losses; parameters (card against th
 LSTM_GRAD_RTOL = 1e-5                # LSTMScan's gradients against the plain loop's, of scale
 CLI_TRAIN_EPOCHS = 2                 # cli train's 5 epochs, cut
 SVC_SYMBOLS, SVC_ROWS = 8, 256       # the service's pairs: symbols × (1m, 5m); kline rows
+SVC_EPOCHS = 5                       # the service's epochs (its default 20, cut)
 IMPORTANCE_WINDOWS, IMPORTANCE_STEPS, IMPORTANCE_ATOL = 64, 32, 1e-5
 RL_EPISODE, RL_ENVS, RL_ROLLOUT, RL_ITERS = 512, 256, 32, 20   # the bench's rl row (bench.py:695-723)
 PBT_S, PBT_T, PBT_EPISODE = 16, 1024, 256      # the pbt row's markets (bench.py:746-747)
@@ -346,6 +376,7 @@ REGIME_S, REGIME_T, REGIME_ROUNDS = 64, 1000, 5   # tick universe; the venue's k
 REGIME_TIE_RTOL = 1e-3                       # a card-vs-CPU label flip's margin to a tie
 BOOK_N, BOOK_LEVELS, BOOK_FRAMES = 64, 100, 1024  # books; the venue's default depth; window
 GEN_DAYS, GEN_SEED, GEN_FOLDS, GEN_POOL = 7, 0, 3, 16   # cli generate's defaults (cli.py:1101-1107)
+GEN_CLI_ROUNDS = 2                           # `cli generate --rounds` (its default 6, cut)
 GEN_SHORT_T = 256                            # the short folds torch.profiler traces
 FLIP_MARGIN = 1e-4                           # a K2 signal flip's distance to its threshold
 T_CV, CV_K, CMP_S = 43_200, 5, 8             # cross_validate's and compare_strategies' cases
@@ -3060,8 +3091,8 @@ def train_cli(info):
 
 
 def train_service(info):
-    """`PredictionService` at its defaults (lstm, units 32, epochs 20, seq
-    60, intervals 1m/5m) on the card, over 8 symbols of the tick tape, 256
+    """`PredictionService` at its defaults (lstm, units 32, seq 60,
+    intervals 1m/5m) but its epochs (20, cut to SVC_EPOCHS) on the card, over 8 symbols of the tick tape, 256
     kline rows a pair, on an in-memory bus: the first `run_once` trains the
     16 pairs and predicts them as one batched group with one read; a second
     within half an interval predicts nothing; then one HPO request with
@@ -3078,7 +3109,8 @@ def train_service(info):
     for i, sym in enumerate(tape.symbols):
         for iv in ("1m", "5m"):
             bus.set(f"historical_data_{sym}_{iv}", tape.klines(i, iv, tape.n - 64, SVC_ROWS))
-    svc = PredictionService(bus, tape.symbols, now_fn=lambda: clock[0], device="cuda")
+    svc = PredictionService(bus, tape.symbols, now_fn=lambda: clock[0], epochs=SVC_EPOCHS,
+                            device="cuda")
     report = {"symbols": SVC_SYMBOLS, "pairs": 2 * SVC_SYMBOLS, "rows": SVC_ROWS,
               "model_type": svc.model_type, "units": svc.units, "epochs": svc.epochs}
     with counted(train, "host_read") as preds, counted(train_loop, "host_read") as epochs:
@@ -4582,7 +4614,8 @@ def held_k1(calls, label):
 
 def cli_generate(tmp):
     """(a) `python -m ai_crypto_trader_tpu_torch.cli generate` at its
-    defaults (BTCUSDC, 7 days, seed 0, 3 folds, pool 16, 6 rounds) as a
+    defaults (BTCUSDC, 7 days, seed 0, 3 folds, pool 16) but its rounds (6,
+    cut to GEN_CLI_ROUNDS) as a
     subprocess on the card, its registry in ``tmp``: exit 0, the JSON keys
     of the JAX package's command, at least one round and one registered
     version; its wall time, rounds and holdout Sharpes."""
@@ -4592,8 +4625,8 @@ def cli_generate(tmp):
     registry = os.path.join(tmp, "registry.json")
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "ai_crypto_trader_tpu_torch.cli", "generate",
-                           "--registry", registry], cwd=root, capture_output=True, text=True,
-                          timeout=600)
+                           "--rounds", str(GEN_CLI_ROUNDS), "--registry", registry], cwd=root,
+                          capture_output=True, text=True, timeout=600)
     wall = time.perf_counter() - t0
     if proc.returncode != 0:
         fail(f"strategy: cli generate exited {proc.returncode}: {proc.stderr[-800:]}")
@@ -5520,8 +5553,8 @@ def phase_live(info):
     t_phase = time.perf_counter()
     tape = TickTape(S_TICK, T_TICK)
     # every frame full; the tape's first BUY run starts at its 4th tick (all
-    # 64 symbols are one series scaled, so they signal together), and 26
-    # candles are left after the 21 ticks
+    # 64 symbols are one series scaled, so they signal together), and 36
+    # candles are left after the 11 ticks (LIVE_TICKS and a profiled one)
     cursor = tape.n - 48
     run_a, launches, per_poll, timing = live_run(tape, cursor)
 
@@ -5871,7 +5904,8 @@ def trade_cli(tmp):
     on the card (exit 0), against the same commands in this process on the
     CPU.  Each run logs through LOG_PATH, so the alerts that read the wall
     clock (the loop lag, the stage duty) are counted out of both statuses;
-    the rest is held exactly.  `--full-stack` exits 2 with its message."""
+    the rest is held exactly.  `--serve`, not ported yet, exits 2 with its
+    message (`--full-stack` runs in phase stack)."""
     import contextlib as ctx
     import io
     import os
@@ -5939,17 +5973,17 @@ def trade_cli(tmp):
     err = io.StringIO()
     with ctx.redirect_stderr(err):
         try:
-            cli.main(["trade", "--paper", "--full-stack"])
+            cli.main(["trade", "--paper", "--serve", "8050"])
             code = 0
         except SystemExit as ex:
             code = ex.code
-    if code != 2 or "--full-stack" not in err.getvalue():
-        fail(f"trade: cli trade --full-stack exited {code}: {err.getvalue()!r}")
+    if code != 2 or "--serve" not in err.getvalue():
+        fail(f"trade: cli trade --serve exited {code}: {err.getvalue()!r}")
     return {"ticks": TRADE_CLI_TICKS, "exit_code": proc.returncode, "subprocess_s": trade_s,
             "cpu_in_process_s": cpu_s, "status_equal_cpu": True,
             "wall_clock_alerts_fired": {"card": card_wall, "cpu": cpu_wall},
             "closed_trades": card["closed_trades"], "why_exit_code": why.returncode,
-            "why_lines": len(got), "why_s": why_s, "full_stack_exit_code": code}
+            "why_lines": len(got), "why_s": why_s, "serve_exit_code": code}
 
 
 def phase_trade(info):
@@ -6127,6 +6161,758 @@ def phase_trade(info):
                      "(the monitor's poll inside TradingSystem.tick)"}
 
 
+# --- phase stack: the full service roster ----------------------------------
+
+STACK_ROSTER = ["social", "news", "patterns", "regime", "nn", "evolver", "generator", "grid",
+                "dca"]
+STACK_TICKS = 6           # ticks of the trading system with the roster
+STACK_CURSOR = 3_854      # the tape's candle before the first tick: the BUY run's entries
+#                           (candle 3,859, phase trade's tick 1) come at tick 5, after four
+#                           social polls (a snapshot's quality gate needs four rows)
+STACK_SOCIAL_POLLS = 64   # part (b): past the 50-row anomaly gate and the report gates
+STACK_ARB_ASSETS = 64     # part (c): 64³ = 262,144 cycles
+STACK_SOCIAL_DAYS = 30    # part (d): 30 days of daily social metrics
+STACK_SOCIAL_T = 43_200   # over 43,200 1m candles
+STACK_SOCIAL_B = 16       # genomes of its backtest
+STACK_CLI_TICKS = 20      # `cli trade --paper --full-stack --ticks`
+
+
+def stack_social_provider(bus, symbol):
+    """`social.service.deterministic_provider` at ten times its sensitivity
+    to the 15-minute price change: over the tape's quiet candles (|Δ| well
+    under 1.5 %) the default provider's sentiment stays inside the risk
+    adjuster's neutral band, and the executor's social factors would all be
+    exactly 1."""
+    from ai_crypto_trader_tpu_torch.social.service import deterministic_provider
+
+    md = bus.get(f"market_data_{symbol}")
+    if not md:
+        return None
+    view = {f"market_data_{symbol}": {
+        **md, "price_change_15m": 10.0 * float(md.get("price_change_15m", 0.0))}}
+    return deterministic_provider(view, symbol)
+
+
+def stack_cadences(tmp):
+    """Part (a)'s cadences: the defaults but in depth — the prediction
+    service's epochs 20 → 1, HPO trials 4 → 0, frames 1m/5m → 1m; the
+    social poll 300 → 60 s (the virtual clock's tick) through
+    `stack_social_provider`; the evolver's method pinned to the GA (the
+    hybrid dispatch would take the rule-regime's LLM or RL path), its GA at
+    `EvolutionParams()`'s 20 × 10; the pattern checkpoint under ``tmp``."""
+    from ai_crypto_trader_tpu_torch.config import EvolutionParams
+
+    return {"social": {"cache_ttl_s": 60.0, "provider": stack_social_provider},
+            "patterns": {"checkpoint": f"{tmp}/models/pattern_cnn"},
+            "nn": {"epochs": 1, "hpo_trials": 0, "intervals": ("1m",)},
+            "evolution_cfg": EvolutionParams(method="ga")}
+
+
+def stack_run(tape, device, tmp, tag):
+    """STACK_TICKS ticks of `TradingSystem` with `build_full_stack` on
+    ``device``, from STACK_CURSOR.  The evolver draws from a CPU
+    `torch.Generator` seeded 0 on both devices (the same genomes), the
+    pattern classifier is trained at start on the card and loaded from its
+    checkpoint on the CPU.  On the card: the K2 launches recorded (the
+    monitor's through `ops.indicators`, the regime cadence's too, the GA
+    tables' through `ops.dynamic`), the evolver's K1 launches recorded, the
+    `regime_features` calls and the host reads counted per tick, the
+    executor's social factors kept; the counts set to 0 just before the run
+    and read just after."""
+    import torch
+
+    from ai_crypto_trader_tpu_torch.ops import dynamic, replay, tick_engine
+    from ai_crypto_trader_tpu_torch.ops.ewma import fused_ewma
+    from ai_crypto_trader_tpu_torch.regime import detector as detector_mod
+    from ai_crypto_trader_tpu_torch.shell import executor as executor_mod
+    from ai_crypto_trader_tpu_torch.shell import launcher as launcher_mod
+    from ai_crypto_trader_tpu_torch.shell.stack import build_full_stack
+    from ai_crypto_trader_tpu_torch.social import service as social_mod
+    from ai_crypto_trader_tpu_torch.strategy.registry import ModelRegistry
+
+    rig = TradeRig(tape, device, STACK_CURSOR, tmp, tag)
+    sys_ = rig.system
+    registry = ModelRegistry(path=f"{tmp}/{tag}.registry.json")
+    sys_.registry = registry
+    t0 = time.perf_counter()
+    services = build_full_stack(sys_, registry=registry, grid_symbol=tape.symbols[0],
+                                dca_symbol=tape.symbols[0], cadences=stack_cadences(tmp))
+    build_s = time.perf_counter() - t0
+    services[STACK_ROSTER.index("evolver")].evolver.draws = \
+        lambda method, seed: torch.Generator().manual_seed(seed)
+    signals = sys_.bus.subscribe("trading_signals")
+    factors, real_factors = [], sys_.executor._social_factors
+
+    def social_factors(symbol):
+        out = real_factors(symbol)
+        snap = sys_.bus.get(f"social_snapshot_{symbol}")
+        factors.append({"symbol": symbol, "snapshot": snap is not None,
+                        "rows": 0 if snap is None else int(snap.age_hours.shape[0]), **out})
+        return out
+
+    sys_.executor._social_factors = social_factors
+    reads = {"engine": [], "risk": [], "executor": [], "social": []}
+    seams = {"engine": (tick_engine, "host_read"), "risk": (launcher_mod, "host_read"),
+             "executor": (executor_mod, "host_read"), "social": (social_mod, "host_read")}
+    real = {k: getattr(m, n) for k, (m, n) in seams.items()}
+
+    def counted_read(kind):
+        def read(x):
+            reads[kind].append(1)
+            return real[kind](x)
+        return read
+
+    regime_calls, real_features = [], detector_mod.regime_features
+
+    def features(*a, **k):
+        regime_calls.append(1)
+        return real_features(*a, **k)
+
+    rec_ind, rec_dyn, dyn_entry = [], [], dynamic.fused_ewma_jobs
+
+    def dyn_recording(jobs, device=None):
+        rec_dyn.append([(x, a, st) for x, a, st in jobs])
+        return dyn_entry(jobs, device=device)
+
+    per_tick, decisions, clocks, fill_counts = [], [], [], []
+    for k, (m, n) in seams.items():
+        setattr(m, n, counted_read(k))
+    detector_mod.regime_features = features
+    dynamic.fused_ewma_jobs = dyn_recording
+    fused_ewma.launches = replay.sweep_kernel.launches = 0
+    try:
+        with recording_ewma(rec_ind), recording_k1([]) as k1_calls:
+            for _ in range(STACK_TICKS):
+                before = {k: len(v) for k, v in reads.items()}
+                # inside recording_k1 the kernel counts on the module's wrapper
+                n = (fused_ewma.launches, len(rec_ind), len(rec_dyn), len(regime_calls),
+                     replay.sweep_kernel.launches)
+                rig.tick()
+                per_tick.append({
+                    "k2": fused_ewma.launches - n[0], "indicators": len(rec_ind) - n[1],
+                    "ga_tables": len(rec_dyn) - n[2], "regime_features": len(regime_calls) - n[3],
+                    "k1": replay.sweep_kernel.launches - n[4],
+                    **{f"{k}_reads": len(v) - before[k] for k, v in reads.items()},
+                    "tick_ms": rig.tick_ms[-1]})
+                decisions.append([(e["data"]["symbol"], e["data"]["decision"])
+                                  for e in (signals.get_nowait() for _ in range(signals.qsize()))])
+                clocks.append(rig.clock[0])
+                fill_counts.append(len(rig.ex.fills))
+        totals = {"k2": fused_ewma.launches, "k1": replay.sweep_kernel.launches}
+    finally:
+        for k, (m, n) in seams.items():
+            setattr(m, n, real[k])
+        detector_mod.regime_features = real_features
+        dynamic.fused_ewma_jobs = dyn_entry
+    # the monitor's launches come first in a tick (the poll), before the
+    # cadence services'
+    monitor, regime, at = [], [], 0
+    for p in per_tick:
+        monitor += rec_ind[at:at + 3]
+        regime += rec_ind[at + 3:at + p["indicators"]]
+        at += p["indicators"]
+    return rig, services, {"build_s": build_s, "per_tick": per_tick, "decisions": decisions,
+                           "clocks": clocks, "fill_counts": fill_counts, "totals": totals,
+                           "monitor_k2": monitor, "regime_k2": regime, "ga_k2": rec_dyn,
+                           "k1_calls": k1_calls, "factors": factors}
+
+
+def stack_state(rig, services):
+    """What part (a) holds of one run: the roster and heartbeats, the
+    social, news, grid and DCA state, the books, the status and the flight
+    records (the status's alerts and the records' predictions aside: the
+    prediction service's models differ between the devices' draws, and the
+    scorecard's alerts follow them)."""
+    import copy
+
+    import numpy as np
+
+    sys_ = rig.system
+    bus, syms = sys_.bus, sys_.symbols
+    snaps = {}
+    for s in syms:
+        snap = bus.get(f"social_snapshot_{s}")
+        snaps[s] = None if snap is None else {f: np.asarray(getattr(snap, f).cpu())
+                                              for f in snap._fields}
+    grid, dca = services[STACK_ROSTER.index("grid")], services[STACK_ROSTER.index("dca")]
+    status = sys_.status()
+    return copy.deepcopy({
+        "names": [s.name for s in services], "heartbeats": sys_.heartbeats.health(),
+        "social_metrics": {s: bus.get(f"social_metrics_{s}") for s in syms},
+        "social_history": {s: bus.get(f"social_history_{s}") for s in syms},
+        "social_snapshot": snaps,
+        "news": {s: (bus.get(f"news_analysis_{s}"), bus.get(f"news_recent_{s}")) for s in syms},
+        "grid": (bus.get(f"grid_orders_{grid.symbol}"), bus.get(f"grid_profit_{grid.symbol}"),
+                 grid.stats()),
+        "dca": dca.dca.purchases,
+        "regimes": {s: (bus.get(f"market_regime_{s}") or {}).get("regime") for s in syms},
+        "strategy_params": bus.get("strategy_params"),
+        "books": rig.books(),
+        "status": {k: v for k, v in status.items() if k != "alerts"},
+        # a record's `predictions` are the prediction service's, whose
+        # models come from each device's own draws
+        "records": [{k: v for k, v in r.items() if k != "predictions"}
+                    for r in sys_.flightrec.query(limit=0)],
+        "keys": sorted(bus.keys("*")),
+        "pattern_status": sorted({a.get("model_status") for a in
+                                  services[STACK_ROSTER.index("patterns")]
+                                  .pattern_data.values()}),
+        "recognizer_trained": services[STACK_ROSTER.index("patterns")].recognizer.trained})
+
+
+def stack_close(got, ref, path, rtol=1e-5):
+    """Equal, but floats within rtol (the trades' sizes, quantities and
+    stops).  Returns the first difference's path, or None."""
+    if isinstance(ref, float) and isinstance(got, float):
+        return None if abs(got - ref) <= rtol * abs(ref) + 1e-9 else path
+    if isinstance(ref, dict):
+        if not isinstance(got, dict) or got.keys() != ref.keys():
+            return path
+        return next((d for k in ref if (d := stack_close(got[k], ref[k], f"{path}.{k}", rtol))),
+                    None)
+    if isinstance(ref, (list, tuple)):
+        if not isinstance(got, (list, tuple)) or len(got) != len(ref):
+            return path
+        return next((d for i, (g, r) in enumerate(zip(got, ref))
+                     if (d := stack_close(g, r, f"{path}[{i}]", rtol))), None)
+    return None if got == ref else path
+
+
+def stack_anomaly_close(got, ref, rtol, flips, label):
+    """Two metric payloads equal but for the anomaly score (within ``rtol``)
+    and its flag (a flip only where the CPU's score lies within ``rtol`` of
+    1, counted into ``flips``)."""
+    g, r = dict(got), dict(ref)
+    ga, ra = g.pop("anomaly"), r.pop("anomaly")
+    if g != r:
+        fail(f"stack: {label}: the social metrics differ: {g} against {r}")
+    if abs(ga["score"] - ra["score"]) > rtol * abs(ra["score"]) + 1e-7:
+        fail(f"stack: {label}: anomaly score {ga['score']} against the CPU's {ra['score']} "
+             f"(rtol {rtol})")
+    if ga["is_anomaly"] != ra["is_anomaly"]:
+        if abs(ra["score"] - 1.0) > rtol:
+            fail(f"stack: {label}: anomaly flag flipped at score {ra['score']}")
+        flips.append({"case": label, "score": ra["score"]})
+
+
+def score_rtol(model):
+    """An anomaly score's rounding bound: 2·cond·2⁻²⁴ of the fitted
+    covariance (its inverse carries the sums' rounding cond times over),
+    at least 1e-4 (SOC_RTOL)."""
+    import numpy as np
+
+    cond = float(np.linalg.cond(np.asarray(model.prec.cpu(), np.float64)))
+    return max(SOC_RTOL, 2.0 * cond * 2.0 ** -24)
+
+
+def stack_system(tape, tmp):
+    """(a) The trading system with the roster, card against CPU."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    card_rig, card_svcs, card = stack_run(tape, "cuda", tmp, "stack_card")
+    card_s = time.perf_counter() - t0
+    a = stack_state(card_rig, card_svcs)
+    card_rig.system.shutdown()
+    t0 = time.perf_counter()
+    cpu_rig, cpu_svcs, cpu = stack_run(tape, "cpu", tmp, "stack_cpu")
+    cpu_s = time.perf_counter() - t0
+    b = stack_state(cpu_rig, cpu_svcs)
+    cpu_rig.system.shutdown()
+
+    if a["names"] != STACK_ROSTER or b["names"] != STACK_ROSTER:
+        fail(f"stack: the roster is {a['names']} (card), {b['names']} (CPU)")
+    hb = a["heartbeats"]
+    missing = [n for n in STACK_ROSTER + ["monitor", "analyzer", "executor"] if not hb.get(n)]
+    if missing or a["heartbeats"] != b["heartbeats"]:
+        fail(f"stack: heartbeats not all healthy ({missing}) or not the CPU's")
+    if not a["recognizer_trained"] or not b["recognizer_trained"] \
+            or a["pattern_status"] != b["pattern_status"] or "untrained" in a["pattern_status"]:
+        fail(f"stack: the pattern recognizer: trained {a['recognizer_trained']} / "
+             f"{b['recognizer_trained']}, tags {a['pattern_status']} / {b['pattern_status']}")
+    if a["keys"] != b["keys"]:
+        fail(f"stack: bus keys differ: {sorted(set(a['keys']) ^ set(b['keys']))[:10]}")
+    flips = []
+    for s in a["social_metrics"]:
+        stack_anomaly_close(a["social_metrics"][s], b["social_metrics"][s], SOC_RTOL, flips,
+                            f"social_metrics_{s}")
+        if a["social_history"][s] != b["social_history"][s]:
+            fail(f"stack: social_history_{s} differs")
+        for f, v in b["social_snapshot"][s].items():
+            if not np.allclose(a["social_snapshot"][s][f], v, rtol=1e-6, atol=1e-6):
+                fail(f"stack: social_snapshot_{s}.{f} differs from the CPU's")
+    for k in ("news", "grid", "dca", "regimes"):
+        if a[k] != b[k]:
+            fail(f"stack: {k} differs from the CPU's")
+
+    # the decisions, phase trade's rule: equal, or a first differing tick
+    # whose records hold a label flip near a threshold
+    label_flips = []
+    diverge = next((t for t, (x, y) in enumerate(zip(card["decisions"], cpu["decisions"]))
+                    if x != y), None)
+    if diverge is None:
+        for k in ("books", "status", "strategy_params"):
+            d = stack_close(a[k], b[k], k)
+            if d is not None:
+                fail(f"stack: the decisions agree but {d} differs from the CPU's")
+        trade_records(a["records"], b["records"], label_flips)
+        compared_fills = len(a["books"]["fills"])
+    else:
+        t_d = card["clocks"][diverge - 1] if diverge else -1.0
+        compared_fills = card["fill_counts"][diverge - 1] if diverge else 0
+        d = stack_close(a["books"]["fills"][:compared_fills],
+                        b["books"]["fills"][:compared_fills], "fills")
+        if d is not None:
+            fail(f"stack: the trades before tick {diverge} differ ({d})")
+        at = [[r for r in x["records"] if t_d < r["t"] <= card["clocks"][diverge]]
+              for x in (a, b)]
+        trade_records(*at, label_flips)
+        if not label_flips:
+            fail(f"stack: the decisions differ from tick {diverge} with no label flip")
+
+    entries = [f for f in a["books"]["fills"] if f["side"] == "BUY"]
+    sized = [f for f in card["factors"] if f["snapshot"]]
+    if not entries or not sized or any(f["rows"] < 4 for f in sized):
+        fail(f"stack: {len(entries)} entries, {len(sized)} sized with a social snapshot "
+             f"(rows {[f['rows'] for f in card['factors']]})")
+    if diverge is None:
+        d = stack_close(card["factors"], cpu["factors"], "factors")
+        if d is not None:
+            fail(f"stack: the executor's social factors differ from the CPU's: {d}")
+    for t, p in enumerate(card["per_tick"]):
+        if p["k2"] != p["indicators"] + p["ga_tables"] or \
+                p["indicators"] != 3 + 4 * p["regime_features"] or p["engine_reads"] != 1:
+            fail(f"stack: tick {t} made {p['k2']} K2 launches ({p['indicators']} through "
+                 f"the indicators, {p['ga_tables']} GA tables, {p['regime_features']} "
+                 f"regime_features calls) and {p['engine_reads']} tick-engine reads")
+    evolver = card_svcs[STACK_ROSTER.index("evolver")]
+    generator = card_svcs[STACK_ROSTER.index("generator")]
+    cfg = evolver.evolver.cfg
+    if [h["method"] for h in evolver.history] != ["ga"] or \
+            card["totals"]["k1"] != cfg.ga.generations + 1 or len(card["ga_k2"]) != 5 or \
+            len(card["k1_calls"]) != card["totals"]["k1"]:
+        fail(f"stack: the evolver ran {evolver.history} with {card['totals']['k1']} K1 and "
+             f"{len(card['ga_k2'])} GA-table K2 launches, not G + 1 = "
+             f"{cfg.ga.generations + 1} and 5")
+    k1 = held_k1(card["k1_calls"], "stack_evolver")
+    monitor_k2 = live_k2(card["monitor_k2"], "trade_poll")
+    ga_k2 = recorded_k2(card["ga_k2"], "stack_ga_tables")
+    regime_k2 = recorded_k2(card["regime_k2"][:8], "stack_regime")
+    ticks = [p["tick_ms"] for p in card["per_tick"]]
+    return {
+        "symbols": len(tape.symbols), "ticks": STACK_TICKS, "cursor": STACK_CURSOR,
+        "roster": a["names"], "build_s": card["build_s"], "card_run_s": card_s,
+        "cpu_run_s": cpu_s, "tick_ms": ticks,
+        "tick_ms_p50": percentile(ticks, 50), "tick_ms_p99": percentile(ticks, 99),
+        "tick_ms_p50_after_first": percentile(ticks[1:], 50),
+        "per_tick": card["per_tick"],
+        "k2": {"launches": card["totals"]["k2"],
+               "monitor": len(card["monitor_k2"]), "regime": len(card["regime_k2"]),
+               "ga_tables": len(card["ga_k2"]), "monitor_held": monitor_k2,
+               "ga_tables_held": ga_k2, "regime_held_first_two_calls": regime_k2},
+        "k1": {"launches": card["totals"]["k1"], **k1},
+        "evolver": {"history": evolver.history, "population": cfg.ga.population_size,
+                    "generations": cfg.ga.generations,
+                    "strategy_params_equal_cpu": stack_close(a["strategy_params"],
+                                                             b["strategy_params"], "p") is None},
+        "generator_ran": bool(generator.runs),
+        "regimes": sorted({r for r in a["regimes"].values() if r}),
+        "card_vs_cpu": {"decisions_diverge_at_tick": diverge, "label_flips": len(label_flips),
+                        "anomaly_flips": len(flips), "fills_compared": compared_fills},
+        "entries": len(entries), "social_factors_at_entry": sized[:5],
+        "grid": a["grid"][2], "dca_purchases": len(a["dca"]),
+        "pattern_status": a["pattern_status"]}
+
+
+def stack_social(tape):
+    """(b) `SocialMonitorService` over the tape's 64 symbols, STACK_SOCIAL_POLLS
+    polls (one a virtual minute; each symbol past the 50-row anomaly gate
+    from poll 50), a lead-lag report every 10 and an accuracy report every
+    15, on the card and on the CPU over twin buses fed the same market data
+    and 1m klines: metrics and histories equal but the anomaly score (within
+    `score_rtol`, flag flips only that close to 1, counted), snapshots equal,
+    the reports' accuracies and weights equal, correlations within 1e-6;
+    one read a poll (from poll 50), one a report; the executor's social
+    factors over each device's last snapshot within 1e-6, one read each."""
+    import asyncio
+
+    import numpy as np
+
+    from ai_crypto_trader_tpu_torch.shell import EventBus, FakeExchange
+    from ai_crypto_trader_tpu_torch.shell import executor as executor_mod
+    from ai_crypto_trader_tpu_torch.social import service as social_mod
+
+    clock = [2_000_000.0]
+    kw = dict(symbols=list(tape.symbols), cache_ttl_s=60.0, lead_lag_interval_s=600.0,
+              accuracy_interval_s=900.0, now_fn=lambda: clock[0])
+    devices = {"card": "cuda", "cpu": "cpu"}
+    buses = {d: EventBus() for d in devices}
+    svcs = {d: social_mod.SocialMonitorService(buses[d], device=devices[d], **kw)
+            for d in devices}
+    reads, real = [], social_mod.host_read
+
+    def read(x):
+        reads.append(1)
+        return real(x)
+
+    records = {d: [] for d in buses}
+    poll_ms, start = [], STACK_CURSOR - STACK_SOCIAL_POLLS
+    social_mod.host_read = read
+    try:
+        for t in range(STACK_SOCIAL_POLLS):
+            clock[0] += 60.0
+            cursor = start + t
+            feed = {}
+            for i, s in enumerate(tape.symbols):
+                close = tape.cols[i][3]
+                chg = float((close[cursor] / close[cursor - 15] - 1.0) * 100.0)
+                feed[f"market_data_{s}"] = {"price_change_15m": 10.0 * chg,
+                                            "current_price": float(close[cursor])}
+                feed[f"historical_data_{s}_1m"] = tape.klines(i, "1m", cursor, T_TICK)
+            for d, svc in svcs.items():
+                for k, v in feed.items():
+                    buses[d].set(k, v)
+                n = len(reads)
+                t0 = time.perf_counter()
+                out = asyncio.run(svc.run_once())
+                ms = 1e3 * (time.perf_counter() - t0)
+                if d == "card":
+                    poll_ms.append(ms)
+                b = buses[d]
+                records[d].append({
+                    "out": out, "reads": len(reads) - n, "ms": ms,
+                    "metrics": {s: b.get(f"social_metrics_{s}") for s in tape.symbols},
+                    "history": {s: b.get(f"social_history_{s}") for s in tape.symbols},
+                    "snapshot": {s: [np.asarray(x.cpu()) for x in b.get(f"social_snapshot_{s}")]
+                                 for s in tape.symbols},
+                    "rtol": {s: score_rtol(svc._anomaly_models[s])
+                             for s in svc._anomaly_models},
+                    "lead_lag": b.get("social_lead_lag_report"),
+                    "accuracy": b.get("social_accuracy_report"),
+                    "weights": dict(svc.source_weights)})
+    finally:
+        social_mod.host_read = real
+    flips, scored, reports = [], 0, {"lead_lag": 0, "accuracy": 0}
+    for t, (g, r) in enumerate(zip(records["card"], records["cpu"])):
+        want = int(t + 1 >= 50) + g["out"]["lead_lag"] + g["out"]["accuracy"]
+        if g["out"] != r["out"] or g["reads"] != want:
+            fail(f"stack: social poll {t}: {g['out']} ({g['reads']} reads) against the CPU's "
+                 f"{r['out']}, {want} reads expected")
+        reports["lead_lag"] += g["out"]["lead_lag"]
+        reports["accuracy"] += g["out"]["accuracy"]
+        for s in tape.symbols:
+            rtol = max(g["rtol"].get(s, SOC_RTOL), r["rtol"].get(s, SOC_RTOL))
+            stack_anomaly_close(g["metrics"][s], r["metrics"][s], rtol, flips,
+                                f"poll {t} {s}")
+            scored += r["metrics"][s]["anomaly"]["score"] != 0.0
+            if g["history"][s] != r["history"][s] or any(
+                    not np.array_equal(x, y) for x, y in zip(g["snapshot"][s], r["snapshot"][s])):
+                fail(f"stack: social poll {t} {s}: history or snapshot differs")
+        if g["accuracy"] != r["accuracy"] or g["weights"] != r["weights"]:
+            fail(f"stack: social poll {t}: the accuracy report or weights differ")
+        gl, rl = g["lead_lag"], r["lead_lag"]
+        if (gl is None) != (rl is None) or (rl is not None and gl["symbols"].keys() !=
+                                            rl["symbols"].keys()):
+            fail(f"stack: social poll {t}: the lead-lag reports differ")
+        for s, x in (rl or {}).get("symbols", {}).items():
+            y = gl["symbols"][s]
+            if y["optimal_lag"] != x["optimal_lag"] or \
+                    abs(y["correlation"] - x["correlation"]) > 1e-6:
+                fail(f"stack: social poll {t} {s}: lead-lag {y} against {x}")
+    if scored < len(tape.symbols) * (STACK_SOCIAL_POLLS - 50) or \
+            reports["lead_lag"] < 3 or reports["accuracy"] < 3:
+        fail(f"stack: social: {scored} anomaly scores, {reports} reports")
+    # the last snapshots through each device's executor
+    ex_reads, ex_real = [], executor_mod.host_read
+    executor_mod.host_read = lambda x: ex_reads.append(1) or ex_real(x)
+    try:
+        worst = 0.0
+        for s in tape.symbols:
+            f = {d: executor_mod.TradeExecutor(buses[d], FakeExchange({}), device=devices[d])
+                 ._social_factors(s) for d in devices}
+            worst = max(worst, max(abs(f["card"][k] - f["cpu"][k]) for k in f["cpu"]))
+    finally:
+        executor_mod.host_read = ex_real
+    if worst > 1e-6 or len(ex_reads) != 2 * len(tape.symbols):
+        fail(f"stack: the executor's social factors differ by {worst} ({len(ex_reads)} reads)")
+    last = records["card"][-1]
+    return {"symbols": len(tape.symbols), "polls": STACK_SOCIAL_POLLS,
+            "poll_ms_p50": percentile(poll_ms, 50), "poll_ms_p99": percentile(poll_ms, 99),
+            "poll_ms_p50_scored": percentile(poll_ms[50:], 50),
+            "report_polls_ms": [r["ms"] for r in records["card"]
+                                if r["out"]["lead_lag"] or r["out"]["accuracy"]][:6],
+            "reads_per_poll": [r["reads"] for r in records["card"]][-3:],
+            "reports": reports, "anomaly_scores": scored, "anomaly_flips": len(flips),
+            "score_rtol_max": max(max(r["rtol"].values(), default=SOC_RTOL)
+                                  for r in records["card"]),
+            "anomalies_flagged": sum(m["anomaly"]["is_anomaly"]
+                                     for m in last["metrics"].values()),
+            "executor_factor_max_diff": worst,
+            "average_direction_accuracy": last["accuracy"]["average_direction_accuracy"]}
+
+
+def stack_market(n, seed, planted):
+    """Tickers over n assets (every pair quoted, log-normal values with a
+    spread) with ``planted`` (a, b, c, edge) cycles: selling b for c pays
+    ``edge`` on top of the fair cross rate."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    assets = ["USDC"] + [f"A{i:02d}" for i in range(n - 1)]
+    value = np.exp(rng.normal(0.0, 1.5, n))
+    value[0] = 1.0
+    tickers = {}
+    for i in range(1, n):
+        for j in range(i):
+            mid = value[i] / value[j]
+            half = mid * rng.uniform(1e-4, 2e-3)
+            tickers[assets[i] + assets[j]] = {"bid": mid - half, "ask": mid + half}
+    for _, b, c, edge in planted:
+        i, j = max(b, c), min(b, c)
+        t = tickers[assets[i] + assets[j]]
+        scale = (1.0 + edge) if i == b else 1.0 / (1.0 + edge)
+        tickers[assets[i] + assets[j]] = {"bid": t["bid"] * scale, "ask": t["ask"] * scale}
+    return tickers, assets
+
+
+def stack_arbitrage():
+    """(c) `find_triangle_arbitrage` over 64 assets (262,144 cycles, three
+    planted): the cycle tensor on the card bit for bit against the CPU's,
+    the lists equal, one read a call; times."""
+    import numpy as np
+    import torch
+
+    from ai_crypto_trader_tpu_torch.strategy import arbitrage
+
+    planted = [(0, 7, 41, 0.012), (3, 19, 60, 0.02), (5, 22, 33, 0.006)]
+    tickers, assets = stack_market(STACK_ARB_ASSETS, 64, planted)
+    R = arbitrage.build_rate_matrix(tickers, assets)
+    card = arbitrage._cycle_profits(R, 0.001, device="cuda")
+    cpu = arbitrage._cycle_profits(R, 0.001, device="cpu")
+    if not np.array_equal(card.cpu().numpy().view(np.uint32), cpu.numpy().view(np.uint32)):
+        fail("stack: the cycle tensor on the card differs from the CPU's")
+    reads, real = [], arbitrage.host_read
+    arbitrage.host_read = lambda x: reads.append(1) or real(x)
+    try:
+        got = arbitrage.find_triangle_arbitrage(tickers, assets, device="cuda")
+    finally:
+        arbitrage.host_read = real
+    want = arbitrage.find_triangle_arbitrage(tickers, assets, device="cpu")
+    if got != want or len(reads) != 1 or not got:
+        fail(f"stack: arbitrage lists differ ({len(got)} / {len(want)}) or {len(reads)} reads")
+    best = {frozenset(c["cycle"][:3]) for c in got}
+    if not any({assets[b], assets[c]} <= set(x) for x in best for _, b, c, _ in planted):
+        fail("stack: no planted cycle among the best")
+    walls = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        arbitrage.find_triangle_arbitrage(tickers, assets, device="cuda")
+        walls.append(1e3 * (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    arbitrage.find_triangle_arbitrage(tickers, assets, device="cpu")
+    cpu_ms = 1e3 * (time.perf_counter() - t0)
+    return {"assets": STACK_ARB_ASSETS, "cycles": STACK_ARB_ASSETS ** 3, "found": len(got),
+            "best": got[0], "bitwise_equal_cpu": True, "reads": len(reads),
+            "cycle_tensor_ms": cuda_ms(lambda: arbitrage._cycle_profits(R, 0.001,
+                                                                          device="cuda"), 20),
+            "call_ms_p50": percentile(walls, 50), "cpu_call_ms": cpu_ms}
+
+
+def stack_provider_k1():
+    """(d) 30 days of `SocialDaily` joined onto 43,200 1m candles by
+    `SocialDataProvider.social_inputs` on the card (the CPU's arrays bit for
+    bit), fed to `evolvable_backtest(social=...)` over STACK_SOCIAL_B
+    genomes: its K1 launch bit for bit against the plain loop (`held_k1`),
+    its K2 launches (`ops.dynamic`) held against the plain EWMA, and the
+    card's stats against the CPU's run of the same call — equal, or (where
+    a K2 rounding moved a signal) the card's own inputs replayed on the CPU
+    equal to the card's stats."""
+    import numpy as np
+    import torch
+
+    from ai_crypto_trader_tpu_torch.backtest import BacktestStats, sample_params
+    from ai_crypto_trader_tpu_torch.backtest import engine
+    from ai_crypto_trader_tpu_torch.backtest.evolvable import (
+        evolvable_backtest, evolvable_inputs)
+    from ai_crypto_trader_tpu_torch.data import generate_ohlcv
+    from ai_crypto_trader_tpu_torch.data.ingest import SocialDaily
+    from ai_crypto_trader_tpu_torch.ops import dynamic
+    from ai_crypto_trader_tpu_torch.ops.ewma import fused_ewma
+    from ai_crypto_trader_tpu_torch.ops.replay import sweep_kernel
+    from ai_crypto_trader_tpu_torch.social import SocialDataProvider
+
+    rng = np.random.default_rng(30)
+    day = 86_400
+    start = 1_700_000_000 - 1_700_000_000 % day
+    daily = SocialDaily(start + np.arange(STACK_SOCIAL_DAYS, dtype=np.int64) * day, {
+        "social_volume": rng.integers(100, 60_000, STACK_SOCIAL_DAYS).astype(np.float32),
+        "social_engagement": rng.integers(10, 25_000, STACK_SOCIAL_DAYS).astype(np.float32),
+        "social_sentiment": rng.uniform(0.3, 0.9, STACK_SOCIAL_DAYS).astype(np.float32)})
+    ts = start + np.arange(STACK_SOCIAL_T, dtype=np.int64) * 60
+    prov = SocialDataProvider(daily)
+    t0 = time.perf_counter()
+    soc = prov.social_inputs(ts, "1m", device="cuda")
+    torch.cuda.synchronize()
+    join_ms = 1e3 * (time.perf_counter() - t0)
+    soc_cpu = prov.social_inputs(ts, "1m", device="cpu")
+    for f in soc._fields:
+        if not torch.equal(getattr(soc, f).cpu(), getattr(soc_cpu, f)):
+            fail(f"stack: social_inputs.{f} on the card differs from the CPU's")
+    d = {k: v for k, v in generate_ohlcv(n=STACK_SOCIAL_T, seed=31).items() if k != "regime"}
+    params = sample_params(torch.Generator().manual_seed(5), STACK_SOCIAL_B, device="cpu")
+    p_card = params._replace(**{f: getattr(params, f).cuda() for f in params._fields})
+    rec_dyn, dyn_entry = [], dynamic.fused_ewma_jobs
+
+    def dyn_recording(jobs, device=None):
+        rec_dyn.append([(x, a, st) for x, a, st in jobs])
+        return dyn_entry(jobs, device=device)
+
+    sweep_kernel.launches = fused_ewma.launches = 0
+    dynamic.fused_ewma_jobs = dyn_recording
+    try:
+        with recording_ewma([]) as rec_ind, recording_k1([]) as calls:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            card = evolvable_backtest(d, p_card, social=soc, device="cuda")
+            torch.cuda.synchronize()
+            card_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        dynamic.fused_ewma_jobs = dyn_entry
+    k1_launches, k2_launches = sweep_kernel.launches, fused_ewma.launches
+    if k1_launches != 1 or len(calls) != 1 or k2_launches != len(rec_dyn) + len(rec_ind) \
+            or not k2_launches:
+        fail(f"stack: evolvable_backtest(social=...) made {k1_launches} K1 and {k2_launches} "
+             f"K2 launches")
+    k1 = held_k1(calls, "stack_social_backtest")
+    k2 = recorded_k2(rec_dyn + rec_ind, "stack_social_backtest")
+    t0 = time.perf_counter()
+    cpu = evolvable_backtest(d, params, social=soc_cpu, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    same = all(torch.equal(getattr(card, f).cpu(), getattr(cpu, f)) for f in BacktestStats._fields)
+    replayed = None
+    if not same:
+        inputs = evolvable_inputs(d, p_card, soc, device="cuda")
+        host = inputs._replace(**{f: getattr(inputs, f).cpu() for f in inputs._fields})
+        again = engine.run_backtest(host, params, initial_balance=10_000.0,
+                                    min_signal_strength=50.0, use_param_sl_tp=True, warmup=10,
+                                    device="cpu")
+        replayed = all(torch.equal(getattr(card, f).cpu(), getattr(again, f))
+                       for f in BacktestStats._fields)
+        if not replayed:
+            fail("stack: evolvable_backtest(social=...) on the card differs from the CPU's "
+                 "replay of the card's own inputs")
+    plain = evolvable_backtest(d, p_card, device="cuda")
+    if torch.equal(plain.total_trades, card.total_trades) and \
+            torch.equal(plain.final_balance, card.final_balance):
+        fail("stack: the social inputs changed no genome's trades")
+    return {"candles": STACK_SOCIAL_T, "days": STACK_SOCIAL_DAYS, "genomes": STACK_SOCIAL_B,
+            "join_ms": join_ms, "backtest_ms": card_ms, "cpu_backtest_s": cpu_s,
+            "k1_launches": k1_launches, "k2_launches": k2_launches, "k1": k1,
+            "k2": {k: v for k, v in k2.items() if k != "launch_shapes"},
+            "stats_equal_cpu": same, "card_inputs_replayed_on_cpu_equal": replayed,
+            "trades": card.total_trades.tolist()}
+
+
+def stack_cli(tmp):
+    """(e) `cli trade --paper --full-stack --ticks 20 --registry <tmp>` as a
+    subprocess on the card in a temporary cwd: exit 0, the roster line, the
+    status JSON's channels; its seconds."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cwd = os.path.join(tmp, "cli_full_stack")
+    os.makedirs(cwd)
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [root] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p])}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "ai_crypto_trader_tpu_torch.cli", "trade",
+                           "--paper", "--full-stack", "--ticks", str(STACK_CLI_TICKS),
+                           "--registry", os.path.join(cwd, "registry.json")],
+                          cwd=cwd, capture_output=True, text=True, timeout=600, env=env)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"stack: cli trade --full-stack exited {proc.returncode}: {proc.stderr[-800:]}")
+    line = "full stack: " + ", ".join(STACK_ROSTER)
+    if line not in proc.stdout.splitlines():
+        fail(f"stack: cli trade --full-stack printed no roster line: {proc.stdout[:400]}")
+    out = proc.stdout
+    status = json.loads(out[out.rindex("\n{\n") + 1:])
+    if status["channels"].get("market_updates") != STACK_CLI_TICKS or \
+            not os.path.isdir(os.path.join(cwd, "models", "pattern_cnn")):
+        fail(f"stack: cli trade --full-stack's status {status['channels']}")
+    return {"ticks": STACK_CLI_TICKS, "exit_code": proc.returncode, "subprocess_s": wall,
+            "roster_line": line, "channels": status["channels"],
+            "closed_trades": status["closed_trades"]}
+
+
+def phase_stack(info):
+    """The full service roster on the card: (a) `TradingSystem` with
+    `build_full_stack` over phase trade's tape (64 symbols × 4 frames ×
+    256) for STACK_TICKS ticks, card against CPU; (b) the social monitor
+    over the 64 symbols; (c) triangle arbitrage over 64 assets; (d) the
+    social provider's inputs into K1; (e) `cli trade --full-stack`.
+    Returns the K2 and K1 blocks for the kernels line."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    tape = TickTape(S_TICK, T_TICK)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        system = stack_system(tape, tmp)
+        times = {"system_s": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        social = stack_social(tape)
+        times["social_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        arbitrage = stack_arbitrage()
+        times["arbitrage_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        provider = stack_provider_k1()
+        times["provider_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cli_report = stack_cli(tmp)
+        times["cli_s"] = time.perf_counter() - t0
+    report = {"phase": "stack", "card": info["nvidia_smi"], "system": system,
+              "social": social, "arbitrage": arbitrage, "provider": provider, "cli": cli_report,
+              "part_s": times, "phase_s": time.perf_counter() - t_phase}
+    emit(report)
+    mk, gk, pk = (system["k2"]["monitor_held"], system["k2"]["ga_tables_held"],
+                  provider["k2"])
+    k2 = {"launches": system["k2"]["launches"] + provider["k2_launches"],
+          "system_launches": system["k2"]["launches"],
+          "monitor_launches": system["k2"]["monitor"], "regime_launches": system["k2"]["regime"],
+          "ga_tables_launches": system["k2"]["ga_tables"],
+          "social_backtest_launches": provider["k2_launches"],
+          "ms": mk["ms"], "ms_per_launch": mk["ms_per_launch"], "plain_ms": mk["plain_ms"],
+          "barrier_only_ms": mk["barrier_only_ms"], "bound_ms": mk["bound_ms"],
+          "bound_by": mk["bound_by"], "library_ms": None,
+          "max_abs_err": max(mk["max_abs_err"], gk["max_abs_err"], pk["max_abs_err"],
+                             system["k2"]["regime_held_first_two_calls"]["max_abs_err"]),
+          "max_rel_err": max(mk["max_rel_err"], gk["max_rel_err"], pk["max_rel_err"]),
+          "launches_held": mk["launches_held"] + len(gk["ms_per_launch"])
+          + len(pk["ms_per_launch"])
+          + len(system["k2"]["regime_held_first_two_calls"]["ms_per_launch"]),
+          "ga_tables_ms": gk["ms"], "ga_tables_bound_ms": gk["bound_ms"],
+          "ga_tables_plain_ms": gk["plain_ms"],
+          "tick_ms_p50": system["tick_ms_p50"],
+          "shape": f"a tick's 3 monitor launches at S={S_TICK} x F={len(TICK_FRAMES)} x "
+                   f"T={T_TICK} (ms/plain/bound); the evolver's GA tables (5), the regime "
+                   f"cadence's regime_features (4 a call) and evolvable_backtest(social=...) "
+                   f"over {STACK_SOCIAL_T} candles counted and held"}
+    sk, pk1 = system["k1"], provider["k1"]
+    k1 = {"launches": sk["launches"] + provider["k1_launches"],
+          "evolver_launches": sk["launches"], "social_backtest_launches": provider["k1_launches"],
+          "ms": sk["ms"] + pk1["ms"], "plain_ms": sk["plain_ms"] + pk1["plain_ms"],
+          "bound_ms": sk["bound_ms"] + pk1["bound_ms"], "bound_by": sk["bound_by"],
+          "library_ms": None, "max_abs_err": max(sk["max_abs_err"], pk1["max_abs_err"]),
+          "evolver_ms": sk["ms"], "evolver_shapes": sk["shapes"][:2],
+          "social_backtest_ms": pk1["ms"], "social_backtest_shape": pk1["shapes"],
+          "shape": f"the evolver's GA (G + 1 launches, B=20 x T={T_TICK - 1}) and "
+                   f"evolvable_backtest(social=...) B={STACK_SOCIAL_B} x T={STACK_SOCIAL_T}"}
+    return k2, k1
+
+
 def main():
     import torch
 
@@ -6166,6 +6952,7 @@ def main():
     strat_k1, strat_k2 = phase_strategy(info, d)
     live = phase_live(info)
     trade = phase_trade(info)
+    stack_k2, stack_k1 = phase_stack(info)
     bound_ms, bound_by, stepped_bound_ms = replay_bound_ms(stats, B_FULL, T_FULL)
     checks += full
     kernels = [
@@ -6193,6 +6980,7 @@ def main():
          "strategy": strat_k2,
          "live": live,
          "trade": trade,
+         "stack": stack_k2,
          "shape": "the two launches of compute_indicators at T=525600, summed "
                   "(A: close K=2 + up/dn/tr K=1; B: MACD line K=1)"},
         {"name": "replay_sweep", "route": "cuda",
@@ -6222,6 +7010,7 @@ def main():
          "portfolio": portfolio,
          "sim": sim_k1,
          "strategy": strat_k1,
+         "stack": stack_k1,
          "shape": f"B={B_FULL} x T={T_FULL}",
          "plain": "the engine's loop, 32 candles a CUDA graph"},
     ]

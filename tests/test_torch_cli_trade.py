@@ -167,7 +167,7 @@ def test_resumed_trade_recovers_as_jax(first_runs, tmp_path):
         assert a.read() == b.read()
 
 
-@pytest.mark.parametrize("flag", [["--full-stack"], ["--serve", "8050"], ["--devprof"],
+@pytest.mark.parametrize("flag", [["--serve", "8050"], ["--devprof"],
                                   ["--meshprof"], ["--aot-cache", "cache"]])
 def test_flags_not_ported_exit_2(flag, capsys):
     with pytest.raises(SystemExit) as exc:
@@ -175,6 +175,56 @@ def test_flags_not_ported_exit_2(flag, capsys):
     assert exc.value.code == 2
     err = capsys.readouterr().err
     assert flag[0] in err and "not ported" in err
+
+
+FULL_STACK_TICKS = 10
+ROSTER_LINE = "full stack: social, news, patterns, regime, nn, evolver, generator, grid, dca"
+
+
+def _seed_pattern_checkpoints(tmp_path):
+    """The JAX package's pattern classifier at its random initialisation,
+    saved where each CLI looks for it (models/pattern_cnn in its cwd): in
+    the JAX package's format for the JAX CLI and, converted, in the port's
+    for the port's.  Both CLIs then load the same weights instead of
+    training at startup."""
+    import jax
+    import jax.numpy as jnp
+
+    from ai_crypto_trader_tpu.patterns.model import _build
+    from ai_crypto_trader_tpu.utils.checkpoint import save_checkpoint as jsave
+    from ai_crypto_trader_tpu_torch.convert import recognizer_from_flax
+    from ai_crypto_trader_tpu_torch.utils.checkpoint import save_checkpoint as tsave
+
+    tree = _build("cnn").init(jax.random.PRNGKey(0), jnp.zeros((2, 60, 5), jnp.float32), False)
+    meta = {"model_type": "cnn", "seq_len": 60}
+    jsave(str(tmp_path / "jax" / "models" / "pattern_cnn"), tree, metadata=meta)
+    rec = recognizer_from_flax("cnn", tree, device="cpu")
+    tsave(str(tmp_path / "port" / "models" / "pattern_cnn"), rec.params, metadata=meta)
+
+
+def test_full_stack_trade_equals_jax(tmp_path, monkeypatch):
+    """`trade --paper --full-stack` no longer exits 2: in a cwd of its own
+    each CLI registers the nine services (the same roster line), runs the
+    ticks, versions into --registry and prints the JAX CLI's status."""
+    _seed_pattern_checkpoints(tmp_path)
+    outs = {}
+    for pkg in ("jax", "port"):
+        monkeypatch.chdir(tmp_path / pkg)
+        extra = ("--device", "cpu") if pkg == "port" else ()
+        outs[pkg] = run(pkg, ["trade", "--paper", "--full-stack", "--ticks",
+                              str(FULL_STACK_TICKS), "--registry", "reg.json", *extra])
+    lines = {pkg: [ln for ln in out.splitlines() if ln.startswith("full stack:")]
+             for pkg, out in outs.items()}
+    assert lines["port"] == lines["jax"] == [ROSTER_LINE]
+    got, rec = status_of(outs["port"])
+    ref, rec_j = status_of(outs["jax"])
+    assert got == ref and rec == rec_j == []
+    assert got["channels"]["market_updates"] == FULL_STACK_TICKS
+    for ch in ("social_updates", "news_updates", "regime_updates", "dca_purchases",
+               "neural_network_predictions", "strategy_update"):
+        assert got["channels"].get(ch, 0) >= 1, ch
+    assert (tmp_path / "port" / "reg.json").is_file()
+    assert ttickpath.active() is None and ttracing.active() is None     # shut down
 
 
 def test_trade_without_paper_and_why_without_a_file(tmp_path):

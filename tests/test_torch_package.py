@@ -63,6 +63,11 @@ from ai_crypto_trader_tpu_torch.shell.scanner import MarketScanner, score_pairs
 from ai_crypto_trader_tpu_torch.sim.paths import bootstrap_candles, gbm_candles, path_params
 from ai_crypto_trader_tpu_torch.models import LongContextTransformer
 from ai_crypto_trader_tpu_torch.social import analyzer as social_analyzer
+from ai_crypto_trader_tpu_torch.data.ingest import SocialDaily
+from ai_crypto_trader_tpu_torch.shell.launcher import TradingSystem
+from ai_crypto_trader_tpu_torch.shell.stack import build_full_stack
+from ai_crypto_trader_tpu_torch.social import SocialDataProvider, SocialMonitorService
+from ai_crypto_trader_tpu_torch.strategy.arbitrage import find_triangle_arbitrage
 from ai_crypto_trader_tpu_torch.strategy import StrategyEvolver, compare_strategies, cross_validate
 from ai_crypto_trader_tpu_torch.strategy.generator import (
     GeneratorService, StrategyGenerator, default_seed, evaluate_structures, fold_features)
@@ -101,7 +106,10 @@ expected = {"config", "ops.dynamic", "backtest.evolvable", "evolve", "evolve.ga"
             "utils.devprof", "obs.tickpath", "shell.bus", "shell.exchange", "shell.monitor",
             "shell.analyzer", "shell.executor", "shell.scanner", "shell.launcher",
             "shell.dashboard", "obs.attribution", "utils.alerts", "utils.health",
-            "utils.saturation", "utils.supervision", "utils.structlog"}
+            "utils.saturation", "utils.supervision", "utils.structlog", "social.news",
+            "social.provider", "social.service", "social.strategy_integrator",
+            "strategy.grid", "strategy.dca", "strategy.grid_live", "strategy.arbitrage",
+            "shell.stack"}
 missing = sorted(e for e in expected if pkg.__name__ + "." + e not in names)
 print(missing)
 from ai_crypto_trader_tpu_torch import obs, utils
@@ -119,9 +127,15 @@ exports = {"obs": {"DRIFT_FEATURES", "N_BINS", "PSI_ALERT_THRESHOLD", "reference
            "strategy": {"compare_strategies", "cross_validate", "trade_metrics",
                         "StrategySelector", "StrategyEvolver", "ModelRegistry",
                         "explain_signal", "GeneratorService", "StrategyGenerator",
-                        "StrategyStructure"},
+                        "StrategyStructure", "GridTrader", "DCAService",
+                        "GridTraderService", "DCAStrategy", "find_triangle_arbitrage"},
            "social": {"adaptive_source_weights", "detect_anomalies", "fit_anomaly_model",
-                      "lead_lag_correlation", "normalize_metrics", "sentiment_accuracy"},
+                      "lead_lag_correlation", "normalize_metrics", "sentiment_accuracy",
+                      "NewsAnalyzer", "NewsService", "deterministic_news_provider",
+                      "lexicon_sentiment", "SocialMonitorService", "SocialDataProvider",
+                      "asof_indices", "resample_ffill", "SOCIAL_STRATEGY_TEMPLATES",
+                      "SocialStrategyIntegrator", "analyze_social_impact",
+                      "generate_social_strategy"},
            "models": {"LongContextTransformer", "LongContextBlock", "RingSelfAttention",
                       "long_context_loss"}}
 modules = {"obs": obs, "utils": utils, "strategy": strategy, "social": social,
@@ -141,11 +155,21 @@ with tempfile.TemporaryDirectory() as tmp:
     cli.main(["trade", "--paper", "--device", "cpu", "--ticks", "2", "--flightrec",
               tmp + "/decisions.jsonl", "--journal", tmp + "/trades.journal"])
     cli.main(["why", "BTCUSDC", "--device", "cpu", "--file", tmp + "/decisions.jsonl"])
+    from ai_crypto_trader_tpu_torch.data import from_dict, generate_ohlcv
+    from ai_crypto_trader_tpu_torch.shell import FakeExchange
+    from ai_crypto_trader_tpu_torch.shell.launcher import TradingSystem
+    from ai_crypto_trader_tpu_torch.shell.stack import build_full_stack
+    d = {k: v for k, v in generate_ohlcv(n=300, seed=1).items() if k != "regime"}
+    system = TradingSystem(FakeExchange({"BTCUSDC": from_dict(d, symbol="BTCUSDC")}),
+                           ["BTCUSDC"], device="cpu")
+    build_full_stack(system, grid_symbol="BTCUSDC", dca_symbol="BTCUSDC",
+                     cadences={"patterns": {"checkpoint": None, "train_on_start": False}})
+    system.shutdown()
 bad += sorted(m for m in sys.modules
               if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
               or re.match(r"ai_crypto_trader_tpu(?!_torch)(\.|$)", m))
 print(bad)
-sys.exit(1 if bad or missing or len(names) < 112 else 0)
+sys.exit(1 if bad or missing or len(names) < 121 else 0)
 """
 
 
@@ -319,6 +343,40 @@ _ENTRY_POINTS = {
     "score_pairs": lambda: score_pairs({k: np.ones((2, 8), np.float32)
                                         for k in ("open", "high", "low", "close", "volume")}),
     "cli_scan": lambda: port_cli.main(["scan", "--pairs", "2", "--lookback", "16"]),
+    "find_triangle_arbitrage": lambda: find_triangle_arbitrage(_TICKERS, _ASSETS),
+    "SocialMonitorService": lambda: SocialMonitorService(EventBus()),
+    "SocialDataProvider.social_inputs": lambda: SocialDataProvider(_DAILY).social_inputs(
+        np.arange(8, dtype=np.int64) * 60),
+    "build_full_stack": lambda: build_full_stack(
+        TradingSystem(FakeExchange(_STACK_SERIES), ["BTCUSDC"]), cadences=_QUICK_STACK),
+}
+
+_TICKERS = {"BTCUSDC": {"bid": 100.0, "ask": 100.0}, "ETHUSDC": {"bid": 10.1, "ask": 10.1},
+            "ETHBTC": {"bid": 0.1, "ask": 0.1}}
+_ASSETS = ["USDC", "BTC", "ETH"]
+_DAILY = SocialDaily(np.arange(3, dtype=np.int64) * 86_400,
+                     {"social_sentiment": np.full(3, 0.6, np.float32)})
+_STACK_SERIES = {"BTCUSDC": from_dict(_small(), symbol="BTCUSDC")}
+_QUICK_STACK = {"patterns": {"checkpoint": None, "train_on_start": False}}
+
+# the new entry points on the CPU: (call, check of the result)
+_CPU_RUNS = {
+    "find_triangle_arbitrage": (
+        lambda: find_triangle_arbitrage(_TICKERS, _ASSETS, fee_rate=0.0, device="cpu"),
+        lambda out: out and out[0]["cycle"][0] == "USDC"),
+    "SocialMonitorService": (
+        lambda: SocialMonitorService(EventBus(), device="cpu"),
+        lambda svc: svc.device == torch.device("cpu")),
+    "SocialDataProvider.social_inputs": (
+        lambda: SocialDataProvider(_DAILY).social_inputs(
+            86_400 + np.arange(8, dtype=np.int64) * 60, device="cpu"),
+        lambda out: out.sentiment.device.type == "cpu"
+        and torch.allclose(out.sentiment, torch.full((8,), 60.0))),
+    "build_full_stack": (
+        lambda: build_full_stack(TradingSystem(FakeExchange(_STACK_SERIES), ["BTCUSDC"],
+                                               device="cpu"), cadences=_QUICK_STACK),
+        lambda services: [s.name for s in services] == [
+            "social", "news", "patterns", "regime", "nn", "evolver", "generator"]),
 }
 
 _BOOK = np.stack([np.arange(8, dtype=np.float32) + 1, np.ones(8, np.float32)], axis=1)
@@ -334,6 +392,29 @@ def _schedule():
 def test_default_device_is_cuda_and_raises_without_it(no_cuda, entry):
     with pytest.raises(RuntimeError, match="CUDA"):
         _ENTRY_POINTS[entry]()
+
+
+@pytest.mark.parametrize("entry", sorted(_CPU_RUNS))
+def test_new_entry_points_run_on_the_cpu(entry):
+    call, check = _CPU_RUNS[entry]
+    assert check(call())
+
+
+@pytest.mark.parametrize("package", ["social", "strategy"])
+def test_package_exports_are_the_jax_package_exports(package):
+    """The port's `social` and `strategy` packages export the JAX
+    package's names, but `FeatureImportanceIntegrator` (its
+    `strategy.integration` module is not ported yet)."""
+    import importlib
+    import inspect
+
+    def public(mod):
+        return {n for n in dir(mod) if not n.startswith("_")
+                and not inspect.ismodule(getattr(mod, n))}
+
+    ref = public(importlib.import_module(f"ai_crypto_trader_tpu.{package}"))
+    got = public(importlib.import_module(f"ai_crypto_trader_tpu_torch.{package}"))
+    assert got == ref - {"FeatureImportanceIntegrator"}
 
 
 def test_compute_metrics_default_device_raises(no_cuda):
