@@ -8,7 +8,9 @@ observability rim (flight recorder, alerts, health, supervision,
 saturation, structured log, PnL attribution, dashboard), and the full
 service roster around it (social, news, patterns, regime, nn, evolver,
 generator, grid and DCA; the social provider and strategy integrator;
-triangle arbitrage).
+triangle arbitrage), the streamed market path (the kline-frame stream and
+its supervisor) and the load harness (synthetic tenant traffic, the
+capacity ramp, the chaos harness).
 
 The chains, module for module after the JAX package:
 
@@ -60,6 +62,12 @@ The chains, module for module after the JAX package:
     daily social metrics → social.SocialDataProvider.social_inputs →
         backtest.evolvable (the social vote axis); tickers →
         strategy.find_triangle_arbitrage (the n³ cycle products, one read)
+    kline frames → shell.stream.StreamSupervisor → MarketStream (candle
+        books, TickEngine.ingest_row) → MarketMonitor.poll with the books
+        as its kline source (one step, one read, no REST fetch in steady
+        state) — TradingSystem.attach_stream; testing.loadgen.run_load /
+        ramp drive it with N tenants (TenantEngine.decide) — `cli load`,
+        `cli fleet`
 
 Plain tensor code is PyTorch; the two Pallas kernels of the JAX package on
 these paths are CUDA C++ kernels for Hopper (``csrc/``), built with nvcc on

@@ -1,10 +1,11 @@
 """Command-line interface of the port: the ``backtest``, ``train``,
-``evolve``, ``rl``, ``generate``, ``scan``, ``trade`` and ``why``
-subcommands.
+``evolve``, ``rl``, ``generate``, ``scan``, ``trade``, ``why``, ``load``
+and ``fleet`` subcommands.
 
 Same flags and output as ``python -m ai_crypto_trader_tpu.cli backtest`` /
 ``train`` / ``evolve`` / ``rl`` / ``generate`` / ``scan`` / ``trade`` /
-``why``, plus ``--device {cuda,cpu}`` (default cuda):
+``why`` / ``load`` / ``fleet``, plus ``--device {cuda,cpu}`` (default
+cuda):
 
     python -m ai_crypto_trader_tpu_torch.cli backtest --days 365 --sweep 4096
     python -m ai_crypto_trader_tpu_torch.cli train --days 7 --model lstm --epochs 5
@@ -15,6 +16,8 @@ Same flags and output as ``python -m ai_crypto_trader_tpu.cli backtest`` /
     python -m ai_crypto_trader_tpu_torch.cli trade --paper --ticks 100 --flightrec decisions.jsonl
     python -m ai_crypto_trader_tpu_torch.cli trade --paper --full-stack --registry models/registry.json
     python -m ai_crypto_trader_tpu_torch.cli why BTCUSDC --file decisions.jsonl
+    python -m ai_crypto_trader_tpu_torch.cli load --vmapped --tenants 256 --symbols 4 --ramp
+    python -m ai_crypto_trader_tpu_torch.cli fleet --tenants 8 --symbols 4
 
 A CSV at ``backtesting/data/market/<symbol>/<symbol>_1m.csv`` is used when
 present; otherwise the deterministic synthetic series is generated.
@@ -48,9 +51,16 @@ and reconciled first), ``--flightrec`` keeps the decision provenance that
 ``why SYMBOL --file PATH`` prints.  ``--full-stack`` registers the
 reference's whole roster of cadence services (`shell.stack.build_full_stack`:
 social, news, patterns, regime, nn, evolver, generator, grid, dca) on the
-system's device, versioned in ``--registry``.  The flags whose modules are
-not ported yet (``--serve``, ``--devprof``, ``--meshprof``,
-``--aot-cache``) exit with code 2 and say so.
+system's device, versioned in ``--registry``.  ``load`` drives N
+synthetic tenant lanes over an S-symbol universe through the streamed
+market path (`testing.loadgen`: recorded kline frames → the stream
+supervisor → the monitor's tick engine → the tenant layer) and prints the
+latency and saturation report; ``--ramp`` steps the tenants up until the
+p99 tick latency breaches ``--slo-ms``.  ``fleet`` renders the fleet
+observatory's view of a short local vmapped load burst.  The flags whose
+modules are not ported yet (``trade --serve``, ``--devprof``,
+``--meshprof``, ``--aot-cache``, and ``fleet --url``) exit with code 2 and
+say so.
 """
 
 from __future__ import annotations
@@ -488,6 +498,127 @@ def cmd_why(args):
         print(line)
 
 
+def cmd_load(args):
+    """Load & capacity harness (testing/loadgen.py): drive N synthetic
+    tenant decision lanes over an S-symbol universe through the real
+    stream → tick engine → analyzer/executor path on ``--device`` and
+    print the measured tick-latency/saturation report.  `--ramp` runs the
+    closed-loop controller instead: tenants step up a doubling schedule
+    until the p99 tick latency breaches `--slo-ms`, and the report names
+    the max sustainable tenants×symbols point plus the stage the
+    saturation gauges attribute the breach to."""
+    from ai_crypto_trader_tpu_torch.testing.loadgen import (
+        LoadConfig, ramp, run_load)
+
+    cfg = LoadConfig(tenants=args.tenants, symbols=args.symbols,
+                     ticks=args.ticks, window=args.window,
+                     slo_p99_ms=args.slo_ms, seed=args.seed,
+                     mode=getattr(args, "mode", "objects"),
+                     fleetscope=not args.no_fleetscope,
+                     flightrec_path=args.flightrec, device=args.device)
+    if args.ramp:
+        out = ramp(cfg)
+    else:
+        out = run_load(cfg)
+    print(json.dumps(out, indent=2, default=str))
+
+
+def _render_fleet(block: dict, containment: dict | None = None) -> None:
+    """Operator rendering of a fleet-observatory status block
+    (obs/fleetscope.py): headline, quarantine, gate mix, dispersion,
+    rank table.  ``containment`` (local runs with engine access) adds
+    the per-lane quarantine table; a remote /state.json block carries
+    the bounded counts only (the cardinality discipline)."""
+    if not block:
+        print("no fleet block — is the fleet observatory enabled and a "
+              "vmapped tenant engine deciding?")
+        return
+    print(f"fleet: {block.get('tenants', 0)} tenants "
+          f"({block.get('active_lanes', 0)} active lanes), "
+          f"{block.get('decides', 0)} decides, "
+          f"{block.get('decisions', 0)} decisions last tick "
+          f"({block.get('executable', 0)} executable)")
+    sampled = block.get("sampled_lanes", [])
+    n_sampled = block.get("sampled_lane_count", len(sampled))
+    more = ", …" if n_sampled > len(sampled) else ""
+    print(f"starved lanes (windowed min): {block.get('starved_lanes', 0)}; "
+          f"balance drift max: {block.get('balance_drift_max', 0.0)}; "
+          f"sampled lanes ({n_sampled}): {sampled}{more}")
+    n_quar = int(block.get("quarantined_lanes", 0) or 0)
+    heals = int(block.get("heals_total", 0) or 0)
+    rows = (containment or {}).get("quarantined") or []
+    print(f"quarantine: {n_quar} lane(s) quarantined, "
+          f"{heals} heal(s) completed"
+          + (f", {containment.get('degraded_ticks', 0)} degraded tick(s)"
+             if containment else ""))
+    if rows:
+        print(f"  {'lane':>6} {'gate':<18}{'cooldown left':>14}")
+        for r in rows:
+            print(f"  {r.get('lane', ''):>6} "
+                  f"{r.get('gate', 'lane_quarantined'):<18}"
+                  f"{r.get('cooldown', 0):>14}")
+    mix = block.get("gate_mix") or {}
+    total = sum(mix.values()) or 1
+    if mix:
+        print("\ngate mix (windowed):")
+        for gate, count in sorted(mix.items(), key=lambda kv: -kv[1]):
+            bar = "#" * max(int(40 * count / total), 1)
+            print(f"  {gate:<22}{count:>9}  {count / total:>7.1%} {bar}")
+        if block.get("dominant_gate"):
+            print(f"  dominant veto gate: {block['dominant_gate']} "
+                  f"({block.get('gate_dominance', 0.0):.1%} of vetoes)")
+    pnl, bal = block.get("pnl") or {}, block.get("balance") or {}
+    if pnl:
+        print("\ndispersion over lanes:")
+        qs = sorted(set(pnl) | set(bal))
+        print("  " + "".join(f"{q:>14}" for q in [""] + qs))
+        print("  " + f"{'pnl':<2}" + "".join(
+            f"{pnl.get(q, float('nan')):>14,.2f}" for q in qs)
+            + f"   spread {block.get('pnl_spread', 0.0):,.2f}")
+        print("  " + f"{'balance':<2}" + "".join(
+            f"{bal.get(q, float('nan')):>14,.2f}" for q in qs))
+        if block.get("max_drawdown_max") is not None:
+            print(f"  worst max-drawdown: "
+                  f"{block['max_drawdown_max']:,.2f}")
+    best, worst = block.get("best") or [], block.get("worst") or []
+    if best:
+        print("\nlane rank (rolling PnL):")
+        print(f"  {'':>4}{'best lane':>10}{'pnl':>12}   "
+              f"{'worst lane':>10}{'pnl':>12}")
+        for i in range(max(len(best), len(worst))):
+            b = best[i] if i < len(best) else {}
+            w = worst[i] if i < len(worst) else {}
+            print(f"  #{i:<3}{b.get('lane', ''):>10}"
+                  f"{b.get('pnl', float('nan')):>12,.2f}   "
+                  f"{w.get('lane', ''):>10}"
+                  f"{w.get('pnl', float('nan')):>12,.2f}")
+
+
+def cmd_fleet(args):
+    """Fleet observatory operator view (obs/fleetscope.py): the
+    device-aggregated health of a vmapped tenant fleet — lane rank table
+    by rolling PnL, the windowed veto-gate mix, PnL/balance dispersion
+    quantiles, starvation and balance-drift signals — of a short local
+    vmapped load burst (testing/loadgen.py) on ``--device``.  `--url`
+    reads a live system's /state.json, which needs the dashboard server
+    (not ported yet: exits 2)."""
+    from ai_crypto_trader_tpu_torch.testing.loadgen import LoadConfig, run_load
+
+    if args.url:
+        print("fleet --url: not ported to ai_crypto_trader_tpu_torch yet "
+              "(shell/dashboard_server, ROADMAP Queue 1 step 4)",
+              file=sys.stderr)
+        raise SystemExit(2)
+    cfg = LoadConfig(tenants=args.tenants, symbols=args.symbols,
+                     ticks=args.ticks, seed=args.seed, mode="vmapped",
+                     min_samples=2, device=args.device)
+    rep = run_load(cfg)
+    print(f"(local demo fleet: {args.tenants} tenants × {args.symbols} "
+          f"symbols, {args.ticks} measured ticks, p99 "
+          f"{rep['p99_ms']:.1f} ms)\n")
+    _render_fleet(rep.get("fleet") or {}, rep.get("containment"))
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="ai_crypto_trader_tpu_torch",
                                 description=__doc__,
@@ -630,6 +761,60 @@ def build_parser() -> argparse.ArgumentParser:
                          "provenance")
     sp.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     sp.set_defaults(fn=cmd_why)
+    sp = sub.add_parser("load", help="tenants×symbols load harness "
+                                     "(saturation report; --ramp finds "
+                                     "the max sustainable point)")
+    sp.add_argument("--tenants", type=int, default=4,
+                    help="tenant decision lanes (the ramp's cap)")
+    sp.add_argument("--symbols", type=int, default=4,
+                    help="synthetic symbol universe size")
+    sp.add_argument("--ticks", type=int, default=12,
+                    help="measured ticks per load point")
+    sp.add_argument("--window", type=int, default=64,
+                    help="candle window (engine/monitor kline_limit)")
+    sp.add_argument("--slo-ms", type=float, default=250.0,
+                    help="p99 tick-latency SLO the ramp holds")
+    sp.add_argument("--ramp", action="store_true",
+                    help="closed-loop ramp: step tenants until the p99 "
+                         "SLO breaches; report max sustainable point + "
+                         "the telemetry-named saturated stage")
+    mode = sp.add_mutually_exclusive_group()
+    mode.add_argument("--vmapped", dest="mode", action="store_const",
+                      const="vmapped",
+                      help="tenants as a batch axis: ONE TenantEngine "
+                           "decide per tick for all N tenants "
+                           "(ops/tenant_engine.py)")
+    mode.add_argument("--object-lanes", dest="mode", action="store_const",
+                      const="objects",
+                      help="per-tenant Python SignalAnalyzer/TradeExecutor "
+                           "lanes (the baseline / parity oracle)")
+    mode.add_argument("--mode", dest="mode", choices=("objects", "vmapped"),
+                      help="the tenant mode by name")
+    sp.set_defaults(mode="objects")
+    sp.add_argument("--no-fleetscope", action="store_true",
+                    help="measure the bare vmapped engine (no fleet "
+                         "observatory — the overhead-probe configuration)")
+    sp.add_argument("--flightrec", default=None, metavar="PATH",
+                    help="persist sampled-lane decision provenance as "
+                         "checksummed JSONL (vmapped mode; query with "
+                         "`why SYMBOL --lane N --file PATH`)")
+    sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    sp.set_defaults(fn=cmd_load)
+    sp = sub.add_parser("fleet", help="fleet observatory operator view: "
+                                      "lane rank table, gate mix, "
+                                      "dispersion (obs/fleetscope.py)")
+    sp.add_argument("--url", default=None,
+                    help="read a live system's /state.json fleet block "
+                         "(needs the dashboard server: not ported yet, "
+                         "exits 2)")
+    sp.add_argument("--tenants", type=int, default=8,
+                    help="local demo fleet size")
+    sp.add_argument("--symbols", type=int, default=4)
+    sp.add_argument("--ticks", type=int, default=6)
+    sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    sp.set_defaults(fn=cmd_fleet)
     return p
 
 

@@ -23,10 +23,12 @@ a poll), the `TradeExecutor`, the scanner of `with_discovery` and the risk
 block's `risk.var` calls, whose results come back through `host_read`
 (one read of the four VaR figures a tick, one of the correlation matrix).
 `build_info` records torch's version, the backend and the card's name
-where the JAX package records jax's.  The options whose modules are not
-ported yet (`enable_devprof`, `enable_meshprof`, `aot_cache_dir`,
-`attach_stream`) raise `NotImplementedError`; their defaults behave as
-the JAX package's.
+where the JAX package records jax's.  `attach_stream` makes a
+`shell.stream.StreamSupervisor` the market-data path: its drain is the
+monitor's poll on the system's device, fed by the stream's candle books.
+The options whose modules are not ported yet (`enable_devprof`,
+`enable_meshprof`, `aot_cache_dir`) raise `NotImplementedError`; their
+defaults behave as the JAX package's.
 """
 
 from __future__ import annotations
@@ -160,9 +162,13 @@ class TradingSystem:
     enable_saturation: bool = True
     tick_budget_s: float = 1.0        # the tick latency SLO target the
     #                                   duty cycles are normalized against
-    # Streaming ingest (shell/stream.py, wired via attach_stream) is not
-    # ported yet; a SL/TP ticker price older than `ticker_fence_s`
-    # (exchange EVENT time) is fenced off all the same.
+    # Streaming ingest (shell/stream.py, wired via attach_stream): while a
+    # stream is attached AND healthy, the websocket feed carries market
+    # data (zero REST kline calls) and the polling monitor stands down;
+    # quarantine or staleness past the supervisor's budget degrades back
+    # to REST polling, and a SL/TP ticker price older than
+    # `ticker_fence_s` (exchange EVENT time) is fenced off — a delayed
+    # feed must not drive stop maintenance with stale prices.
     ticker_fence_s: float = 10.0
     # where the monitor, the executor, the scanner and the risk block
     # compute: None = the CUDA card, "cpu" = the CPU
@@ -316,12 +322,26 @@ class TradingSystem:
         self.executor._queue()
         self._last_market_update = self.now_fn()
         self._logged_closures = 0
-        self.stream = None                 # shell/stream: not ported yet
+        self.stream = None                 # StreamSupervisor via attach_stream
+        self._stream_degraded = True       # polling until the feed is healthy
 
     def attach_stream(self, supervisor) -> None:
         """Register a shell/stream.StreamSupervisor as the market-data
-        path — not ported yet: raises."""
-        raise _not_ported("attach_stream (shell/stream)")
+        path: its `step()` runs as a supervised stage each tick, the
+        polling monitor automatically resumes while the stream is
+        quarantined or stale, and hands back when it recovers."""
+        from ai_crypto_trader_tpu_torch.utils.supervision import StageBreaker
+
+        if supervisor.bus is None:
+            supervisor.bus = self.bus
+        if supervisor.metrics is None:
+            supervisor.metrics = self.metrics
+        self.stream = supervisor
+        self.stage_breakers["stream"] = StageBreaker(
+            "stream", max_failures=self.stage_max_failures,
+            base_backoff_s=self.stage_backoff_s,
+            quarantine_s=self.stage_quarantine_s)
+        self.heartbeats.expect("stream")
 
     def attach_tenant_engine(self, engine) -> None:
         """Register a vmapped ops/tenant_engine.TenantEngine with this
@@ -498,10 +518,50 @@ class TradingSystem:
         return out
 
     async def _poll_market(self) -> int:
-        """Market-data stage: the REST polling monitor (no stream can be
-        attached in the port yet, so the JAX package's degradation ladder
-        never leaves its first rung)."""
-        return await self._run_stage("monitor", self.monitor.poll) or 0
+        """Market-data stage with the degradation ladder.
+
+        No stream attached → the REST polling monitor (unchanged).  With a
+        stream: the supervised `stream` stage drains queued frames through
+        the monitor's publication path (the stream's candle books as the
+        kline source — zero REST on the happy path); while the stage is
+        quarantined or the feed is stale beyond its budget the polling
+        monitor AUTOMATICALLY resumes, and hands back once the stream is
+        healthy again.  The `stream_mode` gauge (1 = streaming,
+        0 = degraded to poll) makes every transition observable."""
+        if self.stream is None:
+            return await self._run_stage("monitor", self.monitor.poll) or 0
+        published = await self._run_stage("stream", self._stream_stage) or 0
+        # gauges are re-exported here, NOT only inside step(): a failing or
+        # quarantined stage never reaches step()'s export, and Prometheus
+        # would keep scraping the last healthy-looking stream_* values
+        # during exactly the outage the PromQL alerts exist for
+        self.stream.export(self.now_fn())
+        degraded = (self.stage_breakers["stream"].quarantined
+                    or self.stream.degraded(self.now_fn()))
+        if degraded != self._stream_degraded:
+            self._stream_degraded = degraded
+            if degraded:
+                self.log.warning("stream degraded; monitor resuming REST "
+                                 "polling", staleness_s=round(
+                                     self.stream.staleness(self.now_fn()), 1))
+            else:
+                self.log.info("stream healthy; polling monitor stands down")
+        self.metrics.set_gauge("stream_mode", 0.0 if degraded else 1.0)
+        if degraded:
+            published += await self._run_stage("monitor",
+                                               self.monitor.poll) or 0
+        return published
+
+    async def _stream_stage(self):
+        n = await self.stream.step()
+        if not self.stream.degraded(self.now_fn()):
+            # the monitor's DUTY (market-data publication) was genuinely
+            # served through the healthy stream's drain — beat its
+            # heartbeat.  While DEGRADED the polling monitor beats for
+            # itself (or doesn't), so a total market-data outage still
+            # fires ServiceDown(monitor).
+            self.heartbeats.beat("monitor")
+        return n
 
     def _sl_tp_price(self, symbol: str, now: float) -> float | None:
         """Price driving the executor's SL/TP maintenance: the stream's
@@ -779,6 +839,18 @@ class TradingSystem:
             "crash_looped_services": [n for n, b in self.stage_breakers.items()
                                       if b.quarantined],
         }
+        if self.stream is not None:
+            # degrade-to-poll visibility: the in-process rule engine's
+            # StreamDegradedToPoll input (PromQL twin: stream_mode == 0)
+            state["stream_degraded"] = self._stream_degraded
+            state["stream_staleness_s"] = self.stream.staleness(self.now_fn())
+            # depth-capture persistence health (DepthCaptureSaturated
+            # input; PromQL twin: depth_frames_dropped_total counting
+            # the unpersisted frames)
+            capture = getattr(self.stream.stream, "depth", None)
+            if capture is not None:
+                state["depth_journal_exhausted"] = capture.journal_exhausted
+                state["depth_ring_fill"] = capture.watermark
         if self.saturation is not None:
             # capacity observatory inputs: saturating stages (windowed,
             # min-sample gated), backpressured bus channels, loop lag
@@ -922,10 +994,29 @@ class TradingSystem:
             self.fleet_journal.close()
         if self.flightrec is not None:
             self.flightrec.close()         # flush the decision JSONL tail
+        if self.stream is not None:
+            capture = getattr(self.stream.stream, "depth", None)
+            if capture is not None:
+                capture.close()            # flush the depth JSONL tail
+
     async def run(self, duration_s: float | None = None,
                   tick_interval_s: float = 5.0):
-        """Wall-clock loop (the `while running` of run_trader.py:1492)."""
-        start = self.now_fn()
-        while duration_s is None or self.now_fn() - start < duration_s:
-            await self.tick()
-            await asyncio.sleep(tick_interval_s)
+        """Wall-clock loop (the `while running` of run_trader.py:1492).
+        With a stream attached whose supervisor owns a transport
+        (`source_factory`), the reconnecting pump runs as a background
+        task for the duration of the loop."""
+        pump_task = None
+        if self.stream is not None and self.stream.source_factory is not None:
+            pump_task = asyncio.ensure_future(self.stream.pump())
+        try:
+            start = self.now_fn()
+            while duration_s is None or self.now_fn() - start < duration_s:
+                await self.tick()
+                await asyncio.sleep(tick_interval_s)
+        finally:
+            if pump_task is not None:
+                pump_task.cancel()
+                try:
+                    await pump_task
+                except (asyncio.CancelledError, Exception):  # noqa: BLE001
+                    pass

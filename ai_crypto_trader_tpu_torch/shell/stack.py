@@ -17,8 +17,9 @@ snapshots, the pattern classifier (trained, loaded or drawn there from a
 service, the evolver's GA and the structure search.  The population seam is
 the single-device partitioner: a ``"partitioner"`` cadence other than it
 raises, as `parallel.partitioner.require_single` does.  A ``"stream"``
-cadence reaches `TradingSystem.attach_stream`, which is not ported yet and
-raises.
+cadence attaches `shell.stream`'s market-data path through
+`TradingSystem.attach_stream`; its drains run on the system's monitor, so
+on its device too.
 """
 
 from __future__ import annotations
@@ -213,8 +214,10 @@ def build_full_stack(system, *, registry=None, llm=None,
     it; production uses the defaults.  A ``"monitor"`` entry is applied as
     attribute overrides on the system's already-constructed MarketMonitor
     (its dataclass fields only; anything else raises ``TypeError``).  A
-    ``"stream"`` entry raises ``NotImplementedError`` (`attach_stream`), a
-    ``"partitioner"`` other than the single-device seam too."""
+    ``"stream"`` entry attaches the streamed market-data path: its keys
+    are split between `MarketStream` and `StreamSupervisor` by field name,
+    and a key of neither raises ``TypeError``.  A ``"partitioner"`` other
+    than the single-device seam raises."""
     from ai_crypto_trader_tpu_torch.parallel.partitioner import require_single
     from ai_crypto_trader_tpu_torch.patterns.service import ChartPatternService
     from ai_crypto_trader_tpu_torch.regime.service import MarketRegimeService
@@ -237,11 +240,27 @@ def build_full_stack(system, *, registry=None, llm=None,
         setattr(system.monitor, k, v)
 
     # streaming ingest (shell/stream.py): a "stream" cadence entry attaches
-    # the websocket-first market-data path, which the port does not have
-    # yet — the system refuses it
+    # the websocket-first market-data path — MarketStream kwargs and
+    # StreamSupervisor kwargs share one dict, split by field name; the
+    # degrade-to-poll ladder in the launcher keeps REST as the fallback.
     stream_kw = dict(cadences.get("stream") or {})
     if stream_kw.pop("enabled", bool(stream_kw)):
-        system.attach_stream(stream_kw)
+        from ai_crypto_trader_tpu_torch.shell.stream import (
+            MarketStream, StreamSupervisor)
+
+        ms_fields = {f.name for f in dataclasses.fields(MarketStream)
+                     if not f.name.startswith("_") and f.name != "monitor"}
+        sup_fields = {f.name for f in dataclasses.fields(StreamSupervisor)
+                      if not f.name.startswith("_") and f.name != "stream"}
+        clock = stream_kw.pop("now_fn", system.now_fn)
+        ms_kw = {k: stream_kw.pop(k) for k in list(stream_kw)
+                 if k in ms_fields and k not in sup_fields}
+        unknown = set(stream_kw) - sup_fields
+        if unknown:
+            raise TypeError(f"unknown stream override(s) {sorted(unknown)!r}")
+        stream = MarketStream(system.monitor, now_fn=clock, **ms_kw)
+        system.attach_stream(StreamSupervisor(stream, now_fn=clock,
+                                              **stream_kw))
 
     # the population seam of the evolver's GA and the generator's candidate
     # pools: one card

@@ -163,13 +163,13 @@ imports nothing of JAX or of the JAX package.  Phases, one JSON line each:
                 `speedup_vs_single`, one host read a generation and no
                 other sync; (c) the P = 1 fleet bit for bit against the
                 single agent; (d) a NaN member quarantined, masked and
-                healed; (e) `cli rl` at its defaults and with `--dynamics
-                gbm` as subprocesses (4 generation rows, 8 members, one
+                healed; (e) `cli rl` at its defaults but 2 generations, and so
+                with `--dynamics gbm`, as subprocesses (2 generation rows, 8 members, one
                 winner each), with K2 held at `cli rl`'s 8 × 1,024;
  14. sim      — the adversarial simulator on the card: (a) the bench's
                 `sim_sweep` row (4096 mixed scenarios × 512 candles, log
                 capacity 128, bench.py:872-909): scenarios/s and
-                candle-steps/s of 3 timed `sweep` calls after a warm one,
+                candle-steps/s of 2 timed `sweep` calls after a warm one,
                 one host read and no other sync, the first 256 scenarios'
                 rollout equal bit for bit to the port's CPU run on the
                 card's candles, dispatches a candle and torch.profiler over
@@ -256,7 +256,7 @@ imports nothing of JAX or of the JAX package.  Phases, one JSON line each:
                 risk metrics and the correlation matrix within 1e-5; label
                 flips only near a threshold); a run that dies after tick 4
                 and a new system that recovers from its journal, its books
-                against the unbroken run's; `cli trade --paper --ticks 50`
+                against the unbroken run's; `cli trade --paper --ticks 25`
                 and `cli why` as subprocesses against the same commands on
                 the CPU, `--serve` exiting 2; `device_liveness`;
                 the tick's p50/p99, tickpath's waterfall and bottleneck,
@@ -286,15 +286,44 @@ imports nothing of JAX or of the JAX package.  Phases, one JSON line each:
                 43,200 1m candles from 30 days into `evolvable_backtest(
                 social=...)` (16 genomes): its K1 launch bit for bit, its K2
                 launches held, the stats against the CPU's; (e) `cli trade
-                --paper --full-stack --ticks 20` as a subprocess in a
+                --paper --full-stack --ticks 10` as a subprocess in a
                 temporary cwd;
- 20. kernels  — one line with each kernel's launches, error, times and
+ 20. stream   — the streamed market path and the load harness: (a)
+                bench_stream's path at its width (bench.py:1403-1560: 16
+                symbols × 1m/3m/5m/15m × 256 candles from `generate_ohlcv(
+                n=256·15 + 2·40 + 64, seed=17)`, 20 ticks a pass, cut from 40): kline
+                frames offered to a `StreamSupervisor`, `MarketStream`'s
+                books, `TickEngine.ingest_row`, one step (3 K2 launches,
+                one host read) and the monitor's publication — a serial
+                pass, a pass under `TickPathScope` (the waterfall) and a
+                pipelined pass, zero REST kline calls in every timed
+                window, every launch held against the plain EWMA, the
+                serial payloads bit for bit against a monitor polling the
+                same venue by REST and within `live_tolerance` of the CPU
+                run, the pipelined ones the serial ones one drain later,
+                event→publish p50/p99 a pass and torch.profiler over one
+                drain; (b) `TradingSystem.attach_stream` over phase live's
+                tape (64 × 4 × 256), 8 ticks from phase trade's cursor:
+                the REST seed, zero REST at stream_mode 1, a
+                `ChaosFrameSource` silence that degrades to polling
+                (stream_mode 0, StreamDegradedToPoll) and the hand-back,
+                payloads, decisions and trades bit for bit against a
+                polled system on the same tape and within bounds of the
+                CPU run; (c) the capacity row's path (bench.py:1715-1810):
+                `run_load` at 256 tenants × 4 symbols vmapped (5 ticks a
+                point, cut from 10), card
+                against CPU (decisions, vetoes, balances, quarantines),
+                its K2 launches held, and `ramp` in both modes (objects to
+                8 tenants, vmapped to 256, SLO p99 250 ms); (d) `cli load
+                --mode vmapped --tenants 256 --symbols 4` and `cli fleet`
+                as subprocesses;
+ 21. kernels  — one line with each kernel's launches, error, times and
                 bound, at the main path's shapes, and each kernel's GA,
                 tick, portfolio, tenant, `cli train`, training, RL,
-                simulator, regime, strategy, live, trade and stack launches
-                (`ga_tables`, `ga_rows`, `tick`, `portfolio`, `tenant`,
-                `nn_cli_train`, `nn_train`, `rl`, `sim`, `regime`,
-                `strategy`, `live`, `trade`, `stack`).
+                simulator, regime, strategy, live, trade, stack and stream
+                launches (`ga_tables`, `ga_rows`, `tick`, `portfolio`,
+                `tenant`, `nn_cli_train`, `nn_train`, `rl`, `sim`,
+                `regime`, `strategy`, `live`, `trade`, `stack`, `stream`).
 
 Any failed check raises, so the script exits non-zero and never prints its
 last line, ``{"ok": true, "device": {...}}``.  Times are CUDA-event times
@@ -360,6 +389,7 @@ IMPORTANCE_WINDOWS, IMPORTANCE_STEPS, IMPORTANCE_ATOL = 64, 32, 1e-5
 RL_EPISODE, RL_ENVS, RL_ROLLOUT, RL_ITERS = 512, 256, 32, 20   # the bench's rl row (bench.py:695-723)
 PBT_S, PBT_T, PBT_EPISODE = 16, 1024, 256      # the pbt row's markets (bench.py:746-747)
 PBT_P, PBT_G, PBT_I, PBT_EVAL = 16, 3, 64, 4    # its fleet (bench.py:739-767)
+CLI_RL_GENS = 2                # `cli rl --generations` (its default 4, cut)
 RL_ATOL = 1e-5                 # parameters, target, moments: the card against the CPU
 RL_TIE_RTOL = 1e-5             # a differing greedy action is a near-tie within this of scale
 ULP = 2.0 ** -24
@@ -368,7 +398,7 @@ SIM_B, SIM_T, SIM_LOG = 4096, 512, 128      # the bench's sim_sweep row (bench.p
 SIM_CPU_B = 256                              # its first scenarios rolled out again on the CPU
 LOB_B, LOB_T = 1024, 256                     # the bench's lob_events_per_sec row (bench.py:922-924)
 STRESS_B, STRESS_T, STRESS_P = 256, 1024, 64  # backtest_under_stress's defaults; a population
-SIM_REPS = 3
+SIM_REPS = 2                                 # timed calls a row (cut from 3)
 SIM_Q0 = 10_000.0                            # the rollouts' quote balance
 SVC_TICKS, SVC_ITERS = 4, 8                  # the trainer service: ticks; iterations (depth cut)
 REC_P, REC_S, REC_T, REC_EPISODE, REC_ITERS = 8, 8, 512, 128, 4   # pbt_recovery (bench.py:1087-1150)
@@ -3618,7 +3648,8 @@ def cli_rl_tables(argv):
 def phase_rl(info, d):
     """The RL trainer on the card: (a) the bench's `rl` row, (b) the `pbt`
     row with its LOB markets, (c) the P = 1 oracle, (d) containment, (e)
-    `cli rl` at its defaults and with ``--dynamics gbm``.  Returns the K2
+    `cli rl` at its defaults (but CLI_RL_GENS generations) and with
+    ``--dynamics gbm``.  Returns the K2
     entries of the RL markets for the kernels line."""
     t_phase = time.perf_counter()
     report = {"phase": "rl", "card": info["nvidia_smi"], "rl_row": rl_row(d)}
@@ -3626,9 +3657,10 @@ def phase_rl(info, d):
     report["cli_markets"], cli_k2, _ = rl_markets(0, 8, "cli_rl")
     report["pbt_row"] = pbt_row(env)
     report["oracle_and_containment"] = pbt_oracle_and_containment(env)
-    report["cli_rl"] = [cli_rl_tables([]), cli_rl_tables(["--dynamics", "gbm"])]
+    report["cli_rl"] = [cli_rl_tables(["--generations", str(CLI_RL_GENS)]),
+                        cli_rl_tables(["--dynamics", "gbm", "--generations", str(CLI_RL_GENS)])]
     for run in report["cli_rl"]:
-        if (run["generations"], run["members"], run["winners"]) != (4, 8, 1):
+        if (run["generations"], run["members"], run["winners"]) != (CLI_RL_GENS, 8, 1):
             fail(f"rl: cli rl {run['argv']} printed {run['generations']} generations, "
                  f"{run['members']} members and {run['winners']} winners, not 4, 8 and 1")
     report["phase_s"] = time.perf_counter() - t_phase
@@ -5369,7 +5401,8 @@ def live_k2(launches, label):
                  for j, (x, a, st) in enumerate(jobs)]
         checks.append(ewma_check(named, f"{label}_launch{i}"))
     timed = []
-    per_poll = 3 if label in ("live_poll", "trade_poll") else len(launches)
+    per_poll = 3 if label in ("live_poll", "trade_poll", "stream_drain", "load_tick") \
+        else len(launches)
     for jobs in launches[:per_poll]:
         args = [(x.reshape(-1, x.shape[-1]), a, st) for x, a, st in jobs]
         n_tiles = tile_count([x.shape for x, _, _ in args])
@@ -5660,7 +5693,7 @@ def phase_live(info):
 
 TRADE_TICKS = 8           # ticks of the trading system (phase trade; cut from 16)
 TRADE_CUT = 4             # its recovery run dies after this tick
-TRADE_CLI_TICKS = 50      # `cli trade --paper --ticks`, as a user runs it (cut from 100)
+TRADE_CLI_TICKS = 25      # `cli trade --paper --ticks`, as a user runs it (cut from 100)
 TRADE_CURSOR = 3_858      # the tape's candle before the first tick
 # a tight trailing stop, so that the tape's one BUY run (candle 3,860, the
 # window's tick 1) closes within the window (candle 3,866, its last tick):
@@ -6174,7 +6207,7 @@ STACK_ARB_ASSETS = 64     # part (c): 64³ = 262,144 cycles
 STACK_SOCIAL_DAYS = 30    # part (d): 30 days of daily social metrics
 STACK_SOCIAL_T = 43_200   # over 43,200 1m candles
 STACK_SOCIAL_B = 16       # genomes of its backtest
-STACK_CLI_TICKS = 20      # `cli trade --paper --full-stack --ticks`
+STACK_CLI_TICKS = 10      # `cli trade --paper --full-stack --ticks` (cut from 20)
 
 
 def stack_social_provider(bus, symbol):
@@ -6815,7 +6848,7 @@ def stack_provider_k1():
 
 
 def stack_cli(tmp):
-    """(e) `cli trade --paper --full-stack --ticks 20 --registry <tmp>` as a
+    """(e) `cli trade --paper --full-stack --ticks 10 --registry <tmp>` as a
     subprocess on the card in a temporary cwd: exit 0, the roster line, the
     status JSON's channels; its seconds."""
     import os
@@ -6913,6 +6946,699 @@ def phase_stack(info):
     return k2, k1
 
 
+# --- phase stream: the streamed market path and the load harness ----------
+
+STREAM_S, STREAM_T = 16, 256       # bench_stream's symbols and window (bench.py:1442-1444)
+STREAM_TAPE_TICKS = 40             # its ticks a pass, which size its tape (bench.py:1443)
+STREAM_TICKS = 20                  # timed ticks a pass here (cut from 40)
+STREAM_CLOCK0 = 1_700_000_000.0    # the virtual clock's start (seconds)
+STREAM_TRADE_TICKS = 8             # (b): ticks of the streamed trading system
+STREAM_SILENT_TICK = 4             # (b): the tick whose frames a ChaosFrameSource silences
+LOAD_TENANTS, LOAD_SYMBOLS = 256, 4    # bench_capacity (bench.py:1733-1737)
+LOAD_TICKS = 5                     # its ticks a load point (cut from 10)
+LOAD_OBJECT_CAP = 8                # its object-lane ramp's cap (bench.py:1733)
+LOAD_SLO_MS = 250.0                # its p99 SLO (bench.py:1737)
+
+
+class StreamTape:
+    """bench_stream's tape (bench.py:1446-1466): `generate_ohlcv(n = T·15 +
+    2·ticks + 64, seed=17)`, symbol i's open/high/low/close scaled by 1 +
+    0.02·i (its volume not), one candle a minute, the venue advanced to
+    n − 2·ticks − 8 so that both timed passes of a rig stay on the tape."""
+
+    def __init__(self, S=STREAM_S, T=STREAM_T, ticks=STREAM_TAPE_TICKS, seed=17):
+        import numpy as np
+
+        from ai_crypto_trader_tpu_torch.data import generate_ohlcv
+        from ai_crypto_trader_tpu_torch.data.ingest import OHLCV
+
+        self.n = T * 15 + 2 * ticks + 64
+        d = generate_ohlcv(n=self.n, seed=seed)
+        ts = np.arange(self.n, dtype=np.int64) * 60_000
+        self.series = {f"W{i:03d}USDC": OHLCV(
+            timestamp=ts, open=d["open"] * (1 + 0.02 * i), high=d["high"] * (1 + 0.02 * i),
+            low=d["low"] * (1 + 0.02 * i), close=d["close"] * (1 + 0.02 * i),
+            volume=d["volume"], symbol=f"W{i:03d}USDC") for i in range(S)}
+        self.symbols = sorted(self.series)
+        self.start = self.n - 2 * ticks - 8
+
+    def exchange(self):
+        from ai_crypto_trader_tpu_torch.shell import FakeExchange
+
+        ex = FakeExchange(self.series)
+        ex.advance(steps=self.start)
+        return ex
+
+
+class StreamRig:
+    """bench_stream's path on one device: the tape's venue behind
+    `CountingKlines`, a `MarketMonitor` (frames 1m/3m/5m/15m, the 256-candle
+    window) fed by `StreamSupervisor(MarketStream(...))`, on a virtual clock
+    that moves 60 s a tick (so two runs stamp the same times).  ``twin``
+    adds a second monitor that polls the same venue by REST after each
+    drain: the polled path on the same venue state."""
+
+    def __init__(self, tape, device, pipelined=False, twin=False):
+        from ai_crypto_trader_tpu_torch.shell import EventBus, MarketMonitor
+        from ai_crypto_trader_tpu_torch.shell.stream import MarketStream, StreamSupervisor
+        from ai_crypto_trader_tpu_torch.testing.chaos import CountingKlines
+
+        self.clock = [STREAM_CLOCK0]
+        now = lambda: self.clock[0]            # noqa: E731
+        self.symbols = tape.symbols
+        self.ex = tape.exchange()
+        self.counting = CountingKlines(self.ex)
+        self.bus = EventBus(now_fn=now)
+        self.q = self.bus.subscribe("market_updates")
+        self.monitor = MarketMonitor(self.bus, self.counting, symbols=self.symbols,
+                                     intervals=TICK_FRAMES, kline_limit=STREAM_T, now_fn=now,
+                                     pipelined=pipelined, device=device)
+        self.sup = StreamSupervisor(MarketStream(self.monitor, now_fn=now), now_fn=now)
+        self.twin = self.twin_q = None
+        if twin:
+            tbus = EventBus(now_fn=now)
+            self.twin_q = tbus.subscribe("market_updates")
+            self.twin = MarketMonitor(tbus, self.ex, symbols=self.symbols,
+                                      intervals=TICK_FRAMES, kline_limit=STREAM_T, now_fn=now,
+                                      device=device)
+
+    def frames(self):
+        from ai_crypto_trader_tpu_torch.testing.chaos import kline_frames_for
+
+        return kline_frames_for(self.ex, self.symbols, TICK_FRAMES,
+                                event_ms=int(self.clock[0] * 1000))
+
+    def advance(self):
+        self.ex.advance()
+        self.clock[0] += 60.0
+
+    @staticmethod
+    def drained(q):
+        return {e["data"]["symbol"]: e["data"] for e in (q.get_nowait() for _ in range(q.qsize()))}
+
+
+async def stream_pass(rig, ticks, launches=None, reads=None, seed=False, scope=None):
+    """``ticks`` drains of ``rig`` (advance, build the tick's frames, then
+    the timed region: offer them to the supervisor and step it), each with
+    its K2 launches counted from 0 and recorded, its tick-engine reads and
+    its REST kline calls counted, its payloads kept (and the twin's, polled
+    after the timed region).  ``seed``: first the tape's start, stepped
+    until no symbol is pending (the stream's REST backfill seeds at most
+    `backfill_batch` symbols a drain; untimed).  ``scope``: a TickPathScope
+    active around the drains."""
+    from ai_crypto_trader_tpu_torch.obs import tickpath
+    from ai_crypto_trader_tpu_torch.ops.ewma import fused_ewma
+
+    async def drain(batch, is_seed):
+        rest0, n_rec, n_reads = rig.counting.kline_calls, len(launches), len(reads)
+        fused_ewma.launches = 0
+        t0 = time.perf_counter()
+        for f in batch:
+            rig.sup.offer(f)
+        n = await rig.sup.step()
+        ms = 1e3 * (time.perf_counter() - t0)
+        rec = {"published": n, "ms": ms, "k2": fused_ewma.launches,
+               "recorded": len(launches) - n_rec, "reads": len(reads) - n_reads,
+               "rest": rig.counting.kline_calls - rest0, "seed": is_seed,
+               "payloads": rig.drained(rig.q)}
+        if rig.twin is not None:
+            n_keep = len(launches)
+            await rig.twin.poll(force=True)
+            del launches[n_keep:]                # the twin's launches are not the stream's
+            rec["polled"] = rig.drained(rig.twin_q)
+        out.append(rec)
+
+    out = []
+    ctx = tickpath.use(scope) if scope is not None else contextlib.nullcontext()
+    with ctx:
+        if seed:
+            await drain(rig.frames(), True)
+            while rig.sup.stream._pending:
+                await drain([], True)
+        for _ in range(ticks):
+            rig.advance()
+            await drain(rig.frames(), False)
+        if rig.monitor.pipelined:
+            fused_ewma.launches = 0
+            n_reads = len(reads)
+            await rig.monitor.flush_pipeline()
+            payloads = rig.drained(rig.q)
+            out.append({"published": len(payloads), "k2": fused_ewma.launches,
+                        "reads": len(reads) - n_reads, "flush": True, "seed": False,
+                        "payloads": payloads})
+    return out
+
+
+def stream_latency(tape):
+    """(a) bench_stream's three passes on the card, and the serial pass on
+    the CPU: zero REST kline calls in every timed window, 3 K2 launches and
+    one tick-engine read a drain, every launch recorded; the serial pass's
+    payloads bit for bit against a monitor polling the same venue by REST,
+    and against the CPU run within `live_tolerance`; the pipelined pass's
+    equal to the serial pass's one drain later."""
+    import asyncio
+
+    from ai_crypto_trader_tpu_torch.obs.tickpath import TickPathScope
+    from ai_crypto_trader_tpu_torch.ops import tick_engine
+
+    launches, reads = [], []
+    real_read = tick_engine.host_read
+
+    def counted_read(readback):
+        reads.append(1)
+        return real_read(readback)
+
+    serial = StreamRig(tape, "cuda", twin=True)
+    pipe = StreamRig(tape, "cuda", pipelined=True)
+    scope = TickPathScope()
+    tick_engine.host_read = counted_read
+    try:
+        with recording_ewma(launches):
+            async def card():
+                off = await stream_pass(serial, STREAM_TICKS, launches, reads, seed=True)
+                serial.twin = None               # the tickpath pass: the stream alone
+                on = await stream_pass(serial, STREAM_TICKS, launches, reads, scope=scope)
+                piped = await stream_pass(pipe, STREAM_TICKS, launches, reads, seed=True)
+                return off, on, piped
+
+            off, on, piped = asyncio.run(card())
+    finally:
+        tick_engine.host_read = real_read
+    drains = off + on + piped[:-1]
+    for name, rs in (("serial", off), ("tickpath", on), ("pipelined", piped[:-1])):
+        for i, r in enumerate(rs):
+            fill = name == "pipelined" and i == 0      # the pipeline fills: no drain yet
+            got = (r["k2"], r["recorded"], r["reads"])
+            if got != (3, 3, 0 if fill else 1):
+                fail(f"stream: {name} drain {i} made (K2 launches, recorded, tick-engine "
+                     f"reads) {got}, not (3, 3, {0 if fill else 1})")
+            # a pipelined drain publishes the drain before it (held below)
+            want_pub = r["published"] if name == "pipelined" else STREAM_S
+            if not r["seed"] and (r["rest"] or r["published"] != want_pub):
+                fail(f"stream: {name} timed drain {i} made {r['rest']} REST kline calls and "
+                     f"published {r['published']} updates")
+    flush = piped[-1]
+    if (flush["k2"], flush["reads"], flush["published"]) != (0, 1, STREAM_S):
+        fail(f"stream: the pipeline's flush made (K2, reads, published) "
+             f"{(flush['k2'], flush['reads'], flush['published'])}")
+    seeds = [r for r in off if r["seed"]]
+    if sum(r["published"] for r in seeds) != STREAM_S or \
+            sum(r["rest"] for r in seeds) != STREAM_S * len(TICK_FRAMES):
+        fail(f"stream: the seed drains published {[r['published'] for r in seeds]} updates "
+             f"with {[r['rest'] for r in seeds]} REST calls")
+    for t, r in enumerate(off):
+        polled = {s: r["polled"][s] for s in r["payloads"]}
+        if r["payloads"] != polled:
+            where = next(((s, k) for s in polled for k in polled[s]
+                          if r["payloads"][s].get(k) != polled[s][k]), None)
+            fail(f"stream: drain {t}'s streamed payloads differ from the polled path's on the "
+                 f"same venue state (first at symbol, key {where})")
+    pipe_pay = [r["payloads"] for r in piped]
+    if pipe_pay[0] or pipe_pay[1:] != [r["payloads"] for r in off]:
+        fail("stream: the pipelined pass's payloads are not the serial pass's one drain later")
+
+    # --- the same serial pass on the CPU -----------------------------------
+    cpu = StreamRig(tape, "cpu")
+    t0 = time.perf_counter()
+    cpu_run = asyncio.run(stream_pass(cpu, STREAM_TICKS, [], [], seed=True))
+    cpu_s = time.perf_counter() - t0
+    flips = []
+    for t, (a, b) in enumerate(zip(off, cpu_run)):
+        if set(a["payloads"]) != set(b["payloads"]):
+            fail(f"stream: drain {t} published other symbols on the card than on the CPU")
+        for s, ref in b["payloads"].items():
+            compare_updates(a["payloads"][s], ref, f"stream drain {t} {s}", flips)
+        if b["rest"] != a["rest"]:
+            fail(f"stream: drain {t} made {a['rest']} REST calls on the card, {b['rest']} on "
+                 "the CPU")
+    n_labels = len(off) * STREAM_S * len(TICK_FRAMES)
+    if len(flips) > n_labels // 1000:
+        fail(f"stream: {len(flips)} label flips card vs CPU, over one in 1,000 of {n_labels}")
+
+    # --- one more drain under torch.profiler ------------------------------
+    def one_drain():
+        serial.advance()
+        batch = serial.frames()
+
+        async def go():
+            for f in batch:
+                serial.sup.offer(f)
+            await serial.sup.step()
+
+        asyncio.run(go())
+
+    try:
+        profile = device_profile(one_drain)
+    except Exception as ex:  # noqa: BLE001 — a profiler that cannot trace is reported, not fatal
+        profile = {"measured": False, "reason": repr(ex)[:300]}
+
+    def lat(rs):
+        ms = [r["ms"] for r in rs if not r["seed"]]
+        return {"p50": percentile(ms, 50), "p99": percentile(ms, 99), "ticks": len(ms)}
+
+    status = scope.status()
+    waterfall = {k: {"p50": v["p50_ms"], "p99": v["p99_ms"], "count": v["count"]}
+                 for k, v in status["phases"].items() if v["count"]}
+    for phase in ("parse", "scatter_build", "dispatch", "device_compute", "host_read",
+                  "publish"):
+        if phase not in waterfall:
+            fail(f"stream: the tickpath pass's waterfall has no {phase} phase: "
+                 f"{sorted(waterfall)}")
+    st = serial.sup.stream
+    return {"symbols": STREAM_S, "frames": list(TICK_FRAMES), "window": STREAM_T,
+            "ticks_per_pass": STREAM_TICKS,
+            "event_to_publish_ms": {"serial": lat(off), "tickpath": lat(on),
+                                    "pipelined": lat(piped[:-1])},
+            "seed_drains": len(seeds),
+            "rest_kline_calls": {"seed": sum(r["rest"] for r in seeds), "timed": 0},
+            "k2_launches_per_drain": 3, "host_reads_per_drain": 1,
+            "waterfall_ms": waterfall, "bottleneck": status["bottleneck"],
+            "overlap_headroom_ms": status["overlap_headroom_ms"],
+            "profile_one_drain": profile,
+            "streamed_equal_polled_bit_for_bit_drains": len(off),
+            "pipelined_equal_serial_shifted": True,
+            "card_vs_cpu": {"label_flips": len(flips), "labels": n_labels, "flips": flips[:5],
+                            "cpu_pass_s": cpu_s},
+            "stream_counters": {k: getattr(st, k) for k in (
+                "frames_in", "streamed_rows", "served_current", "backfills", "gaps",
+                "dup_frames", "ooo_frames", "micro_batches")},
+            "drains": len(drains)}, launches
+
+
+class StreamTradeRig:
+    """`TradingSystem` on one device over phase live's tape (64 symbols ×
+    1m/3m/5m/15m × 256) on the paper exchange without the resilient
+    adapter (its rate limiter would sleep the virtual clock forward by the
+    REST calls a run makes, and the streamed and polled runs make
+    different numbers), bench_recovery's trading parameters, the tick-path
+    scope off (its event stamps would differ between the two market
+    paths).  ``streamed``: a `StreamSupervisor` attached (backfill_batch =
+    the universe, so one drain repairs every lane after a gap), its frames
+    built from the venue and passed through a `ChaosFrameSource` that
+    silences tick STREAM_SILENT_TICK.  The venue's `get_klines` is counted
+    (the frames' own reads are not)."""
+
+    def __init__(self, tape, device, cursor, streamed):
+        import itertools
+
+        from ai_crypto_trader_tpu_torch.config import FrameworkConfig, TradingParams
+        from ai_crypto_trader_tpu_torch.data.ingest import OHLCV
+        from ai_crypto_trader_tpu_torch.shell import FakeExchange, LLMTrader
+        from ai_crypto_trader_tpu_torch.shell.launcher import TradingSystem
+        from ai_crypto_trader_tpu_torch.shell.stream import MarketStream, StreamSupervisor
+        from ai_crypto_trader_tpu_torch.testing.chaos import ChaosFrameSource, FaultSchedule
+        from ai_crypto_trader_tpu_torch.utils.health import EventLoopLagProbe
+
+        self.clock = [STREAM_CLOCK0]
+        now = lambda: self.clock[0]            # noqa: E731
+        series = {s: OHLCV(timestamp=tape.ts, open=c[0], high=c[1], low=c[2], close=c[3],
+                           volume=c[4], symbol=s) for s, c in zip(tape.symbols, tape.cols)}
+        self.ex = FakeExchange(series)
+        self.ex.advance(steps=cursor)
+        real = self.ex.get_klines
+        self.rest = [0]
+
+        def counted(*a, **kw):
+            self.rest[0] += 1
+            return real(*a, **kw)
+
+        self.ex.get_klines = counted
+        self.venue = type("Venue", (), {"get_klines": staticmethod(real)})()
+        self.symbols = list(tape.symbols)
+        self.system = TradingSystem(self.ex, self.symbols,
+                                    config=FrameworkConfig(trading=TradingParams(**LIVE_TRADING)),
+                                    now_fn=now, device=device, tick_budget_s=1e9,
+                                    enable_tickpath=False)
+        ids = itertools.count(1)
+        self.system.flightrec._id_fn = lambda: f"d{next(ids):06d}"
+        self.system.loop_lag = EventLoopLagProbe(clock=lambda: 0.0)
+        self.system.analyzer.trader = LLMTrader(model_version="chip_smoke")
+        self.updates = self.system.bus.subscribe("market_updates")
+        self.signals = self.system.bus.subscribe("trading_signals")
+        self.sup = self.chaos = None
+        if streamed:
+            per_tick = len(self.symbols) * len(TICK_FRAMES)
+            self.sup = StreamSupervisor(
+                MarketStream(self.system.monitor, now_fn=now, backfill_batch=len(self.symbols)),
+                now_fn=now, stale_after_s=45.0, max_silence_s=90.0)
+            self.system.attach_stream(self.sup)
+            self.chaos = ChaosFrameSource(
+                FaultSchedule(script={STREAM_SILENT_TICK * per_tick: "fs_silence"}),
+                silence_frames=per_tick - 1)
+        self.ticks = []
+
+    def tick(self):
+        import asyncio
+
+        from ai_crypto_trader_tpu_torch.ops.ewma import fused_ewma
+        from ai_crypto_trader_tpu_torch.testing.chaos import kline_frames_for
+
+        self.ex.advance()
+        self.clock[0] += 60.0
+        offered = 0
+        if self.sup is not None:
+            frames, dropped = self.chaos.filter(kline_frames_for(
+                self.venue, self.symbols, TICK_FRAMES, event_ms=int(self.clock[0] * 1000)))
+            if dropped:
+                fail("stream: the trading rig's frame source disconnected")
+            for f in frames:
+                self.sup.offer(f)
+            offered = len(frames)
+        rest0 = self.rest[0]
+        fused_ewma.launches = 0
+        t0 = time.perf_counter()
+        out = asyncio.run(self.system.tick())
+        ms = 1e3 * (time.perf_counter() - t0)
+        sys_ = self.system
+        rec = {"out": out, "ms": ms, "k2": fused_ewma.launches, "rest": self.rest[0] - rest0,
+               "offered": offered,
+               "mode": sys_.metrics.gauges.get("crypto_trader_tpu_stream_mode"),
+               "stream_degraded": (sys_._alert_state().get("stream_degraded")
+                                   if self.sup is not None else None),
+               "degraded_alert": "StreamDegradedToPoll" in sys_.alerts.active,
+               "payloads": StreamRig.drained(self.updates),
+               "decisions": [(e["data"]["symbol"], e["data"]["decision"],
+                              e["data"]["confidence"])
+                             for e in (self.signals.get_nowait()
+                                       for _ in range(self.signals.qsize()))]}
+        self.ticks.append(rec)
+        return rec
+
+    def books(self):
+        import copy
+
+        ex, exe = self.ex, self.system.executor
+        return copy.deepcopy({"fills": ex.fills, "balances": ex.get_balances(),
+                              "open_orders": ex.list_open_orders(),
+                              "closed": exe.closed_trades,
+                              "active": exe.snapshot_state()["active"]})
+
+
+def stream_trading(trade_tick_ms_p50):
+    """(b) The trading system on the stream: STREAM_TRADE_TICKS ticks from
+    phase trade's cursor on the card, streamed; the same ticks polled on
+    the card and streamed on the CPU.  The first tick seeds the lanes by
+    REST backfill; the later ticks make zero REST kline calls at
+    stream_mode 1, but the silent tick (stream_mode 0, the
+    StreamDegradedToPoll input set, the monitor polling) and the hand-back
+    after it (the gap's bounded backfill); 3 K2 launches a tick.  Payloads
+    and trades equal the polled system's bit for bit, and the CPU's within
+    `live_tolerance` (trades equal where the decisions agree)."""
+    tape = TickTape(S_TICK, T_TICK)
+    runs = {}
+    t_runs = {}
+    for tag, device, streamed in (("streamed", "cuda", True), ("polled", "cuda", False),
+                                  ("cpu", "cpu", True)):
+        rig = StreamTradeRig(tape, device, TRADE_CURSOR, streamed)
+        t0 = time.perf_counter()
+        try:
+            for _ in range(STREAM_TRADE_TICKS):
+                rig.tick()
+            runs[tag] = {"ticks": rig.ticks, "books": rig.books()}
+        finally:
+            rig.system.shutdown()
+        t_runs[tag] = time.perf_counter() - t0
+    s, p, c = runs["streamed"]["ticks"], runs["polled"]["ticks"], runs["cpu"]["ticks"]
+    silent, back = STREAM_SILENT_TICK, STREAM_SILENT_TICK + 1
+    for t, r in enumerate(s):
+        if r["k2"] != 3:
+            fail(f"stream trading: tick {t} made {r['k2']} K2 launches, not 3")
+        if len(r["payloads"]) != S_TICK or r["out"]["published"] != S_TICK:
+            fail(f"stream trading: tick {t} published {len(r['payloads'])} updates")
+        want_mode = 0.0 if t == silent else 1.0
+        if r["mode"] != want_mode:
+            fail(f"stream trading: tick {t}'s stream_mode {r['mode']}, not {want_mode}")
+        if t == 0 and r["rest"] < S_TICK * len(TICK_FRAMES):
+            fail(f"stream trading: the first tick seeded with {r['rest']} REST calls")
+        if t not in (0, silent, back) and r["rest"]:
+            fail(f"stream trading: steady tick {t} made {r['rest']} REST kline calls")
+    if s[silent]["offered"] or not s[silent]["stream_degraded"] or not s[silent]["degraded_alert"]:
+        fail(f"stream trading: the silent tick offered {s[silent]['offered']} frames, "
+             f"stream_degraded {s[silent]['stream_degraded']}, alert "
+             f"{s[silent]['degraded_alert']}")
+    if s[silent]["rest"] != p[silent]["rest"]:
+        fail(f"stream trading: the degraded tick made {s[silent]['rest']} REST calls, the "
+             f"polled system {p[silent]['rest']}")
+    if s[back]["stream_degraded"] or s[back]["degraded_alert"]:
+        fail("stream trading: the system did not hand back to the stream after the silence")
+    for t, (a, b) in enumerate(zip(s, p)):
+        if a["payloads"] != b["payloads"] or a["decisions"] != b["decisions"]:
+            fail(f"stream trading: tick {t}'s payloads or decisions differ from the polled "
+                 "system's on the same tape")
+    if runs["streamed"]["books"] != runs["polled"]["books"]:
+        fail("stream trading: the trades differ from the polled system's")
+    flips = []
+    for t, (a, b) in enumerate(zip(s, c)):
+        if (a["mode"], a["rest"]) != (b["mode"], b["rest"]):
+            fail(f"stream trading: tick {t} mode/REST on the card {a['mode']}/{a['rest']}, on "
+                 f"the CPU {b['mode']}/{b['rest']}")
+        for sym, ref in b["payloads"].items():
+            compare_updates(a["payloads"][sym], ref, f"stream trading tick {t} {sym}", flips)
+    card_books, cpu_books = runs["streamed"]["books"], runs["cpu"]["books"]
+    diverge = next((t for t, (a, b) in enumerate(zip(s, c)) if a["decisions"] != b["decisions"]),
+                   None)
+    if diverge is None and card_books != cpu_books:
+        fail("stream trading: the decisions agree but the trades on the card differ from "
+             "the CPU's")
+    entries = sum(f["side"] == "BUY" for f in card_books["fills"])
+    if entries < 1:
+        fail("stream trading: no entry: the trade comparison is vacuous")
+    steady = [r["ms"] for t, r in enumerate(s) if t not in (0, silent, back)]
+    polled = [r["ms"] for t, r in enumerate(p) if t]
+    return {"symbols": S_TICK, "ticks": STREAM_TRADE_TICKS, "cursor": TRADE_CURSOR,
+            "silent_tick": silent,
+            "per_tick": [{k: r[k] for k in ("ms", "k2", "rest", "offered", "mode",
+                                            "stream_degraded", "degraded_alert")}
+                         for r in s],
+            "rest_per_tick_polled": [r["rest"] for r in p],
+            "tick_ms": {"streamed_steady": {"p50": percentile(steady, 50),
+                                            "p99": percentile(steady, 99)},
+                        "polled_this_phase": {"p50": percentile(polled, 50),
+                                              "p99": percentile(polled, 99)},
+                        "phase_trade_polled_p50": trade_tick_ms_p50},
+            "equal_polled_bit_for_bit": True,
+            "card_vs_cpu": {"label_flips": len(flips), "flips": flips[:5],
+                            "decisions_diverge_at_tick": diverge,
+                            "trades_equal": card_books == cpu_books},
+            "entries": entries, "closed_trades": len(card_books["closed"]),
+            "run_s": t_runs}
+
+
+def load_point(device):
+    """`run_load(LoadConfig(tenants=256, symbols=4, mode="vmapped",
+    ticks=10))` on ``device`` through its pieces, so that each decide is
+    kept: the report and every decide's output."""
+    import asyncio
+
+    import numpy as np
+
+    from ai_crypto_trader_tpu_torch.testing.loadgen import (
+        LoadConfig, SyntheticTenantTraffic, _fleet_scope)
+
+    cfg = LoadConfig(tenants=LOAD_TENANTS, symbols=LOAD_SYMBOLS, mode="vmapped",
+                     ticks=LOAD_TICKS, slo_p99_ms=LOAD_SLO_MS, device=device)
+    traffic = SyntheticTenantTraffic(cfg)
+    eng, decides = traffic.tenant_engine, []
+    real = eng.decide
+
+    def decide(feats):
+        out = real(feats)
+        decides.append({k: np.asarray(v).copy() for k, v in out.items()})
+        return out
+
+    eng.decide = decide
+    with _fleet_scope(traffic):
+        try:
+            rep = asyncio.run(traffic.run())
+        finally:
+            traffic.close()
+    vetoes = {k: v for k, v in traffic.metrics.counters.items() if "decision_vetoes" in k}
+    return {"report": rep, "decides": decides, "vetoes": vetoes,
+            "state": {k: np.asarray(v).copy() for k, v in eng._state_np.items()},
+            "quarantined": eng.quarantined_lanes(), "warmup": cfg.warmup_ticks}
+
+
+def stream_load():
+    """(c) The capacity row's path: the load point on the card (its K2
+    launches recorded: 3 a tick) and on the CPU, decisions, vetoes,
+    balances and quarantines equal; then `ramp` in both modes as
+    bench_capacity runs it (objects to 8 tenants, vmapped to 256, 4
+    symbols, SLO p99 250 ms), its K2 launches counted."""
+    import numpy as np
+
+    from ai_crypto_trader_tpu_torch.ops.ewma import fused_ewma
+    from ai_crypto_trader_tpu_torch.testing.loadgen import LoadConfig, ramp
+
+    launches = []
+    fused_ewma.launches = 0
+    t0 = time.perf_counter()
+    with recording_ewma(launches):
+        card = load_point("cuda")
+    card_s = time.perf_counter() - t0
+    n_ticks = card["warmup"] + LOAD_TICKS
+    if (fused_ewma.launches, len(launches)) != (3 * n_ticks, 3 * n_ticks):
+        fail(f"stream load: {fused_ewma.launches} K2 launches ({len(launches)} recorded) over "
+             f"{n_ticks} ticks, not 3 a tick")
+    t0 = time.perf_counter()
+    cpu = load_point("cpu")
+    cpu_s = time.perf_counter() - t0
+    rep, rep_c = card["report"], cpu["report"]
+    for k in ("published", "analyzed", "executed", "rest_kline_calls_steady", "ticks", "lanes"):
+        if rep[k] != rep_c[k]:
+            fail(f"stream load: {k} {rep[k]} on the card, {rep_c[k]} on the CPU")
+    if rep["rest_kline_calls_steady"] != 0:
+        fail(f"stream load: {rep['rest_kline_calls_steady']} REST kline calls in the steady "
+             "state")
+    if len(card["decides"]) != len(cpu["decides"]):
+        fail("stream load: a different number of decides on the card and the CPU")
+    for t, (a, b) in enumerate(zip(card["decides"], cpu["decides"])):
+        for k in ("gate", "decision", "exec"):
+            if k in b and not np.array_equal(a[k], b[k]):
+                fail(f"stream load: decide {t}'s {k} differs between the card and the CPU at "
+                     f"{int((a[k] != b[k]).sum())} lanes")
+        for k in ("confidence", "size", "qty"):
+            if k in b and not np.allclose(a[k], b[k], rtol=1e-5, atol=1e-6, equal_nan=True):
+                fail(f"stream load: decide {t}'s {k} differs beyond rtol 1e-5")
+    if card["vetoes"] != cpu["vetoes"]:
+        fail(f"stream load: vetoes {card['vetoes']} on the card, {cpu['vetoes']} on the CPU")
+    if card["quarantined"] != cpu["quarantined"]:
+        fail("stream load: the quarantined lanes differ between the card and the CPU")
+    for k, v in cpu["state"].items():
+        a = card["state"][k]
+        same = (np.allclose(a, v, rtol=1e-5, atol=1e-6, equal_nan=True) if v.dtype.kind == "f"
+                else np.array_equal(a, v))
+        if not same:
+            fail(f"stream load: the lanes' {k} differs between the card and the CPU")
+
+    def ramp_mode(mode, cap):
+        fused_ewma.launches = 0
+        t0 = time.perf_counter()
+        out = ramp(LoadConfig(tenants=cap, symbols=LOAD_SYMBOLS, ticks=LOAD_TICKS,
+                              slo_p99_ms=LOAD_SLO_MS, mode=mode, device="cuda"))
+        wall = time.perf_counter() - t0
+        k2 = fused_ewma.launches
+        ticks = sum(s["ticks"] for s in out["steps"]) + 2 * len(out["steps"])
+        if k2 != 3 * ticks or any(s["rest_kline_calls_steady"] for s in out["steps"]):
+            fail(f"stream load: the {mode} ramp made {k2} K2 launches over {ticks} ticks, "
+                 f"REST {[s['rest_kline_calls_steady'] for s in out['steps']]}")
+        best = out["max_sustainable"] or {}
+        return {"steps": [{k: s[k] for k in ("tenants", "lanes", "p50_ms", "p99_ms",
+                                             "breached", "bottleneck_stage")}
+                          for s in out["steps"]],
+                "max_sustainable_lanes": best.get("lanes", 0),
+                "max_sustainable_tenants": best.get("tenants", 0),
+                "p99_ms_at_max": best.get("p99_ms"), "breach": out["breach"],
+                "saturated_stages": out["saturated_stages"],
+                "bottleneck_stage": out["bottleneck_stage"], "k2_launches": k2,
+                "ramp_s": wall}
+
+    objects = ramp_mode("objects", LOAD_OBJECT_CAP)
+    vmapped = ramp_mode("vmapped", LOAD_TENANTS)
+    speedup = (vmapped["max_sustainable_lanes"] / objects["max_sustainable_lanes"]
+               if objects["max_sustainable_lanes"] else None)
+    k2_total = 3 * n_ticks + objects["k2_launches"] + vmapped["k2_launches"]
+    return {"load_point": {"tenants": LOAD_TENANTS, "symbols": LOAD_SYMBOLS,
+                           "ticks": LOAD_TICKS, "p50_ms": rep["p50_ms"], "p99_ms": rep["p99_ms"],
+                           "cpu_p50_ms": rep_c["p50_ms"], "stage_duty": rep["stage_duty"],
+                           "bottleneck_stage": rep["bottleneck_stage"],
+                           "published": rep["published"], "analyzed": rep["analyzed"],
+                           "executed": rep["executed"], "decides": len(card["decides"]),
+                           "vetoes": card["vetoes"], "card_equal_cpu": True,
+                           "card_s": card_s, "cpu_s": cpu_s},
+            "ramp": {"slo_p99_ms": LOAD_SLO_MS, "objects": objects, "vmapped": vmapped,
+                     "speedup": speedup},
+            "k2_launches": k2_total}, launches, k2_total
+
+
+def stream_cli():
+    """(d) `cli load --mode vmapped --tenants 256 --symbols 4` and `cli
+    fleet` as subprocesses on the card: exit 0, the load report's mode and
+    zero steady REST calls, the fleet view's headline."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [root] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p])}
+    out = {}
+    for name, argv in (("load", ["load", "--mode", "vmapped", "--tenants", str(LOAD_TENANTS),
+                                 "--symbols", str(LOAD_SYMBOLS)]),
+                       ("fleet", ["fleet"])):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "ai_crypto_trader_tpu_torch.cli", *argv],
+                              cwd=root, capture_output=True, text=True, timeout=600, env=env)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"stream: cli {name} exited {proc.returncode}: {proc.stderr[-800:]}")
+        if name == "load":
+            rep = json.loads(proc.stdout[proc.stdout.index("{"):])
+            if rep["mode"] != "vmapped" or rep["rest_kline_calls_steady"] != 0 or \
+                    rep["lanes"] != LOAD_TENANTS * LOAD_SYMBOLS:
+                fail(f"stream: cli load's report {str(rep)[:300]}")
+            out[name] = {"subprocess_s": wall, "p50_ms": rep["p50_ms"], "p99_ms": rep["p99_ms"],
+                         "bottleneck_stage": rep["bottleneck_stage"]}
+        else:
+            head = next((line for line in proc.stdout.splitlines() if line.startswith("fleet: ")),
+                        None)
+            if head is None:
+                fail(f"stream: cli fleet printed no fleet line: {proc.stdout[:400]}")
+            out[name] = {"subprocess_s": wall, "headline": head}
+    return out
+
+
+def phase_stream(info, trade_tick_ms_p50=None):
+    """The streamed market path and the load harness on the card: (a)
+    bench_stream's path at its width (16 symbols × 1m/3m/5m/15m × 256,
+    STREAM_TICKS ticks a pass: serial, under TickPathScope, pipelined),
+    the CPU's serial pass; (b) `TradingSystem.attach_stream` over phase
+    live's tape with a silence and a hand-back, against a polled system
+    and the CPU; (c) the capacity row's load point card against CPU and
+    both ramps; (d) `cli load` and `cli fleet`.  Every K2 launch of (a) is
+    held against the plain EWMA, and (c)'s load point's too.  Returns K2's
+    entry for the kernels line."""
+    t_phase = time.perf_counter()
+    tape = StreamTape()
+    t0 = time.perf_counter()
+    latency, launches_a = stream_latency(tape)
+    times = {"latency_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    trading = stream_trading(trade_tick_ms_p50)
+    times["trading_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    load, launches_c, load_k2 = stream_load()
+    times["load_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cli = stream_cli()
+    times["cli_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    k2 = live_k2(launches_a, "stream_drain")
+    k2_load = live_k2(launches_c, "load_tick")
+    times["held_s"] = time.perf_counter() - t0
+    report = {"phase": "stream", "card": info["nvidia_smi"], "latency": latency,
+              "trading": trading, "load": load, "cli": cli, "k2": k2,
+              "k2_load_ticks": {k: k2_load[k] for k in ("launches_held", "ms", "plain_ms",
+                                                         "bound_ms", "bound_by",
+                                                         "max_abs_err")},
+              "part_s": times, "phase_s": time.perf_counter() - t_phase}
+    emit(report)
+    drains = latency["drains"]
+    trade_k2 = sum(r["k2"] for r in trading["per_tick"])
+    return {"launches": 3 * drains + trade_k2 + load_k2,
+            "launches_by_path": {"stream_drains": 3 * drains, "trading_ticks": trade_k2,
+                                 "load": load_k2},
+            "launches_per_drain": 3, "launches_held": k2["launches_held"]
+            + k2_load["launches_held"],
+            **{k: k2[k] for k in ("ms", "ms_per_launch", "plain_ms", "barrier_only_ms",
+                                  "bound_ms", "bound_by")},
+            "max_abs_err": max(k2["max_abs_err"], k2_load["max_abs_err"]),
+            "max_rel_err": max(k2["max_rel_err"], k2_load["max_rel_err"]),
+            "library_ms": None,
+            "load_tick": {k: k2_load[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+            "event_to_publish_ms_p50": latency["event_to_publish_ms"]["serial"]["p50"],
+            "shape": f"a drain's 3 launches at S={STREAM_S} x F={len(TICK_FRAMES)} x "
+                     f"T={STREAM_T} (ms/plain/bound); load_tick: a load tick's 3 at "
+                     f"S={LOAD_SYMBOLS} x F=1 x T=64"}
+
+
 def main():
     import torch
 
@@ -6953,6 +7679,7 @@ def main():
     live = phase_live(info)
     trade = phase_trade(info)
     stack_k2, stack_k1 = phase_stack(info)
+    stream = phase_stream(info, trade["tick_ms_p50"])
     bound_ms, bound_by, stepped_bound_ms = replay_bound_ms(stats, B_FULL, T_FULL)
     checks += full
     kernels = [
@@ -6981,6 +7708,7 @@ def main():
          "live": live,
          "trade": trade,
          "stack": stack_k2,
+         "stream": stream,
          "shape": "the two launches of compute_indicators at T=525600, summed "
                   "(A: close K=2 + up/dn/tr K=1; B: MACD line K=1)"},
         {"name": "replay_sweep", "route": "cuda",

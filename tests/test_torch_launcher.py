@@ -509,9 +509,20 @@ def test_options_not_ported_raise(option):
 
 
 def test_attach_stream_raises_and_other_attachments_work(systems):
+    """`attach_stream` registers a stream supervisor as the market-data
+    stage (it raised before shell/stream was ported); an object that is
+    not a supervisor still raises."""
+    from ai_crypto_trader_tpu_torch.shell.stream import MarketStream, StreamSupervisor
+
     system, _, _ = build("port", None, systems)
-    with pytest.raises(NotImplementedError, match="shell/stream"):
+    with pytest.raises(AttributeError):
         system.attach_stream(object())
+    sup = StreamSupervisor(MarketStream(system.monitor, now_fn=system.now_fn),
+                           now_fn=system.now_fn)
+    system.attach_stream(sup)
+    assert system.stream is sup and sup.bus is system.bus and sup.metrics is system.metrics
+    assert "stream" in system.stage_breakers and "stream" in system.heartbeats.expected
+    assert system._alert_state()["stream_degraded"] is True
 
     class Trainer:
         name = "trainer"

@@ -71,6 +71,9 @@ from ai_crypto_trader_tpu_torch.strategy.arbitrage import find_triangle_arbitrag
 from ai_crypto_trader_tpu_torch.strategy import StrategyEvolver, compare_strategies, cross_validate
 from ai_crypto_trader_tpu_torch.strategy.generator import (
     GeneratorService, StrategyGenerator, default_seed, evaluate_structures, fold_features)
+from ai_crypto_trader_tpu_torch.shell.stream import MarketStream, StreamSupervisor
+from ai_crypto_trader_tpu_torch.testing.loadgen import (
+    LoadConfig, SyntheticTenantTraffic, ramp, run_load)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -109,7 +112,7 @@ expected = {"config", "ops.dynamic", "backtest.evolvable", "evolve", "evolve.ga"
             "utils.saturation", "utils.supervision", "utils.structlog", "social.news",
             "social.provider", "social.service", "social.strategy_integrator",
             "strategy.grid", "strategy.dca", "strategy.grid_live", "strategy.arbitrage",
-            "shell.stack"}
+            "shell.stack", "shell.stream", "testing", "testing.chaos", "testing.loadgen"}
 missing = sorted(e for e in expected if pkg.__name__ + "." + e not in names)
 print(missing)
 from ai_crypto_trader_tpu_torch import obs, utils
@@ -165,11 +168,14 @@ with tempfile.TemporaryDirectory() as tmp:
     build_full_stack(system, grid_symbol="BTCUSDC", dca_symbol="BTCUSDC",
                      cadences={"patterns": {"checkpoint": None, "train_on_start": False}})
     system.shutdown()
+    cli.main(["load", "--device", "cpu", "--mode", "vmapped", "--tenants", "2", "--symbols",
+              "2", "--ticks", "2"])
+    cli.main(["fleet", "--device", "cpu", "--tenants", "2", "--symbols", "2", "--ticks", "2"])
 bad += sorted(m for m in sys.modules
               if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
               or re.match(r"ai_crypto_trader_tpu(?!_torch)(\.|$)", m))
 print(bad)
-sys.exit(1 if bad or missing or len(names) < 121 else 0)
+sys.exit(1 if bad or missing or len(names) < 125 else 0)
 """
 
 
@@ -349,6 +355,16 @@ _ENTRY_POINTS = {
         np.arange(8, dtype=np.int64) * 60),
     "build_full_stack": lambda: build_full_stack(
         TradingSystem(FakeExchange(_STACK_SERIES), ["BTCUSDC"]), cadences=_QUICK_STACK),
+    "MarketStream": lambda: MarketStream(MarketMonitor(EventBus(), FakeExchange({}))),
+    "StreamSupervisor": lambda: StreamSupervisor(MarketStream(
+        MarketMonitor(EventBus(), FakeExchange({})))),
+    "SyntheticTenantTraffic": lambda: SyntheticTenantTraffic(LoadConfig(tenants=1, symbols=1)),
+    "run_load": lambda: run_load(LoadConfig(tenants=1, symbols=1, ticks=1)),
+    "ramp": lambda: ramp(LoadConfig(tenants=1, symbols=1, ticks=1)),
+    "cli_load": lambda: port_cli.main(["load", "--tenants", "1", "--symbols", "1",
+                                       "--ticks", "1"]),
+    "cli_fleet": lambda: port_cli.main(["fleet", "--tenants", "1", "--symbols", "1",
+                                        "--ticks", "1"]),
 }
 
 _TICKERS = {"BTCUSDC": {"bid": 100.0, "ask": 100.0}, "ETHUSDC": {"bid": 10.1, "ask": 10.1},
@@ -373,11 +389,82 @@ _CPU_RUNS = {
         lambda out: out.sentiment.device.type == "cpu"
         and torch.allclose(out.sentiment, torch.full((8,), 60.0))),
     "build_full_stack": (
-        lambda: build_full_stack(TradingSystem(FakeExchange(_STACK_SERIES), ["BTCUSDC"],
-                                               device="cpu"), cadences=_QUICK_STACK),
+        lambda: _full_stack_on_the_cpu(),
         lambda services: [s.name for s in services] == [
             "social", "news", "patterns", "regime", "nn", "evolver", "generator"]),
+    "MarketStream": (
+        lambda: _streamed_drain_on_the_cpu(),
+        lambda out: out == (1, torch.device("cpu"))),
+    "attach_stream": (
+        lambda: _streamed_system_on_the_cpu(),
+        lambda out: out == ("StreamSupervisor", 1.0)),
+    "run_load": (
+        lambda: run_load(LoadConfig(tenants=2, symbols=2, ticks=2, mode="vmapped",
+                                    device="cpu")),
+        lambda rep: rep["mode"] == "vmapped" and rep["rest_kline_calls_steady"] == 0
+        and rep["published"] == 4),
+    "ramp": (
+        lambda: ramp(LoadConfig(tenants=2, symbols=2, ticks=2, slo_p99_ms=60_000.0,
+                                device="cpu")),
+        lambda out: [s["tenants"] for s in out["steps"]] == [1, 2]
+        and out["max_sustainable"]["tenants"] == 2),
 }
+
+
+def _streamed_series(n=2_400):
+    return {"BTCUSDC": from_dict({k: v for k, v in generate_ohlcv(n=n, seed=3).items()
+                                  if k != "regime"}, symbol="BTCUSDC")}
+
+
+def _streamed_drain_on_the_cpu():
+    """One streamed drain over a CPU monitor: the stream's kline frames,
+    a REST seed, one publication on the monitor's device."""
+    from ai_crypto_trader_tpu_torch.testing.chaos import kline_frames_for
+
+    ex = FakeExchange(_streamed_series())
+    ex.advance(steps=2_200)
+    mon = MarketMonitor(EventBus(), ex, symbols=["BTCUSDC"], kline_limit=64, device="cpu")
+    st = MarketStream(mon)
+    for f in kline_frames_for(ex, ["BTCUSDC"], mon.intervals):
+        st.ingest_frame(f)
+    import asyncio
+
+    return asyncio.run(st.drain()), mon._engine.device
+
+
+def _streamed_system_on_the_cpu():
+    """A CPU trading system on the ``"stream"`` cadence ticks once on the
+    stream (frames offered before the tick), then shuts down."""
+    import asyncio
+
+    from ai_crypto_trader_tpu_torch.testing.chaos import kline_frames_for
+
+    clock = [1_000.0]
+    ex = FakeExchange(_streamed_series())
+    ex.advance(steps=2_200)
+    system = TradingSystem(ex, ["BTCUSDC"], now_fn=lambda: clock[0], device="cpu")
+    try:
+        system.monitor.kline_limit = 64
+        build_full_stack(system, cadences={**_QUICK_STACK, "stream": {"enabled": True}},
+                         nn=False, generator=False, evolver=False)
+        for f in kline_frames_for(ex, ["BTCUSDC"], system.monitor.intervals):
+            system.stream.offer(f)
+        asyncio.run(system.tick())
+        return type(system.stream).__name__, system.metrics.gauges[
+            "crypto_trader_tpu_stream_mode"]
+    finally:
+        system.shutdown()
+
+
+def _full_stack_on_the_cpu():
+    """`build_full_stack` on a CPU system, shut down before it returns: a
+    system left open keeps its tick-path scope installed for the whole
+    process, and a later test's tick engine would record timings."""
+    system = TradingSystem(FakeExchange(_STACK_SERIES), ["BTCUSDC"], device="cpu")
+    try:
+        return build_full_stack(system, cadences=_QUICK_STACK)
+    finally:
+        system.shutdown()
 
 _BOOK = np.stack([np.arange(8, dtype=np.float32) + 1, np.ones(8, np.float32)], axis=1)
 

@@ -41,6 +41,21 @@ RTOL, ATOL = 1e-5, 1e-6
 CPU = dict(device="cpu")
 
 
+@pytest.fixture(autouse=True)
+def no_persistent_compile_cache():
+    """This module's JAX references compile with the persistent compile
+    cache off, as tests/test_trainer_service.py's do: a GBM reference that
+    a run loaded from an entry another process wrote disagreed with the
+    eager draws it was given (7.7 % of the paths beyond rtol 1e-5 in one
+    run of six workers), while every compile in this process agrees with
+    itself.  Nothing here needs the cache: each program compiles in well
+    under a second."""
+    prev = jax.config.jax_compilation_cache_dir
+    jax.config.update("jax_compilation_cache_dir", None)
+    yield
+    jax.config.update("jax_compilation_cache_dir", prev)
+
+
 def _returns(n=2048, seed=0):
     """The bench's MC inputs (bench.py:837-866), at their full length."""
     return np.random.default_rng(seed).normal(0.0002, 0.01, n).astype(np.float32)
@@ -97,6 +112,16 @@ def test_simulate_gbm_on_jax_draws(stress):
                           shock_vol=vol, z=np.asarray(z), **CPU)
     assert got.shape == ref.shape == (sims, days) and got.dtype == torch.float32
     assert bool((got[:, 0] == 40_000.0).all())
+    # the same paths in float64 from the same draws: the port within float32
+    # rounding of them, so a disagreement below is JAX's draws or JAX's
+    # program, not the port's arithmetic
+    zz = np.asarray(z, np.float64) * (1.0 if vol is None else vol)
+    dt = np.float64(np.float32(1.0 / 252.0))           # mc.engine.PERIODS_PER_YEAR
+    inc = (0.05 - 0.5 * 0.6 ** 2) * dt + 0.6 * np.sqrt(dt) * zz
+    if shift is not None:
+        inc = inc + shift
+    truth = 40_000.0 * np.exp(np.concatenate([np.zeros((sims, 1)), np.cumsum(inc, -1)], -1))
+    _close(got, truth, what="float64 paths from the same draws")
     _close(got, ref)
 
 

@@ -166,12 +166,28 @@ def test_optional_services(systems, flags):
 
 
 def test_stream_cadence_is_refused(systems):
+    """A ``"stream"`` cadence attaches the streamed market path with its
+    keys split between MarketStream and StreamSupervisor by field name, as
+    JAX's does; an unknown key is refused (it refused the whole cadence
+    before shell/stream was ported)."""
     system, _, _ = build("port", systems=systems, hist=600, ticks=0)
-    with pytest.raises(NotImplementedError, match="attach_stream"):
-        tstack.build_full_stack(system, cadences={**QUICK, "stream": {"enabled": True}})
+    with pytest.raises(TypeError, match="unknown stream override"):
+        tstack.build_full_stack(system, cadences={**QUICK, "stream": {"bogus": 1}})
+    assert system.stream is None
     # "enabled": False attaches nothing
     assert len(tstack.build_full_stack(system, cadences={**QUICK, "stream": {"enabled": False}},
                                        nn=False, generator=False)) == 5
+    assert system.stream is None
+    names = {}
+    for pkg, mod in (("jax", jstack), ("port", tstack)):
+        s, _, _ = build(pkg, systems=systems, hist=600, ticks=0)
+        mod.build_full_stack(s, cadences={**QUICK, "stream": {
+            "batch_size": 7, "queue_max": 9, "stale_after_s": 12.0}}, nn=False,
+            generator=False)
+        names[pkg] = (type(s.stream).__name__, s.stream.stream.batch_size, s.stream.queue_max,
+                      s.stream.stale_after_s, s.stream.stream.monitor is s.monitor,
+                      "stream" in s.stage_breakers)
+    assert names["port"] == names["jax"] == ("StreamSupervisor", 7, 9, 12.0, True, True)
 
 
 def test_monitor_overrides(systems):

@@ -37,6 +37,7 @@ from ai_crypto_trader_tpu.shell.exchange import FakeExchange  # noqa: E402
 from ai_crypto_trader_tpu_torch import data as tdata  # noqa: E402
 from ai_crypto_trader_tpu_torch.device import PRECISIONS  # noqa: E402
 from ai_crypto_trader_tpu_torch.obs import drift  # noqa: E402
+from ai_crypto_trader_tpu_torch.obs import tickpath as ttickpath  # noqa: E402
 from ai_crypto_trader_tpu_torch.ops import (  # noqa: E402
     combination_signal, combined_indicators, volume_profile)
 from ai_crypto_trader_tpu_torch.ops import tick_engine  # noqa: E402
@@ -202,10 +203,11 @@ def tape():
     ref_hist = jdrift.reference_histogram(
         {"rsi": np.linspace(20, 80, 200), "volatility": np.full(50, 0.004)})
     steps = []
-    # none of the observatories the JAX step feeds is active (another test
-    # may have left one installed): last_stats then holds the keys the
-    # port's step sets
-    with tickpath.use(None), devprof.use(None), meshprof.use(None):
+    # none of the observatories either step feeds is active (another test
+    # may have left one installed): last_stats then holds the keys both
+    # steps set without them; each scope is put back afterwards
+    with tickpath.use(None), devprof.use(None), meshprof.use(None), \
+            ttickpath.use(None):
         for tick in range(TICKS + 1):
             if tick:
                 ex.advance(steps=1)
