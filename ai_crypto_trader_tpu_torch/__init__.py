@@ -9,8 +9,10 @@ saturation, structured log, PnL attribution, dashboard), and the full
 service roster around it (social, news, patterns, regime, nn, evolver,
 generator, grid and DCA; the social provider and strategy integrator;
 triangle arbitrage), the streamed market path (the kline-frame stream and
-its supervisor) and the load harness (synthetic tenant traffic, the
-capacity ramp, the chaos harness).
+its supervisor), the load harness (synthetic tenant traffic, the capacity
+ramp, the chaos harness), and the operator surface (the live dashboard
+server, the device-runtime and mesh observatories, the profiler, the
+persistent kernel-build cache).
 
 The chains, module for module after the JAX package:
 
@@ -68,6 +70,12 @@ The chains, module for module after the JAX package:
         state) — TradingSystem.attach_stream; testing.loadgen.run_load /
         ramp drive it with N tenants (TenantEngine.decide) — `cli load`,
         `cli fleet`
+    shell.dashboard_server.DashboardServer over a TradingSystem (routes,
+        /state.json, /profile through utils.profiling); utils.devprof,
+        utils.meshprof at the hot dispatches; utils.aotcache for the
+        kernel libraries — `cli trade --serve/--devprof/--meshprof/
+        --aot-cache`, `cli status / latency / mesh / fleet --url`,
+        `cli profile`
 
 Plain tensor code is PyTorch; the two Pallas kernels of the JAX package on
 these paths are CUDA C++ kernels for Hopper (``csrc/``), built with nvcc on

@@ -33,7 +33,7 @@ from ai_crypto_trader_tpu_torch.backtest import signals as sig
 from ai_crypto_trader_tpu_torch.backtest.strategy import StrategyParams
 from ai_crypto_trader_tpu_torch.device import resolve_device, to_device
 from ai_crypto_trader_tpu_torch.parallel.partitioner import require_single
-from ai_crypto_trader_tpu_torch.utils import tracing
+from ai_crypto_trader_tpu_torch.utils import devprof, meshprof, tracing
 
 
 class BacktestInputs(NamedTuple):
@@ -414,12 +414,36 @@ def _run_backtest(inputs: BacktestInputs, params: StrategyParams | None = None, 
 def sweep(inputs: BacktestInputs, params: StrategyParams, *args, **kw):
     """The population sweep: `_sweep` (same arguments) under a
     ``backtest.sweep`` span when tracing is on, as the JAX package's host
-    entry."""
+    entry; with `utils.devprof` active its first call takes the
+    ``backtest_sweep`` cost card, and with `utils.meshprof` active each call
+    is a ``backtest_sweep`` watch window (a never-seen (population, window,
+    settings) is cold)."""
+    cold = True
+    if meshprof.active() is not None:
+        shape_key = (int(params.stop_loss.shape[0]), int(inputs.close.shape[-1]), args,
+                     tuple(sorted(kw.items())))
+        try:
+            cold = shape_key not in _SWEEP_SHAPES_SEEN
+            _SWEEP_SHAPES_SEEN.add(shape_key)
+        except TypeError:                  # an unhashable setting: unseen
+            pass
+
+    def call():
+        with meshprof.watch("backtest_sweep", cold=cold), \
+                devprof.carding("backtest_sweep", (inputs, params),
+                                note=devprof.NOTE_NO_DONATION) as card:
+            return card.result(_sweep(inputs, params, *args, **kw))
+
     return _traced_entry(
         "backtest.sweep",
         lambda: {"candles": int(inputs.close.shape[-1]),
                  "population": int(params.stop_loss.shape[0]), "devices": 1},
-        lambda: _sweep(inputs, params, *args, **kw))
+        call)
+
+
+# (pop, T, args, kw) combinations already swept once — the sweep's
+# cold-run ledger for the recompile sentinel
+_SWEEP_SHAPES_SEEN: set = set()
 
 
 def _sweep(inputs: BacktestInputs, params: StrategyParams,

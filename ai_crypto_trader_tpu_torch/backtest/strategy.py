@@ -16,7 +16,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ai_crypto_trader_tpu_torch.device import resolve_device
+from ai_crypto_trader_tpu_torch.device import resolve_device, upload
 
 
 class StrategyParams(NamedTuple):
@@ -70,10 +70,11 @@ _IS_INT = np.asarray([r[2] for r in PARAM_RANGES.values()], bool)
 
 @functools.lru_cache(maxsize=None)
 def _ranges(device):
-    """(lows, highs, is_int) on ``device``, made once per device: a copy
-    from the host in the GA's generation loop would wait for the card."""
-    as_t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
-    return as_t(_LOWS), as_t(_HIGHS), as_t(_IS_INT)
+    """(lows, highs, is_int) on ``device``, made once per device and
+    uploaded from pinned memory without waiting (a blocking copy from the
+    host inside the GA's generation loop would wait for the card)."""
+    device = torch.device(device)
+    return upload(_LOWS, device), upload(_HIGHS, device), upload(_IS_INT, device)
 
 
 def default_params(batch: tuple[int, ...] = (), device=None) -> StrategyParams:

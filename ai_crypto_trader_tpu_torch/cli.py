@@ -1,11 +1,11 @@
 """Command-line interface of the port: the ``backtest``, ``train``,
-``evolve``, ``rl``, ``generate``, ``scan``, ``trade``, ``why``, ``load``
-and ``fleet`` subcommands.
+``evolve``, ``rl``, ``generate``, ``mc``, ``scan``, ``trade``, ``why``,
+``profile``, ``load``, ``mesh``, ``fleet``, ``latency``, ``status``,
+``registry`` and ``dashboard`` subcommands.
 
 Same flags and output as ``python -m ai_crypto_trader_tpu.cli backtest`` /
-``train`` / ``evolve`` / ``rl`` / ``generate`` / ``scan`` / ``trade`` /
-``why`` / ``load`` / ``fleet``, plus ``--device {cuda,cpu}`` (default
-cuda):
+``train`` / ... / ``dashboard``, plus ``--device {cuda,cpu}`` (default
+cuda) where a command computes:
 
     python -m ai_crypto_trader_tpu_torch.cli backtest --days 365 --sweep 4096
     python -m ai_crypto_trader_tpu_torch.cli train --days 7 --model lstm --epochs 5
@@ -18,6 +18,9 @@ cuda):
     python -m ai_crypto_trader_tpu_torch.cli why BTCUSDC --file decisions.jsonl
     python -m ai_crypto_trader_tpu_torch.cli load --vmapped --tenants 256 --symbols 4 --ramp
     python -m ai_crypto_trader_tpu_torch.cli fleet --tenants 8 --symbols 4
+    python -m ai_crypto_trader_tpu_torch.cli trade --paper --serve 8050 --devprof --meshprof
+    python -m ai_crypto_trader_tpu_torch.cli status --url http://127.0.0.1:8050
+    python -m ai_crypto_trader_tpu_torch.cli profile --ticks 10 --out profiles/x
 
 A CSV at ``backtesting/data/market/<symbol>/<symbol>_1m.csv`` is used when
 present; otherwise the deterministic synthetic series is generated.
@@ -57,10 +60,16 @@ market path (`testing.loadgen`: recorded kline frames → the stream
 supervisor → the monitor's tick engine → the tenant layer) and prints the
 latency and saturation report; ``--ramp`` steps the tenants up until the
 p99 tick latency breaches ``--slo-ms``.  ``fleet`` renders the fleet
-observatory's view of a short local vmapped load burst.  The flags whose
-modules are not ported yet (``trade --serve``, ``--devprof``,
-``--meshprof``, ``--aot-cache``, and ``fleet --url``) exit with code 2 and
-say so.
+observatory's view of a short local vmapped load burst.  ``trade --serve
+PORT`` serves the live dashboard (`shell.dashboard_server`) during the run,
+``--devprof`` / ``--meshprof`` switch on the device-runtime and mesh
+observatories, ``--aot-cache DIR`` keeps the kernel libraries in a
+persistent provenance-keyed cache.  ``profile`` captures a
+``torch.profiler`` trace of a short paper burst; ``mesh``, ``latency``,
+``status`` and ``fleet`` with ``--url`` read a live server's
+``/state.json``.  A card command (``--device cuda``) builds and loads its
+kernel libraries in the provenance-keyed directory under
+``.torch_kernels/`` (`utils.cache`).
 """
 
 from __future__ import annotations
@@ -69,7 +78,6 @@ import argparse
 import asyncio
 import json
 import os
-import sys
 import time
 
 import numpy as np
@@ -355,9 +363,29 @@ def cmd_scan(args):
     print(json.dumps({"discovered": len(series), "ranked": ranked}))
 
 
-# `trade` flags whose modules the port has not yet (ROADMAP item 16)
-_TRADE_NOT_PORTED = (("serve", "--serve"), ("devprof", "--devprof"),
-                     ("meshprof", "--meshprof"), ("aot_cache", "--aot-cache"))
+def cmd_mc(args):
+    """Monte-Carlo risk simulation on ``--device``: the five scenarios'
+    expected move, VaR/CVaR, profit probability and mean drawdown, each
+    from a ``torch.Generator`` seeded with ``--seed``."""
+    from ai_crypto_trader_tpu_torch import mc as mc_mod
+    from ai_crypto_trader_tpu_torch import resolve_device
+
+    dev = resolve_device(args.device)
+    d = _load_or_generate(args.symbol, args.days * 1440 + 1000, args.seed)
+    close = np.asarray(d["close"])
+    rets = np.diff(np.log(close))[-2000:]
+    out = {}
+    for scenario in ("base", "bull", "bear", "volatile", "crab"):
+        sim = mc_mod.run_simulation(torch.Generator(device=dev).manual_seed(args.seed),
+                                    float(close[-1]), rets, days=args.days,
+                                    num_sims=args.paths, scenario=scenario, device=dev)
+        out[scenario] = {
+            "expected_pct": float(sim["expected_pct_change"]),
+            "var": abs(float(sim["var"])), "cvar": abs(float(sim["cvar"])),
+            "prob_profit": float(sim["prob_profit"]),
+            "max_dd_mean": float(sim["max_drawdown_mean"]),
+        }
+    print(json.dumps(out, indent=2))
 
 
 def cmd_trade(args):
@@ -366,11 +394,6 @@ def cmd_trade(args):
     from ai_crypto_trader_tpu_torch.shell.exchange import make_exchange
     from ai_crypto_trader_tpu_torch.shell.launcher import TradingSystem
 
-    for attr, flag in _TRADE_NOT_PORTED:
-        if getattr(args, attr) not in (None, False):
-            print(f"trade {flag}: not ported to ai_crypto_trader_tpu_torch yet "
-                  "(ROADMAP item 16)", file=sys.stderr)
-            raise SystemExit(2)
     if not args.paper:
         print("live trading requires an injected exchange client; "
               "use --paper in this environment")
@@ -396,10 +419,13 @@ def cmd_trade(args):
                            enable_tracing=bool(args.trace_jsonl),
                            trace_jsonl=args.trace_jsonl,
                            journal_path=args.journal,
+                           enable_devprof=args.devprof,
+                           enable_meshprof=args.meshprof,
                            enable_fleetscope=args.fleetscope,
                            flightrec_path=args.flightrec,
                            pipelined=args.pipelined,
                            precision=args.precision,
+                           aot_cache_dir=args.aot_cache,
                            device=args.device)
     if args.full_stack:
         from ai_crypto_trader_tpu_torch.shell.stack import build_full_stack
@@ -411,6 +437,16 @@ def cmd_trade(args):
             system, registry=registry, grid_symbol=args.symbol,
             dca_symbol=args.symbol)]
         print(f"full stack: {', '.join(names)}", flush=True)
+
+    server = None
+    if args.serve is not None:
+        from ai_crypto_trader_tpu_torch.shell.dashboard_server import DashboardServer
+
+        server = DashboardServer(system, port=args.serve).start()
+        print(f"dashboard: http://127.0.0.1:{server.port}/", flush=True)
+    if system.aot_cache is not None:
+        print(json.dumps({"aot_cache": system.aot_cache.status()}), flush=True)
+
     metrics_port = int(os.environ.get("METRICS_PORT", "0"))
 
     async def go():
@@ -446,7 +482,11 @@ def cmd_trade(args):
 
     try:
         asyncio.run(go())
+        if server is not None and args.serve_hold_s > 0:
+            time.sleep(args.serve_hold_s)
     finally:
+        if server is not None:
+            server.stop()
         system.shutdown()          # deactivate tracer + close span JSONL
 
 
@@ -498,6 +538,54 @@ def cmd_why(args):
         print(line)
 
 
+def cmd_profile(args):
+    """On-demand device profiler capture (the CLI twin of the dashboard's
+    `/profile?seconds=N`): run a short paper-trading burst on ``--device``
+    with the devprof observatory on, wrap it in `utils/profiling.trace`,
+    and write a Chrome trace (``<out>/trace.json``: Perfetto or
+    chrome://tracing) beside the cost cards and SLO summaries the run
+    produced."""
+    from ai_crypto_trader_tpu_torch.data.ingest import from_dict
+    from ai_crypto_trader_tpu_torch.data.synthetic import generate_ohlcv
+    from ai_crypto_trader_tpu_torch.shell.exchange import make_exchange
+    from ai_crypto_trader_tpu_torch.shell.launcher import TradingSystem
+    from ai_crypto_trader_tpu_torch.utils import profiling
+
+    d = generate_ohlcv(n=args.ticks + 600, seed=args.seed)
+    series = from_dict({k: v for k, v in d.items() if k != "regime"},
+                       symbol=args.symbol)
+    clock = {"t": 0.0}
+    ex = make_exchange("fake", series={args.symbol: series},
+                       quote_balance=10_000.0)
+    ex.advance(args.symbol, steps=600)
+    system = TradingSystem(ex, [args.symbol], now_fn=lambda: clock["t"],
+                           enable_devprof=True, device=args.device)
+    out_dir = args.out or time.strftime("profiles/trace_%Y%m%d_%H%M%S")
+    os.makedirs(out_dir, exist_ok=True)
+
+    async def go():
+        for _ in range(args.ticks):
+            ex.advance(args.symbol)
+            clock["t"] += 60.0
+            await system.tick()
+
+    on_card = system.device.type == "cuda"
+    try:
+        with profiling.trace(out_dir, cuda=on_card):
+            asyncio.run(go())
+        trace = os.path.join(out_dir, profiling.TRACE_FILE)
+        events = profiling.cuda_events(trace)
+        if on_card and not events:
+            raise RuntimeError(f"profile {trace}: the ticks ran on the card, "
+                               "but the trace recorded no CUDA activity")
+        print(json.dumps({"artifact": out_dir, "trace": trace, "ticks": args.ticks,
+                          "cuda_events": len(events),
+                          "devprof": system.devprof.status()}, indent=2,
+                         default=str))
+    finally:
+        system.shutdown()
+
+
 def cmd_load(args):
     """Load & capacity harness (testing/loadgen.py): drive N synthetic
     tenant decision lanes over an S-symbol universe through the real
@@ -521,6 +609,54 @@ def cmd_load(args):
     else:
         out = run_load(cfg)
     print(json.dumps(out, indent=2, default=str))
+
+
+def _fetch_state(url: str) -> dict:
+    """GET a live dashboard server's /state.json."""
+    import urllib.request
+
+    with urllib.request.urlopen(f"{url}/state.json", timeout=10) as resp:
+        return json.loads(resp.read())
+
+
+def cmd_mesh(args):
+    """Mesh layout inspector: the active Partitioner layout (kind, device
+    count, device kinds), a card for every visible device (id, kind,
+    platform, the allocator's bytes in use on a CUDA card), and the
+    pad/mask arithmetic for a given population — the numbers the
+    `mesh_pad_fraction` / `mesh_device_members` gauges publish.  With
+    `--url`, reads a LIVE system's `/state.json` mesh block (layout cards,
+    sentinel counters) instead."""
+    if args.url:
+        state = _fetch_state(args.url)
+        print(json.dumps(state.get("mesh", {"error": "no mesh block"}),
+                         indent=2, default=str))
+        return
+    from ai_crypto_trader_tpu_torch.parallel import get_partitioner
+
+    part = get_partitioner()
+    desc = part.describe()
+    print(json.dumps({"partitioner": desc}, indent=2, default=str))
+    print(f"\n{'id':>4} {'kind':<16} {'platform':<10} {'memory':<16} role")
+    trial_devs = {str(d) for d in part.trial_devices()}
+    if torch.cuda.is_available():
+        rows = [(i, torch.cuda.get_device_name(i), "gpu",
+                 f"{torch.cuda.memory_allocated(i):,}B in use", f"cuda:{i}")
+                for i in range(torch.cuda.device_count())]
+    else:
+        rows = [(0, "cpu", "cpu", "", "cpu")]    # no allocator statistics
+    for i, kind, platform, stats, name in rows:
+        role = "trial farm" if name in trial_devs else "default"
+        print(f"{i:>4} {kind:<16} {platform:<10} {stats:<16} {role}")
+    n = part.device_count
+    pad = (-args.pop) % n
+    padded = args.pop + pad
+    print(f"\npopulation {args.pop} on {n} device(s): "
+          f"pad {pad} → {padded} lanes "
+          f"({padded // n}/device), pad_fraction "
+          f"{pad / padded if padded else 0.0:.4f}"
+          + (" — MeshPaddingWasteHigh would fire"
+             if padded and pad / padded > 0.25 else ""))
 
 
 def _render_fleet(block: dict, containment: dict | None = None) -> None:
@@ -599,16 +735,14 @@ def cmd_fleet(args):
     device-aggregated health of a vmapped tenant fleet — lane rank table
     by rolling PnL, the windowed veto-gate mix, PnL/balance dispersion
     quantiles, starvation and balance-drift signals — of a short local
-    vmapped load burst (testing/loadgen.py) on ``--device``.  `--url`
-    reads a live system's /state.json, which needs the dashboard server
-    (not ported yet: exits 2)."""
+    vmapped load burst (testing/loadgen.py) on ``--device``.  With `--url`,
+    reads a LIVE system's /state.json `fleet` block instead."""
+    if args.url:
+        state = _fetch_state(args.url)
+        _render_fleet(state.get("fleet") or {})
+        return
     from ai_crypto_trader_tpu_torch.testing.loadgen import LoadConfig, run_load
 
-    if args.url:
-        print("fleet --url: not ported to ai_crypto_trader_tpu_torch yet "
-              "(shell/dashboard_server, ROADMAP Queue 1 step 4)",
-              file=sys.stderr)
-        raise SystemExit(2)
     cfg = LoadConfig(tenants=args.tenants, symbols=args.symbols,
                      ticks=args.ticks, seed=args.seed, mode="vmapped",
                      min_samples=2, device=args.device)
@@ -617,6 +751,269 @@ def cmd_fleet(args):
           f"symbols, {args.ticks} measured ticks, p99 "
           f"{rep['p99_ms']:.1f} ms)\n")
     _render_fleet(rep.get("fleet") or {}, rep.get("containment"))
+
+
+def _render_latency(tickpath_block: dict, coldstart_block: dict,
+                    build_block: dict | None = None) -> None:
+    """Operator rendering of the decision critical-path observatory
+    (obs/tickpath.py): the per-phase waterfall table, bottleneck + overlap
+    headroom headline, the event→decision SLO line, and the per-program
+    cold-start ledger."""
+    if not tickpath_block:
+        print("no tickpath block — is the decision critical-path "
+              "observatory enabled? (it is on by default; "
+              "TradingSystem(enable_tickpath=False) turns it off)")
+        return
+    phases = tickpath_block.get("phases") or {}
+    bottleneck = tickpath_block.get("bottleneck")
+    print("decision critical path (per-phase waterfall, ms):")
+    print(f"  {'phase':<16}{'count':>7}{'p50':>10}{'p99':>10}{'last':>10}")
+    for name, row in phases.items():
+        if not row.get("count"):
+            continue
+        mark = "  ◀ bottleneck" if name == bottleneck else ""
+        print(f"  {name:<16}{row['count']:>7}{row['p50_ms']:>10.2f}"
+              f"{row['p99_ms']:>10.2f}{row['last_ms']:>10.2f}{mark}")
+    if not any(row.get("count") for row in phases.values()):
+        print("  (no phases observed yet)")
+    overlap = tickpath_block.get("overlap_headroom_ms") or {}
+    if overlap.get("p50") is not None:
+        print(f"\noverlap headroom (dispatch→ready host-idle wait "
+              f"pipelining can reclaim): p50 {overlap['p50']:.2f} ms, "
+              f"p99 {overlap.get('p99', 0.0):.2f} ms")
+    age = tickpath_block.get("event_age_ms") or {}
+    if age.get("count"):
+        print(f"event→decision age: p50 {age.get('p50', 0.0):.0f} ms, "
+              f"p99 {age.get('p99', 0.0):.0f} ms over {age['count']} "
+              f"decisions (budget {age.get('budget_ms', 0.0):.0f} ms)")
+    skew = tickpath_block.get("clock_skew_total", 0)
+    if skew:
+        print(f"clock-skew clamps (venue event ahead of host clock): {skew}")
+    programs = (coldstart_block or {}).get("programs") or {}
+    if programs:
+        print("\ncold-start ledger (first-compile cost per program):")
+        print(f"  {'program':<24}{'wall_ms':>10}{'compile_ms':>12}"
+              f"{'compiles':>10}")
+        for name, row in sorted(programs.items(),
+                                key=lambda kv: -kv[1]["wall_ms"]):
+            print(f"  {name:<24}{row['wall_ms']:>10.1f}"
+                  f"{row['compile_ms']:>12.1f}{row['compiles']:>10}")
+        print(f"  total: wall {coldstart_block.get('total_wall_ms', 0.0):,.1f}"
+              f" ms (compile "
+              f"{coldstart_block.get('total_compile_ms', 0.0):,.1f} ms)")
+    if build_block:
+        # a block names the runtime that produced it: torch and CUDA for
+        # the port's systems, jax for the JAX package's
+        runtime = (f"torch {build_block.get('torch_version')} (CUDA "
+                   f"{build_block.get('cuda_version')})"
+                   if "torch_version" in build_block
+                   else f"jax {build_block.get('jax_version')}")
+        print(f"\nbuild: {runtime} on "
+              f"{build_block.get('backend')} "
+              f"({build_block.get('device_kind')}), process start "
+              f"{build_block.get('process_start')}")
+
+
+def _run_latency_burst(symbol: str, ticks: int, seed: int,
+                       pipelined: bool = False,
+                       device=None) -> tuple[dict, dict, dict]:
+    """One local paper burst for the latency views: builds a fresh
+    TradingSystem (serial or pipelined tick path), drives `ticks` ticks on
+    the virtual clock, and returns its (tickpath, coldstart, build)
+    status blocks, on ``device``.  The pipelined/serial toggle is the SAME
+    TickEngine constructor knob the parity tests flip."""
+    from ai_crypto_trader_tpu_torch.data.ingest import from_dict
+    from ai_crypto_trader_tpu_torch.data.synthetic import generate_ohlcv
+    from ai_crypto_trader_tpu_torch.shell.exchange import make_exchange
+    from ai_crypto_trader_tpu_torch.shell.launcher import TradingSystem
+
+    d = generate_ohlcv(n=ticks + 600, seed=seed)
+    series = from_dict({k: v for k, v in d.items() if k != "regime"},
+                       symbol=symbol)
+    # virtual clock aligned to the synthetic candle open-times (i*60_000
+    # epoch-ms), so the demo's event→decision ages read as a real feed's
+    # would instead of clamping to zero or blowing past the budget
+    clock = {"t": 600 * 60.0}
+    ex = make_exchange("fake", series={symbol: series},
+                       quote_balance=10_000.0)
+    ex.advance(symbol, steps=600)
+    system = TradingSystem(ex, [symbol], now_fn=lambda: clock["t"],
+                           pipelined=pipelined, device=device)
+
+    async def go():
+        for _ in range(ticks):
+            ex.advance(symbol)
+            clock["t"] += 60.0
+            await system.tick()
+        # drain the last in-flight dispatch so the final decision publishes
+        await system.monitor.flush_pipeline()
+
+    try:
+        asyncio.run(go())
+        return (system.tickpath.status(),
+                system.tickpath.coldstart_status(),
+                system.build_info)
+    finally:
+        system.shutdown()
+
+
+def _render_latency_compare(serial_tp: dict, pipe_tp: dict,
+                            ticks: int) -> None:
+    """Side-by-side serial vs pipelined waterfalls: per-phase p50 columns
+    with deltas, then the overlap story — how much dispatch→ready host
+    idle the serial path exposes (headroom) and how much of it the
+    pipelined path actually filled with host work (reclaimed)."""
+    s_phases = serial_tp.get("phases") or {}
+    p_phases = pipe_tp.get("phases") or {}
+    names = [n for n in s_phases
+             if (s_phases.get(n, {}).get("count")
+                 or p_phases.get(n, {}).get("count"))]
+    print(f"serial vs pipelined tick path ({ticks} paper ticks each, "
+          f"phase p50 ms):")
+    print(f"  {'phase':<16}{'serial':>10}{'pipelined':>12}{'delta':>10}")
+    s_total = p_total = 0.0
+    for name in names:
+        s50 = s_phases.get(name, {}).get("p50_ms", 0.0) or 0.0
+        p50 = p_phases.get(name, {}).get("p50_ms", 0.0) or 0.0
+        s_total += s50
+        p_total += p50
+        print(f"  {name:<16}{s50:>10.2f}{p50:>12.2f}{p50 - s50:>+10.2f}")
+    print(f"  {'(sum of p50s)':<16}{s_total:>10.2f}{p_total:>12.2f}"
+          f"{p_total - s_total:>+10.2f}")
+    s_head = (serial_tp.get("overlap_headroom_ms") or {}).get("p50")
+    p_head = (pipe_tp.get("overlap_headroom_ms") or {}).get("p50")
+    reclaimed = (pipe_tp.get("overlap_reclaimed_ms") or {}).get("p50")
+    if s_head is not None:
+        print(f"\noverlap headroom (host-idle dispatch→ready wait): "
+              f"serial p50 {s_head:.2f} ms"
+              + (f" → pipelined p50 {p_head:.2f} ms"
+                 if p_head is not None else ""))
+    if reclaimed is not None:
+        print(f"overlap reclaimed by pipelining (device compute hidden "
+              f"behind host work): p50 {reclaimed:.2f} ms/tick")
+    s_age = serial_tp.get("event_age_ms") or {}
+    p_age = pipe_tp.get("event_age_ms") or {}
+    if s_age.get("count") and p_age.get("count"):
+        print(f"event→decision age p50: serial {s_age.get('p50', 0.0):.0f} "
+              f"ms, pipelined {p_age.get('p50', 0.0):.0f} ms (budget "
+              f"{s_age.get('budget_ms', 0.0):.0f} ms; pipelined publishes "
+              f"tick T at T+1's poll)")
+
+
+def cmd_latency(args):
+    """Decision critical-path operator view (obs/tickpath.py): WHERE each
+    tick's time goes (phase waterfall), the overlap headroom pipelining
+    could reclaim, the event→decision age SLO reading, and the cold-start
+    ledger (first-compile cost per hot program).  With `--url`, reads a
+    LIVE system's /state.json tickpath/coldstart blocks; without it,
+    drives a short local paper burst on ``--device`` so the view is
+    demonstrable on any host.  `--compare` drives the burst TWICE —
+    serial then pipelined — and renders the waterfalls side by side."""
+    if args.url:
+        state = _fetch_state(args.url)
+        _render_latency(state.get("tickpath") or {},
+                        state.get("coldstart") or {},
+                        state.get("build"))
+        return
+    if args.compare:
+        serial_tp, _, _ = _run_latency_burst(args.symbol, args.ticks,
+                                             args.seed, pipelined=False,
+                                             device=args.device)
+        pipe_tp, _, _ = _run_latency_burst(args.symbol, args.ticks,
+                                           args.seed, pipelined=True,
+                                           device=args.device)
+        print(f"(local demo: 2×{args.ticks} paper ticks on {args.symbol}; "
+              f"point --url at a running `trade --serve` for live state)\n")
+        _render_latency_compare(serial_tp, pipe_tp, args.ticks)
+        return
+    tp, cold, build = _run_latency_burst(args.symbol, args.ticks, args.seed,
+                                         device=args.device)
+    print(f"(local demo: {args.ticks} paper ticks on {args.symbol}; "
+          f"point --url at a running `trade --serve` for live state)\n")
+    _render_latency(tp, cold, build)
+
+
+def cmd_status(args):
+    """Operator status without a REPL: queries a live
+    dashboard server's `/state.json` and prints a compact summary — the
+    active mesh/partitioner layout, portfolio, alerts, capacity bottleneck
+    and (when the observatories are on) devprof/meshprof headlines.
+    Without `--url` it reports the LOCAL process view: the partitioner
+    layout `get_partitioner()` would serve this host."""
+    if not args.url:
+        from ai_crypto_trader_tpu_torch.parallel import get_partitioner
+
+        print(json.dumps({"live": False,
+                          "partitioner": get_partitioner().describe()},
+                         indent=2, default=str))
+        print("(no --url given: showing the local partitioner layout; "
+              "point --url at a running `trade --serve` for live state)")
+        return
+    state = _fetch_state(args.url)
+    status = state.get("status", {})
+    out = {
+        "live": True,
+        "portfolio_value_usd": status.get("portfolio_value_usd"),
+        "open_trades": len(status.get("active_trades", {})),
+        "closed_trades": status.get("closed_trades"),
+        "total_pnl": status.get("total_pnl"),
+        "alerts": status.get("alerts", []),
+    }
+    if "mesh" in state:
+        out["mesh"] = state["mesh"]
+    cap = state.get("capacity")
+    if cap:
+        out["bottleneck_stage"] = cap.get("bottleneck_stage")
+    dev = state.get("devprof")
+    if dev:
+        out["slo_burn_rates"] = dev.get("burn_rates")
+        out["donation_failures"] = dev.get("donation_failures")
+    # process provenance (shell/launcher.py build_info): which torch /
+    # CUDA / backend / device produced every number above — the first
+    # question when two operators compare readings from different hosts
+    if "build" in state:
+        out["build"] = state["build"]
+    tp = state.get("tickpath")
+    if tp:
+        out["tickpath_bottleneck"] = tp.get("bottleneck")
+        out["event_age_p99_ms"] = (tp.get("event_age_ms") or {}).get("p99")
+    # continuous PBT training service: generation counter, quarantined
+    # members, checkpoint/recalibration staleness (rl/trainer_service.py)
+    tr = state.get("training")
+    if tr:
+        out["training"] = {
+            "generation": tr.get("generation"),
+            "best_fitness": tr.get("best_fitness"),
+            "quarantined_members": tr.get("quarantined_members"),
+            "checkpoint_age_s": tr.get("checkpoint_age_s"),
+            "last_recalibration": tr.get("last_recalibration"),
+            "resumed_at": tr.get("resumed_at"),
+        }
+    print(json.dumps(out, indent=2, default=str))
+
+
+def cmd_registry(args):
+    """Model-registry operations (`run_ai_model_services.py` surface)."""
+    from ai_crypto_trader_tpu_torch.strategy.registry import ModelRegistry
+
+    reg = ModelRegistry(path=args.path)
+    if args.best:
+        print(json.dumps(reg.best(args.kind) or {"status": "no_entries"},
+                         indent=2, default=str))
+    else:
+        rows = [{"version": e["version"], "kind": e["kind"],
+                 "status": e["status"],
+                 "sharpe": e.get("performance", {}).get("sharpe_ratio")}
+                for e in reg.entries.values()]
+        print(json.dumps(rows, indent=2))
+
+
+def cmd_dashboard(args):
+    from ai_crypto_trader_tpu_torch.shell.dashboard import write_dashboard
+
+    d = _load_or_generate(args.symbol, 2000, args.seed)
+    path = write_dashboard(args.out, price_series=np.asarray(d["close"])[-500:])
+    print(f"wrote {path}")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -688,6 +1085,13 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--seed", type=int, default=0)
     sp.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     sp.set_defaults(fn=cmd_generate)
+    sp = sub.add_parser("mc", help="Monte-Carlo risk simulation")
+    sp.add_argument("--symbol", default="BTCUSDC")
+    sp.add_argument("--days", type=int, default=7)
+    sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument("--paths", type=int, default=10_000)
+    sp.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    sp.set_defaults(fn=cmd_mc)
     sp = sub.add_parser("scan", help="discover + rank tradable pairs")
     sp.add_argument("--pairs", type=int, default=64,
                     help="synthetic universe size (paper mode)")
@@ -705,8 +1109,8 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--dashboard", default=None,
                     help="write a static HTML snapshot per tick to this path")
     sp.add_argument("--serve", type=int, default=None, metavar="PORT",
-                    help="serve the live dashboard on this port (not ported "
-                         "yet: exits 2)")
+                    help="serve the LIVE dashboard on this port during the "
+                         "run (shell/dashboard_server.py)")
     sp.add_argument("--full-stack", action="store_true",
                     help="register the reference's full service roster "
                          "(social/news/patterns/regime/NN/evolver/"
@@ -715,7 +1119,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="model-registry file for --full-stack versioning")
     sp.add_argument("--trace-jsonl", default=None, metavar="PATH",
                     help="enable end-to-end tracing and append every "
-                         "finished span to this JSONL file (utils/tracing.py)")
+                         "finished span to this JSONL file "
+                         "(utils/tracing.py; /traces on --serve)")
     sp.add_argument("--journal", default=None, metavar="PATH",
                     help="crash-safe state: write-ahead journal every "
                          "order intent/ack/closure to PATH; if the file "
@@ -724,13 +1129,18 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--serve-hold-s", type=float, default=0.0,
                     help="keep serving this many seconds after the ticks")
     sp.add_argument("--devprof", action="store_true",
-                    help="device-runtime observatory (not ported yet: exits 2)")
+                    help="device-runtime observatory (utils/devprof.py): "
+                         "program cost cards + donation checks, allocator "
+                         "watermarks, latency SLO gauges")
     sp.add_argument("--flightrec", default=None, metavar="PATH",
                     help="persist the decision-provenance flight recorder "
                          "(obs/flightrec.py) as checksummed JSONL to PATH "
                          "— queryable offline via `why --file PATH`")
     sp.add_argument("--meshprof", action="store_true",
-                    help="mesh runtime observatory (not ported yet: exits 2)")
+                    help="mesh runtime observatory (utils/meshprof.py): "
+                         "kernel-build/sync sentinels on the hot "
+                         "dispatches, layout cards, per-device "
+                         "memory-imbalance gauges")
     sp.add_argument("--fleetscope", action="store_true",
                     help="fleet observatory (obs/fleetscope.py): device-"
                          "aggregated lane telemetry for any vmapped "
@@ -744,7 +1154,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="matmul precision for the fused decide programs "
                          "(default full f32)")
     sp.add_argument("--aot-cache", default=None, metavar="DIR",
-                    help="persistent compile cache (not ported yet: exits 2)")
+                    help="persistent kernel-build cache rooted at DIR "
+                         "(utils/aotcache.py): restarts load the kernel "
+                         "libraries the last run built")
     sp.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     sp.set_defaults(fn=cmd_trade)
     sp = sub.add_parser("why", help="decision provenance for a symbol "
@@ -761,6 +1173,17 @@ def build_parser() -> argparse.ArgumentParser:
                          "provenance")
     sp.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     sp.set_defaults(fn=cmd_why)
+    sp = sub.add_parser("profile",
+                        help="capture a torch.profiler device trace of a "
+                             "short paper-trading burst")
+    sp.add_argument("--symbol", default="BTCUSDC")
+    sp.add_argument("--days", type=int, default=7)
+    sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument("--ticks", type=int, default=10)
+    sp.add_argument("--out", default=None,
+                    help="artifact directory (default profiles/trace_<ts>)")
+    sp.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    sp.set_defaults(fn=cmd_profile)
     sp = sub.add_parser("load", help="tenants×symbols load harness "
                                      "(saturation report; --ramp finds "
                                      "the max sustainable point)")
@@ -801,13 +1224,20 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--seed", type=int, default=0)
     sp.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     sp.set_defaults(fn=cmd_load)
+    sp = sub.add_parser("mesh", help="partitioner layout + per-device "
+                                     "cards (mesh runtime observatory)")
+    sp.add_argument("--pop", type=int, default=256,
+                    help="population size for the pad/mask arithmetic")
+    sp.add_argument("--url", default=None,
+                    help="read a live system's /state.json mesh block "
+                         "instead (e.g. http://127.0.0.1:8050)")
+    sp.set_defaults(fn=cmd_mesh)
     sp = sub.add_parser("fleet", help="fleet observatory operator view: "
                                       "lane rank table, gate mix, "
                                       "dispersion (obs/fleetscope.py)")
     sp.add_argument("--url", default=None,
                     help="read a live system's /state.json fleet block "
-                         "(needs the dashboard server: not ported yet, "
-                         "exits 2)")
+                         "instead of running a local demo fleet")
     sp.add_argument("--tenants", type=int, default=8,
                     help="local demo fleet size")
     sp.add_argument("--symbols", type=int, default=4)
@@ -815,11 +1245,54 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--seed", type=int, default=0)
     sp.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     sp.set_defaults(fn=cmd_fleet)
+    sp = sub.add_parser("latency", help="decision critical-path view: "
+                                        "tick-phase waterfall, overlap "
+                                        "headroom, cold-start ledger "
+                                        "(obs/tickpath.py)")
+    sp.add_argument("--url", default=None,
+                    help="read a live system's /state.json tickpath/"
+                         "coldstart blocks instead of running a local "
+                         "demo burst")
+    sp.add_argument("--symbol", default="BTCUSDC")
+    sp.add_argument("--ticks", type=int, default=12,
+                    help="local demo burst length (no --url)")
+    sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument("--compare", action="store_true",
+                    help="run the local burst twice — serial and "
+                         "pipelined tick path — and render the phase "
+                         "waterfalls side by side (no --url)")
+    sp.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    sp.set_defaults(fn=cmd_latency)
+    sp = sub.add_parser("status", help="operator summary from a live "
+                                       "dashboard server (/state.json)")
+    sp.add_argument("--url", default=None,
+                    help="dashboard server base URL "
+                         "(e.g. http://127.0.0.1:8050)")
+    sp.set_defaults(fn=cmd_status)
+    sp = sub.add_parser("registry", help="inspect the model registry")
+    sp.add_argument("--path", default="models/registry.json")
+    sp.add_argument("--kind", default="strategy_params")
+    sp.add_argument("--best", action="store_true")
+    sp.set_defaults(fn=cmd_registry)
+    sp = sub.add_parser("dashboard", help="render the HTML dashboard")
+    sp.add_argument("--symbol", default="BTCUSDC")
+    sp.add_argument("--days", type=int, default=7)
+    sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument("--out", default="dashboard.html")
+    sp.set_defaults(fn=cmd_dashboard)
     return p
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    if (getattr(args, "device", None) == "cuda" and not getattr(args, "url", None)
+            and torch.cuda.is_available()):
+        # the card commands build and load their kernel libraries in the
+        # provenance-keyed cache directory: built once per toolchain and
+        # card, not once per invocation
+        from ai_crypto_trader_tpu_torch.utils.cache import enable_compilation_cache
+
+        enable_compilation_cache()
     args.fn(args)
 
 

@@ -13,7 +13,11 @@ end brings the results back — the port's counterpart of the JAX package's
 one compiled scan.  `run_ga_legacy` reads the history every generation, as
 its JAX counterpart does.  `run_ga` takes the JAX package's ``partitioner``
 keyword: None or the single-device seam (on one card the population is one
-batch); a mesh of several cards raises (ROADMAP item 15).
+batch); a mesh of several cards raises (ROADMAP item 15).  The population's
+fitness goes through the seam's ``population_eval(name="ga_scan")``, which
+records its layout card with `utils.meshprof` active; with `utils.devprof`
+active the first run takes the ``ga_scan`` cost card, and the run through
+its one `host_read` is a ``ga_scan`` watch window.
 
 Random draws.  `jax.random` streams cannot be replayed in PyTorch, so the
 GA takes its draws from a provider with two methods: ``init(pop)`` returns
@@ -32,6 +36,8 @@ keeps the loop free of host copies).  `_evolve_core` is a pure function of
 
 from __future__ import annotations
 
+import time
+import weakref
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -54,6 +60,7 @@ from ai_crypto_trader_tpu_torch.config import GAParams
 from ai_crypto_trader_tpu_torch.device import resolve_device, to_device
 from ai_crypto_trader_tpu_torch.evolve.selection import tournament
 from ai_crypto_trader_tpu_torch.parallel.partitioner import require_single
+from ai_crypto_trader_tpu_torch.utils import devprof, meshprof
 
 _SQRT2 = float(np.sqrt(np.float32(2.0), dtype=np.float32))
 
@@ -74,8 +81,19 @@ def _numpy(tree):
 
 def host_read(tree):
     """THE per-run device→host read: GA outputs (tensors in nested tuples)
-    → NumPy.  A module-level seam, so a test can count it."""
-    return _numpy(tree)
+    → NumPy.  A module-level seam, so a test can count it.  Timed into the
+    ``host_read`` SLO window when the observatory is on, and the
+    sanctioned sync of the ``ga_scan`` watch window."""
+    t0 = time.perf_counter()
+    with meshprof.allow_transfers():   # THE sanctioned device→host sync
+        out = _numpy(tree)
+    devprof.observe_latency("host_read", time.perf_counter() - t0)
+    return out
+
+
+# fitness functions whose GA ran at a config in this process: a first run
+# builds what it launches by design (the recompile sentinel's cold window)
+_GA_RUNS_SEEN: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
 def population_diversity(genomes: torch.Tensor) -> torch.Tensor:
@@ -178,12 +196,19 @@ def _evolve_core(draws, state: GAState, cfg: GAParams) -> GAState:
 evolve_step = _evolve_core
 
 
+def _at(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """``x[i]`` for a 0-d index tensor ``i`` on the device, without reading
+    it back (indexing with a 0-d tensor converts it to a Python int: a
+    device→host sync)."""
+    return x.index_select(0, i.reshape(1)).squeeze(0)
+
+
 def _update_best(state: GAState) -> GAState:
     i = torch.argmax(state.fitness)
-    better = state.fitness[i] > state.best_fitness
+    better = _at(state.fitness, i) > state.best_fitness
     return state._replace(
-        best_genome=torch.where(better, state.genomes[i], state.best_genome),
-        best_fitness=torch.where(better, state.fitness[i], state.best_fitness))
+        best_genome=torch.where(better, _at(state.genomes, i), state.best_genome),
+        best_fitness=torch.where(better, _at(state.fitness, i), state.best_fitness))
 
 
 def _init_state(draws, fitness_fn: Callable, cfg: GAParams,
@@ -200,7 +225,7 @@ def _init_state(draws, fitness_fn: Callable, cfg: GAParams,
             *(to_device(v, dev, torch.float32) for v in seed_params)))
     fitness = fitness_fn(unstack_params(genomes))
     i = torch.argmax(fitness)
-    return _update_best(GAState(genomes, fitness, genomes[i], fitness[i]))
+    return _update_best(GAState(genomes, fitness, _at(genomes, i), _at(fitness, i)))
 
 
 def _generation(draws, fitness_fn: Callable, state: GAState, cfg: GAParams) -> GAState:
@@ -226,17 +251,31 @@ def run_ga(draws, fitness_fn: Callable, cfg: GAParams,
     `host_read` at the end.  Given the same draws it follows
     `run_ga_legacy` genome for genome.  ``partitioner``: None or the
     single-device seam; any other raises."""
-    require_single(partitioner)
+    part = require_single(partitioner)
     dev = resolve_device(device)
     draws = _provider(draws)
-    state = _init_state(draws, fitness_fn, cfg, seed_params, dev)
-    records = []
-    for _ in range(cfg.generations):
-        state = _generation(draws, fitness_fn, state, cfg)
-        records.append(torch.stack([state.best_fitness, torch.mean(state.fitness),
-                                    population_diversity(state.genomes)]))
-    rows = torch.stack(records) if records else torch.zeros((0, 3), device=dev)
-    best, rows = host_read((state.best_genome, rows))
+    cold = True
+    if meshprof.active() is not None:
+        seen = _GA_RUNS_SEEN.setdefault(fitness_fn, set())
+        cold = cfg not in seen
+        seen.add(cfg)
+    # the population's fitness through the partitioner seam: its layout
+    # card (population, pad) is recorded under the program's name
+    evaluate = part.population_eval(fitness_fn, name="ga_scan")
+    # the ga_scan cost card on the first carded run, and a watch window
+    # from the first evaluation through the one sanctioned host_read
+    with meshprof.watch("ga_scan", cold=cold):
+        with devprof.carding("ga_scan", (seed_params,), note=devprof.NOTE_NO_DONATION,
+                             device=dev) as card:
+            state = _init_state(draws, evaluate, cfg, seed_params, dev)
+            records = []
+            for _ in range(cfg.generations):
+                state = _generation(draws, evaluate, state, cfg)
+                records.append(torch.stack([state.best_fitness, torch.mean(state.fitness),
+                                            population_diversity(state.genomes)]))
+            rows = torch.stack(records) if records else torch.zeros((0, 3), device=dev)
+            card.result((state, rows))
+        best, rows = host_read((state.best_genome, rows))
     return unstack_params(torch.from_numpy(best)), _history(rows)
 
 

@@ -24,6 +24,7 @@ import numpy as np
 from ai_crypto_trader_tpu_torch.device import resolve_device
 from ai_crypto_trader_tpu_torch.models.train import train_model
 from ai_crypto_trader_tpu_torch.parallel.partitioner import require_single
+from ai_crypto_trader_tpu_torch.utils import meshprof
 
 SEARCH_SPACE = {
     # neural_network_service.py:604-640 (Optuna suggest_* calls)
@@ -165,12 +166,15 @@ def optimize_hyperparameters(
     ``generator`` (a ``torch.Generator``, or a draw provider, shared by the
     trials in turn); ``precision`` goes to both rungs.  ``partitioner`` is
     None or the single-device seam; any other raises (ROADMAP item 15)."""
-    require_single(partitioner)
+    devices = require_single(partitioner).trial_devices()   # [] on one card
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
     results = []
 
     def run_trial(t: dict, epochs: int, patience: int):
+        if devices:
+            # per-device trial accounting (utils/meshprof.py)
+            meshprof.record_trial(devices[len(results) % len(devices)])
         return train_model(
             generator, features, t["model_type"], seq_len=seq_len,
             units=t["units"], dropout=t["dropout"],

@@ -43,7 +43,7 @@ from ai_crypto_trader_tpu_torch.models.train import (
     predict_prices_batched,
     train_model,
 )
-from ai_crypto_trader_tpu_torch.utils import tracing
+from ai_crypto_trader_tpu_torch.utils import meshprof, tracing
 from ai_crypto_trader_tpu_torch.utils.checkpoint import save_checkpoint
 
 INTERVAL_SECONDS = {
@@ -352,13 +352,20 @@ class PredictionService:
                     preds[i] = o
         return preds
 
+    def _compute_offloaded(self, now: float, hpo_req: dict | None) -> dict:
+        """`_compute` on a worker thread, beside the loop's device work:
+        under `utils.meshprof.sync_gate`, so no sync-guard window arms
+        while it runs and its own reads never trip one."""
+        with meshprof.sync_gate():
+            return self._compute(now, hpo_req)
+
     async def run_once(self) -> dict:
         now = self.now_fn()
         hpo_req = self.bus.get("nn_optimization_request")
         if self.offload:
             import asyncio
 
-            computed = await asyncio.to_thread(self._compute, now, hpo_req)
+            computed = await asyncio.to_thread(self._compute_offloaded, now, hpo_req)
         else:
             computed = self._compute(now, hpo_req)
         if computed.pop("hpo_consumed"):

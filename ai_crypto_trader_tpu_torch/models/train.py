@@ -54,6 +54,7 @@ from ai_crypto_trader_tpu_torch.models.layers import meta_template
 from ai_crypto_trader_tpu_torch.models.train_loop import Adam, EpochTrainer, snapshot_params
 from ai_crypto_trader_tpu_torch.models.zoo import build_model
 from ai_crypto_trader_tpu_torch.ops.tick_engine import Readback, read_packed, stage
+from ai_crypto_trader_tpu_torch.utils import devprof
 
 MULTITASK_WEIGHTS = (1.0, 0.7, 0.5)
 
@@ -267,7 +268,7 @@ def train_model(
 
     if compiled_epoch:
         trainer = EpochTrainer(train_loss, tx, eval_loss_fn=eval_loss, precision=precision,
-                               device=dev)
+                               card=f"train_epoch.{model_type}", device=dev)
 
         def run_epoch(epoch, params, opt_state):
             return trainer.epoch(params, opt_state, X_tr, y_tr, draws.permutation(epoch, n_tr),
@@ -435,7 +436,11 @@ def predict_prices_batched(results: Sequence[TrainResult], features_list,
     params, smin, smax = prog.stacked(results)
     windows = _upload(np.stack([np.asarray(f, np.float32)[-seq_len:] for f in features_list]),
                       dev)
-    out = prog.fn(params, smin, smax, windows)
+    # one-shot devprof cost card per architecture (lane count varies per
+    # call; the first-seen shape is the card)
+    with devprof.carding(f"predict_batched.{r0.model_type}", (params, smin, smax, windows),
+                         note=devprof.NOTE_NO_DONATION) as card:
+        out = card.result(prog.fn(params, smin, smax, windows))
     leaves = [(k, out[k]) for k in ("mean", "log_sigma") if k in out]     # [L, 1, H]
     leaves += [("smin", smin), ("smax", smax)]
     packed = torch.cat([v.reshape(-1) for _, v in leaves])

@@ -39,6 +39,7 @@ flags are restored.
 from __future__ import annotations
 
 import contextlib
+import time
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -47,6 +48,7 @@ import torch
 from ai_crypto_trader_tpu_torch.device import (
     canonical_precision, div_const, resolve_device, to_device)
 from ai_crypto_trader_tpu_torch.ops.tick_engine import Readback, read_packed, stage
+from ai_crypto_trader_tpu_torch.utils import devprof, meshprof
 
 # canonical precision name → torch.set_float32_matmul_precision's
 _TORCH_PRECISION = {"float32": "highest", "highest": "highest",
@@ -71,8 +73,14 @@ def matmul_precision(precision: str | None):
 def host_read(readback: Readback) -> np.ndarray:
     """THE per-epoch device→host sync: wait for the epoch's one copy of its
     metrics into pinned memory → float32 NumPy [2] ([train_loss, val_loss]).
-    A module-level seam, so tests can count reads."""
-    return read_packed(readback)["metrics"]
+    A module-level seam, so tests can count reads.  Timed into the
+    ``host_read`` SLO window: this is the only sync of an epoch, so a
+    device-queue stall surfaces here first."""
+    t0 = time.perf_counter()
+    with meshprof.allow_transfers():   # THE sanctioned device→host sync
+        out = read_packed(readback)["metrics"]
+    devprof.observe_latency("host_read", time.perf_counter() - t0)
+    return out
 
 
 def snapshot_params(params: dict) -> dict:
@@ -180,9 +188,15 @@ class EpochTrainer:
 
     def __init__(self, train_loss_fn: Callable, tx: Adam, *,
                  eval_loss_fn: Callable | None = None, precision: str | None = None,
-                 device=None):
+                 card: str = "train_epoch", device=None):
         self.train_loss_fn, self.eval_loss_fn, self.tx = train_loss_fn, eval_loss_fn, tx
         self.precision = canonical_precision(precision)
+        # devprof cost-card name: cards are one-shot PER NAME, so callers
+        # that train several architectures pass e.g. "train_epoch.lstm"
+        self.card = card
+        # (X, y, val, batch) shapes already trained once: the recompile
+        # sentinel's cold-run ledger
+        self._watched_shapes: set = set()
         self.device = resolve_device(device)
 
     def epoch(self, params: dict, opt_state: AdamState, X, y, perm_draw, drop_gen,
@@ -190,7 +204,40 @@ class EpochTrainer:
         """One epoch on the trainer's device (the data and parameters
         should already be there): ``perm_draw`` is a ``torch.Generator`` or
         a permutation of range(len(X)) (`permutation`), ``drop_gen`` the
-        dropout generator (None when the model drops nothing)."""
+        dropout generator (None when the model drops nothing).
+
+        With `utils.devprof` active the first epoch takes the ``self.card``
+        cost card and checks that the parameters were updated in place
+        (the same storages after it), and every epoch feeds the
+        ``train_step`` SLO window (the epoch's dispatch wall per batch);
+        with `utils.meshprof` active each epoch is a ``self.card`` watch
+        window (a never-seen shape is cold)."""
+        dp = devprof.active()
+        if dp is None and meshprof.active() is None:
+            return self._epoch(params, opt_state, X, y, perm_draw, drop_gen, X_val, y_val,
+                               batch_size=batch_size)
+        donation = (devprof.donated(inplace=params)
+                    if not devprof.has_card(self.card) else None)
+        shape_key = (tuple(X.shape), tuple(y.shape),
+                     tuple(X_val.shape) if X_val is not None else None, batch_size)
+        cold = shape_key not in self._watched_shapes
+        self._watched_shapes.add(shape_key)
+        t0 = time.perf_counter()
+        with meshprof.watch(self.card, cold=cold):
+            with devprof.carding(self.card, (params, opt_state, X, y, X_val, y_val),
+                                 inplace=params, device=self.device) as card:
+                out = card.result(self._epoch(params, opt_state, X, y, perm_draw, drop_gen,
+                                              X_val, y_val, batch_size=batch_size))
+        if dp is not None:
+            n = X.shape[0]
+            dp.observe_latency("train_step",
+                               (time.perf_counter() - t0) / max(n // min(batch_size, n), 1))
+            if donation is not None:
+                devprof.verify_donation(self.card, donation, after=out[0])
+        return out
+
+    def _epoch(self, params: dict, opt_state: AdamState, X, y, perm_draw, drop_gen,
+               X_val, y_val, *, batch_size: int):
         X, y = X.to(self.device), y.to(self.device)
         if X_val is not None:
             X_val, y_val = X_val.to(self.device), y_val.to(self.device)

@@ -6,7 +6,9 @@ root of the checkout (listed in ``.gitignore``), and loaded with ctypes.
 Nothing is built or loaded when a module is imported: a library is built at
 its first use, or by ``build()`` for all of them at once (one nvcc process
 per source, all started together).  The hash covers the source and the
-flags, so an edited source is rebuilt.
+flags, so an edited source is rebuilt.  `set_build_dir` points later builds
+and loads at another directory (the persistent cache of `utils.aotcache`);
+a library already loaded stays loaded from where it was.
 
 ``--fmad=false`` keeps nvcc from contracting ``a*b + c`` into a fused
 multiply-add: the plain PyTorch versions round the product and the sum
@@ -32,6 +34,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / ".torch_kernels"
+DEFAULT_BUILD_DIR = BUILD_DIR
 SOURCES = ("fused_ewma", "replay_sweep")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
@@ -52,6 +55,19 @@ def nvcc_path() -> str:
             return cand
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH): "
                        "the port's CUDA kernels are built from csrc/ at first use")
+
+
+def set_build_dir(path) -> Path:
+    """Build and load later libraries in ``path``; returns the directory
+    used until now."""
+    global BUILD_DIR
+    prev, BUILD_DIR = BUILD_DIR, Path(path)
+    return prev
+
+
+def loaded() -> list:
+    """The names of the libraries this process has loaded."""
+    return sorted(_LIBS)
 
 
 def library_path(name: str) -> Path:

@@ -31,6 +31,7 @@ import torch
 
 from ai_crypto_trader_tpu_torch.device import resolve_device, to_device
 from ai_crypto_trader_tpu_torch.ops import _cuda
+from ai_crypto_trader_tpu_torch.utils import devprof
 
 # The kernel's tiling (csrc/fused_ewma.cu: kThreads, kItems, kMaxK,
 # kMaxJobs); the wrapper checks the library agrees, and the CPU tests mirror
@@ -38,6 +39,10 @@ from ai_crypto_trader_tpu_torch.ops import _cuda
 TILE_THREADS, TILE_ITEMS = 256, 16
 TILE_LEN = TILE_THREADS * TILE_ITEMS
 MAX_K, MAX_JOBS = 8, 4
+# float32 operations an output element takes (the coefficient products and
+# the recursion's multiply and add, and the NaN mask): a launch's cost on a
+# devprof card, as PERF.md's bound column reckons it
+EWMA_OPS = 5
 
 _SIGNATURES = {
     "fused_ewma_tile_len": (ctypes.c_int, []),
@@ -182,6 +187,11 @@ def _launch(jobs):
             ptr(alpha_c), ptr(decay_c), agg.data_ptr(), _cuda.stream_handle(dev))
     _cuda.check(lib, "fused_ewma", rc)
     fused_ewma.launches += 1
+    if devprof.cards_open():
+        inputs = {x.data_ptr(): x.numel() for x, _, _ in jobs}
+        outputs = sum(o.numel() for o in results)
+        devprof.kernel_cost("fused_ewma", EWMA_OPS * outputs,
+                            4 * (sum(inputs.values()) + outputs))
     return results
 
 

@@ -35,6 +35,7 @@ from ai_crypto_trader_tpu_torch.backtest.engine import (
 from ai_crypto_trader_tpu_torch.backtest.strategy import StrategyParams
 from ai_crypto_trader_tpu_torch.device import resolve_device
 from ai_crypto_trader_tpu_torch.ops import _cuda
+from ai_crypto_trader_tpu_torch.utils import devprof
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
@@ -61,6 +62,10 @@ _I_ROWS = ("total_trades", "winning_trades", "losing_trades", "n_r",
 _INT_STREAMS = ("signal", "decision")
 _SHARED_STREAMS = ("close", "volume")
 _GATE_STREAMS = ("confidence", "strength", "signal", "decision")
+# float32 operations of a walk that stepped every candle and strategy
+# (counted from csrc/replay_sweep.cu): a launch's cost on a devprof card,
+# which cannot read how many candles the data let the walk skip
+REPLAY_OPS_STEP = 12
 
 
 def sweep_plain(inputs: BacktestInputs, params: StrategyParams,
@@ -188,6 +193,13 @@ def sweep_kernel(inputs: BacktestInputs, params: StrategyParams,
         out_f, out_i, curve = launch_walk(lib, s, mask, stop_loss, take_profit, T,
                                            warmup, initial_balance, return_curve, dev)
     sweep_kernel.launches += 1
+    if devprof.cards_open():
+        B = int(stop_loss.shape[0])
+        streams = {x.data_ptr(): x.nbytes for x in s.values()}
+        devprof.kernel_cost("replay_sweep", REPLAY_OPS_STEP * B * T,
+                            sum(streams.values()) + stop_loss.nbytes + take_profit.nbytes
+                            + out_f.nbytes + out_i.nbytes
+                            + (curve.nbytes if curve is not None else 0))
     rows = dict(zip(_F_ROWS, out_f.unbind(0)))
     rows.update(zip(_I_ROWS, out_i.unbind(0)))
     rows["initial_balance"] = torch.full((int(stop_loss.shape[0]),), initial_balance,

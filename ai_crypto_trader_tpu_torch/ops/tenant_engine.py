@@ -45,9 +45,14 @@ resolves to ``lane_quarantined``; its neighbours' values are untouched.
 NaN in ``sl_override`` / ``tp_override`` means "no override" and is not
 poison.  The tenant axis pads to a power of two (at least 8), and the
 symbol axis to the tick engine's pad, because `feats_from_tick` slices the
-tick engine's [S_pad, F] table.  The JAX engine's observatories of this
-path (`obs.tickpath`, `utils.devprof`, `utils.meshprof`) are not part of
-the port yet.
+tick engine's [S_pad, F] table.
+
+With `utils.devprof` active the first decide takes the ``tenant_engine``
+cost card and the state's donation check (the decide returns the state
+anew; the old one must be released once replaced); with `utils.meshprof`
+active the decide through its one host read runs in a ``tenant_engine``
+watch window, the first decide of a shape cold.  The JAX engine's
+tick-path seam (`obs.tickpath`) is not part of the port yet.
 """
 
 from __future__ import annotations
@@ -70,6 +75,7 @@ from ai_crypto_trader_tpu_torch.obs.flightrec import GATES, VETO_ORDER
 from ai_crypto_trader_tpu_torch.ops.tick_engine import Readback, read_packed
 from ai_crypto_trader_tpu_torch.ops.tick_engine import _pad_symbols as _pad_pow2
 from ai_crypto_trader_tpu_torch.parallel.partitioner import require_single
+from ai_crypto_trader_tpu_torch.utils import devprof, meshprof
 from ai_crypto_trader_tpu_torch.utils.journal import pack_array, unpack_array
 
 #: gate id for "no gate fired: the decision is executable"
@@ -103,8 +109,13 @@ def host_read(readback: Readback) -> dict:
     """THE per-decide device→host sync: wait for the decide's one copy into
     pinned memory and unpack it into ``{"out": …, "state": …[, "fleet":
     …]}`` of NumPy arrays.  A module-level seam, so tests can wrap it with
-    a counting double."""
-    return read_packed(readback)
+    a counting double.  Timed into the ``host_read`` SLO window and the
+    meshprof sanctioned-transfer scope."""
+    t0 = time.perf_counter()
+    with meshprof.allow_transfers():   # THE sanctioned device→host sync
+        out = read_packed(readback)
+    devprof.observe_latency("host_read", time.perf_counter() - t0)
+    return out
 
 
 def tenant_params(n: int, trading=None, *, confidence_scale: float = 0.9,
@@ -367,6 +378,7 @@ class TenantEngine:
         self._dev_state = None
         self._dev_params = None
         self._need_seed = True
+        self._cold = True                  # a new shape: its first decide
 
     def set_tenant(self, i: int, *, balance: float | None = None,
                    open_symbols=(), pending_symbols=(), **params) -> None:
@@ -569,21 +581,34 @@ class TenantEngine:
                 upload_bytes += self._seed()
             feats_dev = self._upload_feats(feats)
             upload_bytes += sum(int(np.asarray(v).nbytes) for v in feats.values())
-            out, new_state, fleet = _decide_program(
-                self._dev_state, self._dev_params, feats_dev,
-                containment=self.containment,
-                fleet_k=fs.top_k if fs is not None else None,
-                s_real=len(self.symbols))
-            groups = {"out": out, "state": new_state}
-            if fleet is not None:
-                groups["fleet"] = fleet
-            readback = self._readback(*_pack(groups))
-            self._dev_state = new_state
-            self.dispatch_count += 1
-            self._need_seed = False
-            t_hr = time.perf_counter()
-            host = host_read(readback)
-            host_read_s = time.perf_counter() - t_hr
+            # the cost card and the state's donation check on the first
+            # carded decide (the state comes back anew: the old one must be
+            # released once replaced)
+            donation = (devprof.donated(released=self._dev_state)
+                        if not devprof.has_card("tenant_engine") else None)
+            # a fresh engine's (or a resized tenant axis's) first decide is cold
+            with meshprof.watch("tenant_engine", cold=self._cold):
+                args = (self._dev_state, self._dev_params, feats_dev)
+                with devprof.carding("tenant_engine", args) as card:
+                    out, new_state, fleet = card.result(_decide_program(
+                        *args, containment=self.containment,
+                        fleet_k=fs.top_k if fs is not None else None,
+                        s_real=len(self.symbols)))
+                del args
+                groups = {"out": out, "state": new_state}
+                if fleet is not None:
+                    groups["fleet"] = fleet
+                readback = self._readback(*_pack(groups))
+                self._dev_state = new_state
+                if donation is not None:
+                    devprof.verify_donation("tenant_engine", donation,
+                                            after=new_state)
+                self._cold = False
+                self.dispatch_count += 1
+                self._need_seed = False
+                t_hr = time.perf_counter()
+                host = host_read(readback)
+                host_read_s = time.perf_counter() - t_hr
         except Exception:
             # a mid-step abort leaves the device state unknown: the host
             # mirror is authoritative, so the next decide re-seeds (from

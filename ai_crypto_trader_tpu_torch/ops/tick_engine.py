@@ -49,8 +49,14 @@ span on the card between two CUDA events recorded around it, read after
 the step's one host read has waited for the copy behind them — no second
 synchronizing call (on the CPU, where the program runs inside the
 dispatch, it is 0).  The overlap headroom is the host's wait in that read.
-The JAX package's other observatories on this path (`utils.devprof`,
-`utils.meshprof`) are not part of the port yet.
+With `utils.devprof` active the first dispatch takes the ``tick_engine``
+cost card and the ring's donation check (the ring is updated in place: it
+must still be the same storage after the dispatch; in pipelined mode each
+ring's first dispatch is checked).  With `utils.meshprof` active the
+dispatch through the one host read runs in a ``tick_engine`` watch window
+(kernel builds attributed, synchronizing calls refused and counted); the
+read itself is the sanctioned one (`host_read`), timed into the
+``host_read`` SLO.  Off, each is one module-global check.
 """
 
 from __future__ import annotations
@@ -74,6 +80,7 @@ from ai_crypto_trader_tpu_torch.ops.combinations import (
 )
 from ai_crypto_trader_tpu_torch.ops.indicators import compute_indicators
 from ai_crypto_trader_tpu_torch.ops.volume_profile import volume_profile
+from ai_crypto_trader_tpu_torch.utils import devprof, meshprof
 
 _NP_DTYPES = {torch.float32: np.float32, torch.int32: np.int32,
               torch.int8: np.int8, torch.bool: np.bool_}
@@ -106,8 +113,14 @@ def host_read(readback: Readback) -> dict:
     ``combo`` dict among them) with the JAX package's dtypes and shapes.
 
     A module-level seam, so tests can wrap it with a counting double and
-    assert one read per poll."""
-    return read_packed(readback)
+    assert one read per poll.  The read is timed into the ``host_read``
+    SLO window (utils/devprof.py) and is the sanctioned sync of a meshprof
+    watch window."""
+    t0 = time.perf_counter()
+    with meshprof.allow_transfers():   # THE sanctioned device→host sync
+        out = read_packed(readback)
+    devprof.observe_latency("host_read", time.perf_counter() - t0)
+    return out
 
 
 def stage(packed: torch.Tensor, layout) -> Readback:
@@ -350,6 +363,7 @@ class TickEngine:
         self._staging: list = [None, None]
         self._out_host: list = [None, None]
         self._dev_in = None
+        self._donation_checked = [False, False]
         self._cur = 0
         self._inflight: dict | None = None
         self.dispatch_count = 0
@@ -556,7 +570,9 @@ class TickEngine:
             span = (torch.cuda.Event(enable_timing=True),
                     torch.cuda.Event(enable_timing=True))
             span[0].record()
-        out = _tick_program(self._bufs[i], base, rows, flat, valid, self._drift_ref)
+        args = (self._bufs[i], base, rows, flat, valid, self._drift_ref)
+        with devprof.carding("tick_engine", args, inplace=args[:1]) as card:
+            out = card.result(_tick_program(*args))
         packed, layout = _pack(out)
         if self.device.type != "cuda":
             return Readback(packed, None, layout)
@@ -606,11 +622,19 @@ class TickEngine:
         if self._drift_ref is None:
             self._upload_drift_ref()
         tp = tickpath.active()
+        # the ring's donation check on the first carded dispatch
+        donation = (devprof.donated(inplace=self._bufs[:1])
+                    if not devprof.has_card("tick_engine") else None)
+        cold = self.dispatch_count == 0
         try:
-            with tickpath.coldstart("tick_engine", cold=self.dispatch_count == 0):
+            with tickpath.coldstart("tick_engine", cold=cold), \
+                    meshprof.watch("tick_engine", cold=cold):
                 t_d0 = time.perf_counter()
                 readback = self._dispatch(0, timed=tp is not None)
                 t_d1 = time.perf_counter()
+                if donation is not None:
+                    devprof.verify_donation("tick_engine", donation,
+                                            after=self._bufs[:1])
                 self.dispatch_count += 1
                 self._need_seed = False
                 self.last_valid = valid
@@ -714,10 +738,19 @@ class TickEngine:
         if self._drift_ref is None:
             self._upload_drift_ref()
         tp = tickpath.active()
+        # each ring's donation check on its first dispatch under devprof
+        donation = (devprof.donated(inplace=self._bufs[cur:cur + 1])
+                    if not self._donation_checked[cur] else None)
+        cold = self.dispatch_count == 0
         t_d0 = time.perf_counter()
         try:
-            with tickpath.coldstart("tick_engine", cold=self.dispatch_count == 0):
+            with tickpath.coldstart("tick_engine", cold=cold), \
+                    meshprof.watch("tick_engine", cold=cold):
                 readback = self._dispatch(cur, timed=tp is not None)
+                if donation is not None:
+                    devprof.verify_donation("tick_engine", donation,
+                                            after=self._bufs[cur:cur + 1])
+                    self._donation_checked[cur] = True
         except Exception:
             self._abort_pipeline()
             raise

@@ -212,7 +212,8 @@ def train_pattern_model(generator: torch.Generator, model_type: str = "cnn", *,
     def loss_fn(p, xb, yb, gen):
         return F.cross_entropy(functional_call(model, p, (xb, True), {"generator": gen}), yb)
 
-    trainer = EpochTrainer(loss_fn, tx, precision=precision, device=dev)
+    trainer = EpochTrainer(loss_fn, tx, precision=precision, card="train_epoch.pattern_cnn",
+                           device=dev)
     rec = PatternRecognizer(model_type=model_type)
     for epoch in range(epochs):
         params, opt_state, metrics = trainer.epoch(params, opt_state, X, y, generator,

@@ -38,6 +38,7 @@ a module-level seam that tests count).
 
 from __future__ import annotations
 
+import time
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -50,6 +51,7 @@ from ai_crypto_trader_tpu_torch.models.train_loop import (
     PLAIN_C1, PLAIN_C2, AdamState, adam_direction)
 from ai_crypto_trader_tpu_torch.ops.tick_engine import read_packed, stage
 from ai_crypto_trader_tpu_torch.rl.draws import RolloutDraws, as_draws
+from ai_crypto_trader_tpu_torch.utils import devprof
 from ai_crypto_trader_tpu_torch.rl.env import (
     OBS_SIZE, EnvParams, EnvState, env_reset, env_step, reset_bounds)
 
@@ -371,7 +373,25 @@ def train_iteration(env_params: EnvParams, state: DQNState, cfg: DQNConfig):
 def train_iterations(env_params: EnvParams, state: DQNState, cfg: DQNConfig,
                      n_iters: int = 1):
     """``n_iters`` iterations of the single agent with no host read:
-    (state', metrics {name: [n_iters]} on the card)."""
+    (state', metrics {name: [n_iters]} on the card).
+
+    With `utils.devprof` active the first call takes the
+    ``dqn_train_iterations`` cost card, and every call feeds the
+    ``train_step`` SLO window (the call's dispatch wall per iteration).
+    Nothing is updated in place, so there is no donation to verify."""
+    dp = devprof.active()
+    if dp is None:
+        return _train_iterations(env_params, state, cfg, n_iters)
+    t0 = time.perf_counter()
+    with devprof.carding("dqn_train_iterations", (env_params, state),
+                         note=devprof.NOTE_NO_DONATION) as card:
+        out = card.result(_train_iterations(env_params, state, cfg, n_iters))
+    dp.observe_latency("train_step", (time.perf_counter() - t0) / max(n_iters, 1))
+    return out
+
+
+def _train_iterations(env_params: EnvParams, state: DQNState, cfg: DQNConfig,
+                      n_iters: int):
     hy = _lift_hypers(hypers_from_config(cfg, env_params.close.device))
     st, rows = _lift(state), []
     for _ in range(n_iters):

@@ -37,6 +37,7 @@ On one card the partitioner is the single-device seam
 
 from __future__ import annotations
 
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -51,6 +52,7 @@ from ai_crypto_trader_tpu_torch.rl.dqn import (
     hypers_from_config, map_state, poisoned_members)
 from ai_crypto_trader_tpu_torch.rl.draws import as_draws
 from ai_crypto_trader_tpu_torch.rl.env import EnvParams, reset_bounds
+from ai_crypto_trader_tpu_torch.utils import devprof, meshprof
 
 
 class PBTConfig(NamedTuple):
@@ -93,8 +95,18 @@ class PBTResult(NamedTuple):
 def host_read(readback: Readback) -> dict:
     """THE per-generation device→host read: wait for the generation's one
     packed copy and unpack it (nested dicts of NumPy arrays).  A
-    module-level seam, so tests can count reads."""
-    return read_packed(readback)
+    module-level seam, so tests can count reads.  Timed into the
+    ``host_read`` SLO window, the sanctioned sync of a watch window."""
+    t0 = time.perf_counter()
+    with meshprof.allow_transfers():
+        out = read_packed(readback)
+    devprof.observe_latency("host_read", time.perf_counter() - t0)
+    return out
+
+
+# (cfg, pcfg) pairs whose fleet trained in this process: a first
+# generation builds what it launches by design (the sentinel's cold window)
+_PBT_SEEN: set = set()
 
 
 def pop_init(key, env_params: EnvParams, cfg: DQNConfig, pcfg: PBTConfig) -> PopState:
@@ -244,17 +256,36 @@ def train_pbt(key, env_params: EnvParams, cfg: DQNConfig, pcfg: PBTConfig,
     its own provider.  ``start_generation`` numbers the generations (the
     exchange draws of generation g); ``on_generation(g, pop, row)`` fires
     after each generation's read."""
-    require_single(partitioner)
+    part = require_single(partitioner)
     pop = init_pop if init_pop is not None else pop_init(key, env_params, cfg, pcfg)
+    # the generation through the partitioner seam (its layout card)
+    generation = part.population_eval(
+        lambda p, env: _generation(p, env, cfg, pcfg), name="pbt_generation")
+    try:
+        cold = (cfg, pcfg) not in _PBT_SEEN
+        _PBT_SEEN.add((cfg, pcfg))
+    except TypeError:                      # an unhashable config: unseen
+        cold = True
+    prof = devprof.active()
     history, host = [], None
     for g in range(start_generation, start_generation + pcfg.generations):
-        pop, fitness, met = _generation(pop, env_params, cfg, pcfg)
-        pre_q = pop.quarantined
-        members, hypers, quarantined, cooldown, lineage = _exchange(
-            pop.members, pop.hypers, pop.quarantined, pop.cooldown, fitness, g, pcfg)
-        pop = PopState(members=members, hypers=hypers, quarantined=quarantined,
-                       cooldown=cooldown)
-        host = host_read(_pack(fitness, lineage, hypers, met, pre_q, quarantined, cooldown))
+        gcold, cold = cold, False
+        t0 = time.perf_counter()
+        # the pbt_generation cost card on the first carded generation, and
+        # a watch window through the generation's one host_read
+        with meshprof.watch("pbt_generation", cold=gcold):
+            with devprof.carding("pbt_generation", (pop, env_params),
+                                 note=devprof.NOTE_NO_DONATION) as card:
+                pop, fitness, met = card.result(generation(pop, env_params))
+            pre_q = pop.quarantined
+            members, hypers, quarantined, cooldown, lineage = _exchange(
+                pop.members, pop.hypers, pop.quarantined, pop.cooldown, fitness, g, pcfg)
+            pop = PopState(members=members, hypers=hypers, quarantined=quarantined,
+                           cooldown=cooldown)
+            host = host_read(_pack(fitness, lineage, hypers, met, pre_q, quarantined,
+                                   cooldown))
+        if prof is not None:
+            prof.observe_latency("pbt_generation", time.perf_counter() - t0)
         row = _row(g, host, pcfg.population)
         history.append(row)
         if on_generation is not None:

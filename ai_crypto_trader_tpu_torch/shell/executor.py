@@ -44,14 +44,16 @@ from ai_crypto_trader_tpu_torch.shell.exchange import (
     ExchangeInterface,
     ExchangeUnavailable,
 )
-from ai_crypto_trader_tpu_torch.utils import tracing
+from ai_crypto_trader_tpu_torch.utils import meshprof, tracing
 
 
 def host_read(values: torch.Tensor) -> list:
     """The executor's device→host read: ``values`` (a float32 vector) as
     Python floats, in one copy.  A module-level seam, so a caller can wrap
-    it to count the executor's reads."""
-    return values.tolist()
+    it to count the executor's reads; a sanctioned read of the sync guard
+    (`utils.meshprof.allow_transfers`)."""
+    with meshprof.allow_transfers():
+        return values.tolist()
 
 
 # `risk.social.social_risk_adjustment`'s factors, in its order

@@ -22,13 +22,17 @@ without one; ``"cpu"`` on request): it hands the device to the
 a poll), the `TradeExecutor`, the scanner of `with_discovery` and the risk
 block's `risk.var` calls, whose results come back through `host_read`
 (one read of the four VaR figures a tick, one of the correlation matrix).
-`build_info` records torch's version, the backend and the card's name
-where the JAX package records jax's.  `attach_stream` makes a
+`build_info` records torch's and CUDA's versions, the backend and the
+card's name where the JAX package records jax's.  `attach_stream` makes a
 `shell.stream.StreamSupervisor` the market-data path: its drain is the
 monitor's poll on the system's device, fed by the stream's candle books.
-The options whose modules are not ported yet (`enable_devprof`,
-`enable_meshprof`, `aot_cache_dir`) raise `NotImplementedError`; their
-defaults behave as the JAX package's.
+``enable_devprof`` and ``enable_meshprof`` install the port's
+`utils.devprof` and `utils.meshprof` observatories (cost cards, donation
+checks, allocator watermarks, latency SLOs; build and sync sentinels,
+layout cards, memory imbalance) with the JAX package's exports, status and
+alert inputs; ``aot_cache_dir`` points the kernel build at the
+provenance-keyed persistent cache of `utils.aotcache` before the first
+kernel is loaded.
 """
 
 from __future__ import annotations
@@ -49,6 +53,8 @@ from ai_crypto_trader_tpu_torch.shell.dashboard import write_dashboard
 from ai_crypto_trader_tpu_torch.shell.exchange import ExchangeInterface
 from ai_crypto_trader_tpu_torch.shell.executor import TradeExecutor
 from ai_crypto_trader_tpu_torch.shell.monitor import MarketMonitor
+from ai_crypto_trader_tpu_torch.utils import devprof as devprof_mod
+from ai_crypto_trader_tpu_torch.utils import meshprof as meshprof_mod
 from ai_crypto_trader_tpu_torch.utils import tracing
 from ai_crypto_trader_tpu_torch.utils.alerts import AlertManager
 from ai_crypto_trader_tpu_torch.utils.health import EventLoopLagProbe, HeartbeatRegistry
@@ -59,14 +65,10 @@ from ai_crypto_trader_tpu_torch.utils.saturation import SaturationMonitor
 def host_read(values: torch.Tensor) -> list:
     """The risk block's device→host read: ``values`` as (nested) Python
     floats, in one copy.  A module-level seam, so a caller can wrap it to
-    count the system's reads."""
-    return values.tolist()
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to ai_crypto_trader_tpu_torch yet "
-        "(ROADMAP item 16)")
+    count the system's reads; a sanctioned read of the sync guard
+    (`utils.meshprof.allow_transfers`)."""
+    with meshprof_mod.allow_transfers():
+        return values.tolist()
 
 
 @dataclass
@@ -89,9 +91,18 @@ class TradingSystem:
     # enable_tracing).
     enable_tracing: bool = False
     trace_jsonl: str | None = None
-    # Device-runtime observatory (utils/devprof.py) and mesh runtime
-    # observatory (utils/meshprof.py): not ported yet, so True raises.
+    # Device-runtime observatory (utils/devprof.py). Default OFF like
+    # tracing (the disabled hot path is one module-global check). When on:
+    # one-shot cost cards + donation checks for every hot program, per-
+    # device allocator watermarks sampled each tick, and p50/p99/burn-rate
+    # latency SLO gauges for tick / train_step / host_read.
     enable_devprof: bool = False
+    # Mesh runtime observatory (utils/meshprof.py). Default OFF like
+    # tracing/devprof. When on: kernel-build sentinel windows around every
+    # carded hot dispatch (a steady-state rebuild becomes a counted
+    # mesh_steady_recompiles_total + alert), sync guards on the hot paths
+    # (an unsanctioned device→host sync is counted, not silently paid),
+    # population layout cards and the per-device memory-imbalance fold.
     enable_meshprof: bool = False
     # Fleet observatory (obs/fleetscope.py). Default OFF like tracing
     # (disabled hot path = one module-global check).
@@ -143,8 +154,10 @@ class TradingSystem:
     # reduced-precision knob threaded through tick/tenant engines);
     # None = full f32.
     precision: str | None = None
-    # Persistent AOT compile cache (utils/aotcache.py): not ported yet,
-    # so a directory raises.
+    # Persistent kernel-build cache (utils/aotcache.py): when set, the nvcc
+    # libraries build and load in <dir>/<provenance-key> from BEFORE the
+    # first kernel use, so a restart loads what the last run built instead
+    # of compiling it.  A failure builds in the default directory.
     aot_cache_dir: str | None = None
     # Stage supervision (utils/supervision.py): a non-ExchangeUnavailable
     # exception inside monitor/analyzer/executor is isolated with
@@ -197,11 +210,6 @@ class TradingSystem:
         from ai_crypto_trader_tpu_torch.utils.structlog import StructuredLogger
 
         self.device = resolve_device(self.device)
-        for flag, what in ((self.enable_devprof, "enable_devprof (utils/devprof)"),
-                           (self.enable_meshprof, "enable_meshprof (utils/meshprof)"),
-                           (self.aot_cache_dir, "aot_cache_dir (utils/aotcache)")):
-            if flag:
-                raise _not_ported(what)
 
         self.log = StructuredLogger("launcher", path=self.log_path,
                                     now_fn=self.now_fn)
@@ -214,8 +222,14 @@ class TradingSystem:
             # build-vs-execute attribution for every traced dispatch, plus
             # the kernel_build_seconds histogram
             tracing.KernelBuildMonitor.install(metrics=self.metrics)
-        self.devprof = None                # utils/devprof: not ported yet
-        self.meshprof = None               # utils/meshprof: not ported yet
+        self.devprof = None
+        if self.enable_devprof:
+            self.devprof = devprof_mod.configure(
+                devprof_mod.DevProf(metrics=self.metrics))
+        self.meshprof = None
+        if self.enable_meshprof:
+            self.meshprof = meshprof_mod.configure(
+                meshprof_mod.MeshProf(metrics=self.metrics))
         self.fleetscope = None
         if self.enable_fleetscope:
             from ai_crypto_trader_tpu_torch.obs import fleetscope as fleet_mod
@@ -232,10 +246,22 @@ class TradingSystem:
         # runtime produced the numbers an operator is reading
         self.build_info = {"process_start": self.now_fn(),
                            "torch_version": torch.__version__,
+                           "cuda_version": torch.version.cuda,
                            "backend": self.device.type,
                            "device_kind": (torch.cuda.get_device_name(self.device)
                                            if self.device.type == "cuda" else "cpu")}
-        self.aot_cache = None              # utils/aotcache: not ported yet
+        # persistent kernel-build cache: enabled between provenance
+        # resolution and the FIRST kernel use (every engine builds lazily
+        # at its first launch, so this is early enough); a failed enable()
+        # builds in the default directory — recorded, never raised
+        self.aot_cache = None
+        if self.aot_cache_dir:
+            from ai_crypto_trader_tpu_torch.utils.aotcache import AOTCache
+
+            self.aot_cache = AOTCache(self.aot_cache_dir)
+            if not self.aot_cache.enable(self.build_info):
+                self.log.warning("aot cache disabled",
+                                 error=self.aot_cache.error)
         # bus telemetry: fanout latency + queue depth metrics, and slow-
         # subscriber warnings through the structured log (trace-correlated)
         self.bus = EventBus(now_fn=self.now_fn, metrics=self.metrics,
@@ -619,6 +645,9 @@ class TradingSystem:
             self.metrics.inc("signals_processed_total", executed)
             self.metrics.observe("tick_duration_seconds",
                                  time.perf_counter() - t0)
+            if self.devprof is not None:
+                self.devprof.observe_latency("tick",
+                                             time.perf_counter() - t0)
             self._emit_health_gauges()
             self._observe_saturation(time.perf_counter() - t0)
             self.log.warning("exchange unavailable; tick skipped",
@@ -661,6 +690,8 @@ class TradingSystem:
         self.metrics.set_gauge("closed_trades", self.executor.closed_count())
         self.metrics.observe("tick_duration_seconds",
                              time.perf_counter() - t0)
+        if self.devprof is not None:
+            self.devprof.observe_latency("tick", time.perf_counter() - t0)
         self._emit_health_gauges()
         self._observe_saturation(time.perf_counter() - t0)
         self._peak_value = max(getattr(self, "_peak_value", total), total)
@@ -760,6 +791,18 @@ class TradingSystem:
         for service, age in self.heartbeats.staleness().items():
             self.metrics.set_gauge("heartbeat_staleness_seconds", age,
                                    service=service)
+        mem_sample = None
+        if self.devprof is not None:
+            # SLO p50/p99 + burn-rate gauges, and the per-device allocator
+            # watermark sample — on BOTH tick paths, so a latency burn or
+            # a memory leak is visible during outages too
+            self.devprof.export()
+            mem_sample = self.devprof.sample_memory()
+        if self.meshprof is not None:
+            # mesh observatory export: per-device memory-imbalance fold
+            # (reusing devprof's sample when it ran this tick) + byte-split
+            # refresh
+            self.meshprof.export(memory=mem_sample)
         if self.tickpath is not None:
             # decision critical-path export: per-phase p50/p99, the named
             # bottleneck, overlap headroom, event-age SLO and cold-start
@@ -839,6 +882,13 @@ class TradingSystem:
             "crash_looped_services": [n for n, b in self.stage_breakers.items()
                                       if b.quarantined],
         }
+        if self.devprof is not None:
+            state["slo_burn_rates"] = self.devprof.burn_rates()
+            state["donation_failures"] = list(self.devprof.donation_failures)
+        if self.meshprof is not None:
+            # mesh observatory inputs: steady-state recompiles on hot
+            # programs, guarded host transfers, pad waste, memory skew
+            state.update(self.meshprof.alert_state())
         if self.stream is not None:
             # degrade-to-poll visibility: the in-process rule engine's
             # StreamDegradedToPoll input (PromQL twin: stream_mode == 0)
@@ -978,6 +1028,13 @@ class TradingSystem:
                 # discarded registry (listener registration is permanent)
                 monitor.metrics = None
             self.tracer.close()
+        if (self.devprof is not None
+                and devprof_mod.active() is self.devprof):
+            devprof_mod.disable()          # a later system's devprof is
+            #                                left alone (tracer pattern)
+        if (self.meshprof is not None
+                and meshprof_mod.active() is self.meshprof):
+            meshprof_mod.disable()
         if self.fleetscope is not None:
             from ai_crypto_trader_tpu_torch.obs import fleetscope as fleet_mod
 
@@ -998,6 +1055,8 @@ class TradingSystem:
             capture = getattr(self.stream.stream, "depth", None)
             if capture is not None:
                 capture.close()            # flush the depth JSONL tail
+        if self.aot_cache is not None:
+            self.aot_cache.close()         # release the lock, default dir
 
     async def run(self, duration_s: float | None = None,
                   tick_interval_s: float = 5.0):

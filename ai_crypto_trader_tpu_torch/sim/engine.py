@@ -50,6 +50,7 @@ from ai_crypto_trader_tpu_torch.device import (
 from ai_crypto_trader_tpu_torch.ops.tick_engine import read_packed, stage
 from ai_crypto_trader_tpu_torch.sim import exchange as sx
 from ai_crypto_trader_tpu_torch.sim import paths, scenarios
+from ai_crypto_trader_tpu_torch.utils import devprof, meshprof
 
 # slot layout the strategy uses (and the parity oracle mirrors): the stop is
 # placed first, so FakeExchange's insertion-ordered matching walks the
@@ -87,7 +88,18 @@ def pack(tree: dict):
 def host_read(readback) -> dict:
     """THE per-call device→host read: wait for the one packed copy, unpack
     it into a nested dict of NumPy arrays.  A module-level seam, so tests
-    can count reads."""
+    can count reads.  Timed into the ``host_read`` SLO window, the
+    sanctioned sync of a watch window."""
+    t0 = time.perf_counter()
+    with meshprof.allow_transfers():   # THE sanctioned device→host sync
+        out = unpack(readback)
+    devprof.observe_latency("host_read", time.perf_counter() - t0)
+    return out
+
+
+def unpack(readback) -> dict:
+    """Wait for ``readback`` and unpack it into a nested dict of NumPy
+    arrays (the body of this module's and `sim.lob`'s read seams)."""
     out = {}
     for name, value in read_packed(readback).items():
         *groups, leaf = name.split(".")
@@ -317,6 +329,11 @@ def resolve_schedule(scenario, num_scenarios: int, steps: int, seed: int):
     return sched, [name] * sched.num_scenarios
 
 
+# (B, steps, capacity) shapes already swept: the recompile sentinel's
+# cold-run ledger
+_SWEEP_SHAPES_SEEN: set = set()
+
+
 def sweep(key, scenario="mixed", num_scenarios: int = 4096, steps: int = 512,
           strategy: SimStrategy | None = None, fills_params: FillParams | None = None,
           path_parameters: paths.PathParams | None = None, quote_balance: float = 10_000.0,
@@ -340,20 +357,30 @@ def sweep(key, scenario="mixed", num_scenarios: int = 4096, steps: int = 512,
     pp = on_device(path_parameters or paths.path_params(device=dev), dev)
     upload_bytes = sum(int(np.asarray(getattr(sched, k)).nbytes)
                        for k in scenarios.ShockSchedule._fields)
+    # a never-seen (B, steps, capacity) shape is the sentinel's cold window
+    shape_key = (int(sched.num_scenarios), int(sched.steps), int(log_capacity))
+    cold = shape_key not in _SWEEP_SHAPES_SEEN
+    _SWEEP_SHAPES_SEEN.add(shape_key)
     t0 = time.perf_counter()
-    on_dev = scenarios.ShockSchedule(*(upload(getattr(sched, k), dev, torch.float32)
-                                       for k in scenarios.ShockSchedule._fields))
-    candles = paths.gbm_candles(key, on_dev, pp, device=dev)
-    trade = {k: getattr(on_dev, k) for k in TRADE_KEYS}
-    del on_dev   # the two path channels are consumed: no second [B, T] copy lives on
-    summary, fills, curve = _rollout(
-        candles, trade, strat, fp, torch.full((), quote_balance, dtype=torch.float32, device=dev),
-        log_capacity)
-    fetch = {"summary": summary._asdict()}
-    if return_fills:
-        fetch["fills"] = fills
-    host = host_read(pack(fetch))
+    # the sim_sweep cost card on the first carded call, and a watch window
+    # through the call's one host read
+    with meshprof.watch("sim_sweep", cold=cold):
+        with devprof.carding("sim_sweep", (strat, fp, pp), note=devprof.NOTE_NO_DONATION,
+                             device=dev) as card:
+            on_dev = scenarios.ShockSchedule(*(upload(getattr(sched, k), dev, torch.float32)
+                                               for k in scenarios.ShockSchedule._fields))
+            candles = paths.gbm_candles(key, on_dev, pp, device=dev)
+            trade = {k: getattr(on_dev, k) for k in TRADE_KEYS}
+            del on_dev   # the two path channels are consumed: no second [B, T] copy lives on
+            summary, fills, curve = card.result(_rollout(
+                candles, trade, strat, fp,
+                torch.full((), quote_balance, dtype=torch.float32, device=dev), log_capacity))
+        fetch = {"summary": summary._asdict()}
+        if return_fills:
+            fetch["fills"] = fills
+        host = host_read(pack(fetch))
     wall = time.perf_counter() - t0
+    devprof.observe_latency("sim_sweep", wall)
     host["device"] = {"candles": {k: candles[k] for k in OHLC + ("volume",)},
                       "equity_curve": curve, **({} if return_fills else {"fills": fills})}
     host["labels"] = labels

@@ -63,6 +63,7 @@ from ai_crypto_trader_tpu_torch.device import div_true, resolve_device, upload
 from ai_crypto_trader_tpu_torch.parallel.partitioner import require_single
 from ai_crypto_trader_tpu_torch.sim import engine, scenarios
 from ai_crypto_trader_tpu_torch.sim import exchange as sx
+from ai_crypto_trader_tpu_torch.utils import devprof, meshprof
 
 DEFAULT_LEVELS = 32
 SCHEDULE_KEYS = ("logret_shift", "vol_mult", "liquidity_mult", "spread", "halt")
@@ -434,8 +435,18 @@ def rollout_lob(key, schedule, flow: FlowParams | None = None, strategy=None,
 
 def host_read(readback) -> dict:
     """THE per-sweep device→host read of `lob_sweep` (a module-level seam,
-    so tests can count reads): `engine.host_read`'s unpacking."""
-    return engine.host_read(readback)
+    so tests can count reads): `engine.unpack`, timed into the
+    ``host_read`` SLO window, the sanctioned sync of a watch window."""
+    t0 = time.perf_counter()
+    with meshprof.allow_transfers():   # THE sanctioned device→host sync
+        out = engine.unpack(readback)
+    devprof.observe_latency("host_read", time.perf_counter() - t0)
+    return out
+
+
+# (B, steps, levels, capacity) shapes already swept: the recompile
+# sentinel's cold-run ledger
+_SWEEP_SHAPES_SEEN: set = set()
 
 
 def lob_sweep(key, scenario="mixed", num_scenarios: int = 1024, steps: int = 256,
@@ -462,16 +473,25 @@ def lob_sweep(key, scenario="mixed", num_scenarios: int = 1024, steps: int = 256
                        for k in scenarios.ShockSchedule._fields)
     flow = engine.on_device(flow or flow_params(device=dev), dev)
     strat = engine.on_device(strategy or engine.default_strategy(device=dev), dev)
+    shape_key = (B, T, int(levels), int(log_capacity))
+    cold = shape_key not in _SWEEP_SHAPES_SEEN
+    _SWEEP_SHAPES_SEEN.add(shape_key)
     t0 = time.perf_counter()
-    on_dev = {k: upload(getattr(sched, k), dev, torch.float32)
-              for k in scenarios.ShockSchedule._fields}
-    summary, _fills, series = _rollout(
-        _draws_for(key, B, T, levels, dev), on_dev, flow, strat,
-        torch.full((), fee_rate, dtype=torch.float32, device=dev),
-        torch.full((), quote_balance, dtype=torch.float32, device=dev),
-        levels, log_capacity, False)
-    host = host_read(engine.pack({"summary": summary._asdict()}))
+    # the lob_sweep cost card on the first carded call, and a watch window
+    # through the call's one host read
+    with meshprof.watch("lob_sweep", cold=cold):
+        with devprof.carding("lob_sweep", (flow, strat), note=devprof.NOTE_NO_DONATION,
+                             device=dev) as card:
+            on_dev = {k: upload(getattr(sched, k), dev, torch.float32)
+                      for k in scenarios.ShockSchedule._fields}
+            summary, _fills, series = card.result(_rollout(
+                _draws_for(key, B, T, levels, dev), on_dev, flow, strat,
+                torch.full((), fee_rate, dtype=torch.float32, device=dev),
+                torch.full((), quote_balance, dtype=torch.float32, device=dev),
+                levels, log_capacity, False))
+        host = host_read(engine.pack({"summary": summary._asdict()}))
     wall = time.perf_counter() - t0
+    devprof.observe_latency("lob_sweep", wall)
     candle = series["candle"]
     host["device"] = {"equity_curve": series["equity"], "close": candle["close"],
                       "high": candle["high"], "low": candle["low"],

@@ -9,7 +9,8 @@ imports nothing of JAX or of the JAX package.  Phases, one JSON line each:
 
   0. device   — the card, and nvidia-smi's name and power limit;
   1. build    — both kernels compiled from ``ai_crypto_trader_tpu_torch/
-                csrc/`` into ``.torch_kernels/`` (one nvcc per source, run
+                csrc/`` into the cache directory under ``.torch_kernels/``
+                (one nvcc per source, run
                 together), with cuobjdump's register and shared-memory
                 report of each library;
   2. ewma     — the fused-EWMA kernel (K2) against its plain PyTorch
@@ -32,13 +33,13 @@ imports nothing of JAX or of the JAX package.  Phases, one JSON line each:
   3. replay   — the replay-sweep kernel (K1) against the engine's eager
                 plain loop on the card, stats and equity curve, through both
                 of its variants (stats alone, and with the curve): 4096
-                strategies over the first 8192 candles of the main path's
+                strategies over the first 4096 candles of the main path's
                 inputs, B=130 × T=1500, T=900 with SL/TP overrides and
                 confidence gating, SL/TP so small that every position closes
                 on the next candle and so large that only the end of the
                 test closes one, SL/TP hit with equality, and a ragged T of
-                32·1024 + 7 with warmup 2000; `run_backtest`'s param-SL/TP
-                mode at B=1 × T=8192 with its curve; and the graph-replayed
+                8·1024 + 7 with warmup 2000; `run_backtest`'s param-SL/TP
+                mode at B=1 × T=4096 with its curve; and the graph-replayed
                 plain loop (below) bit for bit against the eager one;
   4. main     — the population backtest at the bench's full size (T =
                 525,600 candles, B = 4096 strategies) through the port's
@@ -163,7 +164,7 @@ imports nothing of JAX or of the JAX package.  Phases, one JSON line each:
                 `speedup_vs_single`, one host read a generation and no
                 other sync; (c) the P = 1 fleet bit for bit against the
                 single agent; (d) a NaN member quarantined, masked and
-                healed; (e) `cli rl` at its defaults but 2 generations, and so
+                healed; (e) `cli rl` at its defaults but 1 generation, and so
                 with `--dynamics gbm`, as subprocesses (2 generation rows, 8 members, one
                 winner each), with K2 held at `cli rl`'s 8 × 1,024;
  14. sim      — the adversarial simulator on the card: (a) the bench's
@@ -231,7 +232,7 @@ imports nothing of JAX or of the JAX package.  Phases, one JSON line each:
  17. live     — the live signal path at the `tick_pipeline` width (64
                 symbols × 1m/3m/5m/15m × 256 candles on the resilient paper
                 exchange, a virtual clock, bench_recovery's trading
-                parameters): 10 ticks of advance → `MarketMonitor.poll` →
+                parameters): 6 ticks of advance → `MarketMonitor.poll` →
                 `SignalAnalyzer` → `TradeExecutor` → `on_price`, each poll
                 with exactly 3 K2 launches and one host read and no other
                 sync, every launch held against the plain EWMA; the same
@@ -256,9 +257,9 @@ imports nothing of JAX or of the JAX package.  Phases, one JSON line each:
                 risk metrics and the correlation matrix within 1e-5; label
                 flips only near a threshold); a run that dies after tick 4
                 and a new system that recovers from its journal, its books
-                against the unbroken run's; `cli trade --paper --ticks 25`
+                against the unbroken run's; `cli trade --paper --ticks 12`
                 and `cli why` as subprocesses against the same commands on
-                the CPU, `--serve` exiting 2; `device_liveness`;
+                the CPU; `device_liveness`;
                 the tick's p50/p99, tickpath's waterfall and bottleneck,
                 the stages' busy time and torch.profiler over one tick;
  19. stack    — the full service roster (`shell.stack.build_full_stack`:
@@ -283,7 +284,7 @@ imports nothing of JAX or of the JAX package.  Phases, one JSON line each:
                 `find_triangle_arbitrage` over 64 assets (262,144 cycles,
                 three planted): the cycle tensor bit for bit, the lists
                 equal, one read; (d) `SocialDataProvider.social_inputs` over
-                43,200 1m candles from 30 days into `evolvable_backtest(
+                21,600 1m candles from 15 days into `evolvable_backtest(
                 social=...)` (16 genomes): its K1 launch bit for bit, its K2
                 launches held, the stats against the CPU's; (e) `cli trade
                 --paper --full-stack --ticks 10` as a subprocess in a
@@ -317,16 +318,49 @@ imports nothing of JAX or of the JAX package.  Phases, one JSON line each:
                 8 tenants, vmapped to 256, SLO p99 250 ms); (d) `cli load
                 --mode vmapped --tenants 256 --symbols 4` and `cli fleet`
                 as subprocesses;
- 21. kernels  — one line with each kernel's launches, error, times and
+ 21. serve    — the operator surface: (a) `TradingSystem` over phase
+                live's tape (64 × 4 × 256), 6 ticks from phase trade's
+                cursor with devprof, meshprof, tickpath, a fresh kernel
+                cache (`aot_cache_dir`) and a `DashboardServer` on port 0,
+                tick for tick against the same system with every
+                observatory off: returns, status, books, decisions and
+                journal bit for bit (the observatories' own alerts, whose
+                rules read only observatory state, taken out first); its
+                18 K2 launches held against the
+                plain EWMA; (b) devprof on the card: the tick_engine card's
+                argument/output bytes against its tensors, temp bytes > 0,
+                the ring's donation, the allocator watermark, the tick and
+                host_read SLO windows; `backtest.sweep` at 256 × 43,200 and
+                `run_ga(GAParams(256, 3))` over the same candles under the
+                observatory (`backtest_sweep`, `ga_scan` cards, the ga_scan
+                layout card), their 5 K1 launches bit for bit against the
+                plain loop; (c) the sync sentinel armed on the card: 0 over
+                the steady ticks, exactly 1 for an `.item()` in a watch
+                window, no rebuild after warm-up; (d) every route, the
+                /state.json blocks and build, a 3 s `/profile` capture on a
+                handler thread while the system ticks (its trace names K2's
+                kernel) with a second capture refused, `cli status /
+                latency / fleet / mesh --url`; (e) `cli profile --ticks 4`
+                beside `cli trade --paper --ticks 2 --aot-cache DIR` twice
+                (the second warm: nothing built), as subprocesses running
+                beside (a)-(d); (f) the tick p50 with
+                every observatory on and off, alternating;
+ 22. kernels  — one line with each kernel's launches, error, times and
                 bound, at the main path's shapes, and each kernel's GA,
                 tick, portfolio, tenant, `cli train`, training, RL,
-                simulator, regime, strategy, live, trade, stack and stream
-                launches (`ga_tables`, `ga_rows`, `tick`, `portfolio`,
-                `tenant`, `nn_cli_train`, `nn_train`, `rl`, `sim`,
-                `regime`, `strategy`, `live`, `trade`, `stack`, `stream`).
+                simulator, regime, strategy, live, trade, stack, stream and
+                serve launches (`ga_tables`, `ga_rows`, `tick`,
+                `portfolio`, `tenant`, `nn_cli_train`, `nn_train`, `rl`,
+                `sim`, `regime`, `strategy`, `live`, `trade`, `stack`,
+                `stream`, `serve`).
 
-Any failed check raises, so the script exits non-zero and never prints its
-last line, ``{"ok": true, "device": {...}}``.  Times are CUDA-event times
+Every phase's seconds follow it on a line of their own
+(``{"phase_time": ..., "phase_s": ...}``), and the script's total and every
+phase's seconds on one line before the kernels line.  The kernels build
+and load in the provenance-keyed cache directory under ``.torch_kernels/``
+that the CLI's card commands use (`utils.cache`).  Any failed check raises,
+so the script exits non-zero and never prints its last line,
+``{"ok": true, "device": {...}}``.  Times are CUDA-event times
 on the card; the bound of a kernel is the larger of its bytes over 3.35 TB/s
 and its operations over 67 TFLOP/s (the H100 SXM's HBM rate and float32
 rate outside the tensor cores, at the full 700 W power limit).
@@ -364,7 +398,7 @@ GA_CURVE_B = 32           # strategies whose curve the rows checks hold
 S_TICK, T_TICK = 64, 256  # the bench's tick_pipeline row (bench.py:1323-1337)
 TICK_FRAMES = ("1m", "3m", "5m", "15m")
 TICK_POLLS = 20
-LIVE_TICKS = 10           # ticks of the live path (phase live; cut from 20)
+LIVE_TICKS = 6            # ticks of the live path (phase live; cut from 20, 10 until PR 17)
 LIVE_PIPE_TICKS = 5       # its pipelined monitor's ticks against the serial run's
 S_PORT = 8                # portfolio symbols
 T_PORT_K1, T_PORT_PLAIN = 8192, 1024   # K1's check; the plain-loop modes (depth cut)
@@ -382,14 +416,14 @@ CLI_TRAIN_COLUMNS = ("close", "volume", "rsi", "macd", "bb_position", "stoch_k",
 TRAIN_B, TRAIN_F, TRAIN_BATCHES = 32, 8, 32   # the bench's nn row (bench.py:1154-1262)
 TRAIN_RTOL, TRAIN_ATOL = 1e-5, 1e-5  # epoch losses; parameters (card against the CPU)
 LSTM_GRAD_RTOL = 1e-5                # LSTMScan's gradients against the plain loop's, of scale
-CLI_TRAIN_EPOCHS = 2                 # cli train's 5 epochs, cut
+CLI_TRAIN_EPOCHS = 1                 # cli train's 5 epochs, cut (2 until PR 17)
 SVC_SYMBOLS, SVC_ROWS = 8, 256       # the service's pairs: symbols × (1m, 5m); kline rows
 SVC_EPOCHS = 5                       # the service's epochs (its default 20, cut)
 IMPORTANCE_WINDOWS, IMPORTANCE_STEPS, IMPORTANCE_ATOL = 64, 32, 1e-5
 RL_EPISODE, RL_ENVS, RL_ROLLOUT, RL_ITERS = 512, 256, 32, 20   # the bench's rl row (bench.py:695-723)
 PBT_S, PBT_T, PBT_EPISODE = 16, 1024, 256      # the pbt row's markets (bench.py:746-747)
 PBT_P, PBT_G, PBT_I, PBT_EVAL = 16, 3, 64, 4    # its fleet (bench.py:739-767)
-CLI_RL_GENS = 2                # `cli rl --generations` (its default 4, cut)
+CLI_RL_GENS = 1                # `cli rl --generations` (its default 4, cut; 2 until PR 17)
 RL_ATOL = 1e-5                 # parameters, target, moments: the card against the CPU
 RL_TIE_RTOL = 1e-5             # a differing greedy action is a near-tie within this of scale
 ULP = 2.0 ** -24
@@ -406,7 +440,7 @@ REGIME_S, REGIME_T, REGIME_ROUNDS = 64, 1000, 5   # tick universe; the venue's k
 REGIME_TIE_RTOL = 1e-3                       # a card-vs-CPU label flip's margin to a tie
 BOOK_N, BOOK_LEVELS, BOOK_FRAMES = 64, 100, 1024  # books; the venue's default depth; window
 GEN_DAYS, GEN_SEED, GEN_FOLDS, GEN_POOL = 7, 0, 3, 16   # cli generate's defaults (cli.py:1101-1107)
-GEN_CLI_ROUNDS = 2                           # `cli generate --rounds` (its default 6, cut)
+GEN_CLI_ROUNDS = 1                           # `cli generate --rounds` (default 6; 2 until PR 17)
 GEN_SHORT_T = 256                            # the short folds torch.profiler traces
 FLIP_MARGIN = 1e-4                           # a K2 signal flip's distance to its threshold
 T_CV, CV_K, CMP_S = 43_200, 5, 8             # cross_validate's and compare_strategies' cases
@@ -1013,7 +1047,7 @@ def phase_replay(main_inputs, params, d_small):
     gen = lambda: torch.Generator().manual_seed(0)  # noqa: E731
     inputs_of = lambda n: prepare_inputs(  # noqa: E731
         compute_indicators(d_small(n), device="cuda"), device="cuda")
-    T_HEAD = 8192
+    T_HEAD = 4096            # cut from 8192: the eager loop's 2 ms a candle
     head = type(main_inputs)(*(x[:T_HEAD] for x in main_inputs))
     c, (ref_head, ref_curve), head_plain_ms = replay_check(head, params, "main_head")
     checks = [c]
@@ -1055,7 +1089,7 @@ def phase_replay(main_inputs, params, d_small):
             fail(f"exact tie: not every strategy closed at candle {x}")
     checks.append({**c, "tie_exits": list(exits)})
 
-    T_R = 32 * 1024 + 7
+    T_R = 8 * 1024 + 7       # ragged (cut from 32·1024 + 7: the eager loop's 2 ms a candle)
     checks.append(replay_check(inputs_of(T_R), sample_params(gen(), 256, device="cuda"),
                                f"ragged_T{T_R}_warmup2000", warmup=2000)[0])
 
@@ -1069,7 +1103,7 @@ def phase_replay(main_inputs, params, d_small):
         fail(f"run_backtest shapes changed: {tuple(got.total_trades.shape)}, "
              f"{tuple(curve.shape)}")
     (ref, ref_c), _ = timed(lambda: replay(head, dp, use_param_sl_tp=True, return_curve=True))
-    checks.append({**compare_stats(got, ref, "run_backtest_B1_T8192", curve, ref_c),
+    checks.append({**compare_stats(got, ref, f"run_backtest_B1_T{T_HEAD}", curve, ref_c),
                    "T": T_HEAD})
     emit({"phase": "replay", "checks": checks, "graphed_plain_bit_identical": True,
           "head": {"B": B_FULL, "T": T_HEAD, "ms": head_ms, "plain_ms": head_plain_ms,
@@ -5401,7 +5435,8 @@ def live_k2(launches, label):
                  for j, (x, a, st) in enumerate(jobs)]
         checks.append(ewma_check(named, f"{label}_launch{i}"))
     timed = []
-    per_poll = 3 if label in ("live_poll", "trade_poll", "stream_drain", "load_tick") \
+    per_poll = 3 if label in ("live_poll", "trade_poll", "stream_drain", "load_tick",
+                              "serve_tick") \
         else len(launches)
     for jobs in launches[:per_poll]:
         args = [(x.reshape(-1, x.shape[-1]), a, st) for x, a, st in jobs]
@@ -5587,7 +5622,7 @@ def phase_live(info):
     tape = TickTape(S_TICK, T_TICK)
     # every frame full; the tape's first BUY run starts at its 4th tick (all
     # 64 symbols are one series scaled, so they signal together), and 36
-    # candles are left after the 11 ticks (LIVE_TICKS and a profiled one)
+    # candles are left after the LIVE_TICKS ticks and a profiled one
     cursor = tape.n - 48
     run_a, launches, per_poll, timing = live_run(tape, cursor)
 
@@ -5693,7 +5728,7 @@ def phase_live(info):
 
 TRADE_TICKS = 8           # ticks of the trading system (phase trade; cut from 16)
 TRADE_CUT = 4             # its recovery run dies after this tick
-TRADE_CLI_TICKS = 25      # `cli trade --paper --ticks`, as a user runs it (cut from 100)
+TRADE_CLI_TICKS = 12      # `cli trade --paper --ticks`, as a user runs it (cut from 100; 25 until PR 17)
 TRADE_CURSOR = 3_858      # the tape's candle before the first tick
 # a tight trailing stop, so that the tape's one BUY run (candle 3,860, the
 # window's tick 1) closes within the window (candle 3,866, its last tick):
@@ -5712,7 +5747,7 @@ class TradeRig:
     counted, so the card's run and the CPU's can be held to each other;
     the model version is fixed."""
 
-    def __init__(self, tape, device, cursor, tmp, tag, trace=False):
+    def __init__(self, tape, device, cursor, tmp, tag, trace=False, system_kw=None):
         from ai_crypto_trader_tpu_torch.config import (
             FrameworkConfig, RiskParams, TradingParams, TrailingStopParams)
         from ai_crypto_trader_tpu_torch.data.ingest import OHLCV
@@ -5729,6 +5764,7 @@ class TradeRig:
                             "sleep": lambda s: clock.__setitem__(0, clock[0] + s)})
         self.ex.advance(steps=cursor)
         self.paths = {k: f"{tmp}/{tag}.{k}" for k in ("journal", "decisions", "html", "spans")}
+        self.system_kw = dict(system_kw or {})
         self.system = self.build(TradingSystem, tape.symbols, FrameworkConfig(
             trading=TradingParams(**LIVE_TRADING),
             risk=RiskParams(trailing_stop=TrailingStopParams(**TRADE_TRAILING))), device, trace)
@@ -5746,7 +5782,7 @@ class TradeRig:
                      flightrec_path=self.paths["decisions"],
                      dashboard_path=self.paths["html"],
                      trace_jsonl=self.paths["spans"] if trace else None,
-                     tick_budget_s=1e9)
+                     tick_budget_s=1e9, **self.system_kw)
         ids = itertools.count(1)
         system.flightrec._id_fn = lambda: f"d{next(ids):06d}"
         if system.tracer is not None:
@@ -5937,8 +5973,8 @@ def trade_cli(tmp):
     on the card (exit 0), against the same commands in this process on the
     CPU.  Each run logs through LOG_PATH, so the alerts that read the wall
     clock (the loop lag, the stage duty) are counted out of both statuses;
-    the rest is held exactly.  `--serve`, not ported yet, exits 2 with its
-    message (`--full-stack` runs in phase stack)."""
+    the rest is held exactly (`--full-stack` runs in phase stack, `--serve`
+    and the observatories in phase serve)."""
     import contextlib as ctx
     import io
     import os
@@ -6002,21 +6038,11 @@ def trade_cli(tmp):
     diff = same_text("\n".join(got), "\n".join(want))
     if not want or diff is not None:
         fail(f"trade: cli why's lines differ from format_why over the CPU's records: {diff}")
-
-    err = io.StringIO()
-    with ctx.redirect_stderr(err):
-        try:
-            cli.main(["trade", "--paper", "--serve", "8050"])
-            code = 0
-        except SystemExit as ex:
-            code = ex.code
-    if code != 2 or "--serve" not in err.getvalue():
-        fail(f"trade: cli trade --serve exited {code}: {err.getvalue()!r}")
     return {"ticks": TRADE_CLI_TICKS, "exit_code": proc.returncode, "subprocess_s": trade_s,
             "cpu_in_process_s": cpu_s, "status_equal_cpu": True,
             "wall_clock_alerts_fired": {"card": card_wall, "cpu": cpu_wall},
             "closed_trades": card["closed_trades"], "why_exit_code": why.returncode,
-            "why_lines": len(got), "why_s": why_s, "serve_exit_code": code}
+            "why_lines": len(got), "why_s": why_s}
 
 
 def phase_trade(info):
@@ -6204,8 +6230,8 @@ STACK_CURSOR = 3_854      # the tape's candle before the first tick: the BUY run
 #                           social polls (a snapshot's quality gate needs four rows)
 STACK_SOCIAL_POLLS = 64   # part (b): past the 50-row anomaly gate and the report gates
 STACK_ARB_ASSETS = 64     # part (c): 64³ = 262,144 cycles
-STACK_SOCIAL_DAYS = 30    # part (d): 30 days of daily social metrics
-STACK_SOCIAL_T = 43_200   # over 43,200 1m candles
+STACK_SOCIAL_DAYS = 15    # part (d): 15 days of daily social metrics (30 until PR 17)
+STACK_SOCIAL_T = 21_600   # over 21,600 1m candles (43,200 until PR 17)
 STACK_SOCIAL_B = 16       # genomes of its backtest
 STACK_CLI_TICKS = 10      # `cli trade --paper --full-stack --ticks` (cut from 20)
 
@@ -6753,7 +6779,7 @@ def stack_arbitrage():
 
 
 def stack_provider_k1():
-    """(d) 30 days of `SocialDaily` joined onto 43,200 1m candles by
+    """(d) 15 days of `SocialDaily` joined onto 21,600 1m candles by
     `SocialDataProvider.social_inputs` on the card (the CPU's arrays bit for
     bit), fed to `evolvable_backtest(social=...)` over STACK_SOCIAL_B
     genomes: its K1 launch bit for bit against the plain loop (`held_k1`),
@@ -7552,20 +7578,25 @@ def stream_load():
 
 def stream_cli():
     """(d) `cli load --mode vmapped --tenants 256 --symbols 4` and `cli
-    fleet` as subprocesses on the card: exit 0, the load report's mode and
-    zero steady REST calls, the fleet view's headline."""
+    fleet` as subprocesses on the card, run at once: exit 0, the load
+    report's mode and zero steady REST calls, the fleet view's headline
+    (each `subprocess_s` from the start of both)."""
     import os
 
     root = os.path.dirname(os.path.abspath(__file__))
     env = {**os.environ, "PYTHONPATH": os.pathsep.join(
         [root] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p])}
     out = {}
-    for name, argv in (("load", ["load", "--mode", "vmapped", "--tenants", str(LOAD_TENANTS),
-                                 "--symbols", str(LOAD_SYMBOLS)]),
-                       ("fleet", ["fleet"])):
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", "ai_crypto_trader_tpu_torch.cli", *argv],
-                              cwd=root, capture_output=True, text=True, timeout=600, env=env)
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen([sys.executable, "-m", "ai_crypto_trader_tpu_torch.cli",
+                                     *argv], cwd=root, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True, env=env)
+             for name, argv in (("load", ["load", "--mode", "vmapped", "--tenants",
+                                          str(LOAD_TENANTS), "--symbols", str(LOAD_SYMBOLS)]),
+                                ("fleet", ["fleet"]))}   # both at once
+    for name, p in procs.items():
+        stdout, stderr = p.communicate(timeout=600)
+        proc = subprocess.CompletedProcess(p.args, p.returncode, stdout, stderr)
         wall = time.perf_counter() - t0
         if proc.returncode != 0:
             fail(f"stream: cli {name} exited {proc.returncode}: {proc.stderr[-800:]}")
@@ -7639,47 +7670,514 @@ def phase_stream(info, trade_tick_ms_p50=None):
                      f"S={LOAD_SYMBOLS} x F=1 x T=64"}
 
 
+# --- phase serve: the operator surface -------------------------------------
+
+SERVE_TICKS = 6           # (a): ticks of the served system and of the plain one, alternating
+SERVE_PROFILE_S = 3       # (d): the /profile capture's seconds: a polled tick is ~1.2-1.6 s,
+#                           its card work ~0.05 s of it, so a 1 s window can miss every tick's
+SERVE_PROFILE_TICKS = 4   # (d): the served system's ticks, back to back, during the capture
+SERVE_CLI_PROFILE_TICKS = 4   # (e): `cli profile --ticks`
+SERVE_CLI_TRADE_TICKS = 2     # (e): `cli trade --paper --ticks`, twice on one --aot-cache
+SERVE_OVERHEAD_TICKS = 4  # (f): ticks of the served system and of the plain one, alternating,
+#                           once (e)'s subprocesses have ended
+SERVE_BLOCKS = ("status", "devprof", "mesh", "tickpath", "coldstart", "aot_cache", "build")
+SERVE_ROUTES = ("/", "/state.json", "/traces", "/decisions", "/metrics", "/health")
+
+
+# the alerts the observatories raise from their own readings (each rule
+# reads only devprof, meshprof or tickpath state): the served system may
+# fire them, the plain one cannot; everything else is held bit for bit
+OBSERVATORY_ALERTS = ("LatencySLOBurnRateCritical", "LatencySLOBurnRateWarning",
+                      "DonatedBufferNotFreed", "SteadyStateRecompile",
+                      "UnintendedHostTransfer", "MeshPaddingWasteHigh",
+                      "DeviceMemoryImbalance", "DecisionLatencyBudgetBreach")
+
+
+def without_observatory_alerts(snap):
+    """A `TradeRig.snapshot` with the observatories' own alerts taken out
+    of its alert history, active alerts and alert-channel count, and of
+    each tick's return (its alert count); the dashboard HTML, which lists
+    the active alerts, is left out.  Returns (snapshot, the alerts taken)."""
+    import copy
+
+    snap = copy.deepcopy(snap)
+    taken = [a for a in snap["alerts"] if a["name"] in OBSERVATORY_ALERTS]
+    snap["alerts"] = [a for a in snap["alerts"] if a["name"] not in OBSERVATORY_ALERTS]
+    status = snap["status"]
+    status["alerts"] = [n for n in status["alerts"] if n not in OBSERVATORY_ALERTS]
+    status["channels"]["alerts"] = status["channels"].get("alerts", 0) - len(taken)
+    snap["returns"] = [{k: v for k, v in r.items() if k != "alerts"} for r in snap["returns"]]
+    del snap["html"]
+    return snap, taken
+
+
+def serve_get(port, route, timeout=120):
+    """(code, body) of one GET on the local dashboard server."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{route}", timeout=timeout) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as ex:
+        return ex.code, ex.read()
+
+
+def serve_system(tape, tmp):
+    """(a) The served system (devprof, meshprof, tickpath, a fresh kernel
+    cache, a dashboard server on port 0) and the plain one (every
+    observatory off) over phase trade's tape, SERVE_TICKS ticks each,
+    alternating; the served ticks' K2 launches recorded and counted, the
+    tick engine's first program call captured for the card's byte check.
+    Their trades, status, journal and decisions must be the same bits."""
+    from ai_crypto_trader_tpu_torch.ops import tick_engine
+    from ai_crypto_trader_tpu_torch.ops.ewma import fused_ewma
+    from ai_crypto_trader_tpu_torch.shell.dashboard_server import DashboardServer
+
+    on = TradeRig(tape, "cuda", TRADE_CURSOR, tmp, "served", system_kw={
+        "enable_devprof": True, "enable_meshprof": True, "enable_tickpath": True,
+        "aot_cache_dir": f"{tmp}/aot"})
+    off = TradeRig(tape, "cuda", TRADE_CURSOR, tmp, "plain",
+                   system_kw={"enable_tickpath": False})
+    server = DashboardServer(on.system, port=0, profile_dir=f"{tmp}/profiles").start()
+    launches, per_tick, first_call = [], [], []
+    real_program = tick_engine._tick_program
+
+    def program(*args):
+        out = real_program(*args)
+        if not first_call:
+            first_call.append((args, out))
+        return out
+
+    tick_engine._tick_program = program
+    fused_ewma.launches = 0
+    try:
+        for _ in range(SERVE_TICKS):
+            n0 = fused_ewma.launches
+            with recording_ewma(launches):
+                on.tick()
+            per_tick.append(fused_ewma.launches - n0)
+            off.tick()
+    finally:
+        tick_engine._tick_program = real_program
+    k2_launches = sum(per_tick)
+    if per_tick != [3] * SERVE_TICKS or len(launches) != 3 * SERVE_TICKS:
+        fail(f"serve: the served ticks launched K2 {per_tick} times (recorded {len(launches)})")
+    a, taken = without_observatory_alerts(on.snapshot())
+    b, none = without_observatory_alerts(off.snapshot())
+    differ = sorted(k for k in a if json.dumps(a[k], sort_keys=True, default=str)
+                    != json.dumps(b[k], sort_keys=True, default=str))
+    with open(on.paths["journal"], "rb") as f1, open(off.paths["journal"], "rb") as f2:
+        if f1.read() != f2.read():
+            differ.append("journal")
+    if none:
+        differ.append("the plain system's observatory alerts")
+    if differ:
+        fail(f"serve: the served system's {differ} differ from the plain system's")
+    if not a["books"]["closed"] and not a["books"]["fills"]:
+        fail("serve: no fill in the window: the comparison holds no trade")
+    return on, off, server, launches, k2_launches, first_call[0], sorted(
+        {x["name"] for x in taken})
+
+
+def serve_devprof(on, first_call, d_year):
+    """(b) The served system's devprof on the card: the tick_engine card's
+    bytes against its tensors, temp bytes, the ring's donation, the
+    allocator watermark, the SLO windows; then `backtest.sweep` at 256 ×
+    43,200 and `run_ga(GAParams(256, 3))` over the same candles under the
+    observatories, their K1 launches recorded."""
+    import torch
+
+    from ai_crypto_trader_tpu_torch import backtest
+    from ai_crypto_trader_tpu_torch.config import GAParams
+    from ai_crypto_trader_tpu_torch.evolve import backtest_fitness, run_ga
+    from ai_crypto_trader_tpu_torch.ops import compute_indicators
+    from ai_crypto_trader_tpu_torch.ops.ewma import fused_ewma
+    from ai_crypto_trader_tpu_torch.ops.replay import sweep_kernel
+    from ai_crypto_trader_tpu_torch.utils.devprof import _tensors
+
+    dp, mp = on.system.devprof, on.system.meshprof
+
+    def nbytes(tree):
+        seen = {}
+        for t in _tensors(tree):
+            seen[(t.data_ptr(), t.nbytes)] = t.nbytes
+        return sum(seen.values())
+
+    card = dp.cards["tick_engine"]
+    args, out = first_call
+    want = {"argument_bytes": nbytes(args), "output_bytes": nbytes(out),
+            "alias_bytes": args[0].nbytes}
+    got = {k: getattr(card, k) for k in want}
+    if got != want or card.error is not None:
+        fail(f"serve: tick_engine card {got} != its tensors' bytes {want} ({card.error})")
+    if not card.temp_bytes or card.temp_bytes <= 0 or card.donation_ok is not True:
+        fail(f"serve: tick_engine card temp_bytes {card.temp_bytes}, "
+             f"donation {card.donation_ok}")
+    if card.kernels.get("fused_ewma") != 3:
+        fail(f"serve: the tick_engine card counted {card.kernels} kernel launches")
+    mem = dp.sample_memory()
+    peak = dp.watermark.peak_bytes.get("cuda:0", 0)
+    if not 0 < peak <= torch.cuda.max_memory_allocated(0):
+        fail(f"serve: watermark peak {peak} vs max_memory_allocated "
+             f"{torch.cuda.max_memory_allocated(0)}")
+    slos = dp.status()["slos"]
+    if slos.get("tick", {}).get("count") != SERVE_TICKS or \
+            slos.get("host_read", {}).get("count", 0) < SERVE_TICKS:
+        fail(f"serve: SLO windows {slos}")
+
+    d = {k: v[:T_GA] for k, v in d_year.items()}
+    calls = []
+    k2_0, k1_0 = fused_ewma.launches, sweep_kernel.launches
+    t0 = time.perf_counter()
+    with recording_k1(calls):
+        inp = backtest.prepare_inputs(compute_indicators(d, device="cuda"), device="cuda")
+        params = backtest.sample_params(torch.Generator().manual_seed(0), POP_GA, device="cuda")
+        backtest.sweep(inp, params, device="cuda")
+        fitness = backtest_fitness(d, device="cuda")
+        run_ga(torch.Generator(device="cuda").manual_seed(0), fitness,
+               GAParams(population_size=POP_GA, generations=GENS_GA),
+               seed_params=backtest.default_params(device="cuda"), device="cuda")
+        torch.cuda.synchronize()
+    sweep_ga_s = time.perf_counter() - t0
+    k2, k1 = fused_ewma.launches - k2_0, sweep_kernel.launches - k1_0
+    if k1 != 1 + GENS_GA + 1 or len(calls) != k1:
+        fail(f"serve: sweep + GA launched K1 {k1} times (recorded {len(calls)})")
+    cards = {}
+    for name in ("backtest_sweep", "ga_scan"):
+        c = dp.cards.get(name)
+        if c is None or c.error is not None or not c.bytes_accessed or \
+                not c.kernels.get("replay_sweep"):
+            fail(f"serve: the {name} card is {c and c.to_dict()}")
+        cards[name] = {k: v for k, v in c.to_dict().items() if k != "notes"}
+    layout = mp.layouts.get("ga_scan")
+    if layout is None or (layout.population, layout.pad, layout.devices) != (POP_GA, 0, 1):
+        fail(f"serve: ga_scan layout card {layout and layout.to_dict()}")
+    return {"tick_engine": {k: v for k, v in card.to_dict().items() if k != "notes"},
+            "watermark": {"peak_bytes": peak, "sample": mem,
+                          "max_memory_allocated": torch.cuda.max_memory_allocated(0)},
+            "slos": slos, "cards": cards, "layout_ga_scan": layout.to_dict(),
+            "sweep_ga_s": sweep_ga_s, "k2_table_launches": k2, "k1_launches": k1}, calls
+
+
+def serve_meshprof(on):
+    """(c) The sync sentinel armed on the card: 0 violations over the
+    steady ticks, exactly 1 for a deliberate `.item()` in a watch window;
+    no kernel built after warm-up."""
+    import torch
+
+    from ai_crypto_trader_tpu_torch.utils import meshprof
+
+    mp = on.system.meshprof
+    st = mp.status()
+    if st["transfers"]["violations"] or st["transfers"]["armed_windows"] < SERVE_TICKS:
+        fail(f"serve: steady ticks' transfers {st['transfers']}")
+    if st["recompiles"]["steady_recompiles"]:
+        fail(f"serve: steady-state rebuilds {st['recompiles']}")
+    probe = torch.ones(1, device="cuda")
+    try:
+        with meshprof.watch("serve_probe"):
+            probe.item()
+        fail("serve: a .item() inside an armed watch window was not refused")
+    except RuntimeError as ex:
+        if not meshprof.is_transfer_violation(ex):
+            raise
+    counted = mp.transfers.violations.get("serve_probe")
+    if counted != 1:
+        fail(f"serve: the sentinel counted {counted} for one .item()")
+    return {"steady_violations": 0, "probe_violations": counted,
+            "armed_windows": mp.transfers.armed_windows,
+            "unarmed_windows": mp.transfers.unarmed_windows,
+            "windows": st["recompiles"]["windows"],
+            "steady_recompiles": st["recompiles"]["steady_recompiles"],
+            "last_error": mp.transfers.last_error.get("serve_probe")}
+
+
+def serve_server(on, server):
+    """(d) Every route with content; /state.json's blocks and build; a
+    SERVE_PROFILE_S /profile capture on a handler thread while the served
+    system ticks back to back, its trace naming K2's kernel, and a second
+    capture refused meanwhile;
+    `cli status/latency/fleet/mesh --url` in this process."""
+    import contextlib as ctx
+    import io
+    import threading
+
+    import torch
+
+    from ai_crypto_trader_tpu_torch import cli
+    from ai_crypto_trader_tpu_torch.utils import profiling
+
+    routes, bodies = {}, {}
+    for r in SERVE_ROUTES:
+        code, bodies[r] = serve_get(server.port, r)
+        if code != 200 or not bodies[r]:
+            fail(f"serve: {r} answered {code} with {len(bodies[r])} bytes")
+        routes[r] = len(bodies[r])
+    state = json.loads(bodies["/state.json"])
+    missing = [b for b in SERVE_BLOCKS if b not in state]
+    build = state.get("build", {})
+    if missing or build.get("torch_version") != torch.__version__ or \
+            build.get("cuda_version") != torch.version.cuda or \
+            build.get("device_kind") != torch.cuda.get_device_name(0):
+        fail(f"serve: /state.json lacks {missing} or names {build}")
+    box = {}
+    th = threading.Thread(target=lambda: box.update(
+        first=serve_get(server.port, f"/profile?seconds={SERVE_PROFILE_S}")))
+    t0 = time.perf_counter()
+    th.start()
+    time.sleep(0.2)
+    second = serve_get(server.port, "/profile?seconds=1")
+    for _ in range(SERVE_PROFILE_TICKS):
+        on.tick()
+    th.join(timeout=120)
+    profile_s = time.perf_counter() - t0
+    code, body = box.get("first", (None, b""))
+    if code != 200:
+        fail(f"serve: /profile answered {code}: {body[:300]!r}")
+    if second[0] != 409:
+        fail(f"serve: a second capture during the first answered {second[0]}")
+    art = json.loads(body)
+    kernels = profiling.cuda_events(art["trace"], ("kernel",))
+    if not art["cuda_events"]:
+        fail(f"serve: the /profile capture recorded no CUDA activity: {art}")
+    if not any("ewma_tiles" in k for k in kernels):
+        fail(f"serve: the /profile trace names no K2 kernel: {kernels[:20]}")
+    url = f"http://127.0.0.1:{server.port}"
+    outs = {}
+    for name in ("status", "latency", "fleet", "mesh"):
+        buf = io.StringIO()
+        with ctx.redirect_stdout(buf):
+            cli.main([name, "--url", url])
+        outs[name] = buf.getvalue()
+    status = json.loads(outs["status"])
+    if not status["live"] or status["build"]["device_kind"] != torch.cuda.get_device_name(0):
+        fail(f"serve: cli status --url printed {outs['status'][:300]}")
+    if "tick_engine" not in outs["latency"] or "torch " not in outs["latency"]:
+        fail(f"serve: cli latency --url printed {outs['latency'][:300]}")
+    if json.loads(outs["mesh"]).get("transfers", {}).get("violations", {}).get(
+            "serve_probe") != 1:
+        fail(f"serve: cli mesh --url printed {outs['mesh'][:300]}")
+    return {"routes_bytes": routes, "blocks": sorted(state), "build": build,
+            "profile": {"requested_s": art["requested_s"], "seconds": art["seconds"],
+                        "wall_s": profile_s, "kernels": len(kernels),
+                        "k2_kernel": next(k for k in kernels if "ewma_tiles" in k),
+                        "second_capture_code": second[0]},
+            "cli_lines": {k: len(v.splitlines()) for k, v in outs.items()}}
+
+
+def serve_cli(tmp):
+    """(e) `cli profile --ticks 4` once, beside `cli trade --paper --ticks 2
+    --aot-cache DIR` twice: the second trade finds both libraries built
+    (warm, nothing built, cache_hits ≥ 2)."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [root] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p])}
+    cmd = [sys.executable, "-m", "ai_crypto_trader_tpu_torch.cli"]
+    t0 = time.perf_counter()
+    prof = subprocess.Popen([*cmd, "profile", "--ticks", str(SERVE_CLI_PROFILE_TICKS),
+                             "--out", f"{tmp}/cli_profile"], cwd=root, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    runs = []
+    for _ in range(2):
+        t1 = time.perf_counter()
+        proc = subprocess.run([*cmd, "trade", "--paper", "--ticks", str(SERVE_CLI_TRADE_TICKS),
+                               "--aot-cache", f"{tmp}/cli_aot"], cwd=root, env=env,
+                              capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            fail(f"serve: cli trade --aot-cache exited {proc.returncode}: {proc.stderr[-800:]}")
+        line = next((ln for ln in proc.stdout.splitlines() if ln.startswith('{"aot_cache"')),
+                    None)
+        if line is None:
+            fail(f"serve: cli trade --aot-cache printed no cache line: {proc.stdout[:300]}")
+        runs.append({**json.loads(line)["aot_cache"], "subprocess_s": time.perf_counter() - t1})
+    out, err = prof.communicate(timeout=300)
+    profile_s = time.perf_counter() - t0
+    if prof.returncode != 0:
+        fail(f"serve: cli profile exited {prof.returncode}: {err[-800:]}")
+    cold, warm = runs
+    if cold["warm"] or len(cold["built"]) != 2 or not warm["warm"] or warm["built"] or \
+            warm["cache_hits"] < 2 or warm["dir"] != cold["dir"]:
+        fail(f"serve: the cache runs: cold {cold}, warm {warm}")
+    report = json.loads(out[out.index("{"):])
+    from ai_crypto_trader_tpu_torch.utils import profiling
+
+    kernels = profiling.cuda_events(report["trace"], ("kernel",))
+    if not any("ewma_tiles" in k for k in kernels):
+        fail(f"serve: cli profile's trace names no K2 kernel: {kernels[:20]}")
+    return {"aot": [{k: r[k] for k in ("warm", "built", "cache_hits", "build_s", "entries",
+                                       "lock", "subprocess_s")} for r in runs],
+            "profile": {"subprocess_s": profile_s, "kernels": len(kernels),
+                        "cards": sorted(report["devprof"]["cost_cards"])}}
+
+
+def phase_serve(info, d_year):
+    """The operator surface on the card: (a) the served system (devprof,
+    meshprof, tickpath, a fresh kernel cache, the dashboard server) against
+    the plain one, tick for tick, bit for bit but for the observatories'
+    own alerts (`OBSERVATORY_ALERTS`), and its 18 K2 launches held
+    against the plain EWMA; (b) devprof's cards, donation, watermark and
+    SLOs, with the sweep and the GA under the observatory (their K1
+    launches held bit for bit); (c) the sync sentinel armed on the card;
+    (d) the server's routes, /state.json, /profile and the --url commands;
+    (e) `cli profile` and a cold and a warm `cli trade --aot-cache`, as
+    subprocesses beside (a)-(d); (f) once they have ended, on a quiet
+    host, the tick p50 with every observatory on and off, alternating.
+    Returns the kernels line's entries: (K2 block, K1 block)."""
+    import tempfile
+    import threading
+
+    t_phase = time.perf_counter()
+    times = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (e)'s subprocesses run beside (a)-(d): they hold the card little
+        # and their own processes' hosts; their result is read at the end
+        cli_box = {}
+
+        def run_cli():
+            t_cli = time.perf_counter()
+            try:
+                cli_box["out"] = serve_cli(tmp)
+            except BaseException as ex:   # noqa: BLE001 — raised again below
+                cli_box["error"] = ex
+            times["cli_s"] = time.perf_counter() - t_cli
+
+        cli_thread = threading.Thread(target=run_cli, name="serve-cli")
+        cli_thread.start()
+        tape = TickTape(S_TICK, T_TICK)
+        t0 = time.perf_counter()
+        on, off, server, launches, k2_served, first_call, obs_alerts = serve_system(tape, tmp)
+        times["system_s"] = time.perf_counter() - t0
+        try:
+            t0 = time.perf_counter()
+            dev, k1_calls = serve_devprof(on, first_call, d_year)
+            times["devprof_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            mesh = serve_meshprof(on)
+            times["meshprof_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            srv = serve_server(on, server)
+            times["server_s"] = time.perf_counter() - t0
+            aot = on.system.aot_cache.status()
+            # (f) alone on the host and the card: (e)'s subprocesses first end
+            t0 = time.perf_counter()
+            cli_thread.join(timeout=600)
+            times["cli_wait_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            n_on, n_off = len(on.tick_ms), len(off.tick_ms)
+            for _ in range(SERVE_OVERHEAD_TICKS):
+                on.tick()
+                off.tick()
+            tick_on, tick_off = on.tick_ms[n_on:], off.tick_ms[n_off:]
+            times["overhead_s"] = time.perf_counter() - t0
+        finally:
+            server.stop()
+            on.system.shutdown()
+            off.system.shutdown()
+            cli_thread.join(timeout=600)
+        if "error" in cli_box:
+            raise cli_box["error"]
+        cli_out = cli_box["out"]
+    t0 = time.perf_counter()
+    k2 = live_k2(launches, "serve_tick")
+    k1 = held_k1(k1_calls, "serve_k1")
+    times["held_s"] = time.perf_counter() - t0
+    overhead = {"tick_ms_p50_on": percentile(tick_on, 50),
+                "tick_ms_p50_off": percentile(tick_off, 50),
+                "tick_ms_on": tick_on, "tick_ms_off": tick_off,
+                # (a)'s ticks, beside (e)'s subprocesses: not the overhead
+                "beside_cli": {"tick_ms_on": on.tick_ms[:SERVE_TICKS],
+                               "tick_ms_off": off.tick_ms[:SERVE_TICKS]}}
+    report = {"phase": "serve", "card": info["nvidia_smi"], "ticks": SERVE_TICKS,
+              "equal_bits_on_off": True, "observatory_alerts_fired": obs_alerts,
+              "devprof": dev, "meshprof": mesh, "server": srv,
+              "aot_cache_in_process": aot, "cli": cli_out, "overhead": overhead,
+              "k2": {k: k2[k] for k in ("launches_held", "ms", "plain_ms", "bound_ms",
+                                        "bound_by", "max_abs_err")},
+              "k1": k1, "part_s": times, "phase_s": time.perf_counter() - t_phase}
+    emit(report)
+    k2_total = k2_served + dev["k2_table_launches"]
+    return ({"launches": k2_total,
+             "launches_by_path": {"served_ticks": k2_served,
+                                  "ga_tables": dev["k2_table_launches"]},
+             "launches_held": k2["launches_held"],
+             **{k: k2[k] for k in ("ms", "ms_per_launch", "plain_ms", "barrier_only_ms",
+                                   "bound_ms", "bound_by", "max_abs_err", "max_rel_err")},
+             "library_ms": None,
+             "observatory_overhead_tick_ms_p50": {"on": overhead["tick_ms_p50_on"],
+                                                  "off": overhead["tick_ms_p50_off"]},
+             "shape": f"a served tick's 3 launches at S={S_TICK} x F={len(TICK_FRAMES)} x "
+                      f"T={T_TICK} (ms/plain/bound)"},
+            {**k1, "launches_by_path": {"sweep": 1, "ga": dev["k1_launches"] - 1},
+             "shape_note": f"B={POP_GA} x T={T_GA}: one sweep, the GA's {GENS_GA + 1} "
+                           "rows-form launches"})
+
+
+PHASE_S = {}              # every phase's seconds, in order
+
+
+def timed_phase(name, fn, *args):
+    """``fn(*args)``, its seconds printed on a line of their own and kept
+    in PHASE_S."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_S[name] = time.perf_counter() - t0
+    emit({"phase_time": name, "phase_s": PHASE_S[name]})
+    return out
+
+
 def main():
     import torch
 
+    t_script = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
     import ai_crypto_trader_tpu_torch  # noqa: F401 — the checkout's port
+    from ai_crypto_trader_tpu_torch.utils.cache import enable_compilation_cache
 
-    info = phase_device()
+    info = timed_phase("device", phase_device)
     from ai_crypto_trader_tpu_torch.backtest import prepare_inputs, sample_params
     from ai_crypto_trader_tpu_torch.data import generate_ohlcv
     from ai_crypto_trader_tpu_torch.ops import compute_indicators
 
-    libraries = phase_build()
+    # the kernels build where the CLI's card commands look for them (the
+    # provenance-keyed directory under .torch_kernels/), so the script's
+    # subprocesses load them instead of building their own
+    if not enable_compilation_cache():
+        fail("the kernel-build cache of the CLI's card commands did not enable")
+    libraries = timed_phase("build", phase_build)
     d = {k: v for k, v in generate_ohlcv(n=T_FULL, seed=3).items() if k != "regime"}
 
     def d_small(n):
         return {k: v for k, v in generate_ohlcv(n=n, seed=3).items() if k != "regime"}
 
     params = sample_params(torch.Generator().manual_seed(0), B_FULL, device="cuda")
-    ewma = phase_ewma(d, libraries)
-    phase_flips(d, params)
+    ewma = timed_phase("ewma", phase_ewma, d, libraries)
+    timed_phase("flips", phase_flips, d, params)
     main_inputs = prepare_inputs(compute_indicators(d, device="cuda"), device="cuda")
-    checks = phase_replay(main_inputs, params, d_small)
-    launches, stats, full, k1 = phase_main(d)
-    phase_indicator_split(d)
-    ga_entries = phase_ga(d, info, libraries)
-    tick = phase_tick(info)
-    portfolio = phase_portfolio(info)
-    tenant = phase_tenant(info)
-    phase_mc(info)
-    nn = phase_nn(info)
-    phase_patterns(info)
-    nn_train = phase_train(info)
-    rl = phase_rl(info, d)
-    sim_k1, sim_k2 = phase_sim(info)
-    regime = phase_service(info)
-    strat_k1, strat_k2 = phase_strategy(info, d)
-    live = phase_live(info)
-    trade = phase_trade(info)
-    stack_k2, stack_k1 = phase_stack(info)
-    stream = phase_stream(info, trade["tick_ms_p50"])
+    checks = timed_phase("replay", phase_replay, main_inputs, params, d_small)
+    launches, stats, full, k1 = timed_phase("main", phase_main, d)
+    timed_phase("indicator_split", phase_indicator_split, d)
+    ga_entries = timed_phase("ga", phase_ga, d, info, libraries)
+    tick = timed_phase("tick", phase_tick, info)
+    portfolio = timed_phase("portfolio", phase_portfolio, info)
+    tenant = timed_phase("tenant", phase_tenant, info)
+    timed_phase("mc", phase_mc, info)
+    nn = timed_phase("nn", phase_nn, info)
+    timed_phase("patterns", phase_patterns, info)
+    nn_train = timed_phase("train", phase_train, info)
+    rl = timed_phase("rl", phase_rl, info, d)
+    sim_k1, sim_k2 = timed_phase("sim", phase_sim, info)
+    regime = timed_phase("service", phase_service, info)
+    strat_k1, strat_k2 = timed_phase("strategy", phase_strategy, info, d)
+    live = timed_phase("live", phase_live, info)
+    trade = timed_phase("trade", phase_trade, info)
+    stack_k2, stack_k1 = timed_phase("stack", phase_stack, info)
+    stream = timed_phase("stream", phase_stream, info, trade["tick_ms_p50"])
+    serve_k2, serve_k1 = timed_phase("serve", phase_serve, info, d)
+    emit({"script_s": time.perf_counter() - t_script, "phase_s": PHASE_S})
     bound_ms, bound_by, stepped_bound_ms = replay_bound_ms(stats, B_FULL, T_FULL)
     checks += full
     kernels = [
@@ -7709,6 +8207,7 @@ def main():
          "trade": trade,
          "stack": stack_k2,
          "stream": stream,
+         "serve": serve_k2,
          "shape": "the two launches of compute_indicators at T=525600, summed "
                   "(A: close K=2 + up/dn/tr K=1; B: MACD line K=1)"},
         {"name": "replay_sweep", "route": "cuda",
@@ -7739,6 +8238,7 @@ def main():
          "sim": sim_k1,
          "strategy": strat_k1,
          "stack": stack_k1,
+         "serve": serve_k1,
          "shape": f"B={B_FULL} x T={T_FULL}",
          "plain": "the engine's loop, 32 candles a CUDA graph"},
     ]

@@ -20,6 +20,12 @@ import uuid
 
 import pytest
 import torch
+# A devprof card's first dispatch imports these (the flop counter, and
+# torch._dynamo behind torch's dispatch modes), and importing them draws
+# uuid4 values (torch.distributed's state keys): imported here, they
+# cannot shift the counted ids of a run with --devprof.
+import torch._dynamo  # noqa: F401
+import torch.utils.flop_counter  # noqa: F401
 
 pytest.importorskip("jax")
 
@@ -167,14 +173,39 @@ def test_resumed_trade_recovers_as_jax(first_runs, tmp_path):
         assert a.read() == b.read()
 
 
-@pytest.mark.parametrize("flag", [["--serve", "8050"], ["--devprof"],
+@pytest.mark.parametrize("flag", [["--serve", "0"], ["--devprof"],
                                   ["--meshprof"], ["--aot-cache", "cache"]])
-def test_flags_not_ported_exit_2(flag, capsys):
-    with pytest.raises(SystemExit) as exc:
-        tcli.main(["trade", "--paper", "--device", "cpu", *flag])
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert flag[0] in err and "not ported" in err
+def test_flags_work_and_change_no_trade(flag, first_runs, tmp_path, monkeypatch):
+    """`trade --serve/--devprof/--meshprof/--aot-cache` run, do what they
+    say, and print the status the same run prints without them, with the
+    same journal bytes."""
+    outs, tmp = first_runs
+    if flag[0] == "--aot-cache":
+        flag = ["--aot-cache", str(tmp_path / "cache")]
+    seen = []
+    real_shutdown = tlauncher.TradingSystem.shutdown
+
+    def shutdown(system):
+        seen.append({"devprof": system.devprof and system.devprof.status(),
+                     "meshprof": system.meshprof and system.meshprof.status()})
+        real_shutdown(system)
+
+    monkeypatch.setattr(tlauncher.TradingSystem, "shutdown", shutdown)
+    out = run("port", trade_argv(tmp_path, "port", "--device", "cpu", *flag))
+    assert status_of(out) == status_of(outs["port"])
+    with open(tmp_path / "port.journal", "rb") as a, open(tmp / "port.journal", "rb") as b:
+        assert a.read() == b.read()
+    if flag[0] == "--serve":
+        assert "dashboard: http://127.0.0.1:" in out
+    elif flag[0] == "--devprof":
+        assert seen[0]["devprof"]["cost_cards"]["tick_engine"]["donation_ok"] is True
+        assert seen[0]["devprof"]["slos"]["tick"]["count"] == TICKS
+    elif flag[0] == "--meshprof":
+        assert seen[0]["meshprof"]["recompiles"]["windows"]["tick_engine"] == TICKS
+    else:
+        line = next(ln for ln in out.splitlines() if ln.startswith('{"aot_cache"'))
+        cache = json.loads(line)["aot_cache"]
+        assert cache["enabled"] and cache["dir"].startswith(str(tmp_path / "cache"))
 
 
 FULL_STACK_TICKS = 10

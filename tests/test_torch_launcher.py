@@ -499,12 +499,63 @@ def test_device_none_raises_without_cuda(monkeypatch):
         tlauncher.TradingSystem(ex, ["BTCUSDC"], device="cuda")
 
 
+def _observatory_check(option, system, tmp_path):
+    """What each option installed, read before the system shuts down."""
+    from ai_crypto_trader_tpu_torch.ops import _cuda
+    from ai_crypto_trader_tpu_torch.utils import devprof as tdevprof
+    from ai_crypto_trader_tpu_torch.utils import meshprof as tmeshprof
+
+    if "enable_devprof" in option:
+        assert tdevprof.active() is system.devprof
+        st = system.devprof.status()
+        card = st["cost_cards"]["tick_engine"]
+        assert card["donation_ok"] is True and card["error"] is None
+        assert card["alias_bytes"] > 0 and card["output_bytes"] > 0
+        assert st["slos"]["tick"]["count"] == TICKS
+        assert st["slos"]["host_read"]["count"] >= TICKS
+        return lambda: tdevprof.active() is None
+    if "enable_meshprof" in option:
+        assert tmeshprof.active() is system.meshprof
+        st = system.meshprof.status()
+        assert st["recompiles"]["windows"]["tick_engine"] == TICKS
+        assert st["recompiles"]["steady_recompiles"] == {}
+        assert st["transfers"]["violations"] == {}      # nothing to guard on the CPU
+        return lambda: tmeshprof.active() is None
+    st = system.aot_cache.status()
+    assert st["enabled"] and st["dir"].startswith(str(tmp_path))
+    assert st["lock"] == "held" and st["built"] == [] and st["error"] is None
+    assert _cuda.BUILD_DIR == __import__("pathlib").Path(st["dir"])
+    return lambda: _cuda.BUILD_DIR == _cuda.DEFAULT_BUILD_DIR
+
+
 @pytest.mark.parametrize("option", [{"enable_devprof": True}, {"enable_meshprof": True},
-                                    {"aot_cache_dir": "cache"}])
-def test_options_not_ported_raise(option):
-    ex = tex.FakeExchange({})
-    with pytest.raises(NotImplementedError, match="ROADMAP item 16"):
-        tlauncher.TradingSystem(ex, ["BTCUSDC"], device="cpu", **option)
+                                    {"aot_cache_dir": "cache"}, "served"])
+def test_options_work_and_change_no_trade(option, main_run, tmp_path, systems):
+    """Each observatory (and the kernel-build cache) works on the CPU, and
+    the system's ticks, status, books and decisions equal, bit for bit,
+    the same ticks with it off; so do the ticks of a system with all three
+    on behind a dashboard server."""
+    from ai_crypto_trader_tpu_torch.shell.dashboard_server import DashboardServer
+
+    got, _, _ = main_run
+    served = option == "served"
+    if served:
+        option = {"enable_devprof": True, "enable_meshprof": True, "aot_cache_dir": "cache"}
+    if "aot_cache_dir" in option:
+        option = {**option, "aot_cache_dir": str(tmp_path / "cache")}
+    system, ex, clock = build("port", tmp_path, systems, **option)
+    server = DashboardServer(system, port=0).start() if served else None
+    returns = asyncio.run(drive(system, ex, clock, TICKS))
+    snap = snapshot(system)
+    released = [_observatory_check({k: v}, system, tmp_path) for k, v in option.items()]
+    if server is not None:
+        server.stop()
+    system.shutdown()
+    assert all(r() for r in released)
+    assert returns == got["returns"]
+    for key in ("status", "cached", "active", "closed", "fills", "open_orders", "records",
+                "pnl_attribution", "portfolio_value_history", "alerts_history"):
+        assert snap[key] == got[key], key
     assert ttickpath.active() is None
 
 

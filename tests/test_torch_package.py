@@ -112,7 +112,9 @@ expected = {"config", "ops.dynamic", "backtest.evolvable", "evolve", "evolve.ga"
             "utils.saturation", "utils.supervision", "utils.structlog", "social.news",
             "social.provider", "social.service", "social.strategy_integrator",
             "strategy.grid", "strategy.dca", "strategy.grid_live", "strategy.arbitrage",
-            "shell.stack", "shell.stream", "testing", "testing.chaos", "testing.loadgen"}
+            "shell.stack", "shell.stream", "testing", "testing.chaos", "testing.loadgen",
+            "utils.meshprof", "utils.profiling", "utils.aotcache", "utils.cache",
+            "shell.dashboard_server"}
 missing = sorted(e for e in expected if pkg.__name__ + "." + e not in names)
 print(missing)
 from ai_crypto_trader_tpu_torch import obs, utils
@@ -171,6 +173,12 @@ with tempfile.TemporaryDirectory() as tmp:
     cli.main(["load", "--device", "cpu", "--mode", "vmapped", "--tenants", "2", "--symbols",
               "2", "--ticks", "2"])
     cli.main(["fleet", "--device", "cpu", "--tenants", "2", "--symbols", "2", "--ticks", "2"])
+    cli.main(["trade", "--paper", "--device", "cpu", "--ticks", "2", "--serve", "0",
+              "--devprof", "--meshprof", "--aot-cache", tmp + "/cache"])
+    cli.main(["profile", "--device", "cpu", "--ticks", "1", "--out", tmp + "/profile"])
+    cli.main(["mesh", "--pop", "10"])
+    cli.main(["status"])
+    cli.main(["mc", "--device", "cpu", "--paths", "16", "--days", "2"])
 bad += sorted(m for m in sys.modules
               if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
               or re.match(r"ai_crypto_trader_tpu(?!_torch)(\.|$)", m))
@@ -377,6 +385,21 @@ _QUICK_STACK = {"patterns": {"checkpoint": None, "train_on_start": False}}
 
 # the new entry points on the CPU: (call, check of the result)
 _CPU_RUNS = {
+    "DashboardServer": (
+        lambda: _served_state_on_the_cpu(),
+        lambda out: out[0] == 200 and {"devprof", "mesh", "aot_cache", "build"} <= out[1]),
+    "DevProf.carding": (
+        lambda: _carded_on_the_cpu(),
+        lambda card: card["output_bytes"] == 12 and card["temp_bytes"] is None),
+    "MeshProf.watch": (
+        lambda: _watched_on_the_cpu(),
+        lambda st: st["recompiles"]["windows"] == {"tick_engine": 1}),
+    "profiling.trace": (
+        lambda: _traced_on_the_cpu(),
+        lambda events: events == []),
+    "AOTCache.enable": (
+        lambda: _cache_on_the_cpu(),
+        lambda st: st["enabled"] and st["warm"] is False and st["lock"] == "held"),
     "find_triangle_arbitrage": (
         lambda: find_triangle_arbitrage(_TICKERS, _ASSETS, fee_rate=0.0, device="cpu"),
         lambda out: out and out[0]["cycle"][0] == "USDC"),
@@ -409,6 +432,76 @@ _CPU_RUNS = {
         lambda out: [s["tenants"] for s in out["steps"]] == [1, 2]
         and out["max_sustainable"]["tenants"] == 2),
 }
+
+
+def _served_state_on_the_cpu():
+    """A CPU system with every observatory on, one tick, and its
+    /state.json through a DashboardServer on an ephemeral port."""
+    import asyncio
+    import json
+    import tempfile
+    import urllib.request
+
+    from ai_crypto_trader_tpu_torch.shell.dashboard_server import DashboardServer
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ex = FakeExchange(_streamed_series())
+        ex.advance(steps=2_200)
+        system = TradingSystem(ex, ["BTCUSDC"], device="cpu", enable_devprof=True,
+                               enable_meshprof=True, aot_cache_dir=tmp)
+        server = DashboardServer(system, port=0).start()
+        try:
+            asyncio.run(system.tick())
+            with urllib.request.urlopen(f"http://127.0.0.1:{server.port}/state.json",
+                                        timeout=30) as resp:
+                return resp.status, set(json.loads(resp.read()))
+        finally:
+            server.stop()
+            system.shutdown()
+
+
+def _carded_on_the_cpu():
+    from ai_crypto_trader_tpu_torch.utils import devprof
+
+    with devprof.use(devprof.DevProf()) as dp:
+        x = torch.ones(3)
+        with devprof.carding("p", (x,)) as card:
+            card.result(x + 1.0)
+        return dp.cards["p"].to_dict()
+
+
+def _watched_on_the_cpu():
+    from ai_crypto_trader_tpu_torch.utils import meshprof
+
+    with meshprof.use(meshprof.MeshProf()) as mp:
+        with meshprof.watch("tick_engine", cold=True):
+            torch.ones(2).sum().item()        # nothing to guard on the CPU
+        return mp.status()
+
+
+def _traced_on_the_cpu():
+    import tempfile
+
+    from ai_crypto_trader_tpu_torch.utils import profiling
+
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(tmp, cuda=False):
+            torch.ones(8).cumsum(0)
+        return profiling.cuda_events(os.path.join(tmp, profiling.TRACE_FILE))
+
+
+def _cache_on_the_cpu():
+    import tempfile
+
+    from ai_crypto_trader_tpu_torch.utils.aotcache import AOTCache
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = AOTCache(tmp)
+        try:
+            cache.enable({"backend": "cpu"})
+            return cache.status()
+        finally:
+            cache.close()
 
 
 def _streamed_series(n=2_400):

@@ -255,7 +255,10 @@ def test_partitioner_seam():
     tree = {"a": torch.ones(3)}
     assert p.shard_population(tree) is tree
     fn = lambda x: x  # noqa: E731
-    assert p.population_eval(fn, name="pbt_generation", donate_pop=True) is fn
+    assert p.population_eval(fn, donate_pop=True) is fn
+    # named, the seam records the program's layout card (utils.meshprof)
+    named = p.population_eval(fn, name="pbt_generation", donate_pop=True)
+    assert named(tree) is tree
 
     class Mesh:
         device_count = 4
