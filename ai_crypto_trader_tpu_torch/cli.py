@@ -1,13 +1,18 @@
-"""Command-line interface of the port: the ``backtest``, ``train``,
+"""Command-line interface of the port: the JAX package's 21 subcommands,
+``fetch``, ``backtest``, ``list``, ``analyze``, ``report``, ``train``,
 ``evolve``, ``rl``, ``generate``, ``mc``, ``scan``, ``trade``, ``why``,
 ``profile``, ``load``, ``mesh``, ``fleet``, ``latency``, ``status``,
-``registry`` and ``dashboard`` subcommands.
+``registry`` and ``dashboard``.
 
-Same flags and output as ``python -m ai_crypto_trader_tpu.cli backtest`` /
-``train`` / ... / ``dashboard``, plus ``--device {cuda,cpu}`` (default
+Same flags and output as ``python -m ai_crypto_trader_tpu.cli fetch`` /
+``backtest`` / ... / ``dashboard``, plus ``--device {cuda,cpu}`` (default
 cuda) where a command computes:
 
+    python -m ai_crypto_trader_tpu_torch.cli fetch --symbol BTCUSDC --days 30
     python -m ai_crypto_trader_tpu_torch.cli backtest --days 365 --sweep 4096
+    python -m ai_crypto_trader_tpu_torch.cli list
+    python -m ai_crypto_trader_tpu_torch.cli analyze --file <result.json>
+    python -m ai_crypto_trader_tpu_torch.cli report --symbol BTCUSDC --out report.html
     python -m ai_crypto_trader_tpu_torch.cli train --days 7 --model lstm --epochs 5
     python -m ai_crypto_trader_tpu_torch.cli evolve --days 30 --population 256 --generations 3
     python -m ai_crypto_trader_tpu_torch.cli rl --population 8 --dynamics lob
@@ -22,8 +27,14 @@ cuda) where a command computes:
     python -m ai_crypto_trader_tpu_torch.cli status --url http://127.0.0.1:8050
     python -m ai_crypto_trader_tpu_torch.cli profile --ticks 10 --out profiles/x
 
-A CSV at ``backtesting/data/market/<symbol>/<symbol>_1m.csv`` is used when
-present; otherwise the deterministic synthetic series is generated.
+``fetch`` writes ``--days`` of 1-minute candles to the CSV cache
+``backtesting/data/market/<symbol>/<symbol>_1m.csv``: the deterministic
+synthetic series by default, Binance's paginated klines with ``--source
+binance``.  A CSV there is used when present; otherwise the synthetic
+series is generated.  ``list``, ``analyze --file`` and ``report`` read the
+results that ``backtest`` saves under ``backtesting/results/``: one line a
+run, one run's JSON, and the multi-run summary with its HTML report (the
+best run's equity and drawdown curves).
 ``--sweep N`` (N > 1) sweeps N strategies drawn from a ``torch.Generator``
 seeded with ``--seed`` through the replay kernel and reports the best by
 Sharpe; otherwise one default-parameter backtest runs with its equity curve.
@@ -76,6 +87,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import glob
 import json
 import os
 import time
@@ -100,6 +112,32 @@ def _load_or_generate(symbol: str, candles: int, seed: int = 0):
 def _sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def cmd_fetch(args):
+    """`run_backtest.py fetch` parity. --source binance runs the real
+    paginated fetch (`data_manager.py:47-114` semantics) over the network;
+    the default synthesizes."""
+    from ai_crypto_trader_tpu_torch.data import from_dict, generate_ohlcv, save_csv
+
+    n = args.days * 1440
+    if args.source == "binance":
+        from ai_crypto_trader_tpu_torch.data.fetchers import (
+            UrllibTransport,
+            fetch_klines_ohlcv,
+        )
+
+        end_ms = int(time.time() * 1000)
+        series = asyncio.run(fetch_klines_ohlcv(
+            UrllibTransport(), args.symbol, "1m",
+            end_ms - args.days * 86_400_000, end_ms))
+        n = len(series)
+    else:
+        d = generate_ohlcv(n=n, seed=args.seed)
+        series = from_dict({k: v for k, v in d.items() if k != "regime"},
+                           symbol=args.symbol, interval="1m")
+    path = save_csv(series, DATA_DIR)
+    print(f"saved {n} candles -> {path}")
 
 
 def cmd_backtest(args):
@@ -154,6 +192,47 @@ def cmd_backtest(args):
                                "sharpe_ratio", "max_drawdown_pct",
                                "candles_per_sec")}, indent=2))
     print(f"saved -> {fname}")
+
+
+def cmd_list(args):
+    files = sorted(glob.glob(os.path.join(RESULTS_DIR, "*.json")))
+    if not files:
+        print("no results yet — run `backtest` first")
+    for f in files:
+        with open(f) as fh:
+            r = json.load(fh)
+        print(f"{os.path.basename(f)}: sharpe={r.get('sharpe_ratio', 0):.2f} "
+              f"trades={r.get('total_trades', 0)} "
+              f"final=${r.get('final_balance', 0):,.2f}")
+
+
+def cmd_analyze(args):
+    with open(args.file) as f:
+        r = json.load(f)
+    print(json.dumps(r, indent=2))
+
+
+def cmd_report(args):
+    from ai_crypto_trader_tpu_torch.backtest.results import (
+        load_results, render_report_html, summary_report,
+    )
+
+    results = load_results(RESULTS_DIR, symbol=args.symbol or None)
+    summary = summary_report(results)
+    print(json.dumps(summary, indent=2))
+    if results:
+        # best run's saved equity curve drives the report plots
+        best = next((r for r in results
+                     if r.get("_file") == summary.get("best_run")), results[0])
+        eq = best.get("equity_curve")
+        dd = None
+        if eq:
+            eq_arr = np.asarray(eq, float)
+            peak = np.maximum.accumulate(eq_arr)
+            dd = (peak - eq_arr) / peak * 100.0
+        path = render_report_html(results, args.out,
+                                  equity_curve=eq, drawdown_curve=dd)
+        print(f"wrote {path}")
 
 
 TRAIN_COLUMNS = ("close", "volume", "rsi", "macd", "bb_position", "stoch_k", "atr")
@@ -1021,6 +1100,13 @@ def build_parser() -> argparse.ArgumentParser:
                                 description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = p.add_subparsers(dest="command", required=True)
+    sp = sub.add_parser("fetch", help="fetch (or synthesize) candles to CSV")
+    sp.add_argument("--source", choices=("synthetic", "binance"),
+                    default="synthetic")
+    sp.add_argument("--symbol", default="BTCUSDC")
+    sp.add_argument("--days", type=int, default=7)
+    sp.add_argument("--seed", type=int, default=0)
+    sp.set_defaults(fn=cmd_fetch)
     sp = sub.add_parser("backtest", help="run a vectorized backtest")
     sp.add_argument("--symbol", default="BTCUSDC")
     sp.add_argument("--days", type=int, default=7)
@@ -1029,6 +1115,15 @@ def build_parser() -> argparse.ArgumentParser:
                     help="strategy-population width")
     sp.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     sp.set_defaults(fn=cmd_backtest)
+    sp = sub.add_parser("list", help="list saved results")
+    sp.set_defaults(fn=cmd_list)
+    sp = sub.add_parser("analyze", help="pretty-print a result file")
+    sp.add_argument("--file", required=True)
+    sp.set_defaults(fn=cmd_analyze)
+    sp = sub.add_parser("report", help="multi-run summary + HTML report")
+    sp.add_argument("--symbol", default="")
+    sp.add_argument("--out", default="backtest_report.html")
+    sp.set_defaults(fn=cmd_report)
     sp = sub.add_parser("train", help="train a price model")
     sp.add_argument("--symbol", default="BTCUSDC")
     sp.add_argument("--days", type=int, default=7)

@@ -3,8 +3,8 @@
 The port's own copy of `ai_crypto_trader_tpu/data/ingest.py` (lines
 26-139): the `OHLCV` column bundle, `klines_to_arrays`, `from_dict`,
 `save_csv`/`load_csv`, and the social-metrics CSVs with their `SocialDaily`
-bundle (the JAX package keeps that one in `data/fetchers.py`, which the port
-does not have).  The CSV layout is the reference's cache layout
+bundle (the JAX package keeps that one in `data/fetchers.py`; the port's
+fetchers import it from here).  The CSV layout is the reference's cache layout
 (``backtesting/data/market/<symbol>/<symbol>_<interval>.csv`` and
 ``backtesting/data/social/<symbol>/<symbol>_daily.csv``).  Host-side ingest
 stays NumPy; tensors are made where the compute path starts

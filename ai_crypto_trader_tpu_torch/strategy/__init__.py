@@ -1,15 +1,16 @@
 """Strategy management of the port: evaluation (trade metrics,
-cross-validation, comparison), selection, the hybrid evolver, the model
-registry, explanations, the structure search with its service, grid and
-DCA trading (simulated and live) and triangle arbitrage — the JAX
-package's `strategy` exports but `FeatureImportanceIntegrator`, whose
-`integration` module waits for `models/trade_importance` (ROADMAP
-Queue 1)."""
+cross-validation, comparison), the feature-importance integrator,
+selection, the hybrid evolver, the model registry, explanations, the
+structure search with its service, grid and DCA trading (simulated and
+live) and triangle arbitrage — the JAX package's `strategy` exports."""
 
 from ai_crypto_trader_tpu_torch.strategy.evaluation import (  # noqa: F401
     compare_strategies,
     cross_validate,
     trade_metrics,
+)
+from ai_crypto_trader_tpu_torch.strategy.integration import (  # noqa: F401
+    FeatureImportanceIntegrator,
 )
 from ai_crypto_trader_tpu_torch.strategy.selection import StrategySelector  # noqa: F401
 from ai_crypto_trader_tpu_torch.strategy.evolution import StrategyEvolver  # noqa: F401

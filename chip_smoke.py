@@ -33,13 +33,13 @@ imports nothing of JAX or of the JAX package.  Phases, one JSON line each:
   3. replay   — the replay-sweep kernel (K1) against the engine's eager
                 plain loop on the card, stats and equity curve, through both
                 of its variants (stats alone, and with the curve): 4096
-                strategies over the first 4096 candles of the main path's
+                strategies over the first 2048 candles of the main path's
                 inputs, B=130 × T=1500, T=900 with SL/TP overrides and
                 confidence gating, SL/TP so small that every position closes
                 on the next candle and so large that only the end of the
                 test closes one, SL/TP hit with equality, and a ragged T of
-                8·1024 + 7 with warmup 2000; `run_backtest`'s param-SL/TP
-                mode at B=1 × T=4096 with its curve; and the graph-replayed
+                4·1024 + 7 with warmup 2000; `run_backtest`'s param-SL/TP
+                mode at B=1 × T=2048 with its curve; and the graph-replayed
                 plain loop (below) bit for bit against the eager one;
   4. main     — the population backtest at the bench's full size (T =
                 525,600 candles, B = 4096 strategies) through the port's
@@ -91,7 +91,7 @@ imports nothing of JAX or of the JAX package.  Phases, one JSON line each:
                 all symbols (graph-replayed), all S launches timed
                 together beside the sum of their bounds; the
                 sizer-ladder silos and the shared pool (both equity
-                cadences), plain loops on the card at T = 1,024, against
+                cadences), plain loops on the card at T = 512, against
                 the port's CPU run of the same inputs;
   8. tenant   — the live decision path at full width: the tick phase's
                 tape through a `TickEngine` into a `TenantEngine` of 256
@@ -333,8 +333,8 @@ imports nothing of JAX or of the JAX package.  Phases, one JSON line each:
                 host_read SLO windows; `backtest.sweep` at 256 × 43,200 and
                 `run_ga(GAParams(256, 3))` over the same candles under the
                 observatory (`backtest_sweep`, `ga_scan` cards, the ga_scan
-                layout card), their 5 K1 launches bit for bit against the
-                plain loop; (c) the sync sentinel armed on the card: 0 over
+                layout card), their 5 K1 launches counted, the sweep's and
+                the GA's first bit for bit against the plain loop; (c) the sync sentinel armed on the card: 0 over
                 the steady ticks, exactly 1 for an `.item()` in a watch
                 window, no rebuild after warm-up; (d) every route, the
                 /state.json blocks and build, a 3 s `/profile` capture on a
@@ -345,14 +345,41 @@ imports nothing of JAX or of the JAX package.  Phases, one JSON line each:
                 (the second warm: nothing built), as subprocesses running
                 beside (a)-(d); (f) the tick p50 with
                 every observatory on and off, alternating;
- 22. kernels  — one line with each kernel's launches, error, times and
+ 22. research — the research shell: (a) `cli fetch --days 7` (a
+                subprocess) → `cli backtest` (one strategy, then a sweep of
+                256, on the card) → `cli list` / `analyze` → `cli report`
+                (a subprocess) in a temporary cwd: the backtest's numbers
+                those of the fetched series, two runs listed, the best
+                Sharpe's file as `best_run`, the HTML written; (b) 16 jobs
+                (8 synthetic symbols × 2 parameter sets, 30 days of 1m
+                candles each) through `BacktestQueue` on the card with a
+                port `EventBus`: one K1 launch a job and the K2 launches
+                counted, every record's metrics bit for bit against a
+                direct `compute_metrics(evolvable_backtest(...))`, the first
+                job's K1 launch bit for bit against the graph-replayed plain
+                loop over its whole series and its K2 launches against the
+                plain EWMA, ms a job and the queue latency; (c) the
+                trade-outcome forest at the reference's defaults (100 trees,
+                30 repeats) on 2,000 synthetic trades over the 19
+                `FEATURE_GROUPS` features: the host fit's seconds, the
+                permutation importance (one batched prediction, one read)
+                beside the reference's loop order (571 `predict` calls, a
+                read each), the two equal, and both equal to the port's CPU
+                run of the same trees (a subprocess from the phase's
+                start), probabilities within 1e-6, the two driver features
+                ranked first; (d) `SignalAnalyzer.run_once` over phase
+                live's tape for 2 ticks with a fitted
+                `FeatureImportanceIntegrator` as its outcome gate, the
+                signals equal to the port's CPU analyzer's on the same
+                updates, the gate's ms a call;
+ 23. kernels  — one line with each kernel's launches, error, times and
                 bound, at the main path's shapes, and each kernel's GA,
                 tick, portfolio, tenant, `cli train`, training, RL,
-                simulator, regime, strategy, live, trade, stack, stream and
-                serve launches (`ga_tables`, `ga_rows`, `tick`,
-                `portfolio`, `tenant`, `nn_cli_train`, `nn_train`, `rl`,
-                `sim`, `regime`, `strategy`, `live`, `trade`, `stack`,
-                `stream`, `serve`).
+                simulator, regime, strategy, live, trade, stack, stream,
+                serve and research launches (`ga_tables`, `ga_rows`,
+                `tick`, `portfolio`, `tenant`, `nn_cli_train`, `nn_train`,
+                `rl`, `sim`, `regime`, `strategy`, `live`, `trade`,
+                `stack`, `stream`, `serve`, `research`).
 
 Every phase's seconds follow it on a line of their own
 (``{"phase_time": ..., "phase_s": ...}``), and the script's total and every
@@ -401,7 +428,8 @@ TICK_POLLS = 20
 LIVE_TICKS = 6            # ticks of the live path (phase live; cut from 20, 10 until PR 17)
 LIVE_PIPE_TICKS = 5       # its pipelined monitor's ticks against the serial run's
 S_PORT = 8                # portfolio symbols
-T_PORT_K1, T_PORT_PLAIN = 8192, 1024   # K1's check; the plain-loop modes (depth cut)
+T_PORT_K1, T_PORT_PLAIN = 8192, 512    # K1's check; the plain-loop modes (depth cut; 1,024
+                                        # until PR 18)
 N_TENANT = 256            # the capacity row's vmapped tenant cap (bench.py:1734)
 S_CAP = 4                 # the capacity row's symbols (bench.py:1735)
 TENANT_POLLS = 20
@@ -432,7 +460,7 @@ SIM_B, SIM_T, SIM_LOG = 4096, 512, 128      # the bench's sim_sweep row (bench.p
 SIM_CPU_B = 256                              # its first scenarios rolled out again on the CPU
 LOB_B, LOB_T = 1024, 256                     # the bench's lob_events_per_sec row (bench.py:922-924)
 STRESS_B, STRESS_T, STRESS_P = 256, 1024, 64  # backtest_under_stress's defaults; a population
-SIM_REPS = 2                                 # timed calls a row (cut from 3)
+SIM_REPS = 1                                 # timed calls a row (cut from 3; 2 until PR 18)
 SIM_Q0 = 10_000.0                            # the rollouts' quote balance
 SVC_TICKS, SVC_ITERS = 4, 8                  # the trainer service: ticks; iterations (depth cut)
 REC_P, REC_S, REC_T, REC_EPISODE, REC_ITERS = 8, 8, 512, 128, 4   # pbt_recovery (bench.py:1087-1150)
@@ -1047,7 +1075,7 @@ def phase_replay(main_inputs, params, d_small):
     gen = lambda: torch.Generator().manual_seed(0)  # noqa: E731
     inputs_of = lambda n: prepare_inputs(  # noqa: E731
         compute_indicators(d_small(n), device="cuda"), device="cuda")
-    T_HEAD = 4096            # cut from 8192: the eager loop's 2 ms a candle
+    T_HEAD = 2048            # cut from 8192 (4096 until PR 18): the eager loop's 2 ms a candle
     head = type(main_inputs)(*(x[:T_HEAD] for x in main_inputs))
     c, (ref_head, ref_curve), head_plain_ms = replay_check(head, params, "main_head")
     checks = [c]
@@ -1089,7 +1117,8 @@ def phase_replay(main_inputs, params, d_small):
             fail(f"exact tie: not every strategy closed at candle {x}")
     checks.append({**c, "tie_exits": list(exits)})
 
-    T_R = 8 * 1024 + 7       # ragged (cut from 32·1024 + 7: the eager loop's 2 ms a candle)
+    T_R = 4 * 1024 + 7       # ragged (cut from 32·1024 + 7, 8·1024 + 7 until PR 18: the
+                             # eager loop's 2 ms a candle)
     checks.append(replay_check(inputs_of(T_R), sample_params(gen(), 256, device="cuda"),
                                f"ragged_T{T_R}_warmup2000", warmup=2000)[0])
 
@@ -2095,7 +2124,7 @@ def phase_portfolio(info):
     capital silos in param-SL/TP mode at T = 8,192 with one K1 launch per
     symbol, bit for bit against the plain loop over all S symbols at once
     (replayed from CUDA graphs); the sizer-ladder silos and the shared pool
-    (both equity cadences), plain loops on the card at T = 1,024, against
+    (both equity cadences), plain loops on the card at T = 512, against
     the port's CPU run of the same inputs."""
     import torch
 
@@ -3683,7 +3712,7 @@ def phase_rl(info, d):
     """The RL trainer on the card: (a) the bench's `rl` row, (b) the `pbt`
     row with its LOB markets, (c) the P = 1 oracle, (d) containment, (e)
     `cli rl` at its defaults (but CLI_RL_GENS generations) and with
-    ``--dynamics gbm``.  Returns the K2
+    ``--dynamics gbm``, the two at once.  Returns the K2
     entries of the RL markets for the kernels line."""
     t_phase = time.perf_counter()
     report = {"phase": "rl", "card": info["nvidia_smi"], "rl_row": rl_row(d)}
@@ -3691,8 +3720,10 @@ def phase_rl(info, d):
     report["cli_markets"], cli_k2, _ = rl_markets(0, 8, "cli_rl")
     report["pbt_row"] = pbt_row(env)
     report["oracle_and_containment"] = pbt_oracle_and_containment(env)
-    report["cli_rl"] = [cli_rl_tables(["--generations", str(CLI_RL_GENS)]),
-                        cli_rl_tables(["--dynamics", "gbm", "--generations", str(CLI_RL_GENS)])]
+    # the two `cli rl` runs at once, beside each other (each holds the card
+    # a little and its own host process)
+    gbm = BesideCall(cli_rl_tables, ["--dynamics", "gbm", "--generations", str(CLI_RL_GENS)])
+    report["cli_rl"] = [cli_rl_tables(["--generations", str(CLI_RL_GENS)]), gbm.result()]
     for run in report["cli_rl"]:
         if (run["generations"], run["members"], run["winners"]) != (CLI_RL_GENS, 8, 1):
             fail(f"rl: cli rl {run['argv']} printed {run['generations']} generations, "
@@ -5728,7 +5759,8 @@ def phase_live(info):
 
 TRADE_TICKS = 8           # ticks of the trading system (phase trade; cut from 16)
 TRADE_CUT = 4             # its recovery run dies after this tick
-TRADE_CLI_TICKS = 12      # `cli trade --paper --ticks`, as a user runs it (cut from 100; 25 until PR 17)
+TRADE_CLI_TICKS = 6       # `cli trade --paper --ticks`, as a user runs it (cut from 100; 25 until
+                          # PR 17, 12 until PR 18)
 TRADE_CURSOR = 3_858      # the tape's candle before the first tick
 # a tight trailing stop, so that the tape's one BUY run (candle 3,860, the
 # window's tick 1) closes within the window (candle 3,866, its last tick):
@@ -6233,7 +6265,7 @@ STACK_ARB_ASSETS = 64     # part (c): 64³ = 262,144 cycles
 STACK_SOCIAL_DAYS = 15    # part (d): 15 days of daily social metrics (30 until PR 17)
 STACK_SOCIAL_T = 21_600   # over 21,600 1m candles (43,200 until PR 17)
 STACK_SOCIAL_B = 16       # genomes of its backtest
-STACK_CLI_TICKS = 10      # `cli trade --paper --full-stack --ticks` (cut from 20)
+STACK_CLI_TICKS = 5       # `cli trade --paper --full-stack --ticks` (cut from 20; 10 until PR 18)
 
 
 def stack_social_provider(bus, symbol):
@@ -6464,8 +6496,10 @@ def score_rtol(model):
     return max(SOC_RTOL, 2.0 * cond * 2.0 ** -24)
 
 
-def stack_system(tape, tmp):
-    """(a) The trading system with the roster, card against CPU."""
+def stack_system(tape, tmp, beside_cpu_run):
+    """(a) The trading system with the roster, card against CPU;
+    ``beside_cpu_run()`` starts work that runs beside the CPU run and
+    returns what waits for it (phase stack's `cli trade --full-stack`)."""
     import numpy as np
 
     t0 = time.perf_counter()
@@ -6474,8 +6508,10 @@ def stack_system(tape, tmp):
     a = stack_state(card_rig, card_svcs)
     card_rig.system.shutdown()
     t0 = time.perf_counter()
+    beside = beside_cpu_run()
     cpu_rig, cpu_svcs, cpu = stack_run(tape, "cpu", tmp, "stack_cpu")
     cpu_s = time.perf_counter() - t0
+    beside.result()                   # ended before any kernel is timed below
     b = stack_state(cpu_rig, cpu_svcs)
     cpu_rig.system.shutdown()
 
@@ -6910,7 +6946,8 @@ def phase_stack(info):
     `build_full_stack` over phase trade's tape (64 symbols × 4 frames ×
     256) for STACK_TICKS ticks, card against CPU; (b) the social monitor
     over the 64 symbols; (c) triangle arbitrage over 64 assets; (d) the
-    social provider's inputs into K1; (e) `cli trade --full-stack`.
+    social provider's inputs into K1; (e) `cli trade --full-stack`, run
+    beside (a)'s CPU run.
     Returns the K2 and K1 blocks for the kernels line."""
     import tempfile
 
@@ -6918,7 +6955,8 @@ def phase_stack(info):
     tape = TickTape(S_TICK, T_TICK)
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        system = stack_system(tape, tmp)
+        cli = {}
+        system = stack_system(tape, tmp, lambda: cli.setdefault("run", BesideCall(stack_cli, tmp)))
         times = {"system_s": time.perf_counter() - t0}
         t0 = time.perf_counter()
         social = stack_social(tape)
@@ -6929,9 +6967,7 @@ def phase_stack(info):
         t0 = time.perf_counter()
         provider = stack_provider_k1()
         times["provider_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        cli_report = stack_cli(tmp)
-        times["cli_s"] = time.perf_counter() - t0
+        cli_report = cli["run"].result()     # run beside the CPU run of (a)
     report = {"phase": "stack", "card": info["nvidia_smi"], "system": system,
               "social": social, "arbitrage": arbitrage, "provider": provider, "cli": cli_report,
               "part_s": times, "phase_s": time.perf_counter() - t_phase}
@@ -7678,6 +7714,9 @@ SERVE_PROFILE_S = 3       # (d): the /profile capture's seconds: a polled tick i
 SERVE_PROFILE_TICKS = 4   # (d): the served system's ticks, back to back, during the capture
 SERVE_CLI_PROFILE_TICKS = 4   # (e): `cli profile --ticks`
 SERVE_CLI_TRADE_TICKS = 2     # (e): `cli trade --paper --ticks`, twice on one --aot-cache
+SERVE_K1_HELD = 2         # (b): K1 launches held against the plain loop: the sweep's and the
+                          # GA's first (all 5 until PR 18; the GA's rows form is held at this
+                          # shape in phase ga)
 SERVE_OVERHEAD_TICKS = 4  # (f): ticks of the served system and of the plain one, alternating,
 #                           once (e)'s subprocesses have ended
 SERVE_BLOCKS = ("status", "devprof", "mesh", "tickpath", "coldstart", "aot_cache", "build")
@@ -8020,7 +8059,7 @@ def phase_serve(info, d_year):
     own alerts (`OBSERVATORY_ALERTS`), and its 18 K2 launches held
     against the plain EWMA; (b) devprof's cards, donation, watermark and
     SLOs, with the sweep and the GA under the observatory (their K1
-    launches held bit for bit); (c) the sync sentinel armed on the card;
+    launches counted, the first SERVE_K1_HELD held bit for bit); (c) the sync sentinel armed on the card;
     (d) the server's routes, /state.json, /profile and the --url commands;
     (e) `cli profile` and a cold and a warm `cli trade --aot-cache`, as
     subprocesses beside (a)-(d); (f) once they have ended, on a quiet
@@ -8082,7 +8121,8 @@ def phase_serve(info, d_year):
         cli_out = cli_box["out"]
     t0 = time.perf_counter()
     k2 = live_k2(launches, "serve_tick")
-    k1 = held_k1(k1_calls, "serve_k1")
+    k1 = {**held_k1(k1_calls[:SERVE_K1_HELD], "serve_k1"), "launches": len(k1_calls),
+          "launches_held": SERVE_K1_HELD}
     times["held_s"] = time.perf_counter() - t0
     overhead = {"tick_ms_p50_on": percentile(tick_on, 50),
                 "tick_ms_p50_off": percentile(tick_off, 50),
@@ -8112,7 +8152,639 @@ def phase_serve(info, d_year):
                       f"T={T_TICK} (ms/plain/bound)"},
             {**k1, "launches_by_path": {"sweep": 1, "ga": dev["k1_launches"] - 1},
              "shape_note": f"B={POP_GA} x T={T_GA}: one sweep, the GA's {GENS_GA + 1} "
-                           "rows-form launches"})
+                           f"rows-form launches; ms/plain/bound: the first {SERVE_K1_HELD}, "
+                           "held"})
+
+
+# --- phase research: the research shell ------------------------------------
+
+RES_FETCH_DAYS = 7        # (a): `cli fetch --days` (its default)
+RES_FETCH_SEED = 5        # (a): the fetched series' seed; `cli backtest` runs at its default 0,
+                          # so only a backtest that loads the CSV sees this series
+RES_SWEEP = 256           # (a): the second `cli backtest`'s --sweep
+RES_SYMBOLS, RES_PARAMS, RES_T = 8, 2, 43_200   # (b): symbols × parameter sets, 30 days of 1m
+RES_TRADES, RES_HELD = 2_000, 500               # (c): the forest's trades; held-out rows
+RES_TRADE_SEED = 21
+RES_DRIVERS = ("bb_position", "rsi")            # (c): the two features the outcome depends on
+RES_PROBA_ATOL = 1e-6                           # (c), (d): class probabilities, card against CPU
+RES_GATE_TICKS = 2                              # (d): ticks of the gated live path
+
+
+def research_trades(n, seed):
+    """``n`` synthetic trades over the 19 `FEATURE_GROUPS` features, each
+    drawn in a range the live path's market updates carry; the outcome
+    depends on `rsi` and `bb_position` alone (and noise): a mean-reversion
+    entry, which wins when both are low."""
+    import numpy as np
+
+    from ai_crypto_trader_tpu_torch.models.trade_importance import FEATURE_GROUPS
+
+    names = sorted({f for fs in FEATURE_GROUPS.values() for f in fs})
+    rng = np.random.default_rng(seed)
+    ranges = {"rsi": (5.0, 95.0), "stoch_k": (0.0, 100.0), "williams_r": (-100.0, 0.0),
+              "bb_position": (-0.2, 1.2), "bb_width": (0.0, 0.1),
+              "social_sentiment": (0.0, 1.0), "social_volume": (0.0, 5e4),
+              "social_engagement": (0.0, 2e4), "volume": (0.0, 1e3),
+              "avg_volume": (0.0, 1e3), "volatility": (0.0, 0.05),
+              "atr": (0.0, 500.0), "ema_12": (3e4, 5e4), "sma_20": (3e4, 5e4),
+              "trend_strength": (-1.0, 1.0)}
+    cols = {f: rng.uniform(*ranges[f], n) if f in ranges else rng.normal(0.0, 0.01, n)
+            for f in names}
+    z = (50.0 - cols["rsi"]) / 15.0 + (0.5 - cols["bb_position"]) / 0.25 \
+        + rng.normal(0.0, 0.5, n)
+    pnl = np.where(z > 0.0, 1.0, -1.0) + rng.normal(0.0, 0.01, n)
+    return [{"features": {f: float(cols[f][i]) for f in names}, "pnl": float(pnl[i])}
+            for i in range(n)]
+
+
+def forest_digest(rf):
+    """A digest of a fitted forest's trees: the same bytes, the same model."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in rf.trees:
+        for k in ("feature", "threshold", "left", "right", "value"):
+            h.update(t[k].tobytes())
+    return h.hexdigest()
+
+
+def research_forest_fit(device):
+    """`TradeOutcomeAnalyzer` at the reference's defaults (100 trees, 30
+    repeats) fitted on RES_TRADES trades on ``device``: the analyzer, its
+    held-out rows, and the fit's parts (each forest's host fit, the
+    permutation importance's ms)."""
+    import numpy as np
+    import torch
+
+    from ai_crypto_trader_tpu_torch.models import trade_importance as ti
+
+    trades, held = research_trades(RES_TRADES, RES_TRADE_SEED), \
+        research_trades(RES_HELD, RES_TRADE_SEED + 1)
+    parts = {"forest_fit_s": [], "permutation_ms": []}
+    real_fit = ti.RandomForestClassifier.fit
+
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+
+    def timed_fit(self, X, y):
+        t0 = time.perf_counter()
+        out = real_fit(self, X, y)
+        sync()
+        parts["forest_fit_s"].append(time.perf_counter() - t0)
+        return out
+
+    az = ti.TradeOutcomeAnalyzer(device=device)
+    real_perm = az._permutation_importance
+
+    def timed_perm(model, X, y):
+        sync()
+        t0 = time.perf_counter()
+        out = real_perm(model, X, y)
+        parts["permutation_ms"].append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    az._permutation_importance = timed_perm
+    ti.RandomForestClassifier.fit = timed_fit
+    try:
+        t0 = time.perf_counter()
+        az.fit(trades)
+        parts["fit_s"] = time.perf_counter() - t0
+    finally:
+        ti.RandomForestClassifier.fit = real_fit
+        del az._permutation_importance
+    xh = np.asarray([[t["features"][f] for f in az.feature_names] for t in held])
+    return az, trades, xh, parts
+
+
+def research_forest_cpu():
+    """The CPU run of phase research (c), printed as one JSON line:
+    `python3 -c "import chip_smoke; chip_smoke.research_forest_cpu()"`."""
+    import torch
+
+    torch.set_num_threads(4)              # beside the card's host work and two CLIs
+    az, _, xh, parts = research_forest_fit("cpu")
+    keep = [az.feature_names.index(f) for f in az.kept_features]
+    print(json.dumps({"importances": az.importances, "kept": az.kept_features,
+                      "digest": forest_digest(az.model),
+                      "pruned_digest": forest_digest(az.pruned_model),
+                      "proba": az.model.predict_proba(xh).tolist(),
+                      "pruned_proba": az.pruned_model.predict_proba(xh[:, keep]).tolist(),
+                      "parts": parts}), flush=True)
+
+
+def research_env():
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    return root, {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [root] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p])}
+
+
+class Beside:
+    """A subprocess started now, to run beside what follows: `finish()`
+    waits for it and returns (exit code, stdout, stderr, its own wall s);
+    `stop()` kills it if it still runs."""
+
+    def __init__(self, argv, cwd):
+        import threading
+
+        _, env = research_env()
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(argv, cwd=cwd, env=env, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True)
+        self.box = {}
+        self.thread = threading.Thread(target=self._wait, daemon=True)
+        self.thread.start()
+
+    def _wait(self):
+        self.box["out"] = self.proc.communicate()
+        self.box["s"] = time.perf_counter() - self.t0
+
+    def finish(self, timeout=600):
+        self.thread.join(timeout)
+        if self.thread.is_alive():
+            self.stop()
+            fail(f"a subprocess ran over {timeout} s: {self.proc.args}")
+        out, err = self.box["out"]
+        return self.proc.returncode, out, err, self.box["s"]
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.thread.join(60)
+
+
+class BesideCall:
+    """``fn(*args)`` on a thread, beside what follows (``fn`` runs
+    subprocesses only, so no launch count of this process moves):
+    `result()` waits and returns its value or raises its error."""
+
+    def __init__(self, fn, *args):
+        import threading
+
+        self.box = {}
+        self.thread = threading.Thread(target=self._run, args=(fn, args), daemon=True)
+        self.thread.start()
+
+    def _run(self, fn, args):
+        try:
+            self.box["out"] = fn(*args)
+        except BaseException as ex:   # noqa: BLE001 — raised again by result()
+            self.box["error"] = ex
+
+    def result(self, timeout=900):
+        self.thread.join(timeout)
+        if self.thread.is_alive():
+            fail(f"a call beside the phase ran over {timeout} s")
+        if "error" in self.box:
+            raise self.box["error"]
+        return self.box["out"]
+
+
+def research_cli_argv(*args):
+    return [sys.executable, "-m", "ai_crypto_trader_tpu_torch.cli", *args]
+
+
+def research_cli(tmp, fetch):
+    """(a) The reference's `run_backtest.py` workflow in a temporary cwd:
+    `cli fetch --days 7 --seed 5` (``fetch``, a subprocess started at the
+    phase's start), then `cli backtest` (one strategy, then a sweep) in
+    this process on the card, `cli list` and `analyze`; `cli report` is
+    started as a subprocess and returned.  The single backtest must equal
+    a direct run over the fetched series (and differ from one over the
+    seed-0 series it would have generated), `list` name both runs,
+    `analyze` print the run's JSON.  Returns (report so far, the report's
+    subprocess)."""
+    import contextlib as ctx
+    import io
+    import os
+
+    from ai_crypto_trader_tpu_torch import cli
+    from ai_crypto_trader_tpu_torch.backtest import (
+        compute_metrics, default_params, prepare_inputs, run_backtest)
+    from ai_crypto_trader_tpu_torch.data import generate_ohlcv
+    from ai_crypto_trader_tpu_torch.ops import compute_indicators
+    from ai_crypto_trader_tpu_torch.ops.ewma import fused_ewma
+    from ai_crypto_trader_tpu_torch.ops.replay import sweep_kernel
+
+    times = {}
+    rc, out, err, times["fetch_subprocess_s"] = fetch.finish()
+    n = RES_FETCH_DAYS * 1440
+    csv_rel = os.path.join("backtesting", "data", "market", "BTCUSDC", "BTCUSDC_1m.csv")
+    if rc != 0 or out.strip() != f"saved {n} candles -> {csv_rel}":
+        fail(f"research: cli fetch exited {rc}: {out[-300:]} {err[-500:]}")
+    res_dir = os.path.join(tmp, "backtesting", "results")
+    here = os.getcwd()
+    files, texts = {}, {}
+    sweep_kernel.launches = fused_ewma.launches = 0
+    os.chdir(tmp)
+    try:
+        for name, argv in (("single", ["backtest", "--days", str(RES_FETCH_DAYS)]),
+                           ("sweep", ["backtest", "--days", str(RES_FETCH_DAYS),
+                                      "--sweep", str(RES_SWEEP)])):
+            before = set(os.listdir(res_dir)) if os.path.isdir(res_dir) else set()
+            if before:
+                time.sleep(1.0)           # the result file is named to the second
+            t0 = time.perf_counter()
+            buf = io.StringIO()
+            with ctx.redirect_stdout(buf):
+                cli.main(argv)
+            times[f"backtest_{name}_s"] = time.perf_counter() - t0
+            new = sorted(set(os.listdir(res_dir)) - before)
+            if len(new) != 1:
+                fail(f"research: cli backtest ({name}) wrote {new}")
+            files[name] = new[0]
+        launches = {"replay_sweep": sweep_kernel.launches, "fused_ewma": fused_ewma.launches}
+        t0 = time.perf_counter()
+        for name, argv in (("list", ["list"]),
+                           ("analyze", ["analyze", "--file",
+                                        os.path.join(res_dir, files["single"])])):
+            buf = io.StringIO()
+            with ctx.redirect_stdout(buf):
+                cli.main(argv)
+            texts[name] = buf.getvalue()
+        times["list_analyze_s"] = time.perf_counter() - t0
+    finally:
+        os.chdir(here)
+    report = Beside(research_cli_argv("report", "--out", "report.html"), tmp)
+    results = {}
+    for name, f in files.items():
+        with open(os.path.join(res_dir, f)) as fh:
+            results[name] = json.load(fh)
+    if json.loads(texts["analyze"]) != results["single"]:
+        fail("research: cli analyze did not print the run's JSON")
+    lines = texts["list"].splitlines()
+    if len(lines) != 2 or sorted(ln.split(":")[0] for ln in lines) != sorted(files.values()):
+        fail(f"research: cli list printed {lines}")
+
+    # the single run loaded the fetched CSV: a direct run over the fetched
+    # series gives its numbers, one over the series it would have
+    # generated does not
+    def direct(seed):
+        d = {k: v for k, v in generate_ohlcv(n=n, seed=seed).items() if k != "regime"}
+        inp = prepare_inputs(compute_indicators(d, device="cuda"), device="cuda")
+        stats, curve = run_backtest(inp, default_params(device="cuda"), use_param_sl_tp=True,
+                                    return_curve=True, device="cuda")
+        m = {k: float(v) for k, v in compute_metrics(stats, device="cuda").items()}
+        c = curve.cpu().numpy()
+        m["equity_curve"] = [round(float(v), 2) for v in c[::max(len(c) // 500, 1)]]
+        return m
+
+    fetched, generated = direct(RES_FETCH_SEED), direct(0)
+    single = results["single"]
+    if any(single[k] != v for k, v in fetched.items()):
+        fail("research: cli backtest's numbers are not those of the fetched series")
+    if all(single[k] == v for k, v in generated.items()):
+        fail("research: the fetched and the generated series give the same backtest")
+    return {"files": files, "results": results, "candles": n,
+            "single_equals_fetched_series": True, "launches": launches, "part_s": times}, report
+
+
+def research_report(tmp, out, report):
+    """(a)'s end: `cli report`'s summary counts two runs with the best
+    Sharpe's file as `best_run`, and its HTML is written."""
+    import os
+
+    rc, text, err, out["part_s"]["report_subprocess_s"] = report.finish()
+    if rc != 0:
+        fail(f"research: cli report exited {rc}: {err[-500:]}")
+    summary = json.loads(text[:text.rindex("}") + 1])
+    files, results = out["files"], out.pop("results")
+    best = max(files, key=lambda k: results[k]["sharpe_ratio"])
+    html_path = os.path.join(tmp, "report.html")
+    html = open(html_path).read() if os.path.exists(html_path) else ""
+    if summary["n_runs"] != 2 or summary["best_run"] != files[best] or \
+            "wrote report.html" not in text or "<h2>Backtest report</h2>" not in html or \
+            ("equity_curve" in results[best]) != ("<svg" in html):
+        fail(f"research: cli report printed {summary} (best {files[best]}), "
+             f"HTML of {len(html)} bytes")
+    out["part_s"]["workflow_s"] = sum(out["part_s"].values())
+    out.update({"best_run": summary["best_run"], "n_runs": summary["n_runs"],
+                "summary": summary, "html_bytes": len(html)})
+    return out
+
+
+def research_queue():
+    """(b) RES_SYMBOLS × RES_PARAMS jobs, each one strategy over a 30-day
+    1m series (T = RES_T), through `BacktestQueue` on the card with a port
+    `EventBus`: K1 and K2 launches counted (one K1 launch a job); every
+    record's metrics equal to a direct `compute_metrics(evolvable_backtest
+    (...))` on the card, bit for bit; 16 publications in job order; the
+    first job's K1 launch held bit for bit against the plain loop over its
+    whole series (graph-replayed) and its K2 launches held against the plain
+    EWMA; ms a job and the queue latencies (the store's wall clock)."""
+    import asyncio
+    import math
+
+    import torch
+
+    from ai_crypto_trader_tpu_torch.backtest import compute_metrics, default_params, sample_params
+    from ai_crypto_trader_tpu_torch.backtest.evolvable import evolvable_backtest
+    from ai_crypto_trader_tpu_torch.backtest.queue import BacktestQueue
+    from ai_crypto_trader_tpu_torch.data import generate_ohlcv
+    from ai_crypto_trader_tpu_torch.ops import dynamic
+    from ai_crypto_trader_tpu_torch.ops.ewma import fused_ewma
+    from ai_crypto_trader_tpu_torch.ops.replay import sweep_kernel
+    from ai_crypto_trader_tpu_torch.shell import EventBus
+
+    symbols = [f"R{i:02d}USDC" for i in range(RES_SYMBOLS)]
+    series = {s: {k: v for k, v in generate_ohlcv(n=RES_T, seed=40 + i).items()
+                  if k != "regime"} for i, s in enumerate(symbols)}
+    drawn = sample_params(torch.Generator().manual_seed(18), 1, device="cuda")
+    param_sets = [default_params(device="cuda"),
+                  drawn._replace(**{f: getattr(drawn, f)[0] for f in drawn._fields})]
+    jobs = [(f"{s}_p{j}", series[s], p) for s in symbols for j, p in enumerate(param_sets)]
+    bus = EventBus()
+    sub = bus.subscribe("backtest_results")
+    queue = BacktestQueue(bus=bus, device="cuda")
+    for name, d, p in jobs:
+        queue.add_backtest_task(d, p, name=name)
+    rec_dyn, dyn_entry = [], dynamic.fused_ewma_jobs
+
+    def dyn_recording(jobs_, device=None):
+        rec_dyn.append([(x, a, st) for x, a, st in jobs_])
+        return dyn_entry(jobs_, device=device)
+
+    sweep_kernel.launches = fused_ewma.launches = 0
+    dynamic.fused_ewma_jobs = dyn_recording
+    try:
+        with recording_ewma([]) as rec_ind, recording_k1([]) as calls:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ran = asyncio.run(queue.process_task_queue(max_tasks=1))
+            first_k2 = rec_dyn + rec_ind
+            ran += asyncio.run(queue.process_task_queue())
+            torch.cuda.synchronize()
+            drain_s = time.perf_counter() - t0
+    finally:
+        dynamic.fused_ewma_jobs = dyn_entry
+    k1_launches, k2_launches = sweep_kernel.launches, fused_ewma.launches
+    if ran != len(jobs) or queue.pending or k1_launches != len(jobs) or \
+            len(calls) != len(jobs) or k2_launches != len(rec_dyn) + len(rec_ind) or \
+            not first_k2:
+        fail(f"research: the queue ran {ran} of {len(jobs)} jobs with {k1_launches} K1 and "
+             f"{k2_launches} K2 launches ({len(rec_dyn) + len(rec_ind)} recorded)")
+    envelopes = [sub.get_nowait() for _ in range(sub.qsize())]
+    if [e["data"]["id"] for e in envelopes] != [j[0] for j in jobs]:
+        fail(f"research: the bus carried {[e['data']['id'] for e in envelopes]}")
+    t0 = time.perf_counter()
+    for name, d, p in jobs:
+        m = compute_metrics(evolvable_backtest(d, p, device="cuda"), device="cuda")
+        vals = torch.stack([v.reshape(()).to(torch.float64) for v in m.values()]).cpu().tolist()
+        got = queue.get_result(name)["metrics"]
+        if list(got) != list(m) or any(
+                not (a == b or (math.isnan(a) and math.isnan(b)))
+                for a, b in zip(got.values(), vals)):
+            fail(f"research: job {name}'s metrics differ from a direct run on the card")
+    direct_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    k1 = held_k1(calls[:1], "research_queue_job0")
+    k2 = recorded_k2(first_k2, "research_queue_job0")
+    held_s = time.perf_counter() - t0
+    bounds = [replay_rows_bound_ms(out, i, kw["warmup"]) for i, _, kw, out in calls]
+    all_ms = cuda_ms(lambda: [sweep_kernel(i, p, **kw) for i, p, kw, _ in calls], 3)
+    lat = [queue.get_result(j[0])["queue_latency_s"] for j in jobs]
+    trades = [queue.get_result(j[0])["metrics"]["total_trades"] for j in jobs]
+    return {"jobs": len(jobs), "symbols": RES_SYMBOLS, "param_sets": RES_PARAMS, "T": RES_T,
+            "drain_s": drain_s, "ms_per_job": 1e3 * drain_s / len(jobs),
+            "queue_latency_s": {"first": lat[0], "p50": percentile(lat, 50), "last": lat[-1]},
+            "k1_launches": k1_launches, "k2_launches": k2_launches,
+            "k2_launches_per_job": k2_launches / len(jobs), "trades": trades,
+            "metrics_equal_direct": True, "direct_s": direct_s, "held_s": held_s,
+            "k1": {**k1, "all_launches_ms": all_ms,
+                   "all_bound_ms": sum(b[0] for b in bounds)},
+            "k2": {k: v for k, v in k2.items() if k != "launch_shapes"}}
+
+
+def research_forest(cpu_proc):
+    """(c) The analyzer at the reference's defaults on the card: the fit's
+    host time and the permutation importance's ms (one batched prediction,
+    one read; timed again warm) beside the reference's loop order (571
+    `predict` calls on the card, each with its read), the two equal; the
+    CPU run of the same model (``cpu_proc``, started at the phase's start)
+    equal in every importance, the same trees, probabilities within
+    RES_PROBA_ATOL on held-out rows and the same predictions; the two
+    drivers ranked first."""
+    import numpy as np
+    import torch
+
+    az, trades, xh, parts = research_forest_fit("cuda")
+    X, y = az._xy(trades)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = az._permutation_importance(az.model, X, y)
+    warm_ms = 1e3 * (time.perf_counter() - t0)
+    if again != az.importances["permutation"]:
+        fail("research: the permutation importance changed between two runs on the card")
+    rng = np.random.default_rng(az.seed)
+    calls = [0]
+
+    def predict(xp):
+        calls[0] += 1
+        return az.model.predict(xp)
+
+    t0 = time.perf_counter()
+    base = (predict(X) == y).mean()
+    loop = {}
+    for j, f in enumerate(az.feature_names):
+        drops = []
+        for _ in range(az.n_permutation_repeats):
+            xp = X.copy()
+            xp[:, j] = rng.permutation(xp[:, j])
+            drops.append(base - (predict(xp) == y).mean())
+        loop[f] = float(max(np.mean(drops), 0.0))
+    loop_ms = 1e3 * (time.perf_counter() - t0)
+    if loop != az.importances["permutation"]:
+        fail("research: the batched permutation importance differs from the reference loop")
+    keep = [az.feature_names.index(f) for f in az.kept_features]
+    proba, pruned = az.model.predict_proba(xh), az.pruned_model.predict_proba(xh[:, keep])
+    rc, out, err, cpu_s = cpu_proc.finish()
+    if rc != 0:
+        fail(f"research: the CPU run exited {rc}: {err[-800:]}")
+    cpu = json.loads(out.strip().splitlines()[-1])
+    if cpu["digest"] != forest_digest(az.model) or \
+            cpu["pruned_digest"] != forest_digest(az.pruned_model):
+        fail("research: the CPU run fitted other trees")
+    if json.loads(json.dumps(az.importances)) != cpu["importances"] or \
+            cpu["kept"] != az.kept_features:
+        fail("research: the importances on the card differ from the CPU run's")
+    errs = []
+    for got, ref in ((proba, cpu["proba"]), (pruned, cpu["pruned_proba"])):
+        ref = np.asarray(ref)
+        errs.append(float(np.abs(got - ref).max()))
+        if errs[-1] > RES_PROBA_ATOL or not np.array_equal(got.argmax(1), ref.argmax(1)):
+            fail(f"research: predict_proba on the card differs from the CPU's by {errs[-1]}")
+    ranked = sorted(az.importances["combined"], key=az.importances["combined"].get,
+                    reverse=True)
+    if sorted(ranked[:2]) != sorted(RES_DRIVERS):
+        fail(f"research: the forest ranks {ranked[:4]} first, not {RES_DRIVERS}")
+    return az, {"trades": RES_TRADES, "features": len(az.feature_names),
+                "trees": az.n_trees, "repeats": az.n_permutation_repeats,
+                "fit_s": parts["fit_s"], "forest_fit_s": parts["forest_fit_s"],
+                "permutation_ms": parts["permutation_ms"][0], "permutation_warm_ms": warm_ms,
+                "permutation_rows": X.shape[0] * (X.shape[1] * az.n_permutation_repeats + 1),
+                "forest_depth": az.model.depth,
+                "reference_loop_ms": loop_ms, "reference_loop_predict_calls": calls[0],
+                "kept_features": az.kept_features, "ranked": ranked[:4],
+                "groups": az.importances["groups"],
+                "recommendations": az.importances["recommendations"],
+                "importances_equal_cpu": True, "proba_max_abs_err": max(errs),
+                "cpu_parts": cpu["parts"], "cpu_subprocess_s": cpu_s}
+
+
+def research_gate(az):
+    """(d) `SignalAnalyzer.run_once` over phase live's tape (64 × 4 × 256)
+    for RES_GATE_TICKS ticks from phase live's first BUY tick, on the card,
+    with a `FeatureImportanceIntegrator` over the fitted analyzer as its
+    outcome gate; the port's CPU analyzer with the same model on the CPU
+    over the same market updates: the same signals (probabilities within
+    RES_PROBA_ATOL); the gate's ms a call."""
+    import asyncio
+    import copy
+
+    from ai_crypto_trader_tpu_torch.shell import EventBus, LLMTrader, SignalAnalyzer
+    from ai_crypto_trader_tpu_torch.strategy import FeatureImportanceIntegrator
+
+    def integrator(analyzer):
+        integ = FeatureImportanceIntegrator()
+        integ.update_from_analyzer(analyzer)
+        return integ
+
+    card = integrator(az)
+    call_ms = []
+    real = card.predict_trade_outcome
+
+    def timed_predict(features):
+        t0 = time.perf_counter()
+        out = real(features)
+        call_ms.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    card.predict_trade_outcome = timed_predict
+    tape = TickTape(S_TICK, T_TICK)
+    rig = LiveRig(tape, "cuda", tape.n - 48 + 3, executor=False)
+    rig.analyzer.outcome_model = card
+    rig.analyzer._queue()                     # subscribed before the first poll
+    updates, card_signals, clocks = [], [], []
+    for _ in range(RES_GATE_TICKS):
+        rig.advance()
+        rig.poll()
+        updates.append([rig.updates.get_nowait()["data"] for _ in range(rig.updates.qsize())])
+        clocks.append(rig.clock[0])
+        asyncio.run(rig.analyzer.run_once())
+        card_signals.append([rig.signals.get_nowait()["data"]
+                             for _ in range(rig.signals.qsize())])
+    az_cpu = copy.copy(az)
+    az_cpu.device, az_cpu.model, az_cpu.pruned_model = \
+        "cpu", az.model.to("cpu"), az.pruned_model.to("cpu")
+    clock = [0.0]
+    bus = EventBus(now_fn=lambda: clock[0])
+    sig = bus.subscribe("trading_signals")
+    ana = SignalAnalyzer(bus, trader=LLMTrader(model_version="chip_smoke"),
+                         now_fn=lambda: clock[0], outcome_model=integrator(az_cpu))
+    ana._queue()
+    cpu_signals = []
+    for t, ups in enumerate(updates):
+        clock[0] = clocks[t]
+
+        async def publish(ups=ups):
+            for u in ups:
+                await bus.publish("market_updates", u)
+
+        asyncio.run(publish())
+        asyncio.run(ana.run_once())
+        cpu_signals.append([sig.get_nowait()["data"] for _ in range(sig.qsize())])
+    worst, vetoed, passed, probs = 0.0, 0, 0, []
+    for t, (a, b) in enumerate(zip(card_signals, cpu_signals)):
+        if [(s["symbol"], s["decision"]) for s in a] != [(s["symbol"], s["decision"]) for s in b]:
+            fail(f"research: the gated decisions of tick {t} differ card vs CPU")
+        for sa, sb in zip(a, b):
+            pa, pb = sa.pop("success_probability", None), sb.pop("success_probability", None)
+            if (pa is None) != (pb is None):
+                fail(f"research: the gate was consulted on one side only ({sa['symbol']})")
+            if pa is not None:
+                probs.append(pa)
+                worst = max(worst, abs(pa - pb))
+                vetoed += "outcome gate" in sa["reasoning"]
+                passed += sa["decision"] == "BUY"
+            sa.pop("reasoning"), sb.pop("reasoning")
+            if sa != sb:
+                fail(f"research: tick {t}'s signal for {sa['symbol']} differs card vs CPU")
+    if not call_ms or worst > RES_PROBA_ATOL:
+        fail(f"research: {len(call_ms)} gate calls, probabilities apart by {worst}")
+    return {"ticks": RES_GATE_TICKS, "updates": sum(len(u) for u in updates),
+            "signals": sum(len(s) for s in card_signals), "gate_calls": len(call_ms),
+            "vetoed": vetoed, "passed": passed,
+            "success_probability": {"min": min(probs), "p50": percentile(probs, 50),
+                                    "max": max(probs)},
+            "predict_ms": {"p50": percentile(call_ms, 50), "p99": percentile(call_ms, 99)},
+            "probability_max_abs_err": worst, "decisions_equal_cpu": True}
+
+
+def phase_research(info):
+    """The research shell on the card: (a) `cli fetch` → `cli backtest` →
+    `cli list` / `analyze` / `report` (`research_cli`, `research_report`);
+    (b) the backtest queue (`research_queue`); (c) the trade-outcome forest
+    at the reference's defaults (`research_forest`); (d) the integrator as
+    the live path's outcome gate (`research_gate`).  The CPU run of (c),
+    `cli fetch` and `cli report` are subprocesses that run beside the
+    card's work: the first two from the phase's start, the report from the
+    end of (a)'s in-process commands.  Returns the kernels line's entries:
+    (K2 block, K1 block)."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    root, _ = research_env()
+    times, running = {}, []
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            running.append(Beside([sys.executable, "-c",
+                                   "import chip_smoke; chip_smoke.research_forest_cpu()"], root))
+            running.append(Beside(research_cli_argv("fetch", "--days", str(RES_FETCH_DAYS),
+                                                    "--seed", str(RES_FETCH_SEED)), tmp))
+            cpu_proc, fetch = running
+            t0 = time.perf_counter()
+            queue = research_queue()
+            times["queue_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            cli_out, report = research_cli(tmp, fetch)
+            running.append(report)
+            times["cli_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            az, forest = research_forest(cpu_proc)
+            times["forest_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            gate = research_gate(az)
+            times["gate_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            cli_out = research_report(tmp, cli_out, report)
+            times["report_wait_s"] = time.perf_counter() - t0
+    finally:
+        for b in running:
+            b.stop()
+    k1, k2 = queue["k1"], queue["k2"]
+    emit({"phase": "research", "card": info["nvidia_smi"], "cli": cli_out, "queue": queue,
+          "forest": forest, "gate": gate, "part_s": times,
+          "phase_s": time.perf_counter() - t_phase})
+    cli_launches = cli_out["launches"]
+    return ({"launches": queue["k2_launches"] + cli_launches["fused_ewma"],
+             "launches_by_path": {"queue": queue["k2_launches"],
+                                  "cli_backtest": cli_launches["fused_ewma"]},
+             "launches_held": len(k2["ms_per_launch"]),
+             **{k: k2[k] for k in ("ms", "ms_per_launch", "plain_ms", "bound_ms", "bound_by",
+                                   "max_abs_err", "max_rel_err")},
+             "library_ms": None,
+             "shape": f"one queue job's launches at T={RES_T} (ms/plain/bound)"},
+            {"launches": queue["k1_launches"] + cli_launches["replay_sweep"],
+             "launches_by_path": {"queue": queue["k1_launches"],
+                                  "cli_backtest": cli_launches["replay_sweep"]},
+             **{k: k1[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+                                   "trades", "shapes", "all_launches_ms", "all_bound_ms")},
+             "library_ms": None,
+             "shape_note": f"ms/plain/bound: the first job's launch, B=1 x T={RES_T}, "
+                           f"against the graph-replayed plain loop; all_launches_ms: the "
+                           f"queue's {queue['k1_launches']} launches"})
 
 
 PHASE_S = {}              # every phase's seconds, in order
@@ -8177,6 +8849,7 @@ def main():
     stack_k2, stack_k1 = timed_phase("stack", phase_stack, info)
     stream = timed_phase("stream", phase_stream, info, trade["tick_ms_p50"])
     serve_k2, serve_k1 = timed_phase("serve", phase_serve, info, d)
+    research_k2, research_k1 = timed_phase("research", phase_research, info)
     emit({"script_s": time.perf_counter() - t_script, "phase_s": PHASE_S})
     bound_ms, bound_by, stepped_bound_ms = replay_bound_ms(stats, B_FULL, T_FULL)
     checks += full
@@ -8208,6 +8881,7 @@ def main():
          "stack": stack_k2,
          "stream": stream,
          "serve": serve_k2,
+         "research": research_k2,
          "shape": "the two launches of compute_indicators at T=525600, summed "
                   "(A: close K=2 + up/dn/tr K=1; B: MACD line K=1)"},
         {"name": "replay_sweep", "route": "cuda",
@@ -8239,6 +8913,7 @@ def main():
          "strategy": strat_k1,
          "stack": stack_k1,
          "serve": serve_k1,
+         "research": research_k1,
          "shape": f"B={B_FULL} x T={T_FULL}",
          "plain": "the engine's loop, 32 candles a CUDA graph"},
     ]

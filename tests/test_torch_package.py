@@ -6,6 +6,7 @@ ai_crypto_trader_tpu (the `_torch` package itself aside) — and runs on the
 CUDA card unless called with device="cpu".  These tests run on the CPU.
 """
 
+import asyncio
 import os
 import subprocess
 import sys
@@ -74,6 +75,9 @@ from ai_crypto_trader_tpu_torch.strategy.generator import (
 from ai_crypto_trader_tpu_torch.shell.stream import MarketStream, StreamSupervisor
 from ai_crypto_trader_tpu_torch.testing.loadgen import (
     LoadConfig, SyntheticTenantTraffic, ramp, run_load)
+from ai_crypto_trader_tpu_torch.backtest.queue import BacktestQueue
+from ai_crypto_trader_tpu_torch.models.trade_importance import TradeOutcomeAnalyzer
+from ai_crypto_trader_tpu_torch.strategy import FeatureImportanceIntegrator
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -114,7 +118,8 @@ expected = {"config", "ops.dynamic", "backtest.evolvable", "evolve", "evolve.ga"
             "strategy.grid", "strategy.dca", "strategy.grid_live", "strategy.arbitrage",
             "shell.stack", "shell.stream", "testing", "testing.chaos", "testing.loadgen",
             "utils.meshprof", "utils.profiling", "utils.aotcache", "utils.cache",
-            "shell.dashboard_server"}
+            "shell.dashboard_server", "backtest.queue", "backtest.results",
+            "models.trade_importance", "strategy.integration", "utils.api_security"}
 missing = sorted(e for e in expected if pkg.__name__ + "." + e not in names)
 print(missing)
 from ai_crypto_trader_tpu_torch import obs, utils
@@ -133,7 +138,8 @@ exports = {"obs": {"DRIFT_FEATURES", "N_BINS", "PSI_ALERT_THRESHOLD", "reference
                         "StrategySelector", "StrategyEvolver", "ModelRegistry",
                         "explain_signal", "GeneratorService", "StrategyGenerator",
                         "StrategyStructure", "GridTrader", "DCAService",
-                        "GridTraderService", "DCAStrategy", "find_triangle_arbitrage"},
+                        "GridTraderService", "DCAStrategy", "find_triangle_arbitrage",
+                        "FeatureImportanceIntegrator"},
            "social": {"adaptive_source_weights", "detect_anomalies", "fit_anomaly_model",
                       "lead_lag_correlation", "normalize_metrics", "sentiment_accuracy",
                       "NewsAnalyzer", "NewsService", "deterministic_news_provider",
@@ -179,11 +185,21 @@ with tempfile.TemporaryDirectory() as tmp:
     cli.main(["mesh", "--pop", "10"])
     cli.main(["status"])
     cli.main(["mc", "--device", "cpu", "--paths", "16", "--days", "2"])
+    import os
+    here = os.getcwd()
+    os.chdir(tmp)
+    try:
+        cli.main(["fetch", "--days", "1"])
+        cli.main(["backtest", "--device", "cpu", "--days", "1"])
+        cli.main(["list"])
+        cli.main(["report", "--out", "report.html"])
+    finally:
+        os.chdir(here)
 bad += sorted(m for m in sys.modules
               if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
               or re.match(r"ai_crypto_trader_tpu(?!_torch)(\.|$)", m))
 print(bad)
-sys.exit(1 if bad or missing or len(names) < 125 else 0)
+sys.exit(1 if bad or missing or len(names) < 130 else 0)
 """
 
 
@@ -373,7 +389,28 @@ _ENTRY_POINTS = {
                                        "--ticks", "1"]),
     "cli_fleet": lambda: port_cli.main(["fleet", "--tenants", "1", "--symbols", "1",
                                         "--ticks", "1"]),
+    "BacktestQueue.process_task_queue": lambda: asyncio.run(
+        _queued(BacktestQueue()).process_task_queue()),
+    "TradeOutcomeAnalyzer.fit": lambda: TradeOutcomeAnalyzer(n_trees=2).fit(_TRADES),
+    "TradeOutcomeAnalyzer.predict_trade_outcome": lambda: TradeOutcomeAnalyzer()
+    .predict_trade_outcome({"rsi": 50.0}),
+    "FeatureImportanceIntegrator.predict_trade_outcome": lambda: FeatureImportanceIntegrator(
+        analyzer=TradeOutcomeAnalyzer()).predict_trade_outcome({"rsi": 50.0}),
 }
+
+_TRADES = [{"features": {"rsi": float(r), "macd": float(m)}, "pnl": 1.0 if r > 50 else -1.0}
+           for r, m in zip(np.linspace(10, 90, 24), np.cos(np.arange(24)))]
+
+
+def _queued(queue):
+    queue.add_backtest_task(_small())
+    return queue
+
+
+def _fitted_on_the_cpu():
+    az = TradeOutcomeAnalyzer(n_trees=4, n_permutation_repeats=2, device="cpu")
+    az.fit(_TRADES)
+    return az
 
 _TICKERS = {"BTCUSDC": {"bid": 100.0, "ask": 100.0}, "ETHUSDC": {"bid": 10.1, "ask": 10.1},
             "ETHBTC": {"bid": 0.1, "ask": 0.1}}
@@ -431,6 +468,21 @@ _CPU_RUNS = {
                                 device="cpu")),
         lambda out: [s["tenants"] for s in out["steps"]] == [1, 2]
         and out["max_sustainable"]["tenants"] == 2),
+    "BacktestQueue.process_task_queue": (
+        lambda: (lambda q: (asyncio.run(q.process_task_queue()), q.get_result("bt_1")))(
+            _queued(BacktestQueue(device="cpu"))),
+        lambda out: out[0] == 1 and out[1]["metrics"]["initial_balance"] == 10_000.0),
+    "TradeOutcomeAnalyzer.fit": (
+        lambda: _fitted_on_the_cpu(),
+        lambda az: az.model.device == torch.device("cpu")
+        and az.kept_features and set(az.importances["permutation"]) == {"macd", "rsi"}),
+    "TradeOutcomeAnalyzer.predict_trade_outcome": (
+        lambda: _fitted_on_the_cpu().predict_trade_outcome({"rsi": 80.0, "macd": 0.0}),
+        lambda out: out["status"] == "success" and out["prediction"] == "win"),
+    "FeatureImportanceIntegrator.predict_trade_outcome": (
+        lambda: FeatureImportanceIntegrator(analyzer=_fitted_on_the_cpu())
+        .predict_trade_outcome({"rsi": 20.0, "macd": 0.0}),
+        lambda out: out["status"] == "success" and out["prediction"] == "loss"),
 }
 
 
@@ -582,9 +634,8 @@ def test_new_entry_points_run_on_the_cpu(entry):
 
 @pytest.mark.parametrize("package", ["social", "strategy"])
 def test_package_exports_are_the_jax_package_exports(package):
-    """The port's `social` and `strategy` packages export the JAX
-    package's names, but `FeatureImportanceIntegrator` (its
-    `strategy.integration` module is not ported yet)."""
+    """The port's `social` and `strategy` packages export exactly the JAX
+    package's names."""
     import importlib
     import inspect
 
@@ -594,7 +645,49 @@ def test_package_exports_are_the_jax_package_exports(package):
 
     ref = public(importlib.import_module(f"ai_crypto_trader_tpu.{package}"))
     got = public(importlib.import_module(f"ai_crypto_trader_tpu_torch.{package}"))
-    assert got == ref - {"FeatureImportanceIntegrator"}
+    assert got == ref
+
+
+def test_cli_subcommands_are_the_jax_clis():
+    """The port's CLI has exactly the JAX CLI's 21 subcommands."""
+    import argparse
+
+    from ai_crypto_trader_tpu import cli as jax_cli
+
+    def commands(parser):
+        sub = next(a for a in parser._actions if isinstance(a, argparse._SubParsersAction))
+        return set(sub.choices)
+
+    ref = commands(jax_cli.build_parser())
+    assert commands(port_cli.build_parser()) == ref and len(ref) == 21
+
+
+def test_no_port_module_names_sklearn():
+    """The port fits its own forest: no module of it, and not chip_smoke.py,
+    names `sklearn` in its code — no import, lazy or not, and no module
+    name handed to an importer (prose in docstrings and comments aside)."""
+    import ast
+
+    paths = [os.path.join(ROOT, "chip_smoke.py")] + [
+        os.path.join(d, f) for d, _, files in os.walk(os.path.join(ROOT, "ai_crypto_trader_tpu_torch"))
+        for f in files if f.endswith(".py")]
+
+    def names_sklearn(path):
+        for node in ast.walk(ast.parse(open(path, encoding="utf-8").read())):
+            if isinstance(node, ast.Import) and any(
+                    a.name.split(".")[0] == "sklearn" for a in node.names):
+                return True
+            if isinstance(node, ast.ImportFrom) and (node.module or "").split(".")[0] == "sklearn":
+                return True
+            if isinstance(node, ast.Name) and node.id == "sklearn":
+                return True
+            if isinstance(node, ast.Constant) and isinstance(node.value, str) and \
+                    node.value.split(".")[0] == "sklearn":
+                return True
+        return False
+
+    named = [p for p in paths if names_sklearn(p)]
+    assert len(paths) > 130 and named == []
 
 
 def test_compute_metrics_default_device_raises(no_cuda):
