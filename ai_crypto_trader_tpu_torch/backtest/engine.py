@@ -32,7 +32,7 @@ import torch
 from ai_crypto_trader_tpu_torch.backtest import signals as sig
 from ai_crypto_trader_tpu_torch.backtest.strategy import StrategyParams
 from ai_crypto_trader_tpu_torch.device import resolve_device, to_device
-from ai_crypto_trader_tpu_torch.parallel.partitioner import require_single
+from ai_crypto_trader_tpu_torch.parallel.partitioner import resolve_partitioner
 from ai_crypto_trader_tpu_torch.utils import devprof, meshprof, tracing
 
 
@@ -437,7 +437,8 @@ def sweep(inputs: BacktestInputs, params: StrategyParams, *args, **kw):
     return _traced_entry(
         "backtest.sweep",
         lambda: {"candles": int(inputs.close.shape[-1]),
-                 "population": int(params.stop_loss.shape[0]), "devices": 1},
+                 "population": int(params.stop_loss.shape[0]),
+                 "devices": getattr(kw.get("partitioner"), "device_count", 1)},
         call)
 
 
@@ -463,18 +464,30 @@ def _sweep(inputs: BacktestInputs, params: StrategyParams,
 
     ``unroll`` is accepted for the JAX package's signature and ignored: it
     unrolls a `lax.scan`, and the kernel walks from event to event, with
-    nothing to unroll.  ``partitioner`` is None or the single-device seam
-    (`parallel.get_partitioner()`); a population split over several cards
-    is not ported yet and raises (ROADMAP item 15)."""
+    nothing to unroll.  ``partitioner`` (None: the single device) is the
+    population seam: a `parallel.MeshPartitioner` splits the strategies
+    over its mesh (the ``population_sweep`` program; a ragged population
+    pads by repeating its last strategy), each shard's strategies replay
+    on its device over the candles copied there once — on CUDA one kernel
+    launch a shard — and the results are gathered onto the mesh's first
+    device, equal to the single device's bit for bit."""
     del unroll
-    require_single(partitioner)
-    dev = resolve_device(device)
-    inputs = _on(inputs, dev)
-    params = _on(params, dev)
+    part = resolve_partitioner(partitioner)
     kw = dict(initial_balance=initial_balance,
               ai_confidence_threshold=ai_confidence_threshold,
               min_signal_strength=min_signal_strength, warmup=warmup,
               return_curve=return_curve)
+    if part.device_count > 1:
+        program = part.population_eval(
+            lambda p, i: _sweep_on(i, p, p.stop_loss.device, reference_quirks, kw),
+            name="population_sweep")
+        return program(_on(params, part.home), _on(inputs, part.home))
+    dev = resolve_device(device)
+    return _sweep_on(_on(inputs, dev), _on(params, dev), dev, reference_quirks, kw)
+
+
+def _sweep_on(inputs, params, dev, reference_quirks, kw):
+    """One device's sweep: the kernel on CUDA, the plain loop on the CPU."""
     if dev.type == "cuda":
         # imported here: ops.replay imports this module
         from ai_crypto_trader_tpu_torch.ops.replay import sweep_kernel

@@ -256,6 +256,15 @@ def cmd_train(args):
                       "confidence": pred["confidence"]}, indent=2))
 
 
+def _partitioner(dev):
+    """The population seam of a card command: on CUDA `get_partitioner()`
+    (a mesh of every visible card when there are several); on the CPU the
+    single device."""
+    from ai_crypto_trader_tpu_torch.parallel import SingleDevicePartitioner, get_partitioner
+
+    return get_partitioner() if dev.type == "cuda" else SingleDevicePartitioner()
+
+
 def cmd_evolve(args):
     from ai_crypto_trader_tpu_torch import resolve_device
     from ai_crypto_trader_tpu_torch.backtest import default_params
@@ -265,10 +274,13 @@ def cmd_evolve(args):
     dev = resolve_device(args.device)
     d = _load_or_generate(args.symbol, args.days * 1440, args.seed)
     cfg = GAParams(population_size=args.population, generations=args.generations)
+    partitioner = _partitioner(dev)
     best, hist = run_ga(torch.Generator(device=dev).manual_seed(args.seed),
                         backtest_fitness(d, device=dev), cfg,
-                        seed_params=default_params(device=dev), device=dev)
-    print(json.dumps({"history": hist, "devices": 1, "device": dev.type,
+                        seed_params=default_params(device=dev), partitioner=partitioner,
+                        device=dev)
+    print(json.dumps({"history": hist,
+                      "devices": getattr(partitioner, "device_count", 1), "device": dev.type,
                       "best_params": {k: float(v) for k, v in
                                       best._asdict().items()}}, indent=2))
 
@@ -279,7 +291,6 @@ def cmd_rl(args):
     fleet, ``--resume`` continues from the newest intact checkpoint and
     ``--registry`` gates the winner into a model registry."""
     from ai_crypto_trader_tpu_torch import resolve_device
-    from ai_crypto_trader_tpu_torch.parallel import get_partitioner
     from ai_crypto_trader_tpu_torch.rl import (
         DQNConfig, PBTConfig, adopt_winner, obs_size, pbt_env_params, train_pbt)
 
@@ -292,7 +303,7 @@ def cmd_rl(args):
                     replay_capacity=2048, batch_size=32)
     pcfg = PBTConfig(population=args.population, generations=args.generations,
                      iters_per_generation=args.iters)
-    partitioner = get_partitioner()
+    partitioner = _partitioner(dev)
 
     # --resume: the fleet and its draw streams from the newest intact
     # checkpoint, on the absolute generation counter — the run goes on as
@@ -380,7 +391,6 @@ def cmd_generate(args):
     import asyncio
 
     from ai_crypto_trader_tpu_torch import resolve_device
-    from ai_crypto_trader_tpu_torch.parallel import get_partitioner
     from ai_crypto_trader_tpu_torch.strategy.generator import StrategyGenerator
     from ai_crypto_trader_tpu_torch.strategy.registry import ModelRegistry
 
@@ -389,7 +399,7 @@ def cmd_generate(args):
     reg = ModelRegistry(path=args.registry)
     gen = StrategyGenerator(registry=reg, cv_folds=args.folds,
                             pool_size=args.pool, max_rounds=args.rounds,
-                            seed=args.seed, partitioner=get_partitioner(), device=dev)
+                            seed=args.seed, partitioner=_partitioner(dev), device=dev)
     out = asyncio.run(gen.generate(d))
 
     def finite(x):

@@ -251,14 +251,15 @@ def model_from_flax(model_type: str, params, model_kwargs: dict | None = None, *
 
 
 def long_context_from_flax(params, *, features: int, d_model: int = 64, num_heads: int = 4,
-                           num_blocks: int = 2, ff_dim: int = 128,
+                           num_blocks: int = 2, ff_dim: int = 128, mesh=None,
                            device=None) -> LongContextTransformer:
     """A flax parameter tree of the JAX package's `LongContextTransformer`
     (as its ``init`` gives it, leaves anything NumPy takes) over
     ``features`` input columns → the port's `LongContextTransformer` of the
-    same widths holding those weights, on ``device``."""
+    same widths holding those weights, on ``device``; with ``mesh`` (a
+    `parallel.mesh.Mesh`) its attention is the ring over it."""
     dev = resolve_device(device)
-    model = LongContextTransformer(features, d_model, num_heads, num_blocks, ff_dim,
+    model = LongContextTransformer(features, d_model, num_heads, num_blocks, ff_dim, mesh,
                                    device="cpu")
     model.load_state_dict(state_from_flax(model, params))
     return model.to(dev)

@@ -12,10 +12,15 @@ JAX package vmaps), history stays on the device, and one `host_read` at the
 end brings the results back — the port's counterpart of the JAX package's
 one compiled scan.  `run_ga_legacy` reads the history every generation, as
 its JAX counterpart does.  `run_ga` takes the JAX package's ``partitioner``
-keyword: None or the single-device seam (on one card the population is one
-batch); a mesh of several cards raises (ROADMAP item 15).  The population's
-fitness goes through the seam's ``population_eval(name="ga_scan")``, which
-records its layout card with `utils.meshprof` active; with `utils.devprof`
+keyword (None: the single device, the population one batch).  The
+population's fitness goes through the seam's
+``population_eval(name="ga_scan")``: a `parallel.MeshPartitioner` splits
+the genomes over its mesh after the generation's draws were made for the
+whole population, so every shard evaluates exactly the single device's
+rows (a fitness from `backtest_fitness` has its candles and tables copied
+once to each device of the mesh; any other callable is called on each
+shard's rows where they lie).  The layout card is recorded with
+`utils.meshprof` active; with `utils.devprof`
 active the first run takes the ``ga_scan`` cost card, and the run through
 its one `host_read` is a ``ga_scan`` watch window.
 
@@ -59,7 +64,7 @@ from ai_crypto_trader_tpu_torch.backtest.strategy import (
 from ai_crypto_trader_tpu_torch.config import GAParams
 from ai_crypto_trader_tpu_torch.device import resolve_device, to_device
 from ai_crypto_trader_tpu_torch.evolve.selection import tournament
-from ai_crypto_trader_tpu_torch.parallel.partitioner import require_single
+from ai_crypto_trader_tpu_torch.parallel.partitioner import resolve_partitioner
 from ai_crypto_trader_tpu_torch.utils import devprof, meshprof
 
 _SQRT2 = float(np.sqrt(np.float32(2.0), dtype=np.float32))
@@ -118,21 +123,31 @@ def backtest_fitness(ohlcv: dict, *, min_sharpe_weight: float = 1.0,
     window are built once, here (the fused-EWMA kernel's launches), and
     every evaluation gathers rows from them and replays the population
     through the replay kernel's rows form.  The direct per-genome path,
-    the parity oracle, is `population_backtest` without tables."""
+    the parity oracle, is `population_backtest` without tables.
+
+    ``fitness.core(p, arrays, tables)`` is the same function of the
+    candles and tables it is handed, on ``p``'s device, and
+    ``fitness.replicated`` those two: the partitioner seam copies them to
+    each device of a mesh."""
     dev = resolve_device(device)
     arrays = {k: to_device(v, dev, torch.float32) for k, v in ohlcv.items() if k != "regime"}
     tbl = build_indicator_tables(arrays, device=dev)
 
-    def fitness(p: StrategyParams) -> torch.Tensor:
-        stats = evolvable_fused_backtest(arrays, p, tbl, device=dev)
-        m = compute_metrics(stats, device=dev)
+    def core(p: StrategyParams, arrays: dict, tbl) -> torch.Tensor:
+        on = p.stop_loss.device
+        stats = evolvable_fused_backtest(arrays, p, tbl, device=on)
+        m = compute_metrics(stats, device=on)
         dd_pen = torch.clamp_min(m["max_drawdown_pct"] - drawdown_limit, 0.0) * 0.05
         wr_pen = torch.clamp_min(win_rate_target - m["win_rate"], 0.0) * 0.01
         no_trades = (stats.total_trades == 0).to(torch.float32)
         return (min_sharpe_weight * m["sharpe_ratio"] - dd_pen - wr_pen
                 - no_trades * 5.0)
 
+    def fitness(p: StrategyParams) -> torch.Tensor:
+        return core(p, arrays, tbl)
+
     fitness.device, fitness.tables = dev, tbl
+    fitness.core, fitness.replicated = core, (arrays, tbl)
     return fitness
 
 
@@ -239,6 +254,16 @@ def _history(rows) -> list:
              "diversity": float(d)} for gen, (b, m, d) in enumerate(rows)]
 
 
+def _population_fitness(part, fitness_fn: Callable) -> Callable:
+    """params [pop] → fitness [pop] through ``part``'s ``ga_scan``
+    program: a fitness that names its replicated tensors has them copied
+    to each device of a mesh."""
+    if hasattr(fitness_fn, "core"):
+        program = part.population_eval(fitness_fn.core, name="ga_scan")
+        return lambda p: program(p, *fitness_fn.replicated)
+    return part.population_eval(fitness_fn, name="ga_scan")
+
+
 def run_ga(draws, fitness_fn: Callable, cfg: GAParams,
            seed_params: StrategyParams | None = None, partitioner=None, device=None):
     """The GA (`genetic_algorithm.py:254-291`): returns (best
@@ -249,10 +274,12 @@ def run_ga(draws, fitness_fn: Callable, cfg: GAParams,
     ``device`` (default: the CUDA card), as `backtest_fitness` builds it.
     The generations run on the device with nothing read back until the one
     `host_read` at the end.  Given the same draws it follows
-    `run_ga_legacy` genome for genome.  ``partitioner``: None or the
-    single-device seam; any other raises."""
-    part = require_single(partitioner)
-    dev = resolve_device(device)
+    `run_ga_legacy` genome for genome.  ``partitioner``: None (the single
+    device), `parallel.get_partitioner()` or a `parallel.MeshPartitioner`,
+    whose mesh splits each evaluation and gathers the fitness back onto
+    its first device; another object raises ``TypeError``."""
+    part = resolve_partitioner(partitioner)
+    dev = part.home if part.device_count > 1 else resolve_device(device)
     draws = _provider(draws)
     cold = True
     if meshprof.active() is not None:
@@ -261,7 +288,7 @@ def run_ga(draws, fitness_fn: Callable, cfg: GAParams,
         seen.add(cfg)
     # the population's fitness through the partitioner seam: its layout
     # card (population, pad) is recorded under the program's name
-    evaluate = part.population_eval(fitness_fn, name="ga_scan")
+    evaluate = _population_fitness(part, fitness_fn)
     # the ga_scan cost card on the first carded run, and a watch window
     # from the first evaluation through the one sanctioned host_read
     with meshprof.watch("ga_scan", cold=cold):

@@ -9,10 +9,16 @@ full one).  Its draws come from ``np.random.default_rng(seed)`` in the
 same order, so for equal validation losses the trial sequence is the JAX
 one.  Each trial trains through the port's `train_model`.
 
-The JAX package farms trials over a mesh's devices (``partitioner=``);
-the port takes None or the single-device seam (`parallel.
-get_partitioner()`), and trials run in turn on the one card.  A mesh of
-several cards is ROADMAP item 15.
+Trials farm over a partitioner's ``trial_devices()`` round-robin
+(``partitioner=``, as in the JAX package): trial i of the first rung, and
+survivor i of the second, runs on device i mod n, counted by
+`utils.meshprof.record_trial`.  Without a partitioner, or with the
+single-device seam, every trial runs on ``device``.  The trials share the
+draw stream in turn on every device: a trial's draws are made on the
+generator's device and moved to the trial's (the initial parameters by
+`build_model`, the permutations by `train_loop`, the dropout masks by
+`layers.dropout`), so a farm takes the same draws, in the same order, as
+one device does.
 """
 
 from __future__ import annotations
@@ -23,7 +29,7 @@ import numpy as np
 
 from ai_crypto_trader_tpu_torch.device import resolve_device
 from ai_crypto_trader_tpu_torch.models.train import train_model
-from ai_crypto_trader_tpu_torch.parallel.partitioner import require_single
+from ai_crypto_trader_tpu_torch.parallel.partitioner import resolve_partitioner
 from ai_crypto_trader_tpu_torch.utils import meshprof
 
 SEARCH_SPACE = {
@@ -164,23 +170,26 @@ def optimize_hyperparameters(
     results so far; ``"random"`` disables the surrogate.  Every trial runs
     `train_model` on ``device`` (None: the CUDA card) with its draws from
     ``generator`` (a ``torch.Generator``, or a draw provider, shared by the
-    trials in turn); ``precision`` goes to both rungs.  ``partitioner`` is
-    None or the single-device seam; any other raises (ROADMAP item 15)."""
-    devices = require_single(partitioner).trial_devices()   # [] on one card
-    dev = resolve_device(device)
+    trials in turn); ``precision`` goes to both rungs.  ``partitioner``
+    (None, a single-device seam or a `parallel.MeshPartitioner`) farms the
+    trials over its ``trial_devices()`` (module docstring)."""
+    devices = resolve_partitioner(partitioner).trial_devices()   # [] on one device
+    dev = resolve_device(device) if not devices else None
     rng = np.random.default_rng(seed)
     results = []
 
-    def run_trial(t: dict, epochs: int, patience: int):
+    def run_trial(i: int, t: dict, epochs: int, patience: int):
+        on = dev
         if devices:
+            on = devices[i % len(devices)]
             # per-device trial accounting (utils/meshprof.py)
-            meshprof.record_trial(devices[len(results) % len(devices)])
+            meshprof.record_trial(on)
         return train_model(
             generator, features, t["model_type"], seq_len=seq_len,
             units=t["units"], dropout=t["dropout"],
             learning_rate=t["learning_rate"], batch_size=t["batch_size"],
             epochs=epochs, early_stopping_patience=patience,
-            target_col=target_col, precision=precision, device=dev)
+            target_col=target_col, precision=precision, device=on)
 
     # Rung 0: short budget for everyone; TPE proposes from accumulated
     # rung-0 results once the warm-up is done.
@@ -189,7 +198,7 @@ def optimize_hyperparameters(
             t = suggest_tpe(results, rng)
         else:
             t = _sample_trial(rng)
-        r = run_trial(t, rung_epochs[0], patience=rung_epochs[0])
+        r = run_trial(i, t, rung_epochs[0], patience=rung_epochs[0])
         results.append({"trial": t, "val_loss": r.best_val_loss, "rung": 0})
 
     # Survivors graduate to the full budget; the winner is chosen among
@@ -198,9 +207,9 @@ def optimize_hyperparameters(
     order = np.argsort([r["val_loss"] for r in results])
     n_sur = max(int(np.ceil(n_trials * survivor_fraction)), 1)
     finalists = []
-    for i in order[:n_sur]:
+    for rank, i in enumerate(order[:n_sur]):
         t = results[i]["trial"]
-        r = run_trial(t, rung_epochs[-1], patience=10)
+        r = run_trial(rank, t, rung_epochs[-1], patience=10)
         rec = {"trial": t, "val_loss": r.best_val_loss, "rung": 1}
         results[i] = rec
         finalists.append(rec)

@@ -94,13 +94,13 @@ def keep_mask(shape, rate: float, generator: torch.Generator | None) -> torch.Te
 def dropout(x, rate: float, generator: torch.Generator | None, shape=None):
     """flax ``nn.Dropout(rate)`` in train mode: ``where(keep, x / keep_prob,
     0)`` with the keep mask over ``shape`` (default ``x.shape``; a shape
-    with ones broadcasts the mask) from ``generator``.  Rate 0 returns
-    ``x``, rate 1 zeros, as flax does."""
+    with ones broadcasts the mask) from ``generator``, moved to ``x``'s
+    device.  Rate 0 returns ``x``, rate 1 zeros, as flax does."""
     if rate == 0.0:
         return x
     if rate == 1.0:
         return torch.zeros_like(x)
-    keep = keep_mask(x.shape if shape is None else shape, rate, generator)
+    keep = keep_mask(x.shape if shape is None else shape, rate, generator).to(x.device)
     return torch.where(keep, div_true(x, 1.0 - rate), 0.0)
 
 
@@ -194,7 +194,7 @@ class MultiHeadDotProductAttention(nn.Module):
         if train and self.dropout_rate > 0.0:
             # flax: weights × (keep / keep_prob), one mask for every row and head
             keep = keep_mask((1, 1, T, T), self.dropout_rate, generator)
-            w = w * div_true(keep.to(w.dtype), 1.0 - self.dropout_rate)
+            w = w * div_true(keep.to(w.device, w.dtype), 1.0 - self.dropout_rate)
         a = torch.einsum("bhqk,bkhd->bqhd", w, v)
         return self.out(a.reshape(B, T, -1))
 

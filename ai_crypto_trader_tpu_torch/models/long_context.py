@@ -6,12 +6,15 @@ in (seq-to-seq, the batch axis IS the time axis), a next-step return
 prediction out at every position, so one forward pass scores the whole
 history.
 
-On one card the attention is `parallel.ring_attention.reference_attention`:
+Without a mesh the attention is `parallel.ring_attention.reference_attention`:
 dense, O(H·T²) memory — the [H, T, T] scores of the default 4 heads are
 ~4.3 GB at T = 16,384 in float32, and autograd keeps a softmax of that
-size per block for the backward.  The JAX package's ring (a mesh, the
-sequence sharded over devices) is not ported (ROADMAP item 15): ``mesh``
-must be None, and anything else raises.
+size per block for the backward.  Given a ``mesh`` (`parallel.mesh.Mesh`)
+it is `parallel.ring_attention.ring_self_attention`: the sequence split
+over the mesh's data axis, K/V blocks rotating between the shards, never
+more than one [H, T/n, T/n] block of scores at a time; the projections
+stay on the model's device, and gradients flow through the ring.  Any
+other ``mesh`` raises ``TypeError``.
 
 The modules carry flax's scope names (``Dense_0`` the input projection,
 ``LongContextBlock_i`` with ``RingSelfAttention_0``'s ``qkv`` and ``out``,
@@ -30,24 +33,27 @@ from torch.nn import functional as F
 from ai_crypto_trader_tpu_torch.device import resolve_device
 from ai_crypto_trader_tpu_torch.models.layers import Dense, LayerNorm
 from ai_crypto_trader_tpu_torch.models.zoo import _positions_on
-from ai_crypto_trader_tpu_torch.parallel.ring_attention import reference_attention
+from ai_crypto_trader_tpu_torch.parallel.mesh import Mesh
+from ai_crypto_trader_tpu_torch.parallel.ring_attention import (
+    reference_attention, ring_self_attention)
 
 
-def _single_card(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "ring attention over a mesh of several cards is not ported (ROADMAP item 15); "
-            "pass mesh=None")
+def _mesh_or_none(mesh):
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(f"{type(mesh).__name__} is not a parallel.mesh.Mesh; pass one, "
+                        "or mesh=None for dense attention")
+    return mesh
 
 
 class RingSelfAttention(nn.Module):
     """Causal multi-head self-attention over [T, d_model]: the ``qkv``
-    projection, dense attention, the ``out`` projection."""
+    projection, dense attention (or the ring over ``mesh``), the ``out``
+    projection."""
 
     def __init__(self, d_model: int, num_heads: int, mesh=None, *,
                  generator: torch.Generator):
         super().__init__()
-        _single_card(mesh)
+        self.mesh = _mesh_or_none(mesh)
         self.num_heads = num_heads
         self.qkv = Dense(d_model, 3 * d_model, generator)
         self.out = Dense(d_model, d_model, generator)
@@ -56,7 +62,11 @@ class RingSelfAttention(nn.Module):
         T, d = x.shape
         q, k, v = (a.reshape(T, self.num_heads, d // self.num_heads)
                    for a in torch.split(self.qkv(x), d, dim=-1))
-        return self.out(reference_attention(q, k, v, causal=True).reshape(T, d))
+        if self.mesh is None:
+            o = reference_attention(q, k, v, causal=True)
+        else:
+            o = ring_self_attention(q, k, v, self.mesh, causal=True)
+        return self.out(o.reshape(T, d))
 
 
 class LongContextBlock(nn.Module):
@@ -86,14 +96,15 @@ class LongContextTransformer(nn.Module):
                  num_blocks: int = 2, ff_dim: int = 128, mesh=None, *,
                  generator: torch.Generator | None = None, device=None):
         super().__init__()
-        _single_card(mesh)
+        mesh = _mesh_or_none(mesh)
         dev = resolve_device(device)
         g = generator if generator is not None else torch.Generator().manual_seed(0)
         self.d_model, self.mesh = d_model, mesh
         self.Dense_0 = Dense(features, d_model, g)
         self.blocks = [f"LongContextBlock_{i}" for i in range(num_blocks)]
         for name in self.blocks:
-            self.add_module(name, LongContextBlock(d_model, num_heads, ff_dim, generator=g))
+            self.add_module(name, LongContextBlock(d_model, num_heads, ff_dim, mesh,
+                                                   generator=g))
         self.Dense_1 = Dense(d_model // 2, 1, g)             # the head, built first
         self.Dense_2 = Dense(d_model, d_model // 2, g)
         self.to(dev)
@@ -109,8 +120,8 @@ def long_context_loss(model: LongContextTransformer, params, x, y):
     """Per-position MSE against next-step targets ``y`` [T, 1]; positions
     with NaN targets (warmup / final step) are masked out.  ``params``: a
     dict of the model's parameters by name (`torch.func.functional_call`),
-    or None for the model's own.  The gradient is autograd's."""
-    _single_card(getattr(model, "mesh", None))
+    or None for the model's own.  The gradient is autograd's, through the
+    ring when the model has a mesh."""
     out = model(x) if params is None else torch.func.functional_call(model, params, (x,))
     ok = ~torch.isnan(y)
     err = torch.where(ok, out["mean"] - torch.nan_to_num(y), 0.0)

@@ -228,8 +228,9 @@ def train_model(
     within the training windows only); returns the best parameters with
     the history and the scaler.
 
-    ``generator``: a ``torch.Generator`` on ``device`` (None: the CUDA
-    card) or a draw provider (module docstring).  ``precision``: the
+    ``generator``: a ``torch.Generator`` (its draws made on its own device
+    and moved to ``device``; None: the CUDA card) or a draw provider
+    (module docstring).  ``precision``: the
     epochs' matmul precision (`train_loop.matmul_precision`).
     ``compiled_epoch=False``: the per-batch loop, for parity tests."""
     dev = resolve_device(device)

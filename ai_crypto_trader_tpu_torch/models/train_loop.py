@@ -164,10 +164,11 @@ class Adam:
 
 def permutation(draw, n: int, device) -> torch.Tensor:
     """A permutation of range(n) on ``device``: drawn with ``torch.randperm``
-    from ``draw`` when it is a ``torch.Generator`` (on its device), else
-    ``draw`` itself (a permutation handed over) as int64 on ``device``."""
+    from ``draw`` when it is a ``torch.Generator`` (on its device, then
+    moved), else ``draw`` itself (a permutation handed over) as int64 on
+    ``device``."""
     if isinstance(draw, torch.Generator):
-        return torch.randperm(n, generator=draw, device=draw.device)
+        return torch.randperm(n, generator=draw, device=draw.device).to(device)
     return to_device(draw, device, torch.int64)
 
 

@@ -57,6 +57,7 @@ tick-path seam (`obs.tickpath`) is not part of the port yet.
 
 from __future__ import annotations
 
+import functools
 import time
 
 import numpy as np
@@ -74,7 +75,7 @@ from ai_crypto_trader_tpu_torch.obs import fleetscope
 from ai_crypto_trader_tpu_torch.obs.flightrec import GATES, VETO_ORDER
 from ai_crypto_trader_tpu_torch.ops.tick_engine import Readback, read_packed
 from ai_crypto_trader_tpu_torch.ops.tick_engine import _pad_symbols as _pad_pow2
-from ai_crypto_trader_tpu_torch.parallel.partitioner import require_single
+from ai_crypto_trader_tpu_torch.parallel.partitioner import resolve_partitioner
 from ai_crypto_trader_tpu_torch.utils import devprof, meshprof
 from ai_crypto_trader_tpu_torch.utils.journal import pack_array, unpack_array
 
@@ -262,13 +263,32 @@ def _decide_program(state: dict, params: dict, feats: dict, *,
     out = {"gate": gate, "decision": decision[None, :].expand(N, S),
            "confidence": conf, "size": size, "qty": qty,
            "sl_pct": sl, "tp_pct": tp, "exec": ok, "equity": equity}
-    fleet = None
-    if fleet_k is not None:
-        fleet = fleetscope.device_aggregates(
-            gate=gate[:, :s_real], pnl=equity - st["equity0"],
-            balance=bal, max_drawdown=new_state["max_drawdown"],
-            active=pr["active"], quarantined=quarantined, k=fleet_k)
-    return out, new_state, fleet
+    return out, new_state, _fleet(out, new_state, pr, fleet_k, s_real)
+
+
+def _fleet(out: dict, new_state: dict, params: dict, fleet_k: int | None, s_real):
+    """The fleet aggregates of a decide's whole tenant axis (None without
+    ``fleet_k``), over the first ``s_real`` symbol columns."""
+    if fleet_k is None:
+        return None
+    return fleetscope.device_aggregates(
+        gate=out["gate"][:, :s_real], pnl=out["equity"] - new_state["equity0"],
+        balance=new_state["balance"], max_drawdown=new_state["max_drawdown"],
+        active=params["active"], quarantined=new_state["quarantined"], k=fleet_k)
+
+
+def _mesh_decide(part, state: dict, params: dict, feats: dict, *, containment: bool,
+                 fleet_k: int | None, s_real: int | None):
+    """`_decide_program` with the tenant axis split over ``part``'s mesh:
+    state and params are the population, the features ride replicated,
+    and the fleet aggregates run over the gathered lanes on the mesh's
+    first device."""
+    program = part.population_eval(
+        lambda pop, f: _decide_program(pop["state"], pop["params"], f,
+                                       containment=containment)[:2],
+        name="tenant_engine")
+    out, new_state = program({"state": state, "params": params}, feats)
+    return out, new_state, _fleet(out, new_state, params, fleet_k, s_real)
 
 
 def _row_sum(x):
@@ -298,8 +318,12 @@ class TenantEngine:
     mirror when the venue disagrees with the engine's optimistic entry,
     and the next decide re-seeds the device state from it.
 
-    ``partitioner`` is None or the single-device seam (splitting the
-    tenant axis over several cards is ROADMAP item 15).  ``precision`` takes the JAX package's
+    ``partitioner`` (None: the single device) may be a
+    `parallel.MeshPartitioner`: the tenant axis then splits over its mesh
+    (a ragged count pads by repeating the last tenant), the features ride
+    replicated, and state, outputs and the fleet aggregates are gathered
+    onto the mesh's first device, where the engine keeps its state;
+    ``device`` is then that device.  ``precision`` takes the JAX package's
     matmul-precision vocabulary (`device.PRECISIONS`); the decide has no
     matrix product, so no value changes with it.  ``device=None`` means
     the CUDA card (``RuntimeError`` without one); ``device="cpu"`` runs
@@ -312,10 +336,11 @@ class TenantEngine:
                  pad_pow2: bool = True, containment: bool = True,
                  quarantine_cooldown: int = DEFAULT_QUARANTINE_COOLDOWN,
                  precision: str | None = None, device=None):
-        require_single(partitioner)
+        self.partitioner = resolve_partitioner(partitioner)
         canonical_precision(precision)         # validate eagerly, fail loud
         self.precision = precision
-        self.device = resolve_device(device)
+        self.device = (self.partitioner.home if self.partitioner.device_count > 1
+                       else resolve_device(device))
         self.symbols = list(symbols)
         self.sym_index = {s: i for i, s in enumerate(self.symbols)}
         self.S = _pad_pow2(len(self.symbols))      # the tick engine's pad
@@ -589,8 +614,10 @@ class TenantEngine:
             # a fresh engine's (or a resized tenant axis's) first decide is cold
             with meshprof.watch("tenant_engine", cold=self._cold):
                 args = (self._dev_state, self._dev_params, feats_dev)
+                program = (_decide_program if self.partitioner.device_count == 1
+                           else functools.partial(_mesh_decide, self.partitioner))
                 with devprof.carding("tenant_engine", args) as card:
-                    out, new_state, fleet = card.result(_decide_program(
+                    out, new_state, fleet = card.result(program(
                         *args, containment=self.containment,
                         fleet_k=fs.top_k if fs is not None else None,
                         s_real=len(self.symbols)))
@@ -638,7 +665,7 @@ class TenantEngine:
             "dispatches": 1, "tenants": n, "tenant_pad": self.n_pad,
             "symbols": len(self.symbols), "symbol_pad": self.S,
             "lanes": n * len(self.symbols),
-            "devices": 1, "full_seed": bool(seeded),
+            "devices": self.partitioner.device_count, "full_seed": bool(seeded),
             "upload_bytes": int(upload_bytes),
             "host_read_s": host_read_s,
             "step_s": time.perf_counter() - t_step0,

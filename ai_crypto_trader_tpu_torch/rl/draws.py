@@ -126,3 +126,51 @@ def as_draws(key):
     """A provider for ``key``: a ``torch.Generator`` becomes
     `GeneratorDraws`; anything else is taken as a provider."""
     return GeneratorDraws(key) if isinstance(key, torch.Generator) else key
+
+
+class FleetDraws:
+    """The fleet's draws split over a mesh: each draw of a generation is
+    made once, by ``base`` for all P members, when the first shard asks for
+    it, and every shard gets its own rows of it
+    (`parallel.mesh.current_shard`), so a shard trains on exactly the
+    draws the single device's fleet would give its members.  A shard's
+    k-th call of a generation takes the k-th draw made.
+
+    A replay draw is made at the size of every member's ring: each member
+    has pushed the same number of transitions, so one member's ring size
+    is every member's.  The exchange and ``fork`` run on the whole fleet
+    after the gather and go to ``base``."""
+
+    def __init__(self, base, population: int):
+        self.base, self.population = base, population
+        self._made: list = []
+        self._calls: dict = {}
+
+    def _draw(self, make):
+        from ai_crypto_trader_tpu_torch.parallel.mesh import current_shard
+
+        sh = current_shard()
+        i = self._calls.get(sh.index, 0)
+        self._calls[sh.index] = i + 1
+        if i == len(self._made):
+            self._made.append(make())
+        return self._made[i], sh
+
+    def rollout(self, R: int, P: int, N: int, n_actions: int, bounds) -> RolloutDraws:
+        d, sh = self._draw(lambda: self.base.rollout(R, self.population, N, n_actions, bounds))
+        return RolloutDraws(*(sh.take(x, dim=1) for x in d))
+
+    def replay_indices(self, L: int, batch: int, size: torch.Tensor) -> torch.Tensor:
+        d, sh = self._draw(lambda: self.base.replay_indices(
+            L, batch, size[:1].expand(self.population)))
+        return sh.take(d, dim=1)
+
+    def eval_resets(self, P: int, N: int, bounds) -> tuple:
+        d, sh = self._draw(lambda: self.base.eval_resets(self.population, N, bounds))
+        return tuple(sh.take(x, dim=0) for x in d)
+
+    def exchange(self, generation: int, P: int, n: int) -> tuple:
+        return self.base.exchange(generation, P, n)
+
+    def fork(self, lineage: torch.Tensor) -> None:
+        self.base.fork(lineage)

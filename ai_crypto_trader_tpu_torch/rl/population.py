@@ -31,8 +31,12 @@ model registry (`strategy.registry`) and runs it through the scorecard's
 adoption gate (`obs.scorecard`, on simulator fitness) before it may go
 active; a policy worse than the incumbent lands as shadow.
 
-On one card the partitioner is the single-device seam
-(`parallel.partitioner`); any other raises (ROADMAP item 15).
+The generation goes through the partitioner seam (`parallel.partitioner`,
+program ``pbt_generation``).  A `parallel.MeshPartitioner` splits the
+members over its mesh: every draw of the generation is made for the whole
+fleet and each shard takes its members' rows (`rl.draws.FleetDraws`), the
+markets ride replicated, and the members, fitness and metrics are gathered
+onto the mesh's first device, where the exchange runs on the whole fleet.
 """
 
 from __future__ import annotations
@@ -46,11 +50,11 @@ import torch
 from ai_crypto_trader_tpu_torch.device import minus_product
 from ai_crypto_trader_tpu_torch.evolve.selection import quantile_split
 from ai_crypto_trader_tpu_torch.ops.tick_engine import Readback, read_packed, stage
-from ai_crypto_trader_tpu_torch.parallel.partitioner import require_single
+from ai_crypto_trader_tpu_torch.parallel.partitioner import resolve_partitioner
 from ai_crypto_trader_tpu_torch.rl.dqn import (
     DQNConfig, DQNState, Hypers, _fleet_init, _fleet_iteration, _greedy_rollout,
     hypers_from_config, map_state, poisoned_members)
-from ai_crypto_trader_tpu_torch.rl.draws import as_draws
+from ai_crypto_trader_tpu_torch.rl.draws import FleetDraws, as_draws
 from ai_crypto_trader_tpu_torch.rl.env import EnvParams, reset_bounds
 from ai_crypto_trader_tpu_torch.utils import devprof, meshprof
 
@@ -247,6 +251,18 @@ def _row(g: int, host: dict, P: int) -> dict:
     }
 
 
+def _split_draws(generation, population: int):
+    """``generation`` with the members' provider wrapped for the mesh's
+    shards (`rl.draws.FleetDraws`) for its span, and put back after."""
+    def run(pop: PopState, env):
+        base = pop.members.draws
+        split = pop._replace(members=pop.members._replace(draws=FleetDraws(base, population)))
+        out, fitness, met = generation(split, env)
+        return out._replace(members=out.members._replace(draws=base)), fitness, met
+
+    return run
+
+
 def train_pbt(key, env_params: EnvParams, cfg: DQNConfig, pcfg: PBTConfig,
               partitioner=None, *, init_pop: PopState | None = None,
               start_generation: int = 0, on_generation=None) -> PBTResult:
@@ -255,12 +271,15 @@ def train_pbt(key, env_params: EnvParams, cfg: DQNConfig, pcfg: PBTConfig,
     device or a provider; with ``init_pop`` the fleet goes on drawing from
     its own provider.  ``start_generation`` numbers the generations (the
     exchange draws of generation g); ``on_generation(g, pop, row)`` fires
-    after each generation's read."""
-    part = require_single(partitioner)
+    after each generation's read.  ``partitioner``: None (the single
+    device) or a `parallel.MeshPartitioner` (module docstring)."""
+    part = resolve_partitioner(partitioner)
     pop = init_pop if init_pop is not None else pop_init(key, env_params, cfg, pcfg)
     # the generation through the partitioner seam (its layout card)
     generation = part.population_eval(
         lambda p, env: _generation(p, env, cfg, pcfg), name="pbt_generation")
+    if part.device_count > 1:
+        generation = _split_draws(generation, pcfg.population)
     try:
         cold = (cfg, pcfg) not in _PBT_SEEN
         _PBT_SEEN.add((cfg, pcfg))

@@ -14,9 +14,10 @@ order, the same cadence keys and defaults.  Every service is built on the
 system's device (``system.device``): the social monitor's analytics and
 snapshots, the pattern classifier (trained, loaded or drawn there from a
 ``torch.Generator`` seeded 0), the regime detectors, the prediction
-service, the evolver's GA and the structure search.  The population seam is
-the single-device partitioner: a ``"partitioner"`` cadence other than it
-raises, as `parallel.partitioner.require_single` does.  A ``"stream"``
+service, the evolver's GA and the structure search.  The population seam
+is the ``"partitioner"`` cadence (default `parallel.get_partitioner()`):
+the evolver's GA and the structure search split their populations over a
+`parallel.MeshPartitioner`'s mesh.  A ``"stream"``
 cadence attaches `shell.stream`'s market-data path through
 `TradingSystem.attach_stream`; its drains run on the system's monitor, so
 on its device too.
@@ -216,9 +217,10 @@ def build_full_stack(system, *, registry=None, llm=None,
     (its dataclass fields only; anything else raises ``TypeError``).  A
     ``"stream"`` entry attaches the streamed market-data path: its keys
     are split between `MarketStream` and `StreamSupervisor` by field name,
-    and a key of neither raises ``TypeError``.  A ``"partitioner"`` other
-    than the single-device seam raises."""
-    from ai_crypto_trader_tpu_torch.parallel.partitioner import require_single
+    and a key of neither raises ``TypeError``.  A ``"partitioner"`` that
+    is not one of this package's raises ``TypeError``."""
+    from ai_crypto_trader_tpu_torch.parallel.partitioner import (
+        get_partitioner, resolve_partitioner)
     from ai_crypto_trader_tpu_torch.patterns.service import ChartPatternService
     from ai_crypto_trader_tpu_torch.regime.service import MarketRegimeService
     from ai_crypto_trader_tpu_torch.social.news import NewsService
@@ -264,7 +266,7 @@ def build_full_stack(system, *, registry=None, llm=None,
 
     # the population seam of the evolver's GA and the generator's candidate
     # pools: one card
-    partitioner = require_single(cadences.get("partitioner"))
+    partitioner = resolve_partitioner(cadences.get("partitioner") or get_partitioner())
 
     bus, symbols, now_fn = system.bus, system.symbols, system.now_fn
     services = [

@@ -60,7 +60,7 @@ import numpy as np
 import torch
 
 from ai_crypto_trader_tpu_torch.device import div_true, resolve_device, upload
-from ai_crypto_trader_tpu_torch.parallel.partitioner import require_single
+from ai_crypto_trader_tpu_torch.parallel.partitioner import resolve_partitioner
 from ai_crypto_trader_tpu_torch.sim import engine, scenarios
 from ai_crypto_trader_tpu_torch.sim import exchange as sx
 from ai_crypto_trader_tpu_torch.utils import devprof, meshprof
@@ -457,23 +457,27 @@ def lob_sweep(key, scenario="mixed", num_scenarios: int = 1024, steps: int = 256
     ``device``, with one [B]-sized host read.
 
     ``scenario`` is what `sweep` takes (`engine.resolve_schedule`).
-    ``partitioner`` must be None or the single-device seam:
-    a sweep over several cards is not ported (ROADMAP item 15).  Returns
+    ``partitioner`` (None: the single device) may be a
+    `parallel.MeshPartitioner`: the scenarios then split over its mesh
+    with their schedules and their draws, which are made for all B
+    scenarios before the split (so each shard rolls out exactly the
+    single device's rows); flow, strategy and fees ride replicated, and
+    summary and series are gathered onto the mesh's first device.  Returns
     the host summary ([B] arrays), ``labels``, ``stats`` (``dispatches``
     1, ``scenarios``, ``steps``, ``levels``, ``events`` = B·T·(4L + 2) —
     two market orders and each level's arrival and cancel on both sides a
-    step, the bench row's basis —, ``devices`` 1, ``upload_bytes``,
+    step, the bench row's basis —, ``devices``, ``upload_bytes``,
     ``wall_s``) and ``device``: the [B, T] equity, close, high, low, spread
     and cap series, left on the device."""
-    require_single(partitioner)
-    dev = resolve_device(device)
+    part = resolve_partitioner(partitioner)
+    dev = part.home if part.device_count > 1 else resolve_device(device)
     sched, labels = engine.resolve_schedule(scenario, num_scenarios, steps, seed)
     B, T = sched.num_scenarios, sched.steps
     upload_bytes = sum(int(np.asarray(getattr(sched, k)).nbytes)
                        for k in scenarios.ShockSchedule._fields)
     flow = engine.on_device(flow or flow_params(device=dev), dev)
     strat = engine.on_device(strategy or engine.default_strategy(device=dev), dev)
-    shape_key = (B, T, int(levels), int(log_capacity))
+    shape_key = (B, T, int(levels), int(log_capacity), part.device_count)
     cold = shape_key not in _SWEEP_SHAPES_SEEN
     _SWEEP_SHAPES_SEEN.add(shape_key)
     t0 = time.perf_counter()
@@ -484,11 +488,20 @@ def lob_sweep(key, scenario="mixed", num_scenarios: int = 1024, steps: int = 256
                              device=dev) as card:
             on_dev = {k: upload(getattr(sched, k), dev, torch.float32)
                       for k in scenarios.ShockSchedule._fields}
-            summary, _fills, series = card.result(_rollout(
-                _draws_for(key, B, T, levels, dev), on_dev, flow, strat,
-                torch.full((), fee_rate, dtype=torch.float32, device=dev),
-                torch.full((), quote_balance, dtype=torch.float32, device=dev),
-                levels, log_capacity, False))
+            fee = torch.full((), fee_rate, dtype=torch.float32, device=dev)
+            quote0 = torch.full((), quote_balance, dtype=torch.float32, device=dev)
+            draws = _draws_for(key, B, T, levels, dev)
+
+            def rollout(pop, flow, strat, fee, quote0):
+                summary, _fills, series = _rollout(
+                    FlowDraws(*(x.movedim(1, 0) for x in pop["draws"])), pop["sched"],
+                    flow, strat, fee, quote0, levels, log_capacity, False)
+                return summary, series
+
+            # the scenario axis leads every population leaf: draws [B, T, ...]
+            pop = {"sched": on_dev, "draws": FlowDraws(*(x.movedim(0, 1) for x in draws))}
+            summary, series = card.result(part.population_eval(rollout, name="lob_sweep")(
+                pop, flow, strat, fee, quote0))
         host = host_read(engine.pack({"summary": summary._asdict()}))
     wall = time.perf_counter() - t0
     devprof.observe_latency("lob_sweep", wall)
@@ -498,6 +511,6 @@ def lob_sweep(key, scenario="mixed", num_scenarios: int = 1024, steps: int = 256
                       "spread": series["spread"], "cap": series["cap"]}
     host["labels"] = labels
     host["stats"] = {"dispatches": 1, "scenarios": B, "steps": T, "levels": int(levels),
-                     "events": B * T * (4 * int(levels) + 2), "devices": 1,
+                     "events": B * T * (4 * int(levels) + 2), "devices": part.device_count,
                      "upload_bytes": upload_bytes, "wall_s": wall}
     return host

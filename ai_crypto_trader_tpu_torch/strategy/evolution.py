@@ -98,7 +98,8 @@ class StrategyEvolver:
     now_fn: Any = time.time
     seed: int = 0
     # Population-eval seam (parallel/partitioner.py). None = resolve
-    # get_partitioner() lazily on the first GA run; a mesh raises there.
+    # get_partitioner() lazily on the first GA run; a MeshPartitioner
+    # splits the GA's evaluations over its mesh.
     partitioner: object | None = None
     device: Any = None
     # (method, seed) -> the GA's or the DQN's draw provider; None: a

@@ -26,9 +26,11 @@ between devices and libraries), over a denominator summed on the host in
 the rule order: the card computes the CPU's bits.  Against the JAX
 package's dot product a candle whose blend sits on a threshold may flip.
 
-``partitioner`` is None or the single-device seam (`parallel.
-get_partitioner()`); a candidate pool spread over several cards is not
-ported (ROADMAP item 15) and raises.
+``partitioner`` (None: the single device) is the candidate-pool seam: a
+`parallel.MeshPartitioner` splits the candidates over its mesh (program
+``structure_pool``), the fold features ride replicated, and each shard's
+[F, N/n] Sharpe ratios and trades are gathered onto the mesh's first
+device before the one read.
 """
 
 from __future__ import annotations
@@ -46,7 +48,7 @@ from ai_crypto_trader_tpu_torch.backtest.metrics import compute_metrics
 from ai_crypto_trader_tpu_torch.device import resolve_device, to_device
 from ai_crypto_trader_tpu_torch.ops.combinations import combined_indicators
 from ai_crypto_trader_tpu_torch.ops.indicators import compute_indicators
-from ai_crypto_trader_tpu_torch.parallel.partitioner import require_single
+from ai_crypto_trader_tpu_torch.parallel.partitioner import resolve_partitioner
 
 # The rule vocabulary — the 15 combination-score families
 # (`services/utils/indicator_combinations.py`, re-expressed in
@@ -263,9 +265,13 @@ def evaluate_structures(folds: list[dict], structures: list[StrategyStructure],
     replay loop (one loop per distinct fold length), and the scores come
     back in one read.  Structures that never trade score -inf: an empty
     backtest's Sharpe 0.0 must not outrank a trading seed.  ``folds`` are
-    `fold_features` dicts (tensors, or arrays NumPy takes)."""
-    require_single(partitioner)
-    dev = resolve_device(device)
+    `fold_features` dicts (tensors, or arrays NumPy takes).  ``partitioner``:
+    None or a `parallel.MeshPartitioner` (module docstring)."""
+    part = resolve_partitioner(partitioner)
+    dev = part.home if part.device_count > 1 else resolve_device(device)
+    # candidates lead the population program's outputs: [N, F] each way
+    lanes = part.population_eval(
+        lambda c, folds: tuple(x.T for x in _eval_lanes(folds, c)), name="structure_pool")
     folds = [{k: to_device(v, dev, torch.float32) for k, v in f.items()} for f in folds]
     cand = _candidates(structures, dev)
     by_len: dict[int, list[int]] = {}
@@ -273,7 +279,7 @@ def evaluate_structures(folds: list[dict], structures: list[StrategyStructure],
         by_len.setdefault(int(f["close"].shape[-1]), []).append(i)
     order, parts = [], []
     for idx in by_len.values():
-        sharpe, trades = _eval_lanes([folds[i] for i in idx], cand)
+        sharpe, trades = (x.T for x in lanes(cand, [folds[i] for i in idx]))
         order += idx
         parts.append(torch.stack([sharpe, trades.to(torch.float32)]))
     packed = host_read(torch.cat(parts, dim=1))                    # [2, F, N]
@@ -385,7 +391,7 @@ class StrategyGenerator:
     patience: int = 2
     min_improvement: float = 0.02
     seed: int = 0
-    partitioner: object | None = None  # None or the single-device seam
+    partitioner: object | None = None  # None or a partitioner (parallel/)
     history: list = field(default_factory=list)
     device: Any = None
 
@@ -528,7 +534,7 @@ class GeneratorService:
     pool_size: int = 8
     max_rounds: int = 2
     seed: int = 0
-    partitioner: object | None = None   # None or the single-device seam
+    partitioner: object | None = None   # None or a partitioner (parallel/)
     now_fn: Any = None
     name: str = "generator"
     current: StrategyStructure = field(default_factory=default_seed)

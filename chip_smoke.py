@@ -142,7 +142,7 @@ imports nothing of JAX or of the JAX package.  Phases, one JSON line each:
                 backward beside it); `cli train` at its defaults (7 days,
                 epochs cut to 2; exactly 2 K2 launches, held against the
                 plain EWMA); `PredictionService` at its defaults (epochs cut
-                to 5) over 8
+                to 3) over 8
                 symbols × 2 frames (the first cycle's 16 trainings and one
                 batched predict, a cycle inside half an interval, one HPO
                 request); the three pattern classifiers trained; feature
@@ -188,7 +188,7 @@ imports nothing of JAX or of the JAX package.  Phases, one JSON line each:
                 plain sizer-ladder loop timed;
  15. service  — the services on the card: (a) the continuous PBT trainer
                 at the `pbt` row's width (16 members on 16 × 1,024 LOB
-                markets, 4 ticks of 8 iterations, depth cut): a service
+                markets, 4 ticks of 4 iterations, depth cut): a service
                 killed after tick 2 and resumed from its journal bit for
                 bit against an unbroken one, one host read a generation and
                 one a checkpoint, a checkpoint write and the bench's
@@ -372,14 +372,37 @@ imports nothing of JAX or of the JAX package.  Phases, one JSON line each:
                 `FeatureImportanceIntegrator` as its outcome gate, the
                 signals equal to the port's CPU analyzer's on the same
                 updates, the gate's ms a call;
- 23. kernels  — one line with each kernel's launches, error, times and
+ 23. mesh     — the population seams on a `parallel.MeshPartitioner`
+                over a virtual mesh of the card 4 times (and, with more
+                than one card, over min(4, n) real ones for (a)-(b)): (a)
+                the main path's sweep (T = 525,600, B = 4,096) in exactly 4
+                K1 launches of 1,024, stats and metrics bit for bit against
+                phase main's single launch, no other sync, and a ragged
+                4,098 (padded to 4,100) against its single launch; (b)
+                `run_ga` at `GAParams(256, 3)` × 43,200 and at a ragged
+                250 bit for bit against the single device, (G + 1) · 4 K1
+                launches and one host read a run; (c) `TenantEngine` at 256
+                (and a ragged 250) tenants × 64 symbols, `lob_sweep` at
+                1,024 × 32 levels (32 steps), one `pbt` generation (16
+                members, 4 iterations), one `evaluate_structures` call at
+                `cli generate`'s fold shape and an HPO farm of 4 trials,
+                each against the single device (the HPO farm also over a
+                mesh of the card and the CPU: the card's trials bit for
+                bit, the draws shared); (d) `time_shard` over the
+                year's close against `ops.indicators.ema` (its K2 launches
+                held against the plain EWMA) and `rolling_mean`; (e) the
+                long-context model at 16,384 × 8 with the ring against its
+                dense attention, forward and gradient, with each one's ms
+                and peak memory; (f) `initialize_distributed` over NCCL in a
+                subprocess started at the phase's start;
+ 24. kernels  — one line with each kernel's launches, error, times and
                 bound, at the main path's shapes, and each kernel's GA,
                 tick, portfolio, tenant, `cli train`, training, RL,
                 simulator, regime, strategy, live, trade, stack, stream,
-                serve and research launches (`ga_tables`, `ga_rows`,
+                serve, research and mesh launches (`ga_tables`, `ga_rows`,
                 `tick`, `portfolio`, `tenant`, `nn_cli_train`, `nn_train`,
                 `rl`, `sim`, `regime`, `strategy`, `live`, `trade`,
-                `stack`, `stream`, `serve`, `research`).
+                `stack`, `stream`, `serve`, `research`, `mesh`).
 
 Every phase's seconds follow it on a line of their own
 (``{"phase_time": ..., "phase_s": ...}``), and the script's total and every
@@ -446,7 +469,7 @@ TRAIN_RTOL, TRAIN_ATOL = 1e-5, 1e-5  # epoch losses; parameters (card against th
 LSTM_GRAD_RTOL = 1e-5                # LSTMScan's gradients against the plain loop's, of scale
 CLI_TRAIN_EPOCHS = 1                 # cli train's 5 epochs, cut (2 until PR 17)
 SVC_SYMBOLS, SVC_ROWS = 8, 256       # the service's pairs: symbols × (1m, 5m); kline rows
-SVC_EPOCHS = 5                       # the service's epochs (its default 20, cut)
+SVC_EPOCHS = 3                       # the service's epochs (its default 20, cut; 5 until PR 19)
 IMPORTANCE_WINDOWS, IMPORTANCE_STEPS, IMPORTANCE_ATOL = 64, 32, 1e-5
 RL_EPISODE, RL_ENVS, RL_ROLLOUT, RL_ITERS = 512, 256, 32, 20   # the bench's rl row (bench.py:695-723)
 PBT_S, PBT_T, PBT_EPISODE = 16, 1024, 256      # the pbt row's markets (bench.py:746-747)
@@ -462,9 +485,11 @@ LOB_B, LOB_T = 1024, 256                     # the bench's lob_events_per_sec ro
 STRESS_B, STRESS_T, STRESS_P = 256, 1024, 64  # backtest_under_stress's defaults; a population
 SIM_REPS = 1                                 # timed calls a row (cut from 3; 2 until PR 18)
 SIM_Q0 = 10_000.0                            # the rollouts' quote balance
-SVC_TICKS, SVC_ITERS = 4, 8                  # the trainer service: ticks; iterations (depth cut)
+SVC_TICKS, SVC_ITERS = 4, 4                  # the trainer service: ticks; iterations (depth cut;
+                                             # 8 iterations until PR 19)
 REC_P, REC_S, REC_T, REC_EPISODE, REC_ITERS = 8, 8, 512, 128, 4   # pbt_recovery (bench.py:1087-1150)
-REGIME_S, REGIME_T, REGIME_ROUNDS = 64, 1000, 5   # tick universe; the venue's klines cap
+REGIME_S, REGIME_T, REGIME_ROUNDS = 64, 1000, 3   # tick universe; the venue's klines cap;
+                                                  # rounds (5 until PR 19)
 REGIME_TIE_RTOL = 1e-3                       # a card-vs-CPU label flip's margin to a tie
 BOOK_N, BOOK_LEVELS, BOOK_FRAMES = 64, 100, 1024  # books; the venue's default depth; window
 GEN_DAYS, GEN_SEED, GEN_FOLDS, GEN_POOL = 7, 0, 3, 16   # cli generate's defaults (cli.py:1101-1107)
@@ -476,6 +501,7 @@ LC_F, LC_T, LC_T_CPU = 8, 16_384, 2_048      # the long-context model: features,
 LC_ATOL, LC_GRAD_RTOL = 1e-5, 1e-4           # outputs; gradients, of each parameter's scale
 SOC_T, SOC_F, SOC_LAG = 720, 8, 24           # 30 days of hourly social metrics
 SOC_RTOL = 1e-4                              # anomaly scores, card against CPU
+SHARED = {}               # what an earlier phase leaves for phase mesh
 
 
 # per element and output of the EWMA: the element map (select, multiply)
@@ -3717,6 +3743,7 @@ def phase_rl(info, d):
     t_phase = time.perf_counter()
     report = {"phase": "rl", "card": info["nvidia_smi"], "rl_row": rl_row(d)}
     report["pbt_markets"], pbt_k2, env = rl_markets(7, PBT_S, "pbt")
+    SHARED["pbt_env"] = env
     report["cli_markets"], cli_k2, _ = rl_markets(0, 8, "cli_rl")
     report["pbt_row"] = pbt_row(env)
     report["oracle_and_containment"] = pbt_oracle_and_containment(env)
@@ -4639,8 +4666,19 @@ def phase_service(info):
     report = {"phase": "service", "card": info["nvidia_smi"]}
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        report["trainer"] = service_trainer(tmp)
-        report["cli_rl"] = cli_rl_service(tmp)
+        # the two `cli rl` subprocesses run beside the trainer (no kernel is
+        # timed in it), and are waited for before the regime's K2 is timed;
+        # the trainer's host-wall times share the card and the host with them
+        cli_rl = BesideCall(cli_rl_service, tmp)
+        try:
+            report["trainer"] = service_trainer(tmp)
+        finally:
+            cli_rl.thread.join(900)
+        report["cli_rl"] = cli_rl.result()
+        report["trainer"]["contended"] = (
+            "generation_ms, first_resumed_tick_ms, later_resumed_ticks_ms, "
+            "checkpoint_write_ms_p16 and pbt_recovery.load_and_restore_ms were taken "
+            "while the two `cli rl` subprocesses ran on the same card and host")
         report["trainer_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     report["regime"], regime_entry = service_regime(info)
@@ -4822,6 +4860,7 @@ def strategy_evaluate():
     except Exception as ex:  # noqa: BLE001 — a profiler that cannot trace is reported
         profile = {"measured": False, "reason": repr(ex)[:300]}
     T = int(folds[0]["close"].shape[-1])
+    SHARED["structures"] = (folds, pool, scores)
     report = {"folds": GEN_FOLDS, "candles": T, "pool": len(pool), "call_s": wall,
               "cpu_call_s": cpu_wall, "reads_per_call": reads, "card_vs_cpu": "bit for bit",
               "trades": int(card[1].sum()), "scores": [float(s) for s in scores],
@@ -6032,15 +6071,10 @@ def trade_cli(tmp):
         status["channels"]["alerts"] = status["channels"].get("alerts", 0) - wall
         return status, wall
 
-    env = {**os.environ, "LOG_PATH": f"{tmp}/card.log"}
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "ai_crypto_trader_tpu_torch.cli", *argv("card")],
-                          cwd=root, capture_output=True, text=True, timeout=600, env=env)
-    trade_s = time.perf_counter() - t0
-    if proc.returncode != 0:
-        fail(f"trade: cli trade exited {proc.returncode}: {proc.stderr[-800:]}")
-    card, card_wall = status_of(proc.stdout, f"{tmp}/card.log")
-
+    # the card's subprocess runs beside the CPU's run in this process (no
+    # kernel is timed meanwhile)
+    card_proc = Beside([sys.executable, "-m", "ai_crypto_trader_tpu_torch.cli", *argv("card")],
+                       root, env={"LOG_PATH": f"{tmp}/card.log"})
     buf = io.StringIO()
     os.environ["LOG_PATH"] = f"{tmp}/cpu.log"
     try:
@@ -6048,8 +6082,13 @@ def trade_cli(tmp):
             t0 = time.perf_counter()
             cli.main(argv("cpu") + ["--device", "cpu"])
             cpu_s = time.perf_counter() - t0
+        rc, out, err, trade_s = card_proc.finish(timeout=600)
     finally:
         os.environ.pop("LOG_PATH", None)
+        card_proc.stop()
+    if rc != 0:
+        fail(f"trade: cli trade exited {rc}: {err[-800:]}")
+    card, card_wall = status_of(out, f"{tmp}/card.log")
     cpu, cpu_wall = status_of(buf.getvalue(), f"{tmp}/cpu.log")
     if card != cpu:
         fail(f"trade: cli trade's status on the card differs from the CPU's: {card} against "
@@ -6070,8 +6109,11 @@ def trade_cli(tmp):
     diff = same_text("\n".join(got), "\n".join(want))
     if not want or diff is not None:
         fail(f"trade: cli why's lines differ from format_why over the CPU's records: {diff}")
-    return {"ticks": TRADE_CLI_TICKS, "exit_code": proc.returncode, "subprocess_s": trade_s,
-            "cpu_in_process_s": cpu_s, "status_equal_cpu": True,
+    return {"ticks": TRADE_CLI_TICKS, "exit_code": rc, "subprocess_s": trade_s,
+            "cpu_in_process_s": cpu_s,
+            "contended": "subprocess_s and cpu_in_process_s were taken with both runs going "
+                         "at once on the same host",
+            "status_equal_cpu": True,
             "wall_clock_alerts_fired": {"card": card_wall, "cpu": cpu_wall},
             "closed_trades": card["closed_trades"], "why_exit_code": why.returncode,
             "why_lines": len(got), "why_s": why_s}
@@ -8284,12 +8326,14 @@ def research_env():
 class Beside:
     """A subprocess started now, to run beside what follows: `finish()`
     waits for it and returns (exit code, stdout, stderr, its own wall s);
-    `stop()` kills it if it still runs."""
+    `stop()` kills it if it still runs.  ``env`` adds variables to its
+    environment."""
 
-    def __init__(self, argv, cwd):
+    def __init__(self, argv, cwd, env=None):
         import threading
 
-        _, env = research_env()
+        _, base = research_env()
+        env = {**base, **(env or {})}
         self.t0 = time.perf_counter()
         self.proc = subprocess.Popen(argv, cwd=cwd, env=env, stdout=subprocess.PIPE,
                                      stderr=subprocess.PIPE, text=True)
@@ -8787,6 +8831,521 @@ def phase_research(info):
                            f"queue's {queue['k1_launches']} launches"})
 
 
+# --- phase mesh: the population seams on a mesh ----------------------------
+
+MESH_N = 4                   # shards of the virtual mesh: the one card listed 4 times
+MESH_RAGGED_B = 4_098        # (a): a ragged population, padded to 4,100
+MESH_GA_RAGGED = 250         # (b): a ragged GA population, padded to 252
+MESH_TENANTS, MESH_TENANTS_RAGGED = 256, 250   # (c): tenants × S_TICK symbols
+MESH_DECIDES = 3             # (c): decides a tenant engine makes
+MESH_LOB_T = 32              # (c): lob_sweep steps (its row's 256, cut in depth)
+MESH_PBT_I = 4               # (c): iterations of the pbt generation (its row's 64, cut)
+MESH_HPO_TRIALS = 4          # (c): HPO trials (rung epochs 1 and 1, one finalist)
+MESH_HPO_ROWS = 400          # (c): their feature rows (4 columns of the year's candles)
+MESH_EMA_WINDOWS = (12, 26, 200)   # (d): the JAX tests' windows
+MESH_MEAN_WINDOWS = (5, 20, 50)
+MESH_TS_RTOL, MESH_TS_ATOL = 2e-5, 1e-4      # tests/test_time_shard.py's EMA tolerance
+MESH_MEAN_ATOL = 1e-3                         # and its rolling mean's
+MESH_LC_TOL = 2e-4           # (e): tests/test_long_context.py's forward rtol and atol
+MESH_LC_GRAD_RTOL, MESH_LC_GRAD_ATOL = 5e-3, 5e-4   # and its gradients'
+
+_DIST_PROBE = r"""
+import socket, torch, torch.distributed as dist
+from ai_crypto_trader_tpu_torch.parallel import initialize_distributed
+s = socket.socket(); s.bind(("127.0.0.1", 0)); port = s.getsockname()[1]; s.close()
+backend = initialize_distributed(f"127.0.0.1:{port}", 1, 0)
+x = torch.full((4,), 2.0, device="cuda")
+dist.all_reduce(x)
+torch.cuda.synchronize()
+print("DIST_OK", backend, dist.get_world_size(), dist.get_rank(), x.tolist(), flush=True)
+dist.destroy_process_group()
+"""
+
+
+def mesh_partitioners():
+    """The virtual mesh (the card MESH_N times) and, with more than one
+    card, the mesh of min(MESH_N, n) real cards: {name: MeshPartitioner}."""
+    import torch
+
+    from ai_crypto_trader_tpu_torch.parallel import MeshPartitioner, make_mesh
+
+    out = {"virtual": MeshPartitioner(make_mesh(MESH_N, devices=["cuda:0"] * MESH_N))}
+    n = torch.cuda.device_count()
+    if n > 1:
+        k = min(MESH_N, n)
+        out["real"] = MeshPartitioner(make_mesh(k, devices=[f"cuda:{i}" for i in range(k)]))
+    return out
+
+
+def same_tree(a, b, label):
+    """Two trees of tensors or arrays equal bit for bit, leaf by leaf
+    through `same_host_bits` (a float of any width by its bytes: NaN where
+    NaN)."""
+    import numpy as np
+    import torch
+    from torch.utils._pytree import tree_flatten
+
+    def host(v):
+        v = np.ascontiguousarray(v.detach().cpu().numpy() if torch.is_tensor(v) else v)
+        return (v.dtype, v.shape, v.reshape(-1).view(np.uint8) if v.dtype.kind == "f" else v)
+
+    la, lb = tree_flatten(a)[0], tree_flatten(b)[0]
+    if len(la) != len(lb):
+        fail(f"mesh: {label}: {len(la)} leaves against {len(lb)}")
+    for i, (x, y) in enumerate(zip(map(host, la), map(host, lb))):
+        if x[:2] != y[:2] or not same_host_bits(x[2], y[2]):
+            fail(f"mesh: {label}: leaf {i} not bit for bit")
+
+
+def mesh_sweep(part, inp, params, stats):
+    """(a) the bench headline's sweep through the mesh: exactly MESH_N K1
+    launches of B / MESH_N strategies, the stats and metrics bit for bit
+    against phase main's single launch, no synchronizing call; the ragged
+    MESH_RAGGED_B against its single launch; both timed beside one launch.
+    ``launches``: the sum of the counts read after each of the three
+    counted runs (the checked run, the sync check, the ragged run)."""
+    import torch
+
+    from ai_crypto_trader_tpu_torch.backtest import compute_metrics, sample_params, sweep
+    from ai_crypto_trader_tpu_torch.ops.replay import sweep_kernel
+
+    def counted_run(label, fn):
+        sweep_kernel.launches = 0
+        out = fn()
+        if sweep_kernel.launches != MESH_N:
+            fail(f"mesh: the {label} made {sweep_kernel.launches} K1 launches, not {MESH_N}")
+        runs[label] = sweep_kernel.launches
+        return out
+
+    def recorded():
+        with recording_k1(calls):       # counts on the wrapper, handed back at the end
+            return sweep(inp, params, partitioner=part, device="cuda")
+
+    runs, calls = {}, []
+    got = counted_run("sweep", recorded)
+    shard_b = [int(p.stop_loss.numel()) for _, p, _, _ in calls]
+    if shard_b != [B_FULL // MESH_N] * MESH_N:
+        fail(f"mesh: the sweep's K1 launches were of {shard_b}, not {MESH_N} of "
+             f"{B_FULL // MESH_N}")
+    del calls
+    err = compare_stats(got, stats, "mesh_sweep")["max_abs_err"]
+    same_tree(compute_metrics(got, device="cuda"), compute_metrics(stats, device="cuda"),
+              "the sweep's metrics")
+    syncs = counted_run("sync check", lambda: sync_calls(
+        lambda: sweep(inp, params, partitioner=part, device="cuda")))
+    if syncs:
+        fail(f"mesh: the sweep made synchronizing calls: {syncs[:2]}")
+    ragged = sample_params(torch.Generator().manual_seed(1), MESH_RAGGED_B, device="cuda")
+    single = sweep(inp, ragged, device="cuda")
+    got_r = counted_run("ragged sweep",
+                        lambda: sweep(inp, ragged, partitioner=part, device="cuda"))
+    err = max(err, compare_stats(got_r, single, "mesh_sweep_ragged")["max_abs_err"])
+    ms = cuda_ms(lambda: sweep(inp, params, partitioner=part, device="cuda"), 5)
+    single_ms = cuda_ms(lambda: sweep(inp, params, device="cuda"), 5)
+    return {"launches": sum(runs.values()), "launches_by_run": runs, "shard_B": shard_b,
+            "ms": ms, "single_launch_ms": single_ms, "max_abs_err": err,
+            "ragged": {"B": MESH_RAGGED_B, "padded": MESH_RAGGED_B + part.pad_for(MESH_RAGGED_B)},
+            "bit_for_bit": "stats and metrics against phase main's launch", "syncs": 0}
+
+
+def mesh_ga(part, d_year):
+    """(b) `run_ga` at `GAParams(256, 3)` over 43,200 candles and at a
+    ragged 250: the mesh run bit for bit against the single device on the
+    same generator, K1 launches counted in both mesh runs at each size (G +
+    1 evaluations, MESH_N launches each), one host read a run and no other
+    sync."""
+    import torch
+
+    from ai_crypto_trader_tpu_torch.backtest import default_params
+    from ai_crypto_trader_tpu_torch.config import GAParams
+    from ai_crypto_trader_tpu_torch.evolve import ga
+    from ai_crypto_trader_tpu_torch.ops.ewma import fused_ewma
+    from ai_crypto_trader_tpu_torch.ops.replay import sweep_kernel
+
+    d = {k: v[:T_GA] for k, v in d_year.items()}
+    fused_ewma.launches = 0
+    fit = ga.backtest_fitness(d, device="cuda")
+    k2 = fused_ewma.launches
+    gen = lambda: torch.Generator(device="cuda").manual_seed(11)  # noqa: E731
+    out, k1 = {}, 0
+    for pop in (POP_GA, MESH_GA_RAGGED):
+        cfg = GAParams(population_size=pop, generations=GENS_GA)
+        seed = default_params(device="cuda")
+        one = ga.run_ga(gen(), fit, cfg, seed_params=seed, device="cuda")
+        with counted(ga, "host_read") as reads:
+            sweep_kernel.launches = 0
+            t0 = time.perf_counter()
+            got = ga.run_ga(gen(), fit, cfg, seed_params=seed, partitioner=part, device="cuda")
+            wall = time.perf_counter() - t0
+            launches = [sweep_kernel.launches]
+        quiet = []
+        real = quiet_counted_read(ga, quiet)
+        try:
+            sweep_kernel.launches = 0
+            syncs = sync_calls(lambda: ga.run_ga(gen(), fit, cfg, seed_params=seed,
+                                                 partitioner=part, device="cuda"))
+            launches.append(sweep_kernel.launches)
+        finally:
+            ga.host_read = real
+        if launches != [(GENS_GA + 1) * MESH_N] * 2 or len(reads) + len(quiet) != 2 or syncs:
+            fail(f"mesh: the GA at {pop} made {launches} K1 launches in 2 runs, "
+                 f"{len(reads) + len(quiet)} reads and {len(syncs)} other syncs ({syncs[:2]})")
+        if got[1] != one[1]:
+            fail(f"mesh: the GA's history at {pop} differs from the single device's")
+        same_tree(tuple(got[0]), tuple(one[0]), f"the GA's best genome at {pop}")
+        k1 += sum(launches)
+        out[str(pop)] = {"k1_launches_by_run": launches, "wall_s": wall,
+                         "best_fitness": one[1][-1]["best_fitness"]}
+    out["k2_launches_tables"] = k2
+    return out, k1, k2
+
+
+def mesh_tenant(part):
+    """(c) `TenantEngine` at 256 tenants × 64 symbols (and a ragged 250, no
+    power-of-two pad): MESH_DECIDES decides with the fleet observatory on,
+    out, state and fleet aggregates bit for bit against the single
+    engine's, one host read a decide and no other sync."""
+    import numpy as np
+
+    from ai_crypto_trader_tpu_torch.config import TradingParams
+    from ai_crypto_trader_tpu_torch.obs import fleetscope
+    from ai_crypto_trader_tpu_torch.ops import tenant_engine as te
+
+    symbols = [f"M{i:03d}USDC" for i in range(S_TICK)]
+    trading = TradingParams(ai_confidence_threshold=0.0, min_signal_strength=0.0,
+                            min_trade_amount=1.0)
+    rng = np.random.default_rng(19)
+    out = {}
+    for n, pow2 in ((MESH_TENANTS, True), (MESH_TENANTS_RAGGED, False)):
+        engines = [te.TenantEngine(symbols, n, trading, partitioner=p, pad_pow2=pow2,
+                                   device="cuda") for p in (None, part)]
+        for e in engines:
+            e.set_tenant(7, balance=900.0)
+        scopes = [fleetscope.FleetScope(top_k=8) for _ in engines]
+        reads, syncs = [], []
+        for t in range(MESH_DECIDES):
+            S = engines[0].S
+            feats = {"price": rng.uniform(50.0, 200.0, S).astype(np.float32),
+                     "signal": rng.integers(-1, 2, S).astype(np.int32),
+                     "strength": rng.uniform(40.0, 110.0, S).astype(np.float32),
+                     "volatility": np.full(S, 0.015, np.float32),
+                     "avg_volume": np.full(S, 6e4, np.float32), "valid": np.ones(S, bool)}
+            with fleetscope.use(scopes[0]):
+                ref = engines[0].decide(feats)
+            last = t == MESH_DECIDES - 1
+            with fleetscope.use(scopes[1]):
+                if last:
+                    box, real = {}, quiet_counted_read(te, reads)
+                    try:
+                        syncs = sync_calls(lambda: box.setdefault("o", engines[1].decide(feats)))
+                    finally:
+                        te.host_read = real
+                    got = box["o"]
+                else:
+                    with counted(te, "host_read") as counted_reads:
+                        got = engines[1].decide(feats)
+                    reads += counted_reads
+            same_tree(got, ref, f"the decide at {n} tenants, tick {t}")
+            same_tree(engines[1]._state_np, engines[0]._state_np, f"the state at {n}, tick {t}")
+            same_tree(engines[1].last_fleet, engines[0].last_fleet, f"the fleet at {n}")
+        if len(reads) != MESH_DECIDES or syncs:
+            fail(f"mesh: the decide at {n} tenants made {len(reads)} reads in {MESH_DECIDES} "
+                 f"decides and {len(syncs)} other syncs ({syncs[:2]})")
+        out[str(n)] = {"tenant_pad": engines[1].n_pad, "decides": MESH_DECIDES,
+                       "devices": engines[1].last_stats["devices"],
+                       "executable_last_decide": int(ref["exec"].sum())}
+    return out
+
+
+def mesh_lob(part):
+    """(c) `lob_sweep` at 1,024 scenarios × 32 levels (MESH_LOB_T steps):
+    the summary and the device series bit for bit against the single
+    device on the same generator, one host read."""
+    import torch
+
+    from ai_crypto_trader_tpu_torch.sim import lob
+
+    kw = dict(num_scenarios=LOB_B, steps=MESH_LOB_T, levels=LOB_LEVELS, device="cuda")
+    gen = lambda: torch.Generator(device="cuda").manual_seed(13)  # noqa: E731
+    one = lob.lob_sweep(gen(), **kw)
+    with counted(lob, "host_read") as reads:
+        got = lob.lob_sweep(gen(), partitioner=part, **kw)
+    if len(reads) != 1 or got["stats"]["devices"] != part.device_count:
+        fail(f"mesh: lob_sweep made {len(reads)} reads, devices {got['stats']['devices']}")
+    same_tree(got["summary"], one["summary"], "lob_sweep's summary")
+    same_tree(got["device"], one["device"], "lob_sweep's series")
+    return {"scenarios": LOB_B, "steps": MESH_LOB_T, "levels": LOB_LEVELS,
+            "wall_s": got["stats"]["wall_s"], "single_wall_s": one["stats"]["wall_s"]}
+
+
+def mesh_pbt(part, env):
+    """(c) one generation of the `pbt` row's fleet (16 members, MESH_PBT_I
+    iterations) on the mesh against the single device on the same
+    generator: every member's state, the fitness and the history bit for
+    bit; one host read a generation."""
+    import numpy as np
+    import torch
+
+    from ai_crypto_trader_tpu_torch.rl import dqn, obs_size, population
+
+    cfg = dqn.DQNConfig(state_size=obs_size(env), num_envs=1, rollout_len=8, hidden=(16,),
+                        replay_capacity=128, batch_size=8, learn_steps_per_iter=1)
+    pcfg = population.PBTConfig(population=PBT_P, generations=1,
+                                iters_per_generation=MESH_PBT_I, eval_steps=PBT_EVAL)
+    gen = lambda: torch.Generator(device="cuda").manual_seed(21)  # noqa: E731
+    one = population.train_pbt(gen(), env, cfg, pcfg)
+    with counted(population, "host_read") as reads:
+        got = population.train_pbt(gen(), env, cfg, pcfg, partitioner=part)
+    if len(reads) != 1:
+        fail(f"mesh: the pbt generation made {len(reads)} host reads")
+    la = dqn.tensor_leaves(dqn._drop(got.state.members))
+    lb = dqn.tensor_leaves(dqn._drop(one.state.members))
+    worst = max(float(torch.abs(la[k].double() - lb[k].double()).max()) for k in lb)
+    fit = float(np.abs(got.fitness - one.fitness).max())
+    if not (all(torch.equal(la[k], lb[k]) for k in lb) and got.history == one.history
+            and same_host_bits(got.fitness, one.fitness)):
+        fail(f"mesh: the pbt generation on the mesh is not bit for bit the single device's: "
+             f"{worst:.3g} (state) and {fit:.3g} (fitness) off")
+    return {"population": PBT_P, "iterations": MESH_PBT_I, "bit_for_bit": True,
+            "state_max_abs_diff": worst, "fitness_max_abs_diff": fit}
+
+
+def mesh_structures(part):
+    """(c) one `evaluate_structures` call at `cli generate`'s fold shape on
+    the mesh: bit for bit against phase strategy's single-device call on the
+    same folds and pool (computed here if that phase left none), one read."""
+    from ai_crypto_trader_tpu_torch.strategy import generator as gen
+
+    folds, pool, single = SHARED.get("structures") or (None, None, None)
+    if folds is None:
+        folds, pool = generate_folds("cuda"), generate_pool()
+        single = gen.evaluate_structures(folds, pool, device="cuda")
+    with counted(gen, "host_read") as reads:
+        t0 = time.perf_counter()
+        got = gen.evaluate_structures(folds, pool, partitioner=part, device="cuda")
+        wall = time.perf_counter() - t0
+    if len(reads) != 1 or not same_host_bits(got, single):
+        fail(f"mesh: evaluate_structures made {len(reads)} reads; scores {got.tolist()} "
+             f"against {single.tolist()}")
+    return {"folds": len(folds), "pool": len(pool), "call_s": wall}
+
+
+def mesh_hpo(part, d_year):
+    """(c) an HPO farm of MESH_HPO_TRIALS trials (rung epochs 1 and 1, one
+    finalist) round-robin over the mesh: the same trials and losses as the
+    single device's on the same generator, each trial counted by meshprof.
+    Then the farm over a mesh of the card and the CPU: the CPU's trials
+    take their draws from the card's generator, so every trial on the card
+    after one on the CPU has the single device's loss bit for bit."""
+    import numpy as np
+    import torch
+
+    from ai_crypto_trader_tpu_torch.models import hpo
+    from ai_crypto_trader_tpu_torch.parallel import MeshPartitioner, make_mesh
+    from ai_crypto_trader_tpu_torch.utils import meshprof
+
+    feats = np.stack([np.asarray(d_year[k][:MESH_HPO_ROWS], np.float32)
+                      for k in ("close", "volume", "high", "low")], 1)
+    kw = dict(n_trials=MESH_HPO_TRIALS, rung_epochs=(1, 1), survivor_fraction=0.25,
+              seq_len=16, n_startup=MESH_HPO_TRIALS, device="cuda")
+    gen = lambda: torch.Generator(device="cuda").manual_seed(23)  # noqa: E731
+    one = hpo.optimize_hyperparameters(gen(), feats, **kw)
+    mp = meshprof.MeshProf()
+    with meshprof.use(mp):
+        t0 = time.perf_counter()
+        got = hpo.optimize_hyperparameters(gen(), feats, partitioner=part, **kw)
+        wall = time.perf_counter() - t0
+    trials = sum(mp.trial_assignments.values())
+    if got != one or trials != MESH_HPO_TRIALS + 1:
+        fail(f"mesh: the HPO farm gave {got['best_val_loss']} over {trials} farmed trials, "
+             f"the single device {one['best_val_loss']}")
+    mixed = hpo.optimize_hyperparameters(
+        gen(), feats, partitioner=MeshPartitioner(make_mesh(2, devices=["cuda:0", "cpu"])),
+        **kw)
+    # rung 0: trial i on device i mod 2; rung 1: the finalist on the card
+    on_card = [i for i, (a, b) in enumerate(zip(mixed["trials"], one["trials"]))
+               if a["rung"] == b["rung"] and (a["rung"] == 1 or i % 2 == 0)]
+    if max(on_card, default=0) < 1 or any(
+            mixed["trials"][i] != one["trials"][i] for i in on_card):
+        fail(f"mesh: the card's trials of the card + CPU farm ({on_card}) differ from the "
+             f"single device's: {mixed['trials']} against {one['trials']}")
+    cpu_diff = [abs(a["val_loss"] - b["val_loss"]) for i, (a, b) in
+                enumerate(zip(mixed["trials"], one["trials"])) if i not in on_card]
+    if not all(np.isfinite(r["val_loss"]) for r in mixed["trials"]):
+        fail(f"mesh: the card + CPU farm gave a loss that is not finite: {mixed['trials']}")
+    return {"trials": trials, "assignments": dict(mp.trial_assignments), "wall_s": wall,
+            "best_val_loss": got["best_val_loss"],
+            "card_and_cpu": {"card_trials_bit_for_bit": on_card,
+                             "other_trials_val_loss_diff": cpu_diff}}
+
+
+def mesh_time_shard(part, d_year):
+    """(d) the year's close (T = 525,600) split over the mesh: `sharded_ema`
+    against the port's `ops.indicators.ema` (one K2 launch each, recorded
+    and held against the plain EWMA) and `sharded_rolling_mean` against
+    `rolling_mean` (the same windows in the same order: bit for bit), at
+    the JAX tests' tolerances."""
+    import torch
+
+    from ai_crypto_trader_tpu_torch.ops import indicators as ind
+    from ai_crypto_trader_tpu_torch.parallel.time_shard import (
+        sharded_ema, sharded_rolling_mean)
+
+    x = torch.as_tensor(d_year["close"], dtype=torch.float32).cuda()
+    mesh, worst = part.mesh, {}
+    with recording_ewma([]) as recorded:
+        refs = {w: ind.ema(x, w) for w in MESH_EMA_WINDOWS}
+    for w, want in refs.items():
+        got = sharded_ema(x, w, mesh).gather()
+        if not torch.equal(torch.isnan(got), torch.isnan(want)):
+            fail(f"mesh: sharded_ema({w}) has other NaNs than ops.indicators.ema")
+        ok = ~torch.isnan(want)
+        err = torch.abs(got[ok] - want[ok])
+        if bool((err > MESH_TS_ATOL + MESH_TS_RTOL * torch.abs(want[ok])).any()):
+            fail(f"mesh: sharded_ema({w}) is {float(err.max()):.3g} off ops.indicators.ema")
+        worst[f"ema_{w}"] = {"max_abs_err": float(err.max()), "max_rel_err": float(
+            (err / torch.abs(want[ok]).clamp_min(1e-30)).max())}
+    for w in MESH_MEAN_WINDOWS:
+        got, want = sharded_rolling_mean(x, w, mesh).gather(), ind.rolling_mean(x, w)
+        if not same_bits(got.nan_to_num(), want.nan_to_num()) or not torch.equal(
+                torch.isnan(got), torch.isnan(want)):
+            fail(f"mesh: sharded_rolling_mean({w}) is not bit for bit rolling_mean")
+        worst[f"rolling_mean_{w}"] = "bit for bit"
+    ms = cuda_ms(lambda: sharded_ema(x, 26, mesh), 5)
+    ref_ms = cuda_ms(lambda: ind.ema(x, 26), 5)
+    return {"T": int(x.shape[-1]), "shards": MESH_N, "errors": worst,
+            "sharded_ema_26_ms": ms, "ema_26_ms": ref_ms}, recorded_k2(recorded, "mesh_ema")
+
+
+def mesh_long_context(part):
+    """(e) `LongContextTransformer` at its defaults over 16,384 × 8 with the
+    ring over the mesh against the same weights dense: the forward and the
+    loss gradient within tests/test_long_context.py's tolerances, each
+    path's ms and peak memory."""
+    import numpy as np
+    import torch
+
+    from ai_crypto_trader_tpu_torch.models import LongContextTransformer, long_context_loss
+
+    rng = np.random.default_rng(29)
+    x = torch.from_numpy(rng.normal(size=(LC_T, LC_F)).astype(np.float32)).cuda()
+    y = torch.from_numpy((rng.normal(size=(LC_T, 1)) * 1e-3).astype(np.float32)).cuda()
+    y[:16], y[-1] = float("nan"), float("nan")
+    models = {name: LongContextTransformer(LC_F, mesh=mesh, device="cuda",
+                                           generator=torch.Generator().manual_seed(29))
+              for name, mesh in (("dense", None), ("ring", part.mesh))}
+    out, report = {}, {"T": LC_T, "features": LC_F, "shards": MESH_N}
+    for name, model in models.items():
+        params = dict(model.named_parameters())
+
+        def fwd():
+            with torch.no_grad():
+                return model(x)["mean"]
+
+        def grad():
+            loss = long_context_loss(model, params, x, y)
+            return loss, torch.autograd.grad(loss, list(params.values()))
+
+        for part_name, fn in (("forward", fwd), ("loss_and_grad", grad)):
+            fn()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            res, ms = timed(fn)
+            report[f"{name}_{part_name}_ms"] = ms
+            report[f"{name}_{part_name}_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            out[(name, part_name)] = res
+    a, b = out[("ring", "forward")], out[("dense", "forward")]
+    report["forward_max_abs_err"] = float(torch.abs(a - b).max())
+    if not bool(torch.isfinite(a).all()) or bool(
+            (torch.abs(a - b) > MESH_LC_TOL + MESH_LC_TOL * torch.abs(b)).any()):
+        fail(f"mesh: the ring forward is {report['forward_max_abs_err']:.3g} off the dense one")
+    (lr, gr), (ld, gd) = out[("ring", "loss_and_grad")], out[("dense", "loss_and_grad")]
+    flat_r, flat_d = torch.cat([g.reshape(-1) for g in gr]), torch.cat([g.reshape(-1) for g in gd])
+    report["loss"] = [lr.item(), ld.item()]
+    report["grad_max_abs_err"] = float(torch.abs(flat_r - flat_d).max())
+    if bool((torch.abs(flat_r - flat_d)
+             > MESH_LC_GRAD_ATOL + MESH_LC_GRAD_RTOL * torch.abs(flat_d)).any()):
+        fail(f"mesh: the ring gradient is {report['grad_max_abs_err']:.3g} off the dense one")
+    return report
+
+
+def mesh_dist_finish(probe):
+    """(f) the `initialize_distributed` subprocess: NCCL, world size 1, an
+    all_reduce on the card, DIST_OK."""
+    rc, out, err, wall = probe.finish(timeout=300)
+    line = next((ln for ln in out.splitlines() if ln.startswith("DIST_OK")), None)
+    if rc != 0 or line is None or line.split()[1:4] != ["nccl", "1", "0"]:
+        fail(f"mesh: initialize_distributed's probe exited {rc}: {out[-500:]} {err[-1500:]}")
+    return {"line": line, "wall_s": wall}
+
+
+def phase_mesh(info, d_year, inp, params, stats, main_plain_ms):
+    """The population seams on a mesh (`parallel.MeshPartitioner`): a
+    virtual mesh of the card MESH_N times (and, with more than one card, a
+    mesh of the real ones for (a)-(b)): (a) the sweep, (b) the GA, (c) the
+    tenant engine, the LOB sweep, one PBT generation, the structure pool
+    and an HPO farm, (d) `time_shard`, (e) the ring in the long-context
+    model, (f) `initialize_distributed` in a subprocess started at the
+    phase's start.  Returns the kernels line's entries (K1, K2)."""
+    t_phase = time.perf_counter()
+    root, _ = research_env()
+    probe = Beside([sys.executable, "-c", _DIST_PROBE], root)
+    try:
+        parts = mesh_partitioners()
+        part = parts["virtual"]
+        report, times = {"phase": "mesh", "card": info["nvidia_smi"],
+                         "mesh": part.describe()}, {}
+        for name, fn, args in (("sweep", mesh_sweep, (part, inp, params, stats)),
+                               ("ga", mesh_ga, (part, d_year)),
+                               ("tenant", mesh_tenant, (part,)),
+                               ("lob_sweep", mesh_lob, (part,)),
+                               ("pbt", mesh_pbt, (part, SHARED.get("pbt_env"))),
+                               ("structures", mesh_structures, (part,)),
+                               ("hpo", mesh_hpo, (part, d_year)),
+                               ("time_shard", mesh_time_shard, (part, d_year)),
+                               ("long_context", mesh_long_context, (part,))):
+            if name == "pbt" and args[1] is None:
+                fail("mesh: phase rl left no pbt markets")
+            t0 = time.perf_counter()
+            report[name] = fn(*args)
+            times[name] = time.perf_counter() - t0
+        (report["ga"], ga_k1, ga_k2), (report["time_shard"], ts_k2) = \
+            report["ga"], report["time_shard"]
+        if "real" in parts:
+            real = parts["real"]
+            report["real_cards"] = {"mesh": real.describe(),
+                                    "sweep": mesh_sweep(real, inp, params, stats),
+                                    "ga": mesh_ga(real, d_year)[0]}
+        t0 = time.perf_counter()
+        report["distributed"] = mesh_dist_finish(probe)
+        times["distributed_wait"] = time.perf_counter() - t0
+    finally:
+        probe.stop()
+    report["part_s"] = times
+    report["phase_s"] = time.perf_counter() - t_phase
+    emit(report)
+    bound_ms, bound_by, _ = replay_bound_ms(stats, B_FULL, T_FULL)
+    sweep_r = report["sweep"]
+    k1 = {"launches": sweep_r["launches"] + ga_k1,
+          "launches_by_path": {"sweep": sweep_r["launches"], "ga": ga_k1},
+          "ms": sweep_r["ms"], "single_launch_ms": sweep_r["single_launch_ms"],
+          "plain_ms": main_plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+          "library_ms": None,
+          "max_abs_err": sweep_r["max_abs_err"],
+          "shape": f"{MESH_N} launches of B={B_FULL // MESH_N} x T={T_FULL} (ms, bound and "
+                   f"plain_ms: the {MESH_N} together, the same work as phase main's single "
+                   f"launch, which they equal bit for bit and whose plain loop plain_ms is)"}
+    k2 = {"launches": len(ts_k2["ms_per_launch"]) + ga_k2,
+          "launches_by_path": {"time_shard_reference_ema": len(ts_k2["ms_per_launch"]),
+                               "ga_tables": ga_k2},
+          **{k: ts_k2[k] for k in ("ms", "ms_per_launch", "plain_ms", "bound_ms", "bound_by",
+                                   "max_abs_err", "max_rel_err")},
+          "library_ms": None,
+          "shape": f"ops.indicators.ema over T={T_FULL}, windows {list(MESH_EMA_WINDOWS)}: "
+                   f"the reference sharded_ema is held against (ms/plain/bound cover these)"}
+    return k1, k2
+
+
 PHASE_S = {}              # every phase's seconds, in order
 
 
@@ -8850,6 +9409,8 @@ def main():
     stream = timed_phase("stream", phase_stream, info, trade["tick_ms_p50"])
     serve_k2, serve_k1 = timed_phase("serve", phase_serve, info, d)
     research_k2, research_k1 = timed_phase("research", phase_research, info)
+    mesh_k1, mesh_k2 = timed_phase("mesh", phase_mesh, info, d, main_inputs, params, stats,
+                                   k1["plain_ms"])
     emit({"script_s": time.perf_counter() - t_script, "phase_s": PHASE_S})
     bound_ms, bound_by, stepped_bound_ms = replay_bound_ms(stats, B_FULL, T_FULL)
     checks += full
@@ -8882,6 +9443,7 @@ def main():
          "stream": stream,
          "serve": serve_k2,
          "research": research_k2,
+         "mesh": mesh_k2,
          "shape": "the two launches of compute_indicators at T=525600, summed "
                   "(A: close K=2 + up/dn/tr K=1; B: MACD line K=1)"},
         {"name": "replay_sweep", "route": "cuda",
@@ -8914,6 +9476,7 @@ def main():
          "stack": stack_k1,
          "serve": serve_k1,
          "research": research_k1,
+         "mesh": mesh_k1,
          "shape": f"B={B_FULL} x T={T_FULL}",
          "plain": "the engine's loop, 32 candles a CUDA graph"},
     ]

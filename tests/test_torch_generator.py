@@ -331,13 +331,22 @@ def test_generate_whole_run_against_jax(ohlcv, tmp_path):
 
 
 def test_generate_refuses_a_mesh_partitioner():
+    """JAX's MeshPartitioner is refused; the port's (3 CPU shards) scores
+    the pool as the single device does."""
     from ai_crypto_trader_tpu.parallel.partitioner import MeshPartitioner
+    from ai_crypto_trader_tpu_torch.parallel import MeshPartitioner as PortMesh
+    from ai_crypto_trader_tpu_torch.parallel import make_mesh
 
     mesh = MeshPartitioner(jax.sharding.Mesh(np.array(jax.devices()[:1]), ("data",)))
     folds = [{k: np.zeros(64 if k != "stack" else (15, 64), np.float32)
               for k in ("stack", "close", "volatility")} | {"avg_volume": np.float32(1)}]
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
+    with pytest.raises(TypeError, match="not a partitioner"):
         P.evaluate_structures(folds, [P.default_seed()], partitioner=mesh, device="cpu")
+    pool = [_port(s) for s in _structures()]
+    port = PortMesh(make_mesh(3, devices=["cpu"] * 3))
+    np.testing.assert_array_equal(
+        P.evaluate_structures(folds, pool, partitioner=port, device="cpu"),
+        P.evaluate_structures(folds, pool, device="cpu"))
 
 
 def _klines(d):

@@ -8,7 +8,9 @@ port's differ in the order of their float32 sums — products, softmax
 normalisation, LayerNorm means); the loss within rtol 1e-5; each
 parameter's gradient within 1e-6 + 1e-4 of that parameter's largest
 gradient (autograd and `jax.grad` accumulate the same terms in other
-orders).
+orders).  On a mesh (the port's 8 CPU shards, JAX's `mesh8`) the ring is
+held to the same tolerances against JAX's ring and the port's dense
+model, forward, loss and gradient.
 """
 
 import numpy as np
@@ -23,6 +25,7 @@ from ai_crypto_trader_tpu.parallel import ring_attention as jra  # noqa: E402
 from ai_crypto_trader_tpu_torch import convert  # noqa: E402
 from ai_crypto_trader_tpu_torch.models import (  # noqa: E402
     LongContextTransformer, long_context_loss)
+from ai_crypto_trader_tpu_torch.parallel import make_mesh  # noqa: E402
 from ai_crypto_trader_tpu_torch.parallel import ring_attention as pra  # noqa: E402
 
 OUT_ATOL = 2e-6
@@ -108,15 +111,66 @@ def test_convert_refuses_a_foreign_tree():
                                        num_blocks=BLOCKS + 1, device="cpu")
 
 
-def test_mesh_raises_and_default_device_is_cuda(monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-        LongContextTransformer(F, mesh=object(), device="cpu")
-    port = LongContextTransformer(F, d_model=D, device="cpu")
-    port.mesh = object()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-        long_context_loss(port, None, torch.zeros(8, F), torch.zeros(8, 1))
+def test_mesh_raises_and_default_device_is_cuda(monkeypatch, mesh8):
+    """A mesh that is not the port's raises (JAX's own included); the
+    port's builds the ring; the default device is the CUDA card."""
+    for foreign in (object(), mesh8):
+        with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
+            LongContextTransformer(F, mesh=foreign, device="cpu")
+    ring = LongContextTransformer(F, d_model=D, mesh=make_mesh(8, devices=["cpu"] * 8),
+                                  device="cpu")
+    assert ring.LongContextBlock_0.RingSelfAttention_0.mesh is ring.mesh
+    assert torch.isfinite(long_context_loss(ring, None, torch.zeros(8, F),
+                                            torch.zeros(8, 1)))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         LongContextTransformer(F)
     with pytest.raises(RuntimeError, match="CUDA"):
         convert.long_context_from_flax({}, features=F)
+
+
+def _ring_case(T, seed):
+    model, params, dense, x, y = _case(T, seed)
+    ring = convert.long_context_from_flax(params, features=F, d_model=D, num_heads=H,
+                                          num_blocks=BLOCKS,
+                                          mesh=make_mesh(8, devices=["cpu"] * 8),
+                                          device="cpu")
+    return model, params, dense, ring, x, y
+
+
+def test_ring_forward_on_the_mesh(mesh8):
+    """The sequence split over 8 shards: JAX's ring on mesh8 and the port's
+    dense model, within OUT_ATOL; causal across the shards."""
+    model, params, dense, ring, x, _ = _ring_case(128, seed=21)
+    jring = jlc.LongContextTransformer(d_model=D, num_heads=H, num_blocks=BLOCKS, mesh=mesh8)
+    ref = np.asarray(jax.jit(jring.apply)(params, jnp.asarray(x))["mean"])
+    got = ring(torch.from_numpy(x))["mean"].detach().numpy()
+    np.testing.assert_allclose(got, ref, atol=OUT_ATOL, rtol=0)
+    np.testing.assert_allclose(got, dense(torch.from_numpy(x))["mean"].detach().numpy(),
+                               atol=OUT_ATOL, rtol=0)
+    x2 = x.copy()
+    x2[64:] = 0.0
+    again = ring(torch.from_numpy(x2))["mean"].detach().numpy()
+    np.testing.assert_allclose(again[:64], got[:64], atol=OUT_ATOL, rtol=0)
+
+
+def test_ring_loss_and_gradients_on_the_mesh(mesh8):
+    """Gradients flow through the ring's K/V moves: the loss and every
+    parameter's gradient against JAX's ring on mesh8 and the port's dense
+    model, within LOSS_RTOL and the gradient bound."""
+    model, params, dense, ring, x, y = _ring_case(128, seed=22)
+    jring = jlc.LongContextTransformer(d_model=D, num_heads=H, num_blocks=BLOCKS, mesh=mesh8)
+    jloss, jgrad = jax.jit(jax.value_and_grad(
+        lambda p: jlc.long_context_loss(jring, p, jnp.asarray(x), jnp.asarray(y))))(params)
+    ref = convert.state_from_flax(ring, jgrad)
+    got = {}
+    for name, port in (("ring", ring), ("dense", dense)):
+        named = dict(port.named_parameters())
+        loss = long_context_loss(port, named, torch.from_numpy(x), torch.from_numpy(y))
+        np.testing.assert_allclose(loss.item(), float(jloss), rtol=LOSS_RTOL)
+        got[name] = dict(zip(named, torch.autograd.grad(loss, list(named.values()))))
+    for k, g in got["ring"].items():
+        scale = float(ref[k].abs().max())
+        for want in (ref[k].numpy(), got["dense"][k].numpy()):
+            np.testing.assert_allclose(g.numpy(), want, atol=GRAD_ATOL + GRAD_RTOL * scale,
+                                       rtol=0, err_msg=k)

@@ -46,7 +46,7 @@ from ai_crypto_trader_tpu_torch.risk import (
     trailing_stop_update)
 from ai_crypto_trader_tpu_torch.risk.social import SocialSnapshot
 from ai_crypto_trader_tpu_torch.ops import orderbook
-from ai_crypto_trader_tpu_torch.parallel import get_partitioner
+from ai_crypto_trader_tpu_torch.parallel import MeshPartitioner, get_partitioner, make_mesh
 from ai_crypto_trader_tpu_torch.patterns.service import ChartPatternService
 from ai_crypto_trader_tpu_torch.regime import (
     MarketRegimeService, RegimeDetector, gmm_fit, hmm_fit, kmeans_fit, pca_fit, regime_features,
@@ -119,11 +119,12 @@ expected = {"config", "ops.dynamic", "backtest.evolvable", "evolve", "evolve.ga"
             "shell.stack", "shell.stream", "testing", "testing.chaos", "testing.loadgen",
             "utils.meshprof", "utils.profiling", "utils.aotcache", "utils.cache",
             "shell.dashboard_server", "backtest.queue", "backtest.results",
-            "models.trade_importance", "strategy.integration", "utils.api_security"}
+            "models.trade_importance", "strategy.integration", "utils.api_security",
+            "parallel.mesh", "parallel.time_shard"}
 missing = sorted(e for e in expected if pkg.__name__ + "." + e not in names)
 print(missing)
 from ai_crypto_trader_tpu_torch import obs, utils
-from ai_crypto_trader_tpu_torch import models, shell, social, strategy
+from ai_crypto_trader_tpu_torch import models, parallel, shell, social, strategy
 exports = {"obs": {"DRIFT_FEATURES", "N_BINS", "PSI_ALERT_THRESHOLD", "reference_histogram",
                    "FleetScope", "Scorecard", "FlightRecorder", "PnLAttribution",
                    "load_decisions"},
@@ -148,9 +149,13 @@ exports = {"obs": {"DRIFT_FEATURES", "N_BINS", "PSI_ALERT_THRESHOLD", "reference
                       "SocialStrategyIntegrator", "analyze_social_impact",
                       "generate_social_strategy"},
            "models": {"LongContextTransformer", "LongContextBlock", "RingSelfAttention",
-                      "long_context_loss"}}
+                      "long_context_loss"},
+           "parallel": {"make_mesh", "default_mesh", "data_sharding", "initialize_distributed",
+                        "pad_to_multiple", "replicated", "shard_leading_axis",
+                        "MeshPartitioner", "Partitioner", "SingleDevicePartitioner",
+                        "get_partitioner", "match_partition_rules"}}
 modules = {"obs": obs, "utils": utils, "strategy": strategy, "social": social,
-           "models": models, "shell": shell}
+           "models": models, "shell": shell, "parallel": parallel}
 missing += sorted(f"{m}.{n}" for m, names in exports.items() for n in names
                   if not hasattr(modules[m], n))
 print(missing)
@@ -803,7 +808,8 @@ def _unroll_case(fn_name):
 @pytest.mark.parametrize("fn_name", ["sweep", "shared_capital_backtest"])
 def test_jax_signature_keywords_unroll_and_partitioner(fn_name):
     """`unroll` (a `lax.scan` knob) is accepted and changes no bit; `sweep`
-    takes `partitioner=None` and refuses any other partitioner."""
+    takes `partitioner=None`, the single-device seam and the port's
+    MeshPartitioner alike, and refuses a foreign object."""
     run = _unroll_case(fn_name)
     base, unrolled = run(), run(unroll=8)
     for f in base._fields:
@@ -813,7 +819,10 @@ def test_jax_signature_keywords_unroll_and_partitioner(fn_name):
         for partitioner in (None, get_partitioner()):
             for f, v in run(partitioner=partitioner)._asdict().items():
                 assert torch.equal(v, getattr(base, f)), f
-        with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
+        mesh = MeshPartitioner(make_mesh(3, devices=["cpu"] * 3))
+        for f, v in run(partitioner=mesh)._asdict().items():
+            assert torch.equal(v, getattr(base, f)), f
+        with pytest.raises(TypeError, match="not a partitioner"):
             run(partitioner=object())
 
 
@@ -847,13 +856,17 @@ _SEAM_CASES = {
 
 @pytest.mark.parametrize("entry", sorted(_SEAM_CASES))
 def test_partitioner_seam_takes_the_single_device_partitioner(entry):
-    """`get_partitioner()`'s single-device seam runs as None does; a mesh
-    partitioner, a foreign object and a mesh for `get_partitioner` raise."""
+    """`get_partitioner()`'s single-device seam and the port's
+    MeshPartitioner (3 CPU shards) run as None does; the JAX package's
+    partitioner, a foreign object, and a foreign mesh for
+    `get_partitioner`, raise."""
     run = _SEAM_CASES[entry]
     a, b = run(None), run(get_partitioner())
-    assert (torch.equal(a, b) if torch.is_tensor(a) else a == b)
+    c = run(MeshPartitioner(make_mesh(3, devices=["cpu"] * 3)))
+    for other in (b, c):
+        assert (torch.equal(a, other) if torch.is_tensor(a) else a == other)
     for foreign in (object(), _mesh_partitioner()):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
+        with pytest.raises(TypeError, match="not a partitioner"):
             run(foreign)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
+    with pytest.raises(TypeError, match="Mesh"):
         get_partitioner(mesh=object())

@@ -30,7 +30,8 @@ from ai_crypto_trader_tpu import cli as jcli  # noqa: E402
 from ai_crypto_trader_tpu.rl import dqn as jdqn  # noqa: E402
 from ai_crypto_trader_tpu.rl import population as jpop  # noqa: E402
 from ai_crypto_trader_tpu_torch import cli, convert  # noqa: E402
-from ai_crypto_trader_tpu_torch.parallel import SingleDevicePartitioner, get_partitioner  # noqa: E402
+from ai_crypto_trader_tpu_torch.parallel import (  # noqa: E402
+    MeshPartitioner, SingleDevicePartitioner, get_partitioner, make_mesh)
 from ai_crypto_trader_tpu_torch.rl import dqn, population  # noqa: E402
 from test_torch_rl import (  # noqa: E402
     METRIC_RTOL, JaxDraws, _np, assert_state_follows, jax_leaves)
@@ -263,10 +264,12 @@ def test_partitioner_seam():
     class Mesh:
         device_count = 4
 
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(TypeError, match="not a partitioner"):
         population.train_pbt(None, None, None, population.PBTConfig(), partitioner=Mesh())
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(TypeError, match="Mesh"):
         get_partitioner(mesh=object())
+    mesh = make_mesh(4, devices=["cpu"] * 4)
+    assert get_partitioner(mesh) == MeshPartitioner(mesh) and get_partitioner(mesh).pad_for(7) == 1
 
 
 def _flags(parser, command):

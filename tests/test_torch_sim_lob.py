@@ -207,12 +207,20 @@ def test_lob_sweep_follows_jax(monkeypatch):
 
 
 def test_lob_sweep_refuses_other_partitioners():
+    from ai_crypto_trader_tpu_torch.parallel import MeshPartitioner, make_mesh
+
     g = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(TypeError, match="not a partitioner"):
         lob.lob_sweep(g, num_scenarios=2, steps=8, partitioner=object(), device="cpu")
     for p in (None, SingleDevicePartitioner()):
         out = lob.lob_sweep(g, num_scenarios=2, steps=8, partitioner=p, device="cpu")
         assert out["stats"]["devices"] == 1 and np.isfinite(out["summary"]["final_equity"]).all()
+    mesh = MeshPartitioner(make_mesh(2, devices=["cpu"] * 2))
+    runs = [lob.lob_sweep(torch.Generator().manual_seed(1), num_scenarios=3, steps=8,
+                          partitioner=p, device="cpu") for p in (None, mesh)]
+    assert runs[1]["stats"]["devices"] == 2
+    for k, v in runs[0]["summary"].items():
+        np.testing.assert_array_equal(runs[1]["summary"][k], v, err_msg=k)
 
 
 def test_gate_none_equals_all_true_and_a_false_gate_blocks():

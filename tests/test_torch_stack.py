@@ -202,16 +202,24 @@ def test_monitor_overrides(systems):
 
 
 def test_mesh_partitioner_is_refused(systems):
+    """JAX's partitioner and a foreign object raise; the port's own
+    MeshPartitioner (8 CPU shards) reaches the evolver and the generator."""
     from ai_crypto_trader_tpu.parallel.partitioner import MeshPartitioner
+    from ai_crypto_trader_tpu_torch.parallel import MeshPartitioner as PortMesh
+    from ai_crypto_trader_tpu_torch.parallel import make_mesh
 
     system, _, _ = build("port", systems=systems, hist=600, ticks=0)
     mesh = MeshPartitioner(jax.sharding.Mesh(np.array(jax.devices()[:1]), ("data",)))
     for foreign in (mesh, object()):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
+        with pytest.raises(TypeError, match="not a partitioner"):
             tstack.build_full_stack(system, cadences={**QUICK, "partitioner": foreign})
     services = tstack.build_full_stack(system, cadences={**QUICK,
                                                          "partitioner": get_partitioner()})
     assert services[ROSTER.index("generator")].partitioner == get_partitioner()
+    port = PortMesh(make_mesh(8, devices=["cpu"] * 8))
+    services = tstack.build_full_stack(system, cadences={**QUICK, "partitioner": port})
+    assert services[ROSTER.index("generator")].partitioner is port
+    assert services[ROSTER.index("evolver")].evolver.partitioner is port
 
 
 # --- the pattern recognizer's sources --------------------------------------

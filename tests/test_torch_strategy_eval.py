@@ -267,12 +267,25 @@ def test_systematic_improver_history_against_jax(ohlcv, tmp_path):
 
 
 def test_evolver_refuses_a_mesh_partitioner(ohlcv):
+    """JAX's MeshPartitioner is refused; the port's own (4 CPU shards)
+    runs the GA, bit for bit as the single device on the same seed."""
     from ai_crypto_trader_tpu.parallel.partitioner import MeshPartitioner
+    from ai_crypto_trader_tpu_torch.parallel import MeshPartitioner as PortMesh
+    from ai_crypto_trader_tpu_torch.parallel import make_mesh
 
+    window = {k: v[:400] for k, v in ohlcv.items()}
     mesh = MeshPartitioner(jax.sharding.Mesh(np.array(jax.devices()[:1]), ("data",)))
     p = pevo.StrategyEvolver(EventBus(), partitioner=mesh, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-        p.optimize_with_ga({k: v[:400] for k, v in ohlcv.items()}, default_params(device="cpu"))
+    with pytest.raises(TypeError, match="not a partitioner"):
+        p.optimize_with_ga(window, default_params(device="cpu"))
+    runs = []
+    for part in (None, PortMesh(make_mesh(4, devices=["cpu"] * 4))):
+        ev = pevo.StrategyEvolver(EventBus(), partitioner=part, device="cpu")
+        runs.append(ev.optimize_with_ga(window, default_params(device="cpu")))
+    (b1, i1), (bm, im) = runs
+    assert im["devices"] == 4 and i1["devices"] == 1 and im["history"] == i1["history"]
+    for a, b in zip(bm, b1):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
 def _strategies():

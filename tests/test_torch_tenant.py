@@ -36,6 +36,7 @@ from ai_crypto_trader_tpu_torch.ops import tenant_engine  # noqa: E402
 from ai_crypto_trader_tpu_torch.ops.tenant_engine import (  # noqa: E402
     EXECUTABLE, GATE_ID, GATE_NAME, NO_DECISION, TenantEngine)
 from ai_crypto_trader_tpu_torch.ops.tick_engine import TickEngine  # noqa: E402
+from ai_crypto_trader_tpu_torch.parallel import MeshPartitioner, make_mesh  # noqa: E402
 from ai_crypto_trader_tpu_torch.utils import journal  # noqa: E402
 
 SYMS = [f"P{i:03d}USDC" for i in range(4)]
@@ -123,8 +124,10 @@ def test_constants_and_params_equal_jax():
           jte.tenant_params(5, JTradingParams(max_positions=3), fee_rate=0.002))
     jeng, teng = _pair([f"Q{i}USDC" for i in range(6)], 11)
     assert (teng.S, teng.n_pad) == (jeng.S, jeng.n_pad) == (8, 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
+    with pytest.raises(TypeError, match="not a partitioner"):
         TenantEngine(SYMS, 2, partitioner=object(), device="cpu")
+    mesh = MeshPartitioner(make_mesh(2, devices=["cpu"] * 2))
+    assert TenantEngine(SYMS, 2, partitioner=mesh, device="cpu").partitioner is mesh
     with pytest.raises(ValueError, match="precision"):
         TenantEngine(SYMS, 2, precision="fp8", device="cpu")
     assert TenantEngine(SYMS, 2, precision="bf16", device="cpu").precision == "bf16"

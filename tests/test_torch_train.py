@@ -532,9 +532,15 @@ def test_two_trial_hpo_runs_and_a_partitioner_raises():
                                        device="cpu")
     assert len(out["trials"]) == 2 and np.isfinite(out["best_val_loss"])
     assert out["best_params"]["model_type"] in hpo.SEARCH_SPACE["model_type"]
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
+    with pytest.raises(TypeError, match="not a partitioner"):
         hpo.optimize_hyperparameters(torch.Generator(), _features(100), n_trials=1,
                                      partitioner=object(), device="cpu")
+    from ai_crypto_trader_tpu_torch.parallel import MeshPartitioner, make_mesh
+
+    farmed = hpo.optimize_hyperparameters(
+        torch.Generator().manual_seed(0), _features(100), n_trials=2, rung_epochs=(1, 1),
+        seq_len=12, partitioner=MeshPartitioner(make_mesh(2, devices=["cpu"] * 2)))
+    assert farmed == out
 
 
 # -- checkpoints -----------------------------------------------------------------
