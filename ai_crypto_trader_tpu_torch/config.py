@@ -211,7 +211,7 @@ class MeshParams:
     model_axis: str = "model"
     data_parallel: int = -1   # -1 = all devices
     model_parallel: int = 1
-    use_distributed_init: bool = False  # jax.distributed for multi-host
+    use_distributed_init: bool = False  # torch.distributed for multi-host
 
 
 @dataclass(frozen=True)

@@ -13,12 +13,23 @@ Trials farm over a partitioner's ``trial_devices()`` round-robin
 (``partitioner=``, as in the JAX package): trial i of the first rung, and
 survivor i of the second, runs on device i mod n, counted by
 `utils.meshprof.record_trial`.  Without a partitioner, or with the
-single-device seam, every trial runs on ``device``.  The trials share the
-draw stream in turn on every device: a trial's draws are made on the
-generator's device and moved to the trial's (the initial parameters by
-`build_model`, the permutations by `train_loop`, the dropout masks by
-`layers.dropout`), so a farm takes the same draws, in the same order, as
-one device does.
+single-device seam, every trial runs on ``device``.  On a process mesh
+(`parallel.mesh.ProcessMesh`) trial i runs on rank i mod world, on that
+rank's device; every rank proposes every trial, and the ranks exchange
+their losses (`parallel.mesh.all_gather_object`) at the end of each rung
+and before each TPE proposal, so every rank proposes the same trials and
+returns the same result.
+
+Each trial draws from a generator of its own, seeded by a draw of the
+caller's generator (the JAX package's ``fold_in(key, i)``): a rung's seeds
+are drawn in trial order before the rung's farm splits, so a trial's
+draws do not depend on where the other trials run, and a rank that skips
+the others' trials still advances the caller's stream as one device
+does.  A trial's draws are made on the generator's device and moved to
+the trial's (the initial parameters by `build_model`, the permutations by
+`train_loop`, the dropout masks by `layers.dropout`).  A draw provider in
+place of a ``torch.Generator`` is shared by the trials in turn, and only
+one process can do that (a process mesh raises ``TypeError``).
 """
 
 from __future__ import annotations
@@ -26,9 +37,11 @@ from __future__ import annotations
 from typing import Sequence
 
 import numpy as np
+import torch
 
 from ai_crypto_trader_tpu_torch.device import resolve_device
 from ai_crypto_trader_tpu_torch.models.train import train_model
+from ai_crypto_trader_tpu_torch.parallel.mesh import all_gather_object
 from ai_crypto_trader_tpu_torch.parallel.partitioner import resolve_partitioner
 from ai_crypto_trader_tpu_torch.utils import meshprof
 
@@ -169,51 +182,91 @@ def optimize_hyperparameters(
     random, the rest proposed by the Parzen-estimator ratio over the
     results so far; ``"random"`` disables the surrogate.  Every trial runs
     `train_model` on ``device`` (None: the CUDA card) with its draws from
-    ``generator`` (a ``torch.Generator``, or a draw provider, shared by the
-    trials in turn); ``precision`` goes to both rungs.  ``partitioner``
-    (None, a single-device seam or a `parallel.MeshPartitioner`) farms the
-    trials over its ``trial_devices()`` (module docstring)."""
-    devices = resolve_partitioner(partitioner).trial_devices()   # [] on one device
+    a generator of its own seeded from ``generator`` (a ``torch.Generator``;
+    a draw provider is shared by the trials in turn); ``precision`` goes to
+    both rungs.  ``partitioner`` (None, a single-device seam or a
+    `parallel.MeshPartitioner`) farms the trials over its
+    ``trial_devices()``, or over its ranks on a process mesh (module
+    docstring)."""
+    part = resolve_partitioner(partitioner)
+    devices = part.trial_devices()                               # [] on one device
     dev = resolve_device(device) if not devices else None
+    mesh = part.mesh if part.device_count > 1 else None
+    info = mesh.info if mesh is not None and mesh.spans_processes else None
+    ranks, me = (info.world, info.rank) if info is not None else (1, 0)
+    if info is not None and not isinstance(generator, torch.Generator):
+        raise TypeError("a trial farm over the ranks of a process mesh needs a "
+                        "torch.Generator: a draw provider's stream cannot be split "
+                        "between processes")
     rng = np.random.default_rng(seed)
     results = []
+    done = {}                  # index in results -> val loss this rank computed
 
-    def run_trial(i: int, t: dict, epochs: int, patience: int):
+    def settle():
+        """Every trial's loss into its record: on a process mesh the ranks
+        exchange what each computed (every rank calls it at the same
+        points)."""
+        got = dict(done)
+        done.clear()
+        if info is not None:
+            got = {i: loss for theirs in all_gather_object(got, info)
+                   for i, loss in theirs.items()}
+        for i, loss in got.items():
+            results[i]["val_loss"] = loss
+
+    def run_trial(slot: int, t: dict, draws, epochs: int, patience: int) -> float:
         on = dev
         if devices:
-            on = devices[i % len(devices)]
+            on = devices[slot % len(devices)]
             # per-device trial accounting (utils/meshprof.py)
             meshprof.record_trial(on)
         return train_model(
-            generator, features, t["model_type"], seq_len=seq_len,
+            draws, features, t["model_type"], seq_len=seq_len,
             units=t["units"], dropout=t["dropout"],
             learning_rate=t["learning_rate"], batch_size=t["batch_size"],
             epochs=epochs, early_stopping_patience=patience,
-            target_col=target_col, precision=precision, device=on)
+            target_col=target_col, precision=precision, device=on).best_val_loss
 
     # Rung 0: short budget for everyone; TPE proposes from accumulated
     # rung-0 results once the warm-up is done.
+    draws = _trial_draws(generator, n_trials)
     for i in range(n_trials):
         if sampler == "tpe" and i >= n_startup:
+            settle()
             t = suggest_tpe(results, rng)
         else:
             t = _sample_trial(rng)
-        r = run_trial(i, t, rung_epochs[0], patience=rung_epochs[0])
-        results.append({"trial": t, "val_loss": r.best_val_loss, "rung": 0})
+        results.append({"trial": t, "val_loss": None, "rung": 0})
+        if i % ranks == me:
+            done[i] = run_trial(i, t, draws[i], rung_epochs[0], patience=rung_epochs[0])
+    settle()
 
     # Survivors graduate to the full budget; the winner is chosen among
     # full-budget runs only (losses across unequal budgets and fresh inits
     # are not comparable).
     order = np.argsort([r["val_loss"] for r in results])
     n_sur = max(int(np.ceil(n_trials * survivor_fraction)), 1)
+    draws = _trial_draws(generator, n_sur)
     finalists = []
-    for rank, i in enumerate(order[:n_sur]):
-        t = results[i]["trial"]
-        r = run_trial(rank, t, rung_epochs[-1], patience=10)
-        rec = {"trial": t, "val_loss": r.best_val_loss, "rung": 1}
+    for slot, i in enumerate(order[:n_sur]):
+        rec = {"trial": results[i]["trial"], "val_loss": None, "rung": 1}
         results[i] = rec
         finalists.append(rec)
+        if slot % ranks == me:
+            done[int(i)] = run_trial(slot, rec["trial"], draws[slot], rung_epochs[-1],
+                                     patience=10)
+    settle()
 
     best = min(finalists, key=lambda r: r["val_loss"])
     return {"best_params": best["trial"], "best_val_loss": best["val_loss"],
             "trials": results}
+
+
+def _trial_draws(generator, n: int) -> list:
+    """The draws of ``n`` trials: a ``torch.Generator`` of each one's on
+    ``generator``'s device, seeded by ``n`` draws of it made here, in trial
+    order; a draw provider shared in turn."""
+    if not isinstance(generator, torch.Generator):
+        return [generator] * n
+    seeds = torch.randint(0, 2 ** 62, (n,), generator=generator, device=generator.device)
+    return [torch.Generator(generator.device).manual_seed(int(s)) for s in seeds.tolist()]

@@ -14,7 +14,11 @@ to ``partitioner.population_eval``:
     member, each shard runs on its device with the replicated arguments
     copied once to each distinct device, and every output's population
     axis is gathered onto the mesh's first device and the pad sliced off.
-    Every shard is issued before anything is read.
+    Every shard is issued before anything is read.  On a process mesh
+    (`parallel.mesh.ProcessMesh`, after `initialize_distributed`) every
+    rank holds the whole population, pads it the same way, takes its own
+    rows, runs ``fn`` and all-gathers every output leaf over the group:
+    the result is the same on every rank, on its own device.
 
 Members are independent, so a mesh computes exactly the single device's
 per-member values: a 1-device mesh, and an n-way one, equal the
@@ -36,7 +40,8 @@ import torch
 from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
 from ai_crypto_trader_tpu_torch.parallel.mesh import (
-    Mesh, Sharding, ShardInfo, default_mesh, gather_tree, shard_leading_axis, shard_loop)
+    TRANSPORT, Mesh, Sharding, ShardInfo, all_gather_object, default_mesh, gather_tree,
+    group_token, shard_leading_axis, shard_loop)
 from ai_crypto_trader_tpu_torch.utils import meshprof
 
 
@@ -169,9 +174,9 @@ class SingleDevicePartitioner(Partitioner):
 
 class MeshPartitioner(Partitioner):
     """The population axis split over one mesh axis; outputs gathered onto
-    the mesh's first device.  ``axis`` defaults to the mesh's first
-    ("data") axis.  A 1-device mesh is legal and equals
-    `SingleDevicePartitioner` bit for bit."""
+    the mesh's first device — on a process mesh onto every rank's own.
+    ``axis`` defaults to the mesh's first ("data") axis.  A 1-device mesh
+    is legal and equals `SingleDevicePartitioner` bit for bit."""
 
     def __init__(self, mesh: Mesh | None = None, axis: str | None = None):
         self.mesh = mesh if mesh is not None else default_mesh()
@@ -195,8 +200,9 @@ class MeshPartitioner(Partitioner):
 
     @property
     def home(self) -> torch.device:
-        """The mesh's first device: where gathered outputs land."""
-        return self.devices[0]
+        """Where gathered outputs land: the mesh's first device, on a
+        process mesh this rank's."""
+        return self.mesh.local_device if self.mesh.spans_processes else self.devices[0]
 
     def population_sharding(self, ndim: int = 1) -> Sharding:
         return Sharding(self.mesh, (self.axis,) + (None,) * (ndim - 1))
@@ -217,13 +223,30 @@ class MeshPartitioner(Partitioner):
         blk = (pop + pad) // n
         shards = []
         for i, d in enumerate(self.devices):
-            info = ShardInfo(i, n, d, i * blk, (i + 1) * blk, pop)
+            if self.mesh.spans_processes and i != self.mesh.rank:
+                continue                       # another rank's rows: its own to take
+            info = ShardInfo(i, n, self.home if self.mesh.spans_processes else d,
+                             i * blk, (i + 1) * blk, pop)
             # a leaf without a member axis is the object itself, a 0-d tensor copied
             part = [x if not torch.is_tensor(x) else
-                    (x if x.ndim == 0 else info.take(x)).to(d, non_blocking=True)
+                    (x if x.ndim == 0 else info.take(x)).to(info.device, non_blocking=True)
                     for x in leaves]
             shards.append(tree_unflatten(part, spec))
         return shards, pop, pad
+
+    def _agree(self, pop_tree, name) -> None:
+        """On a process mesh: every rank must hold the same population
+        (its size and every tensor leaf's shape and dtype), or each raises
+        ``ValueError`` before any collective of the program."""
+        sig = (int(_lead(pop_tree).shape[0]),
+               [(tuple(x.shape), str(x.dtype)) for x in tree_flatten(pop_tree)[0]
+                if torch.is_tensor(x)])
+        seen = all_gather_object(sig, self.mesh.info)
+        if any(other != sig for other in seen):
+            raise ValueError(
+                f"the ranks hold different populations for {name or 'a program'}: sizes "
+                f"{[other[0] for other in seen]} by rank (or other leaf shapes); every "
+                "rank must hold the whole population, made from the same seed and draws")
 
     def population_eval(self, fn, name: str | None = None, donate_pop: bool = False):
         """``fn(pop_tree, *replicated) -> out_tree`` split over the mesh
@@ -234,18 +257,25 @@ class MeshPartitioner(Partitioner):
         and every output leaf's population axis is gathered onto the mesh's
         first device and sliced back to the population.  Nothing is read
         back.  Named, each call records the layout card (population, pad,
-        devices, the all-gather's bytes, the device names)."""
+        devices, the all-gather's bytes, the device names; on a process
+        mesh the ranks and the backend too).  On a process mesh each rank
+        runs its own shard and the outputs are all-gathered over the group;
+        ranks that hold different populations raise ``ValueError``."""
         n_dev = self.device_count
         dev_names = tuple(str(d) for d in self.devices)
+        spans = self.mesh.spans_processes
+        ranks = {"ranks": self.mesh.world, "backend": self.mesh.backend} if spans else {}
 
         def sharded(pop_tree, *repl):
+            if spans:
+                self._agree(pop_tree, name)
             shards, pop, pad = self._split(pop_tree)
             outs = shard_loop(fn, self.mesh, [shards], repl, axis=self.axis, population=pop)
-            padded = gather_tree(outs, self.home)
+            padded = gather_tree(outs, self.home, mesh=self.mesh)
             if name is not None and meshprof.active() is not None:
                 meshprof.record_population_layout(
                     name, population=pop, pad=pad, devices=n_dev, out_tree=padded,
-                    device_names=dev_names)
+                    device_names=dev_names, **ranks)
             if not pad:
                 return padded
             return tree_map(lambda x: x[:pop] if torch.is_tensor(x) and x.ndim >= 1
@@ -254,31 +284,48 @@ class MeshPartitioner(Partitioner):
         return sharded
 
     def trial_devices(self) -> list:
-        """Round-robin devices for host-farmed trials (HPO)."""
+        """Round-robin devices for host-farmed trials (HPO); on a process
+        mesh this rank's device, which runs its trials (`models.hpo`)."""
+        if self.mesh.spans_processes:
+            return [self.home]
         return list(np.ravel(self.mesh.devices))
 
     def _device_list(self) -> list:
+        if self.mesh.spans_processes:
+            return [self.home]           # another rank's card is not this process's to name
         return list(np.ravel(self.mesh.devices))
 
     def describe(self) -> dict:
+        """`Partitioner.describe` with the axis, the mesh's shape and its
+        devices' names; on a process mesh also the ranks, this rank, the
+        backend and what the transport has moved (`parallel.mesh.TRANSPORT`:
+        collectives, bytes, staging copies)."""
         out = super().describe()
         out["axis"] = self.axis
         out["mesh_shape"] = {str(a): int(self.mesh.shape[a]) for a in self.mesh.axis_names}
         out["device_names"] = [str(d) for d in np.ravel(self.mesh.devices)]
+        if self.mesh.spans_processes:
+            out.update(ranks=self.mesh.world, rank=self.mesh.rank, backend=self.mesh.backend,
+                       transport=TRANSPORT.counts())
         return out
 
 
 @functools.lru_cache(maxsize=8)
-def _default_partitioner(n_devices: int) -> Partitioner:
+def _default_partitioner(n_devices: int, group: int | None = None) -> Partitioner:
+    # ``group`` (a bring-up's token) keys the cache only: a process group
+    # brought up later gets a partitioner of its own mesh
     if n_devices <= 1:
         return SingleDevicePartitioner()
     return MeshPartitioner(default_mesh())
 
 
 def get_partitioner(mesh: Mesh | None = None) -> Partitioner:
-    """The default seam: a `MeshPartitioner` over every visible CUDA card
-    when there is more than one, else `SingleDevicePartitioner` (the JAX
-    package's rule: a mesh only over more than one device).  An explicit
+    """The default seam: a `MeshPartitioner` over every rank of the process
+    group once `parallel.initialize_distributed` has brought up one of
+    several ranks (as JAX counts ``jax.device_count()`` across processes),
+    else over every visible CUDA card when there is more than one, else
+    `SingleDevicePartitioner` (the JAX package's rule: a mesh only over
+    more than one device).  An explicit
     ``mesh`` pins the topology: one device on its data axis gives the
     single-device seam."""
     if mesh is not None:
@@ -287,6 +334,9 @@ def get_partitioner(mesh: Mesh | None = None) -> Partitioner:
         if mesh.shape[mesh.axis_names[0]] <= 1:
             return SingleDevicePartitioner()
         return MeshPartitioner(mesh)
+    token = group_token()
+    if token is not None:
+        return _default_partitioner(default_mesh().world, token)
     n = torch.cuda.device_count() if torch.cuda.is_available() else 1
     return _default_partitioner(n)
 

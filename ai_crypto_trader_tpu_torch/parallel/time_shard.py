@@ -20,6 +20,13 @@ them on one device.
     predecessor's last ``window − 1`` candles (block 0 a NaN halo, the
     warm-up), so every mean sums the same window, in the same order, as
     `ops.indicators.rolling_mean` does unsplit.
+
+On a process mesh (`parallel.mesh.ProcessMesh`) each rank holds the whole
+series, keeps its own block, and the result is that block alone
+(``.gather()`` all-gathers the series onto every rank): the aggregates are
+all-gathered and every rank composes its own carry from its predecessors'
+in `_carries`' order (bit for bit the one-controller result), and the
+halo comes from rank i − 1 by point-to-point send/recv.
 """
 
 from __future__ import annotations
@@ -29,15 +36,18 @@ import math
 import torch
 
 from ai_crypto_trader_tpu_torch.ops.indicators import first_order_recursion, rolling_mean
-from ai_crypto_trader_tpu_torch.parallel.mesh import Shards, split_leading
+from ai_crypto_trader_tpu_torch.parallel.mesh import Shards, all_gather, exchange
 
 
 def _blocks(x, mesh, axis):
-    devs = mesh.axis_devices(axis)
-    if x.shape[-1] % len(devs):
+    """(blocks this process holds, the index of its first, the count of
+    all): every block on one controller, its own on a process mesh."""
+    n = mesh.shape[axis]
+    if x.shape[-1] % n:
         raise ValueError(f"series of {x.shape[-1]} candles not divisible by the "
-                         f"{len(devs)}-way '{axis}' mesh axis")
-    return split_leading(x, devs, dim=-1)
+                         f"{n}-way '{axis}' mesh axis")
+    first = mesh.rank if mesh.spans_processes else 0
+    return mesh.split(x, -1, axis), first, n
 
 
 def _carries(As, Bs):
@@ -58,12 +68,17 @@ def sharded_first_order_recursion(a, b, mesh, axis: str = "data") -> Shards:
     (its length divisible by the axis).  ``a``, ``b``: [T] tensors.
     Returns the blocks of y, each on its device."""
     axis = axis or mesh.axis_names[0]
-    a_blk, b_blk = _blocks(a, mesh, axis), _blocks(b, mesh, axis)
+    (a_blk, first, _), (b_blk, _, _) = _blocks(a, mesh, axis), _blocks(b, mesh, axis)
     prefix = [torch.cumprod(x, dim=-1) for x in a_blk]
     local = [first_order_recursion(x, y) for x, y in zip(a_blk, b_blk)]
-    carries = _carries([p[-1] for p in prefix], [y[-1] for y in local])
-    return Shards(y + c.to(y.device, non_blocking=True) * p
-                  for y, c, p in zip(local, carries, prefix))
+    if mesh.spans_processes:
+        # every block's (A_i, B_i), then this rank's carry from its predecessors'
+        agg = all_gather(torch.stack([prefix[0][-1], local[0][-1]])[None], mesh.info)
+        carries = [_carries(list(agg[: first + 1, 0]), list(agg[: first + 1, 1]))[first]]
+    else:
+        carries = _carries([p[-1] for p in prefix], [y[-1] for y in local])
+    return Shards((y + c.to(y.device, non_blocking=True) * p
+                   for y, c, p in zip(local, carries, prefix)), mesh=a_blk.mesh)
 
 
 def sharded_ema(x, window: int, mesh, axis: str = "data") -> Shards:
@@ -77,10 +92,11 @@ def sharded_ema(x, window: int, mesh, axis: str = "data") -> Shards:
     a = torch.where(t == 0, 0.0, 1.0 - alpha).to(x.dtype)
     b = torch.where(t == 0, xs, alpha * xs)
     ys = sharded_first_order_recursion(a, b, mesh, axis)
-    blk = x.shape[-1] // len(ys)
-    return Shards(torch.where(torch.arange(i * blk, (i + 1) * blk, device=y.device) < window - 1,
-                              math.nan, y)
-                  for i, y in enumerate(ys))
+    blk = x.shape[-1] // mesh.shape[axis or mesh.axis_names[0]]
+    first = mesh.rank if mesh.spans_processes else 0
+    return Shards((torch.where(torch.arange(i * blk, (i + 1) * blk, device=y.device)
+                               < window - 1, math.nan, y)
+                   for i, y in enumerate(ys, first)), mesh=ys.mesh)
 
 
 def sharded_rolling_mean(x, window: int, mesh, axis: str = "data") -> Shards:
@@ -90,19 +106,27 @@ def sharded_rolling_mean(x, window: int, mesh, axis: str = "data") -> Shards:
     is one block deep: ``window − 1`` must not exceed a block
     (``ValueError``)."""
     axis = axis or mesh.axis_names[0]
-    blocks = _blocks(x, mesh, axis)
+    blocks, first, n = _blocks(x, mesh, axis)
     if window == 1:
         return blocks
-    blk = x.shape[-1] // len(blocks)
+    blk = x.shape[-1] // n
     if window - 1 > blk:
         raise ValueError(
             f"window {window} needs a halo of {window - 1} candles but the "
             f"per-device block is only {blk}; use fewer shards or the unsharded kernel")
+    if mesh.spans_processes and n > 1:
+        # the tail goes to rank i + 1, the halo comes from rank i − 1
+        me, tail = first, blocks[0][-(window - 1):]
+        received = exchange(tail, mesh.info, me + 1 if me < n - 1 else None,
+                            me - 1 if me > 0 else None)
+        halos = [received]
+    else:
+        halos = [None] + [b[-(window - 1):] for b in blocks[:-1]]
     out = []
-    for i, block in enumerate(blocks):
+    for i, (block, halo) in enumerate(zip(blocks, halos), first):
         if i == 0:
             halo = torch.full((window - 1,), math.nan, dtype=block.dtype, device=block.device)
         else:
-            halo = blocks[i - 1][-(window - 1):].to(block.device, non_blocking=True)
+            halo = halo.to(block.device, non_blocking=True)
         out.append(rolling_mean(torch.cat([halo, block]), window)[window - 1:])
-    return Shards(out)
+    return Shards(out, mesh=blocks.mesh)

@@ -134,7 +134,9 @@ class FleetDraws:
     it, and every shard gets its own rows of it
     (`parallel.mesh.current_shard`), so a shard trains on exactly the
     draws the single device's fleet would give its members.  A shard's
-    k-th call of a generation takes the k-th draw made.
+    k-th call of a generation takes the k-th draw made.  On a process mesh
+    each rank's ``base`` is in the same state, so the rank makes every
+    draw for all P at its own shard's call and takes its rows.
 
     A replay draw is made at the size of every member's ring: each member
     has pushed the same number of transitions, so one member's ring size

@@ -170,6 +170,8 @@ class LayoutCard:
     devices: int = 1
     collective_bytes: int = 0       # all-gather traffic per dispatch
     device_names: tuple = ()
+    ranks: int = 0                  # a process mesh's ranks (0: one controller)
+    backend: str = ""               # and its transport's backend
 
     @property
     def padded(self) -> int:
@@ -184,12 +186,15 @@ class LayoutCard:
         return self.padded / self.devices if self.devices else 0.0
 
     def to_dict(self) -> dict:
-        return {"program": self.program, "population": self.population,
-                "pad": self.pad, "padded": self.padded,
-                "devices": self.devices,
-                "pad_fraction": round(self.pad_fraction, 6),
-                "members_per_device": self.members_per_device,
-                "collective_bytes": self.collective_bytes}
+        out = {"program": self.program, "population": self.population,
+               "pad": self.pad, "padded": self.padded,
+               "devices": self.devices,
+               "pad_fraction": round(self.pad_fraction, 6),
+               "members_per_device": self.members_per_device,
+               "collective_bytes": self.collective_bytes}
+        if self.ranks:
+            out.update(ranks=self.ranks, backend=self.backend)
+        return out
 
 
 class RecompileSentinel:
@@ -400,12 +405,13 @@ class MeshProf:
     # -- layout cards ---------------------------------------------------------
     def record_layout(self, program: str, *, population: int, pad: int,
                       devices: int, out_tree=None,
-                      device_names=()) -> LayoutCard:
+                      device_names=(), ranks: int = 0, backend: str = "") -> LayoutCard:
         """Record one population program's pad/mask layout.  Pure host and
         cheap; only the shapes and dtypes of ``out_tree``'s tensors are
         read: every output leaf carrying the padded population axis
         contributes its all-gather bytes (each of the ``devices`` cards
-        receives the other ``devices-1`` shards)."""
+        receives the other ``devices-1`` shards).  A process mesh names
+        its ``ranks`` and ``backend``."""
         padded = population + pad
         collective = 0
         if out_tree is not None and devices > 1:
@@ -422,7 +428,8 @@ class MeshProf:
         card = LayoutCard(program=program, population=int(population),
                           pad=int(pad), devices=int(devices),
                           collective_bytes=int(collective),
-                          device_names=tuple(str(d) for d in device_names))
+                          device_names=tuple(str(d) for d in device_names),
+                          ranks=int(ranks), backend=str(backend))
         with self._lock:
             self.layouts[program] = card
         m = self.metrics
@@ -597,13 +604,15 @@ def allow_transfers():
 
 def record_population_layout(name: str, *, population: int, pad: int,
                              devices: int, out_tree=None,
-                             device_names=()) -> LayoutCard | None:
+                             device_names=(), ranks: int = 0,
+                             backend: str = "") -> LayoutCard | None:
     mp = _ACTIVE
     if mp is None:
         return None
     return mp.record_layout(name, population=population, pad=pad,
                             devices=devices, out_tree=out_tree,
-                            device_names=device_names)
+                            device_names=device_names, ranks=ranks,
+                            backend=backend)
 
 
 def record_trial(device) -> None:

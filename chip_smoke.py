@@ -393,8 +393,22 @@ imports nothing of JAX or of the JAX package.  Phases, one JSON line each:
                 held against the plain EWMA) and `rolling_mean`; (e) the
                 long-context model at 16,384 × 8 with the ring against its
                 dense attention, forward and gradient, with each one's ms
-                and peak memory; (f) `initialize_distributed` over NCCL in a
-                subprocess started at the phase's start;
+                and peak memory; (f) `initialize_distributed` over NCCL at
+                world size 1 in a subprocess started at the phase's start,
+                with one `population_eval` and one ring step (forward and
+                gradient) through the process mesh over NCCL; (g) after
+                the timed parts, 2 rank processes that share the card over
+                gloo (a process mesh, `python3 chip_smoke.py --mesh-rank
+                RANK PORT DIR` each): the main path's sweep as 2 K1
+                launches of 2,048 bit for bit against phase main's, the GA
+                at 256 and 250, the pbt generation and the HPO farm bit for
+                bit against (b)-(c)'s single device, `time_shard` over the
+                year bit for bit against a one-controller mesh of 2, the
+                long-context ring within (e)'s tolerances of the dense run;
+                each rank's parts' seconds, K1/K2 launches (and their
+                times, the two ranks contending), the transport's
+                collectives, bytes and staging copies, the ring's peak
+                memory;
  24. kernels  — one line with each kernel's launches, error, times and
                 bound, at the main path's shapes, and each kernel's GA,
                 tick, portfolio, tenant, `cli train`, training, RL,
@@ -8848,16 +8862,45 @@ MESH_TS_RTOL, MESH_TS_ATOL = 2e-5, 1e-4      # tests/test_time_shard.py's EMA to
 MESH_MEAN_ATOL = 1e-3                         # and its rolling mean's
 MESH_LC_TOL = 2e-4           # (e): tests/test_long_context.py's forward rtol and atol
 MESH_LC_GRAD_RTOL, MESH_LC_GRAD_ATOL = 5e-3, 5e-4   # and its gradients'
+MESH_HPO_KW = dict(n_trials=MESH_HPO_TRIALS, rung_epochs=(1, 1), survivor_fraction=0.25,
+                   seq_len=16, n_startup=MESH_HPO_TRIALS, device="cuda")
+MESH_RANKS = 2               # (g): rank processes that share the card over gloo
+MESH_RANK_TIMEOUT_S = 300    # (g): each rank's limit (the group's collectives time out too)
 
+# (f): NCCL at world size 1 — an all_reduce on the data group, one
+# population_eval and one ring step (forward and gradient) through the
+# process-mesh code, held against the plain results at argv's tolerances
 _DIST_PROBE = r"""
-import socket, torch, torch.distributed as dist
-from ai_crypto_trader_tpu_torch.parallel import initialize_distributed
+import json, socket, sys, torch, torch.distributed as dist
+from ai_crypto_trader_tpu_torch.parallel import MeshPartitioner, initialize_distributed
+from ai_crypto_trader_tpu_torch.parallel.mesh import TRANSPORT, process_group, process_mesh
+from ai_crypto_trader_tpu_torch.parallel.ring_attention import (
+    reference_attention, ring_self_attention)
+tol, grad_rtol, grad_atol = (float(a) for a in sys.argv[1:4])
 s = socket.socket(); s.bind(("127.0.0.1", 0)); port = s.getsockname()[1]; s.close()
 backend = initialize_distributed(f"127.0.0.1:{port}", 1, 0)
 x = torch.full((4,), 2.0, device="cuda")
-dist.all_reduce(x)
+dist.all_reduce(x, group=process_group().group)
+part = MeshPartitioner(process_mesh())
+pop = torch.arange(40.0, device="cuda").reshape(10, 4)
+out = part.population_eval(lambda t: {"sq": t * t, "sum": t.sum(-1)}, name="probe")(pop)
+g = torch.Generator(device="cuda").manual_seed(5)
+q, k, v = (torch.randn(64, 2, 8, generator=g, device="cuda").requires_grad_(True)
+           for _ in range(3))
+o = ring_self_attention(q, k, v, part.mesh)
+grads = torch.autograd.grad(o.square().sum(), [q, k, v])
+ref = reference_attention(q, k, v)
+ref_grads = torch.autograd.grad(ref.square().sum(), [q, k, v])
 torch.cuda.synchronize()
+mesh = {"population_eval": bool(torch.equal(out["sq"], pop * pop)
+                                and torch.equal(out["sum"], pop.sum(-1))),
+        "ring_forward": bool(((o - ref).abs() <= tol + tol * ref.abs()).all()),
+        "ring_grad": all(bool(((a - b).abs() <= grad_atol + grad_rtol * b.abs()).all())
+                         for a, b in zip(grads, ref_grads)),
+        "ring_max_abs_err": float((o - ref).abs().max()),
+        "transport": TRANSPORT.counts(), "describe": part.describe()}
 print("DIST_OK", backend, dist.get_world_size(), dist.get_rank(), x.tolist(), flush=True)
+print("DIST_MESH", json.dumps(mesh), flush=True)
 dist.destroy_process_group()
 """
 
@@ -8993,6 +9036,7 @@ def mesh_ga(part, d_year):
         if got[1] != one[1]:
             fail(f"mesh: the GA's history at {pop} differs from the single device's")
         same_tree(tuple(got[0]), tuple(one[0]), f"the GA's best genome at {pop}")
+        SHARED.setdefault("mesh_single_ga", {})[pop] = one
         k1 += sum(launches)
         out[str(pop)] = {"k1_launches_by_run": launches, "wall_s": wall,
                          "best_fitness": one[1][-1]["best_fitness"]}
@@ -9078,6 +9122,17 @@ def mesh_lob(part):
             "wall_s": got["stats"]["wall_s"], "single_wall_s": one["stats"]["wall_s"]}
 
 
+def mesh_pbt_configs(env):
+    """(c), (g): the pbt row's fleet (PBT_P members) for one generation of
+    MESH_PBT_I iterations."""
+    from ai_crypto_trader_tpu_torch.rl import dqn, obs_size, population
+
+    cfg = dqn.DQNConfig(state_size=obs_size(env), num_envs=1, rollout_len=8, hidden=(16,),
+                        replay_capacity=128, batch_size=8, learn_steps_per_iter=1)
+    return cfg, population.PBTConfig(population=PBT_P, generations=1,
+                                     iters_per_generation=MESH_PBT_I, eval_steps=PBT_EVAL)
+
+
 def mesh_pbt(part, env):
     """(c) one generation of the `pbt` row's fleet (16 members, MESH_PBT_I
     iterations) on the mesh against the single device on the same
@@ -9086,14 +9141,12 @@ def mesh_pbt(part, env):
     import numpy as np
     import torch
 
-    from ai_crypto_trader_tpu_torch.rl import dqn, obs_size, population
+    from ai_crypto_trader_tpu_torch.rl import dqn, population
 
-    cfg = dqn.DQNConfig(state_size=obs_size(env), num_envs=1, rollout_len=8, hidden=(16,),
-                        replay_capacity=128, batch_size=8, learn_steps_per_iter=1)
-    pcfg = population.PBTConfig(population=PBT_P, generations=1,
-                                iters_per_generation=MESH_PBT_I, eval_steps=PBT_EVAL)
+    cfg, pcfg = mesh_pbt_configs(env)
     gen = lambda: torch.Generator(device="cuda").manual_seed(21)  # noqa: E731
     one = population.train_pbt(gen(), env, cfg, pcfg)
+    SHARED["mesh_single_pbt"] = one
     with counted(population, "host_read") as reads:
         got = population.train_pbt(gen(), env, cfg, pcfg, partitioner=part)
     if len(reads) != 1:
@@ -9130,6 +9183,14 @@ def mesh_structures(part):
     return {"folds": len(folds), "pool": len(pool), "call_s": wall}
 
 
+def mesh_hpo_features(d_year):
+    """(c), (g): the HPO farm's feature rows (4 columns of the year's candles)."""
+    import numpy as np
+
+    return np.stack([np.asarray(d_year[k][:MESH_HPO_ROWS], np.float32)
+                     for k in ("close", "volume", "high", "low")], 1)
+
+
 def mesh_hpo(part, d_year):
     """(c) an HPO farm of MESH_HPO_TRIALS trials (rung epochs 1 and 1, one
     finalist) round-robin over the mesh: the same trials and losses as the
@@ -9144,12 +9205,10 @@ def mesh_hpo(part, d_year):
     from ai_crypto_trader_tpu_torch.parallel import MeshPartitioner, make_mesh
     from ai_crypto_trader_tpu_torch.utils import meshprof
 
-    feats = np.stack([np.asarray(d_year[k][:MESH_HPO_ROWS], np.float32)
-                      for k in ("close", "volume", "high", "low")], 1)
-    kw = dict(n_trials=MESH_HPO_TRIALS, rung_epochs=(1, 1), survivor_fraction=0.25,
-              seq_len=16, n_startup=MESH_HPO_TRIALS, device="cuda")
+    feats, kw = mesh_hpo_features(d_year), MESH_HPO_KW
     gen = lambda: torch.Generator(device="cuda").manual_seed(23)  # noqa: E731
     one = hpo.optimize_hyperparameters(gen(), feats, **kw)
+    SHARED["mesh_single_hpo"] = one
     mp = meshprof.MeshProf()
     with meshprof.use(mp):
         t0 = time.perf_counter()
@@ -9211,10 +9270,23 @@ def mesh_time_shard(part, d_year):
                 torch.isnan(got), torch.isnan(want)):
             fail(f"mesh: sharded_rolling_mean({w}) is not bit for bit rolling_mean")
         worst[f"rolling_mean_{w}"] = "bit for bit"
+    SHARED["mesh_ema_refs"] = refs
     ms = cuda_ms(lambda: sharded_ema(x, 26, mesh), 5)
     ref_ms = cuda_ms(lambda: ind.ema(x, 26), 5)
     return {"T": int(x.shape[-1]), "shards": MESH_N, "errors": worst,
             "sharded_ema_26_ms": ms, "ema_26_ms": ref_ms}, recorded_k2(recorded, "mesh_ema")
+
+
+def mesh_lc_inputs():
+    """(e), (g): the long-context model's [LC_T, LC_F] inputs and [LC_T, 1]
+    targets (NaN where there is none), from numpy seed 29."""
+    import numpy as np
+
+    rng = np.random.default_rng(29)
+    x = rng.normal(size=(LC_T, LC_F)).astype(np.float32)
+    y = (rng.normal(size=(LC_T, 1)) * 1e-3).astype(np.float32)
+    y[:16], y[-1] = float("nan"), float("nan")
+    return x, y
 
 
 def mesh_long_context(part):
@@ -9222,15 +9294,11 @@ def mesh_long_context(part):
     ring over the mesh against the same weights dense: the forward and the
     loss gradient within tests/test_long_context.py's tolerances, each
     path's ms and peak memory."""
-    import numpy as np
     import torch
 
     from ai_crypto_trader_tpu_torch.models import LongContextTransformer, long_context_loss
 
-    rng = np.random.default_rng(29)
-    x = torch.from_numpy(rng.normal(size=(LC_T, LC_F)).astype(np.float32)).cuda()
-    y = torch.from_numpy((rng.normal(size=(LC_T, 1)) * 1e-3).astype(np.float32)).cuda()
-    y[:16], y[-1] = float("nan"), float("nan")
+    x, y = (torch.from_numpy(a).cuda() for a in mesh_lc_inputs())
     models = {name: LongContextTransformer(LC_F, mesh=mesh, device="cuda",
                                            generator=torch.Generator().manual_seed(29))
               for name, mesh in (("dense", None), ("ring", part.mesh))}
@@ -9260,6 +9328,7 @@ def mesh_long_context(part):
             (torch.abs(a - b) > MESH_LC_TOL + MESH_LC_TOL * torch.abs(b)).any()):
         fail(f"mesh: the ring forward is {report['forward_max_abs_err']:.3g} off the dense one")
     (lr, gr), (ld, gd) = out[("ring", "loss_and_grad")], out[("dense", "loss_and_grad")]
+    SHARED["mesh_dense_lc"] = (b, ld, gd)
     flat_r, flat_d = torch.cat([g.reshape(-1) for g in gr]), torch.cat([g.reshape(-1) for g in gd])
     report["loss"] = [lr.item(), ld.item()]
     report["grad_max_abs_err"] = float(torch.abs(flat_r - flat_d).max())
@@ -9271,12 +9340,304 @@ def mesh_long_context(part):
 
 def mesh_dist_finish(probe):
     """(f) the `initialize_distributed` subprocess: NCCL, world size 1, an
-    all_reduce on the card, DIST_OK."""
+    all_reduce on the card, DIST_OK; one `population_eval` and one ring
+    step (forward and gradient) through the process mesh over the NCCL
+    transport, against the plain results, nothing staged."""
     rc, out, err, wall = probe.finish(timeout=300)
     line = next((ln for ln in out.splitlines() if ln.startswith("DIST_OK")), None)
     if rc != 0 or line is None or line.split()[1:4] != ["nccl", "1", "0"]:
         fail(f"mesh: initialize_distributed's probe exited {rc}: {out[-500:]} {err[-1500:]}")
-    return {"line": line, "wall_s": wall}
+    mesh = json.loads(next(ln for ln in out.splitlines()
+                           if ln.startswith("DIST_MESH")).split(" ", 1)[1])
+    t = mesh["transport"]
+    if not (mesh["population_eval"] and mesh["ring_forward"] and mesh["ring_grad"]) \
+            or t["collectives"] < 1 or t["staging_copies"] or mesh["describe"]["backend"] != "nccl":
+        fail(f"mesh: the NCCL process mesh's probe gave {mesh}")
+    return {"line": line, "process_mesh": mesh, "wall_s": wall}
+
+
+def mesh_rank(rank, port, workdir):
+    """(g), one rank: the group over the card (``initialize_distributed``
+    with no device: the two ranks share the card, so gloo), the seams
+    through `get_partitioner()` on the inputs the parent saved, each
+    part's seconds, K1/K2 launches and transport counts read after it,
+    the outputs written to ``workdir/rank{rank}.pt``.  The kernels build
+    at first use into one empty directory for both ranks, which reach
+    their first launch together (the bring-up's exchange has just
+    synchronised them): each rank's builds are recorded."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from ai_crypto_trader_tpu_torch.backtest import default_params, sweep
+    from ai_crypto_trader_tpu_torch.config import GAParams
+    from ai_crypto_trader_tpu_torch.evolve import ga
+    from ai_crypto_trader_tpu_torch.models import LongContextTransformer, hpo, long_context_loss
+    from ai_crypto_trader_tpu_torch.ops import dynamic
+    from ai_crypto_trader_tpu_torch.ops.ewma import fused_ewma, fused_ewma_jobs
+    from ai_crypto_trader_tpu_torch.ops.replay import sweep_kernel
+    from ai_crypto_trader_tpu_torch.parallel import get_partitioner, initialize_distributed
+    from ai_crypto_trader_tpu_torch.parallel.mesh import TRANSPORT
+    from ai_crypto_trader_tpu_torch.parallel.time_shard import (
+        sharded_ema, sharded_rolling_mean)
+    from ai_crypto_trader_tpu_torch.rl import dqn, population
+    from ai_crypto_trader_tpu_torch.ops import _cuda
+    from ai_crypto_trader_tpu_torch.utils import meshprof
+
+    t_rank = time.perf_counter()
+    # both ranks build the same libraries into one empty directory at once
+    _cuda.set_build_dir(os.path.join(workdir, "kernels"))
+    builds = []
+    _cuda.BUILD_LISTENERS.append(lambda name, s, cached: builds.append(
+        {"library": name, "s": s, "cached": cached}))
+    backend = initialize_distributed(f"127.0.0.1:{port}", MESH_RANKS, rank)
+    part = get_partitioner()
+    src = torch.load(os.path.join(workdir, "inputs.pt"), weights_only=False)
+    res = {"rank": rank, "backend": backend, "describe": part.describe(), "parts": {},
+           "start_s": time.perf_counter() - t_rank}
+
+    def run(name, fn):
+        TRANSPORT.reset()
+        sweep_kernel.launches = fused_ewma.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        res["parts"][name] = {"s": time.perf_counter() - t0, "k1": sweep_kernel.launches,
+                              "k2": fused_ewma.launches, "transport": TRANSPORT.counts()}
+        return out
+
+    def cuda(tree):
+        return type(tree)(*(x.cuda() if torch.is_tensor(x) else x for x in tree))
+
+    inp, params, calls = cuda(src["inputs"]), cuda(src["params"]), []
+
+    def swept():
+        with recording_k1(calls):
+            return sweep(inp, params, partitioner=part, device="cuda")
+
+    stats = run("sweep", swept)
+    shard_in, shard_params, shard_kw, _ = calls[0]
+    # the rank's launch timed alone, after the counted run (the other rank
+    # times its own at about the same moment: contended)
+    res["sweep"] = {"stats": type(stats)(*(x.cpu() for x in stats)),
+                    "launch_B": [int(p.stop_loss.numel()) for _, p, _, _ in calls],
+                    "k1_ms": cuda_ms(lambda: sweep_kernel(shard_in, shard_params, **shard_kw), 3)}
+    del calls, shard_in, shard_params
+    tables_jobs, kernel_entry = [], dynamic.fused_ewma_jobs
+
+    def recording(jobs, device=None):
+        tables_jobs.append([(x, a, st) for x, a, st in jobs])
+        return kernel_entry(jobs, device=device)
+
+    dynamic.fused_ewma_jobs = recording
+    try:
+        fit = run("ga_tables", lambda: ga.backtest_fitness(src["candles"], device="cuda"))
+    finally:
+        dynamic.fused_ewma_jobs = kernel_entry
+    res["k2_ms"] = [cuda_ms(lambda: fused_ewma_jobs(jobs, device="cuda"), 5)
+                    for jobs in tables_jobs]
+    del tables_jobs
+    res["ga"] = {}
+    for pop in (POP_GA, MESH_GA_RAGGED):
+        cfg = GAParams(population_size=pop, generations=GENS_GA)
+        with counted(ga, "host_read") as reads:
+            best, history = run(f"ga_{pop}", lambda: ga.run_ga(
+                torch.Generator(device="cuda").manual_seed(11), fit, cfg,
+                seed_params=default_params(device="cuda"), partitioner=part, device="cuda"))
+        res["ga"][pop] = {"best": tuple(best), "history": history, "reads": len(reads)}
+    env = cuda(src["pbt_env"])
+    cfg, pcfg = mesh_pbt_configs(env)
+    with counted(population, "host_read") as reads:
+        r = run("pbt", lambda: population.train_pbt(
+            torch.Generator(device="cuda").manual_seed(21), env, cfg, pcfg, partitioner=part))
+    res["pbt"] = {"fitness": r.fitness, "history": r.history, "reads": len(reads),
+                  "members": {k: v.cpu() for k, v in
+                              dqn.tensor_leaves(dqn._drop(r.state.members)).items()}}
+    mp = meshprof.MeshProf()
+    with meshprof.use(mp):
+        res["hpo"] = run("hpo", lambda: hpo.optimize_hyperparameters(
+            torch.Generator(device="cuda").manual_seed(23), src["hpo_features"],
+            partitioner=part, **MESH_HPO_KW))
+    res["hpo_trials_here"] = sum(mp.trial_assignments.values())
+    x = torch.as_tensor(src["close"]).cuda()
+    res["time_shard"] = {k: v.cpu() for k, v in run("time_shard", lambda: {
+        **{f"ema_{w}": sharded_ema(x, w, part.mesh).gather() for w in MESH_EMA_WINDOWS},
+        **{f"mean_{w}": sharded_rolling_mean(x, w, part.mesh).gather()
+           for w in MESH_MEAN_WINDOWS}}).items()}
+    lx, ly = (torch.from_numpy(a).cuda() for a in src["lc"])
+    model = LongContextTransformer(LC_F, mesh=part.mesh, device="cuda",
+                                   generator=torch.Generator().manual_seed(29))
+    params_lc = dict(model.named_parameters())
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        fwd = run("long_context_forward", lambda: model(lx)["mean"])
+    peak_fwd = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+
+    def loss_and_grad():
+        loss = long_context_loss(model, params_lc, lx, ly)
+        return loss, torch.autograd.grad(loss, list(params_lc.values()))
+
+    loss, grads = run("long_context_loss_and_grad", loss_and_grad)
+    res["long_context"] = {"forward": fwd.cpu(), "loss": float(loss),
+                           "grads": [g.cpu() for g in grads],
+                           "peak_gb": {"forward": peak_fwd,
+                                       "loss_and_grad": torch.cuda.max_memory_allocated() / 1e9}}
+    res["rank_s"] = time.perf_counter() - t_rank
+    res["builds"] = builds
+    torch.save(res, os.path.join(workdir, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def mesh_ranks(d_year, inp, params, stats):
+    """(g) MESH_RANKS rank processes that share the card over gloo
+    (`mesh_rank`), started after the phase's timed parts: the inputs saved
+    once (the main path's inputs and strategies, the GA's candles, the pbt
+    markets, the HPO features, the year's close, the long-context inputs),
+    and each rank's outputs held here: the sweep's stats bit for bit against
+    phase main's single launch, in one K1 launch of B / MESH_RANKS a rank;
+    the GA at 256 and 250, the pbt generation and the HPO farm bit for bit
+    against the single device's runs of (b)-(c); `time_shard` bit for bit
+    against a one-controller mesh of MESH_RANKS shards (its EMA within
+    MESH_TS_* of `ops.indicators.ema`); the ring's forward and gradient
+    within MESH_LC_* of (e)'s dense run.  Returns (report, K1 launches of
+    each rank, K2 launches of each rank)."""
+    import os
+    import socket
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ai_crypto_trader_tpu_torch.ops import indicators as ind
+    from ai_crypto_trader_tpu_torch.parallel import make_mesh
+    from ai_crypto_trader_tpu_torch.parallel.time_shard import (
+        sharded_ema, sharded_rolling_mean)
+    from ai_crypto_trader_tpu_torch.rl import dqn
+
+    def cpu(tree):
+        return type(tree)(*(x.cpu() if torch.is_tensor(x) else x for x in tree))
+
+    t0 = time.perf_counter()
+    root, _ = research_env()
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save({"inputs": cpu(inp), "params": cpu(params),
+                    "candles": {k: v[:T_GA] for k, v in d_year.items()},
+                    "pbt_env": cpu(SHARED["pbt_env"]), "hpo_features": mesh_hpo_features(d_year),
+                    "close": np.asarray(d_year["close"], np.float32),
+                    "lc": mesh_lc_inputs()}, os.path.join(tmp, "inputs.pt"))
+        for _ in range(3):                           # a port taken meanwhile: another
+            with socket.socket() as sock:
+                sock.bind(("127.0.0.1", 0))
+                port = sock.getsockname()[1]
+            ranks = [Beside([sys.executable, os.path.abspath(__file__), "--mesh-rank", str(r),
+                             str(port), tmp], root) for r in range(MESH_RANKS)]
+            try:
+                done = [rk.finish(timeout=MESH_RANK_TIMEOUT_S) for rk in ranks]
+            finally:
+                for rk in ranks:
+                    rk.stop()
+            if not any("address already in use" in e.lower() for _, _, e, _ in done):
+                break
+        for r, (rc, _, err, _) in enumerate(done):
+            if rc != 0:
+                fail(f"mesh: rank {r} of {MESH_RANKS} exited {rc}: {err[-2500:]}")
+        res = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+               for r in range(MESH_RANKS)]
+        built = sorted(os.listdir(os.path.join(tmp, "kernels")))
+    wall = time.perf_counter() - t0
+    # the ranks built the libraries at once: each loaded a whole one (its
+    # results below are bit for bit), and no half-written file is left
+    if len(built) != 2 or not all(f.endswith(".so") for f in built) or any(
+            sorted(b["library"] for b in g["builds"]) != ["fused_ewma", "replay_sweep"]
+            for g in res):
+        fail(f"mesh: the ranks' kernel builds left {built}: "
+             f"{[g['builds'] for g in res]}")
+    for r, got in enumerate(res):
+        if got["backend"] != "gloo" or got["describe"]["ranks"] != MESH_RANKS:
+            fail(f"mesh: rank {r} brought up {got['backend']} over "
+                 f"{got['describe'].get('ranks')} ranks")
+        # the sweep: one launch of B / MESH_RANKS here, phase main's stats bit for bit
+        if got["sweep"]["launch_B"] != [B_FULL // MESH_RANKS] or got["parts"]["sweep"]["k1"] != 1:
+            fail(f"mesh: rank {r}'s sweep made launches of {got['sweep']['launch_B']}")
+        err = compare_stats(type(stats)(*(x.cuda() for x in got["sweep"]["stats"])), stats,
+                            f"mesh_rank{r}_sweep")["max_abs_err"]
+        got["sweep"]["max_abs_err"] = err
+        for pop, one in SHARED["mesh_single_ga"].items():
+            g = got["ga"][pop]
+            if g["history"] != one[1] or g["reads"] != 1 \
+                    or got["parts"][f"ga_{pop}"]["k1"] != GENS_GA + 1:
+                fail(f"mesh: rank {r}'s GA at {pop}: {g['reads']} reads, "
+                     f"{got['parts'][f'ga_{pop}']['k1']} K1 launches, history "
+                     f"{'equal' if g['history'] == one[1] else 'not equal'}")
+            same_tree(g["best"], tuple(one[0]), f"rank {r}'s GA best genome at {pop}")
+        one = SHARED["mesh_single_pbt"]
+        lb = dqn.tensor_leaves(dqn._drop(one.state.members))
+        p = got["pbt"]
+        if p["reads"] != 1 or p["history"] != one.history \
+                or not same_host_bits(p["fitness"], one.fitness):
+            fail(f"mesh: rank {r}'s pbt generation is not the single device's")
+        same_tree(p["members"], {k: lb[k] for k in p["members"]}, f"rank {r}'s pbt fleet")
+        if got["hpo"] != SHARED["mesh_single_hpo"]:
+            fail(f"mesh: rank {r}'s HPO farm gave {got['hpo']['trials']}, the single device "
+                 f"{SHARED['mesh_single_hpo']['trials']}")
+        if r:
+            same_tree(got["sweep"]["stats"], res[0]["sweep"]["stats"], "the ranks' sweeps")
+            same_tree(got["time_shard"], res[0]["time_shard"], "the ranks' time_shard")
+            same_tree(got["long_context"]["forward"], res[0]["long_context"]["forward"],
+                      "the ranks' long-context forward")
+    # time_shard: a one-controller mesh of as many shards, bit for bit
+    x = torch.as_tensor(np.asarray(d_year["close"], np.float32)).cuda()
+    ctl = make_mesh(MESH_RANKS, devices=["cuda:0"] * MESH_RANKS)
+    ts = res[0]["time_shard"]
+    for w in MESH_EMA_WINDOWS:
+        same_tree(ts[f"ema_{w}"], sharded_ema(x, w, ctl).gather(), f"the ranks' sharded_ema({w})")
+        want = SHARED["mesh_ema_refs"][w].cpu()
+        ok = ~torch.isnan(want)
+        if not torch.equal(torch.isnan(ts[f"ema_{w}"]), ~ok) or bool(
+                (torch.abs(ts[f"ema_{w}"][ok] - want[ok])
+                 > MESH_TS_ATOL + MESH_TS_RTOL * torch.abs(want[ok])).any()):
+            fail(f"mesh: the ranks' sharded_ema({w}) is off ops.indicators.ema")
+    for w in MESH_MEAN_WINDOWS:
+        same_tree(ts[f"mean_{w}"], sharded_rolling_mean(x, w, ctl).gather(),
+                  f"the ranks' sharded_rolling_mean({w})")
+        same_tree(ts[f"mean_{w}"], ind.rolling_mean(x, w), f"the ranks' rolling_mean({w})")
+    # the ring: within (e)'s tolerances of the dense model
+    dense_fwd, dense_loss, dense_grads = SHARED["mesh_dense_lc"]
+    lc = res[0]["long_context"]
+    a, b = lc["forward"].cuda(), dense_fwd
+    fwd_err = float(torch.abs(a - b).max())
+    flat_r = torch.cat([g.reshape(-1) for g in lc["grads"]]).cuda()
+    flat_d = torch.cat([g.reshape(-1) for g in dense_grads])
+    grad_err = float(torch.abs(flat_r - flat_d).max())
+    if not bool(torch.isfinite(a).all()) or bool(
+            (torch.abs(a - b) > MESH_LC_TOL + MESH_LC_TOL * torch.abs(b)).any()) or bool(
+            (torch.abs(flat_r - flat_d) > MESH_LC_GRAD_ATOL
+             + MESH_LC_GRAD_RTOL * torch.abs(flat_d)).any()):
+        fail(f"mesh: the ranks' ring is {fwd_err:.3g} (forward) and {grad_err:.3g} (gradient) "
+             "off the dense model")
+    report = {"ranks": MESH_RANKS, "backend": "gloo", "wall_s": wall,
+              "describe": res[0]["describe"], "builds": [g["builds"] for g in res],
+              "build_dir": built,
+              "by_rank": [{"rank": g["rank"], "start_s": g["start_s"], "rank_s": g["rank_s"],
+                           "parts": g["parts"], "hpo_trials_here": g["hpo_trials_here"],
+                           "k1_ms_contended": g["sweep"]["k1_ms"],
+                           "k2_ms_contended": g["k2_ms"],
+                           "long_context_peak_gb": g["long_context"]["peak_gb"],
+                           "sweep_max_abs_err": g["sweep"]["max_abs_err"]} for g in res],
+              "sweep": f"{MESH_RANKS} K1 launches of B={B_FULL // MESH_RANKS} x T={T_FULL}, "
+                       "stats bit for bit against phase main's single launch",
+              "ga": {str(pop): one[1][-1]["best_fitness"]
+                     for pop, one in SHARED["mesh_single_ga"].items()},
+              "long_context": {"loss": [lc["loss"], float(dense_loss.detach())],
+                               "forward_max_abs_err": fwd_err, "grad_max_abs_err": grad_err},
+              "bit_for_bit": "sweep, GA 256 and 250, pbt, HPO farm, time_shard"}
+    k1 = [sum(v["k1"] for v in g["parts"].values()) for g in res]
+    k2 = [sum(v["k2"] for v in g["parts"].values()) for g in res]
+    return report, {"launches": k1, "sweep_ms": [g["sweep"]["k1_ms"] for g in res]}, \
+        {"launches": k2, "ga_tables_ms": [sum(g["k2_ms"]) for g in res]}
 
 
 def phase_mesh(info, d_year, inp, params, stats, main_plain_ms):
@@ -9289,7 +9650,8 @@ def phase_mesh(info, d_year, inp, params, stats, main_plain_ms):
     phase's start.  Returns the kernels line's entries (K1, K2)."""
     t_phase = time.perf_counter()
     root, _ = research_env()
-    probe = Beside([sys.executable, "-c", _DIST_PROBE], root)
+    probe = Beside([sys.executable, "-c", _DIST_PROBE, str(MESH_LC_TOL),
+                    str(MESH_LC_GRAD_RTOL), str(MESH_LC_GRAD_ATOL)], root)
     try:
         parts = mesh_partitioners()
         part = parts["virtual"]
@@ -9317,6 +9679,9 @@ def phase_mesh(info, d_year, inp, params, stats, main_plain_ms):
                                     "sweep": mesh_sweep(real, inp, params, stats),
                                     "ga": mesh_ga(real, d_year)[0]}
         t0 = time.perf_counter()
+        report["ranks"], ranks_k1, ranks_k2 = mesh_ranks(d_year, inp, params, stats)
+        times["ranks"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         report["distributed"] = mesh_dist_finish(probe)
         times["distributed_wait"] = time.perf_counter() - t0
     finally:
@@ -9326,8 +9691,10 @@ def phase_mesh(info, d_year, inp, params, stats, main_plain_ms):
     emit(report)
     bound_ms, bound_by, _ = replay_bound_ms(stats, B_FULL, T_FULL)
     sweep_r = report["sweep"]
-    k1 = {"launches": sweep_r["launches"] + ga_k1,
-          "launches_by_path": {"sweep": sweep_r["launches"], "ga": ga_k1},
+    k1 = {"launches": sweep_r["launches"] + ga_k1 + sum(ranks_k1["launches"]),
+          "launches_by_path": {"sweep": sweep_r["launches"], "ga": ga_k1,
+                               "ranks": ranks_k1["launches"]},
+          "ranks_sweep_launch_ms_contended": ranks_k1["sweep_ms"],
           "ms": sweep_r["ms"], "single_launch_ms": sweep_r["single_launch_ms"],
           "plain_ms": main_plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
           "library_ms": None,
@@ -9335,9 +9702,10 @@ def phase_mesh(info, d_year, inp, params, stats, main_plain_ms):
           "shape": f"{MESH_N} launches of B={B_FULL // MESH_N} x T={T_FULL} (ms, bound and "
                    f"plain_ms: the {MESH_N} together, the same work as phase main's single "
                    f"launch, which they equal bit for bit and whose plain loop plain_ms is)"}
-    k2 = {"launches": len(ts_k2["ms_per_launch"]) + ga_k2,
+    k2 = {"launches": len(ts_k2["ms_per_launch"]) + ga_k2 + sum(ranks_k2["launches"]),
           "launches_by_path": {"time_shard_reference_ema": len(ts_k2["ms_per_launch"]),
-                               "ga_tables": ga_k2},
+                               "ga_tables": ga_k2, "ranks": ranks_k2["launches"]},
+          "ranks_ga_tables_ms_contended": ranks_k2["ga_tables_ms"],
           **{k: ts_k2[k] for k in ("ms", "ms_per_launch", "plain_ms", "bound_ms", "bound_by",
                                    "max_abs_err", "max_rel_err")},
           "library_ms": None,
@@ -9486,4 +9854,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--mesh-rank"]:           # one rank of phase mesh (g)
+        mesh_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    else:
+        main()

@@ -393,8 +393,11 @@ def test_hpo_farms_trials_round_robin(part8, jpart8, monkeypatch):
 
 
 def test_hpo_trials_share_the_callers_stream_on_every_device(monkeypatch):
-    """Every trial draws from the caller's generator, whatever device the
-    mesh puts it on: no trial gets a generator of its own."""
+    """Every trial draws from a generator of its own on the caller's
+    generator's device, seeded by the caller's stream in trial order before
+    the rung's farm splits (the JAX package's ``fold_in(key, i)``), whatever
+    device the mesh puts it on: the caller's stream advances as one device
+    advances it, however the trials are farmed."""
     seen = []
 
     def fake(*a, device=None, **kw):
@@ -406,7 +409,12 @@ def test_hpo_trials_share_the_callers_stream_on_every_device(monkeypatch):
     part = MeshPartitioner(make_mesh(2, devices=["cpu", "meta"]))
     hpo.optimize_hyperparameters(g, _features(), n_trials=4, rung_epochs=(1, 1),
                                  partitioner=part)
-    assert all(gen is g for gen, _ in seen)
+    replay = torch.Generator().manual_seed(3)
+    seeds = [int(s) for n in (4, 2)            # rung 0's 4 trials, then its 2 finalists
+             for s in torch.randint(0, 2 ** 62, (n,), generator=replay)]
+    assert [gen.initial_seed() for gen, _ in seen] == seeds
+    assert all(gen is not g and gen.device == g.device for gen, _ in seen)
+    assert torch.equal(g.get_state(), replay.get_state())
     assert [d.type for _, d in seen][:4] == ["cpu", "meta", "cpu", "meta"]
 
 
