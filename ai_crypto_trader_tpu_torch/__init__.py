@@ -88,8 +88,11 @@ throughout: TF32 is switched off here, once, for matmuls and for cuDNN's
 convolutions, so the card's outputs can be held to the CPU's.
 """
 
+__version__ = "0.1.0"
+
 import torch
 
+from ai_crypto_trader_tpu_torch.config import FrameworkConfig, load_config  # noqa: F401
 from ai_crypto_trader_tpu_torch.device import resolve_device  # noqa: F401
 
 torch.backends.cuda.matmul.allow_tf32 = False

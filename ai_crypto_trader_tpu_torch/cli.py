@@ -713,7 +713,8 @@ def cmd_mesh(args):
     count, device kinds), a card for every visible device (id, kind,
     platform, the allocator's bytes in use on a CUDA card), and the
     pad/mask arithmetic for a given population — the numbers the
-    `mesh_pad_fraction` / `mesh_device_members` gauges publish.  With
+    `mesh_pad_fraction` / `mesh_device_members` gauges publish; on a
+    process mesh its ranks, local shards a rank and global shards.  With
     `--url`, reads a LIVE system's `/state.json` mesh block (layout cards,
     sentinel counters) instead."""
     if args.url:
@@ -738,6 +739,10 @@ def cmd_mesh(args):
         role = "trial farm" if name in trial_devs else "default"
         print(f"{i:>4} {kind:<16} {platform:<10} {stats:<16} {role}")
     n = part.device_count
+    if "ranks" in desc:
+        print(f"\nprocess mesh: {desc['ranks']} rank(s) x {desc['local_shards']} local "
+              f"shard(s) = {n} shards; this rank ({desc['rank']}) drives "
+              f"{', '.join(desc['local_device_names'])} over {desc['backend']}")
     pad = (-args.pop) % n
     padded = args.pop + pad
     print(f"\npopulation {args.pop} on {n} device(s): "

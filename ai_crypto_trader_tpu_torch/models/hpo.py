@@ -14,11 +14,12 @@ Trials farm over a partitioner's ``trial_devices()`` round-robin
 survivor i of the second, runs on device i mod n, counted by
 `utils.meshprof.record_trial`.  Without a partitioner, or with the
 single-device seam, every trial runs on ``device``.  On a process mesh
-(`parallel.mesh.ProcessMesh`) trial i runs on rank i mod world, on that
-rank's device; every rank proposes every trial, and the ranks exchange
-their losses (`parallel.mesh.all_gather_object`) at the end of each rung
-and before each TPE proposal, so every rank proposes the same trials and
-returns the same result.
+(`parallel.mesh.ProcessMesh`, each rank driving L local shards, G in all)
+trial i runs on global shard i mod G: on rank (i mod G) // L, on its
+local device (i mod G) mod L; every rank proposes every trial, and the
+ranks exchange their losses (`parallel.mesh.all_gather_object`) at the
+end of each rung and before each TPE proposal, so every rank proposes the
+same trials and returns the same result.
 
 Each trial draws from a generator of its own, seeded by a draw of the
 caller's generator (the JAX package's ``fold_in(key, i)``): a rung's seeds
@@ -189,7 +190,7 @@ def optimize_hyperparameters(
     ``trial_devices()``, or over its ranks on a process mesh (module
     docstring)."""
     part = resolve_partitioner(partitioner)
-    devices = part.trial_devices()                               # [] on one device
+    devices = part.trial_devices()          # [] on one device; a process mesh: this rank's
     dev = resolve_device(device) if not devices else None
     mesh = part.mesh if part.device_count > 1 else None
     info = mesh.info if mesh is not None and mesh.spans_processes else None
@@ -214,10 +215,16 @@ def optimize_hyperparameters(
         for i, loss in got.items():
             results[i]["val_loss"] = loss
 
-    def run_trial(slot: int, t: dict, draws, epochs: int, patience: int) -> float:
-        on = dev
+    def farmed_to(slot: int):
+        """The device that runs trial ``slot`` of a rung, or None where
+        another rank runs it."""
+        if not devices:
+            return dev
+        j = trial_slot(slot, len(devices), ranks, me)
+        return None if j is None else devices[j]
+
+    def run_trial(on, t: dict, draws, epochs: int, patience: int) -> float:
         if devices:
-            on = devices[slot % len(devices)]
             # per-device trial accounting (utils/meshprof.py)
             meshprof.record_trial(on)
         return train_model(
@@ -237,8 +244,9 @@ def optimize_hyperparameters(
         else:
             t = _sample_trial(rng)
         results.append({"trial": t, "val_loss": None, "rung": 0})
-        if i % ranks == me:
-            done[i] = run_trial(i, t, draws[i], rung_epochs[0], patience=rung_epochs[0])
+        on = farmed_to(i)
+        if on is not None:
+            done[i] = run_trial(on, t, draws[i], rung_epochs[0], patience=rung_epochs[0])
     settle()
 
     # Survivors graduate to the full budget; the winner is chosen among
@@ -252,14 +260,24 @@ def optimize_hyperparameters(
         rec = {"trial": results[i]["trial"], "val_loss": None, "rung": 1}
         results[i] = rec
         finalists.append(rec)
-        if slot % ranks == me:
-            done[int(i)] = run_trial(slot, rec["trial"], draws[slot], rung_epochs[-1],
+        on = farmed_to(slot)
+        if on is not None:
+            done[int(i)] = run_trial(on, rec["trial"], draws[slot], rung_epochs[-1],
                                      patience=10)
     settle()
 
     best = min(finalists, key=lambda r: r["val_loss"])
     return {"best_params": best["trial"], "best_val_loss": best["val_loss"],
             "trials": results}
+
+
+def trial_slot(i: int, local: int, ranks: int = 1, rank: int = 0) -> int | None:
+    """Where trial ``i`` of a rung runs on a farm of ``ranks`` ranks of
+    ``local`` devices each: the index among ``rank``'s devices, or None
+    where another rank runs it.  Trial i goes to global shard i mod
+    (ranks · local), numbered rank-major."""
+    g = i % (local * ranks)
+    return g % local if g // local == rank else None
 
 
 def _trial_draws(generator, n: int) -> list:

@@ -25,21 +25,29 @@ does:
 
 A process mesh (`ProcessMesh`): after `initialize_distributed` brings up a
 ``torch.distributed`` group of several ranks, `make_mesh()` and
-`default_mesh()` give a mesh whose data-axis shards are the group's ranks,
-one device each (``cuda:(local_rank % cards)``, or the CPU for a group
-brought up for it), as `jax.devices()` spans processes:
+`default_mesh()` give a mesh whose data axis spans the group, as
+`jax.devices()` spans processes.  Each rank drives L ≥ 1 local shards
+(the same L on every rank), so the axis has G = world × L shards,
+numbered rank-major: local shard j of rank r is global shard r·L + j.  By
+default a rank takes its own cards (a host's cards split evenly among its
+ranks, a contiguous block each), the CPU in a group brought up for it, or
+its one card where ranks share cards; `process_mesh(local_devices=...)`
+names them, repeats allowed (a virtual local mesh, ``["cuda:0"] * 2``):
 
   * every rank holds the whole population (made from the same seed and
-    draws: JAX's ``device_put`` of a global value), runs only its own
-    shard in `shard_loop`, under `current_shard()` with its true index and
-    rows;
-  * `gather_tree` and `gather_shards` are an all-gather over the group:
-    every rank ends with the whole output on its own device, as
+    draws: JAX's ``device_put`` of a global value) and runs its own L
+    shards in `shard_loop`, one controller over its local devices, each
+    under `current_shard()` with its global index and rows;
+  * within a rank, data moves as on one controller (``.to(device,
+    non_blocking=True)``); between ranks, over the group: `gather_tree`
+    and `gather_shards` join the rank's L blocks on its home device (its
+    first local device, where gathers land) and all-gather them, so every
+    rank ends with the whole output in global order, as
     ``out_specs=P(axis)`` gives every process the global array; `rotate`
     and `exchange` are the point-to-point send/recv of the ring's K/V
-    blocks and `time_shard`'s halos;
+    blocks and `time_shard`'s halos across a rank boundary;
   * the transport is NCCL (``all_gather_into_tensor`` on the card
-    tensors) when every rank of a host has a card of its own, else gloo:
+    tensors) when every rank of a host has cards of its own, else gloo:
     ranks that share a card (NCCL refuses two ranks on one device) and
     groups for the CPU.  On gloo a CUDA tensor is staged through pinned
     host memory (copy out, collective, copy back); `TRANSPORT` counts the
@@ -96,6 +104,11 @@ class Mesh:
         index[k] = slice(None)
         return list(self.devices[tuple(index)])
 
+    def own_shards(self, axis: str | None = None) -> list:
+        """(index, device) of the shards of ``axis`` this process runs, in
+        mesh order: every shard on one controller."""
+        return list(enumerate(self.axis_devices(axis)))
+
     def split(self, x: torch.Tensor, dim: int = 0, axis: str | None = None) -> "Shards":
         """``x`` cut into one block a shard of ``axis`` along ``dim``
         (`split_leading`): every block, each on its device."""
@@ -123,28 +136,51 @@ class ProcessGroupInfo(NamedTuple):
     local_rank: int          # among the ranks on this host
     local_world: int
     backend: str             # the data transport's: "nccl" or "gloo"
-    device: torch.device     # this rank's
-    devices: tuple           # every rank's device (as that rank names it), rank order
+    device: torch.device     # this rank's home device (its first card, or the CPU)
+    rank_devices: tuple      # every rank's default local devices (names), rank order
     cards: int               # CUDA cards this rank sees (0 in a group for the CPU)
     group: object            # the data collectives' group (None: the default, gloo)
     world_group: object      # the default group it was built on
     token: int               # which bring-up: meshes of an earlier group never equal it
+
+    @property
+    def devices(self) -> tuple:
+        """Every rank's home device (as that rank names it), rank order."""
+        return tuple(r[0] for r in self.rank_devices)
 
 
 _PROCESS: ProcessGroupInfo | None = None
 
 
 def _plan(hosts: Sequence[str], rank: int, cuda: bool, cards: int):
-    """(local rank, local world, device, backend) of ``rank`` among the
-    ranks on ``hosts`` (each rank's host name, in rank order): its card is
-    ``cuda:(local_rank % cards)``, NCCL when no other rank of its host
-    shares it."""
+    """(local rank, local world, home device, backend) of ``rank`` among
+    the ranks on ``hosts`` (each rank's host name, in rank order): the
+    first of its cards (`local_cards`: a split that does not divide raises
+    ``ValueError``), NCCL when no other rank of its host shares them; the
+    CPU and gloo without CUDA."""
     local_rank = list(hosts[:rank]).count(hosts[rank])
     local_world = list(hosts).count(hosts[rank])
     if not cuda:
         return local_rank, local_world, torch.device("cpu"), "gloo"
-    device = torch.device("cuda", local_rank % cards)
-    return local_rank, local_world, device, "nccl" if local_world <= cards else "gloo"
+    return (local_rank, local_world, local_cards(local_rank, local_world, cards)[0],
+            "nccl" if cards >= local_world else "gloo")
+
+
+def local_cards(local_rank: int, local_world: int, cards: int) -> list:
+    """The cards a rank drives by default: a host whose ``local_world``
+    ranks each see ``cards`` cards gives each rank a contiguous block of
+    ``cards // local_world`` (one rank and 8 cards: all 8; 2 ranks: 4
+    each); a split that does not divide raises ``ValueError``.  Ranks that
+    share cards (fewer cards than ranks) drive one, ``cuda:(local_rank %
+    cards)``."""
+    if cards < local_world:
+        return [torch.device("cuda", local_rank % cards)]
+    if cards % local_world:
+        raise ValueError(
+            f"{cards} CUDA cards do not split evenly among the {local_world} ranks of "
+            "this host; give each rank its cards with CUDA_VISIBLE_DEVICES")
+    per = cards // local_world
+    return [torch.device("cuda", local_rank * per + j) for j in range(per)]
 
 
 def process_group() -> ProcessGroupInfo | None:
@@ -177,18 +213,34 @@ def _spanning() -> ProcessGroupInfo | None:
 
 
 class ProcessMesh(Mesh):
-    """The data axis over the ranks of the process group: shard i is rank
-    i's device, this process runs shard ``rank``.  Built by `process_mesh`
-    (`make_mesh` and `default_mesh` once a group of several ranks is up)."""
+    """The data axis over the ranks of the process group, each rank
+    driving L local shards: global shard g = r·L + j is local shard j of
+    rank r, on that rank's ``rank_devices[r][j]`` (default: the group's
+    record of each rank's own).  This process runs shards ``rank·L`` to
+    ``rank·L + L − 1``.  Built by `process_mesh` (`make_mesh` and
+    `default_mesh` once a group of several ranks is up)."""
 
     spans_processes = True
 
-    def __init__(self, info: ProcessGroupInfo, axis_names: Sequence[str] = ("data", "model")):
-        grid = np.empty((info.world, 1), dtype=object)
-        for r, d in enumerate(info.devices):
-            grid[r, 0] = d
+    def __init__(self, info: ProcessGroupInfo, axis_names: Sequence[str] = ("data", "model"),
+                 rank_devices: Sequence[Sequence] | None = None):
+        if rank_devices is None:
+            rank_devices = info.rank_devices
+        counts = [len(r) for r in rank_devices]
+        if len(counts) != info.world or min(counts) < 1 or len(set(counts)) > 1:
+            raise ValueError(
+                f"the ranks drive different numbers of local shards: {counts} by rank; "
+                f"every rank of a process mesh of {info.world} must drive the same "
+                "number, at least one")
+        grid = np.empty((sum(counts), 1), dtype=object)
+        for g, d in enumerate(d for r in rank_devices for d in r):
+            grid[g, 0] = d
         super().__init__(grid, axis_names)
         self.info = info
+        self.local_count = counts[0]
+        self.first_shard = info.rank * self.local_count
+        self.local_devices = list(self.devices[self.first_shard:
+                                               self.first_shard + self.local_count, 0])
 
     @property
     def rank(self) -> int:
@@ -204,43 +256,56 @@ class ProcessMesh(Mesh):
 
     @property
     def local_device(self) -> torch.device:
-        """This rank's device: where its shard runs and gathers land."""
-        return self.info.device
+        """This rank's home device: its first local shard's, where gathers
+        land and the transport's collectives run."""
+        return self.local_devices[0]
+
+    def own_shards(self, axis: str | None = None) -> list:
+        """(global index, device) of this rank's L shards."""
+        return [(self.first_shard + j, d) for j, d in enumerate(self.local_devices)]
 
     def split(self, x: torch.Tensor, dim: int = 0, axis: str | None = None) -> "Shards":
-        """This rank's block of ``x`` along ``dim`` (one block a rank, the
-        size must divide), on its device."""
-        n, size = self.world, x.shape[dim]
+        """This rank's L blocks of ``x`` along ``dim`` (one block a global
+        shard, the size must divide), each on its local device."""
+        n, size = self.shape[self.axis_names[0]], x.shape[dim]
         if size % n:
             raise ValueError(f"axis of {size} does not split over {n} shards; pad first")
         blk = size // n
-        return Shards([x.narrow(dim, self.rank * blk, blk).to(self.local_device,
-                                                               non_blocking=True)], mesh=self)
+        return Shards([x.narrow(dim, g * blk, blk).to(d, non_blocking=True)
+                       for g, d in self.own_shards()], mesh=self)
 
     def _key(self):
         return ("process", self.info.token, self.info.rank) + super()._key()
 
     def __repr__(self) -> str:
-        return (f"ProcessMesh(rank {self.rank} of {self.world}, {self.backend}, "
-                f"devices={list(self.info.devices)})")
+        return (f"ProcessMesh(rank {self.rank} of {self.world}, {self.local_count} local "
+                f"shard(s) each, {self.backend}, "
+                f"devices={[str(d) for d in np.ravel(self.devices)]})")
 
 
-def process_mesh(axis_names: tuple[str, str] = ("data", "model")) -> ProcessMesh:
+def process_mesh(axis_names: tuple[str, str] = ("data", "model"), *,
+                 local_devices: Sequence | None = None) -> ProcessMesh:
     """The mesh of the group `initialize_distributed` brought up, at any
-    world size (`make_mesh` builds it only over several ranks).  A rank
-    that sees more CUDA cards than its host has ranks raises
-    ``ValueError``: each rank owns one card, and a mesh of each rank's
-    cards inside the process mesh is not built (ROADMAP item 35)."""
+    world size (`make_mesh` builds it only over several ranks).  By
+    default each rank drives its own cards (`local_cards`, or the CPU in
+    a group brought up for it), as every rank recorded them at the
+    bring-up: no collective.  ``local_devices`` (any ``torch.device``
+    specs, repeats allowed: a virtual local mesh) names this rank's; every
+    rank then calls it together, the ranks exchange their lists in one
+    ``all_gather_object``, and unequal local shard counts raise
+    ``ValueError`` on every rank.  Over NCCL the first local device must
+    be the rank's home card, which the group was brought up on
+    (``ValueError``)."""
     info = process_group()
     if info is None:
         raise RuntimeError("no process group is up: call parallel.initialize_distributed first")
-    if info.device.type == "cuda" and info.cards > info.local_world:
-        raise ValueError(
-            f"rank {info.rank} sees {info.cards} CUDA cards and its host runs "
-            f"{info.local_world} rank(s): a process mesh gives each rank one card (a rank "
-            "with several local cards is ROADMAP item 35); pin each rank to one card "
-            "with CUDA_VISIBLE_DEVICES or start one rank a card")
-    return ProcessMesh(info, axis_names)
+    if local_devices is None:
+        return ProcessMesh(info, axis_names)
+    local = [str(torch.device(d)) for d in local_devices]
+    if info.backend == "nccl" and local and torch.device(local[0]) != info.device:
+        raise ValueError(f"rank {info.rank}'s first local device is {local[0]}, but its NCCL "
+                         f"transport runs on {info.device}: list {info.device} first")
+    return ProcessMesh(info, axis_names, all_gather_object(local, info))
 
 
 def make_mesh(data_parallel: int = -1, model_parallel: int = 1, *,
@@ -253,17 +318,19 @@ def make_mesh(data_parallel: int = -1, model_parallel: int = 1, *,
     every visible CUDA card; without CUDA it must be given (``RuntimeError``
     otherwise).  A mesh larger than the devices raises ``ValueError``.
     Without ``devices``, once `initialize_distributed` has brought up a
-    group of several ranks, the mesh is the group's (`process_mesh`): its
-    data axis is every rank (``data_parallel`` -1 or the world size,
+    group of several ranks, the mesh is the group's (`process_mesh`, each
+    rank's own cards): its data axis is
+    every rank's local shards (``data_parallel`` -1 or their number,
     ``model_parallel`` 1; anything else raises ``ValueError``)."""
     if devices is None:
-        info = _spanning()
-        if info is not None:
-            if model_parallel > 1 or data_parallel not in (-1, info.world):
+        if _spanning() is not None:
+            mesh = process_mesh(axis_names)
+            shards = mesh.shape[axis_names[0]]
+            if model_parallel > 1 or data_parallel not in (-1, shards):
                 raise ValueError(
-                    f"a process mesh is the {info.world} ranks on its data axis; asked "
-                    f"for {data_parallel} data x {model_parallel} model")
-            return process_mesh(axis_names)
+                    f"a process mesh is the {shards} shards of its {mesh.world} ranks on its "
+                    f"data axis; asked for {data_parallel} data x {model_parallel} model")
+            return mesh
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "make_mesh builds a mesh of the visible CUDA cards and none is "
@@ -298,9 +365,11 @@ def _default_mesh(token: int | None) -> Mesh:
 
 
 def default_mesh() -> Mesh:
-    """Every rank of the process group once `initialize_distributed` has
-    brought up one of several ranks, else every visible CUDA card on the
-    data axis.  Cached per group: a group brought up later is seen."""
+    """Every rank of the process group, each driving its own cards, once
+    `initialize_distributed` has brought up one of several ranks (no
+    collective: a rank may build it alone), else every visible CUDA card
+    on the data axis.  Cached per group: a group brought up later is
+    seen."""
     return _default_mesh(group_token())
 
 
@@ -330,7 +399,7 @@ def replicated(mesh: Mesh) -> Sharding:
 
 class Shards(list):
     """A tensor split over a mesh axis: its blocks in mesh order, each on
-    its device — on a process mesh (``mesh``) this rank's block alone.
+    its device — on a process mesh (``mesh``) this rank's L blocks alone.
     `gather` (`gather_shards`) is the all-gather."""
 
     def __init__(self, blocks=(), mesh: Mesh | None = None):
@@ -357,14 +426,20 @@ def split_leading(x: torch.Tensor, devices: Sequence, dim: int = 0) -> Shards:
 def gather_shards(shards: Sequence[torch.Tensor], device=None, dim: int = 0) -> torch.Tensor:
     """The blocks concatenated along ``dim`` on ``device`` (default: the
     first block's): the all-gather of a one-controller mesh.  The `Shards`
-    of a process mesh are all-gathered over its group: every rank gets the
-    whole."""
+    of a process mesh are joined on the rank's home device and
+    all-gathered over its group: every rank gets the whole, in global
+    order."""
     mesh = getattr(shards, "mesh", None)
     if mesh is not None and mesh.spans_processes:
-        x = all_gather(shards[0], mesh.info, dim)
+        x = all_gather(_joined(shards, mesh.local_device, dim), mesh.info, dim)
         return x if device is None else x.to(device, non_blocking=True)
-    dev = shards[0].device if device is None else torch.device(device)
-    return torch.cat([s.to(dev, non_blocking=True) for s in shards], dim=dim)
+    return _joined(shards, shards[0].device if device is None else device, dim)
+
+
+def _joined(blocks: Sequence[torch.Tensor], device, dim: int = 0) -> torch.Tensor:
+    """``blocks`` concatenated along ``dim`` on ``device``."""
+    dev = torch.device(device)
+    return torch.cat([b.to(dev, non_blocking=True) for b in blocks], dim=dim)
 
 
 def shard_leading_axis(mesh: Mesh, tree, axis: str | None = None):
@@ -449,33 +524,28 @@ def _rows(tree) -> int:
 def shard_loop(fn, mesh: Mesh, sharded: Sequence, replicated_args=(), *,
                axis: str | None = None, population: int | None = None) -> list:
     """Run ``fn(*sharded_i, *replicated_args)`` on every shard i of
-    ``axis``, in mesh order, under `current_shard`; returns the outputs in
-    mesh order.  ``sharded`` holds one per-shard sequence per argument
-    (`Shards`, or any list of per-device pytrees), ``replicated_args`` go
-    to every shard, copied once per distinct device.  ``population`` (the
-    rows before padding) sizes each shard's `ShardInfo`; default: the
-    shards' total rows.  Nothing is read back: each shard's work is issued
-    and the next one's follows.
+    ``axis`` this process runs (`Mesh.own_shards`), in mesh order, under
+    `current_shard`; returns the outputs in that order.  ``sharded`` holds
+    one per-shard sequence per argument (`Shards`, or any list of
+    per-device pytrees), ``replicated_args`` go to every shard, copied once
+    per distinct device.  ``population`` (the rows before padding) sizes
+    each shard's `ShardInfo`; default: the shards' total rows.  Nothing is
+    read back: each shard's work is issued and the next one's follows.
 
-    On a process mesh each sequence holds this rank's shard alone (the
-    shards are equal blocks), ``fn`` runs once, as shard ``rank``, and the
-    list holds its output."""
-    devs = mesh.axis_devices(axis)
-    n = len(devs)
-    if mesh.spans_processes:
-        me, dev = mesh.rank, mesh.local_device
-        rows = _rows([s[0] for s in sharded])
-        total = rows * n if population is None else int(population)
-        repl = replicate(tuple(replicated_args), [dev])[dev]
-        with _running(ShardInfo(me, n, dev, me * rows, (me + 1) * rows, total)), _on_card(dev):
-            return [fn(*(s[0] for s in sharded), *repl)]
-    repl = replicate(tuple(replicated_args), devs)
-    rows = [_rows([s[i] for s in sharded]) for i in range(n)]
-    total = sum(rows) if population is None else int(population)
-    outs, lo = [], 0
-    for i, d in enumerate(devs):
-        info = ShardInfo(i, n, d, lo, lo + rows[i], total)
-        with _running(info), _on_card(d):
+    On a process mesh each sequence holds this rank's L shards alone (the
+    shards are equal blocks), ``fn`` runs L times, as global shards
+    ``rank·L`` to ``rank·L + L − 1``, and the list holds their outputs."""
+    own = mesh.own_shards(axis)
+    n = len(mesh.axis_devices(axis))
+    repl = replicate(tuple(replicated_args), [d for _, d in own])
+    rows = [_rows([s[i] for s in sharded]) for i in range(len(own))]
+    if population is not None:
+        total = int(population)
+    else:
+        total = rows[0] * n if mesh.spans_processes else sum(rows)
+    outs, lo = [], own[0][0] * rows[0]           # shards before this process's: equal blocks
+    for i, (g, d) in enumerate(own):
+        with _running(ShardInfo(g, n, d, lo, lo + rows[i], total)), _on_card(d):
             outs.append(fn(*(s[i] for s in sharded), *repl[d]))
         lo += rows[i]
     return outs
@@ -491,9 +561,10 @@ def gather_tree(outs: Sequence, device, population: int | None = None, *,
     """The per-shard output pytrees of a shard loop joined along their
     leading axis on ``device``, sliced to ``population`` rows; a leaf that
     is not a tensor (None, a scalar) is shard 0's.  On a process ``mesh``
-    (``outs`` this rank's output alone) each tensor leaf is all-gathered
-    over the group, and a 0-d one is rank 0's (a broadcast): every rank
-    gets the same tree."""
+    (``outs`` this rank's L outputs) each tensor leaf's L blocks are joined
+    on ``device`` and all-gathered over the group, and a 0-d one is global
+    shard 0's (rank 0's first, broadcast): every rank gets the same
+    tree."""
     flat = [tree_flatten(o) for o in outs]
     spec = flat[0][1]
     spans = mesh is not None and mesh.spans_processes
@@ -505,8 +576,9 @@ def gather_tree(outs: Sequence, device, population: int | None = None, *,
         if leaf.ndim == 0:
             joined.append(broadcast(leaf, mesh.info) if spans else leaf)
             continue
-        x = (all_gather(leaf, mesh.info).to(device, non_blocking=True) if spans
-             else gather_shards([f[0][j] for f in flat], device))
+        blocks = [f[0][j] for f in flat]
+        x = (all_gather(_joined(blocks, device), mesh.info) if spans
+             else _joined(blocks, device))
         joined.append(x if population is None else x[:population])
     return tree_unflatten(joined, spec)
 
@@ -663,13 +735,16 @@ def initialize_distributed(coordinator: str | None = None, num_processes: int | 
     without CUDA); ``"cpu"`` a group for the CPU.
 
     The group is gloo (host values, and the transport where NCCL cannot
-    be); the ranks then tell each other their hosts, each takes its device
-    (``cuda:(local_rank % cards)``, or the CPU), and when every rank of
-    every host has a card of its own the data transport is an NCCL group
-    over all ranks.  Ranks that share a card (NCCL refuses two ranks on
-    one device) and groups for the CPU keep gloo.  The bring-up and every
-    collective time out after `COLLECTIVE_TIMEOUT`.  Returns the data
-    transport's backend name ("nccl" or "gloo")."""
+    be); the ranks then tell each other their hosts and card counts, and
+    each records every rank's cards (`local_cards`: a block of its host's
+    cards, ``cuda:(local_rank % cards)`` where ranks share cards, or the
+    CPU; a split that does not divide raises ``ValueError`` on every rank
+    and takes the group down).  When every rank of every host has cards
+    of its own the data transport is an NCCL group over all ranks; ranks
+    that share a card (NCCL refuses two ranks on one device) and groups
+    for the CPU keep gloo.  The bring-up and every collective time out
+    after `COLLECTIVE_TIMEOUT`.  Returns the data transport's backend name
+    ("nccl" or "gloo")."""
     import torch.distributed as dist
 
     global _PROCESS, _BRINGUPS
@@ -686,7 +761,13 @@ def initialize_distributed(coordinator: str | None = None, num_processes: int | 
     dist.all_gather_object(peers, (socket.gethostname(),
                                    torch.cuda.device_count() if cuda else 0))
     hosts = [h for h, _ in peers]
-    plans = [_plan(hosts, r, cuda, c) for r, (_, c) in enumerate(peers)]
+    try:
+        plans = [_plan(hosts, r, cuda, c) for r, (_, c) in enumerate(peers)]
+    except ValueError:
+        dist.destroy_process_group()
+        raise
+    rank_devices = tuple(tuple(map(str, local_cards(p[0], p[1], c))) if cuda else ("cpu",)
+                         for p, (_, c) in zip(plans, peers))
     local_rank, local_world, device, _ = plans[rank]
     backend = "nccl" if all(p[3] == "nccl" for p in plans) else "gloo"
     group = None
@@ -696,6 +777,6 @@ def initialize_distributed(coordinator: str | None = None, num_processes: int | 
         group = dist.new_group(backend="nccl", timeout=COLLECTIVE_TIMEOUT)
     _BRINGUPS += 1
     _PROCESS = ProcessGroupInfo(rank, world, local_rank, local_world, backend, device,
-                                tuple(str(p[2]) for p in plans), peers[rank][1], group,
-                                dist.group.WORLD, _BRINGUPS)
+                                rank_devices, peers[rank][1], group, dist.group.WORLD,
+                                _BRINGUPS)
     return backend

@@ -16,9 +16,11 @@ to ``partitioner.population_eval``:
     axis is gathered onto the mesh's first device and the pad sliced off.
     Every shard is issued before anything is read.  On a process mesh
     (`parallel.mesh.ProcessMesh`, after `initialize_distributed`) every
-    rank holds the whole population, pads it the same way, takes its own
-    rows, runs ``fn`` and all-gathers every output leaf over the group:
-    the result is the same on every rank, on its own device.
+    rank holds the whole population, pads it the same way, takes the rows
+    of its L local shards (global shards rank·L to rank·L + L − 1, each
+    on its local device), runs ``fn`` on each, joins their outputs on its
+    home device and all-gathers every output leaf over the group: the
+    result is the same on every rank, on its own home device.
 
 Members are independent, so a mesh computes exactly the single device's
 per-member values: a 1-device mesh, and an n-way one, equal the
@@ -201,7 +203,7 @@ class MeshPartitioner(Partitioner):
     @property
     def home(self) -> torch.device:
         """Where gathered outputs land: the mesh's first device, on a
-        process mesh this rank's."""
+        process mesh this rank's home device (its first local one)."""
         return self.mesh.local_device if self.mesh.spans_processes else self.devices[0]
 
     def population_sharding(self, ndim: int = 1) -> Sharding:
@@ -215,18 +217,17 @@ class MeshPartitioner(Partitioner):
 
     def _split(self, pop_tree):
         """(per-shard pytrees, population, pad): the population padded by
-        repeating its last member and cut into one block per device."""
+        repeating its last member and cut into one block per device; on a
+        process mesh only this rank's L blocks (the others' are theirs to
+        take), each on its local device."""
         leaves, spec = tree_flatten(pop_tree)
         pop = int(_lead(pop_tree).shape[0])
         n = self.device_count
         pad = (-pop) % n
         blk = (pop + pad) // n
         shards = []
-        for i, d in enumerate(self.devices):
-            if self.mesh.spans_processes and i != self.mesh.rank:
-                continue                       # another rank's rows: its own to take
-            info = ShardInfo(i, n, self.home if self.mesh.spans_processes else d,
-                             i * blk, (i + 1) * blk, pop)
+        for i, d in self.mesh.own_shards(self.axis):
+            info = ShardInfo(i, n, d, i * blk, (i + 1) * blk, pop)
             # a leaf without a member axis is the object itself, a 0-d tensor copied
             part = [x if not torch.is_tensor(x) else
                     (x if x.ndim == 0 else info.take(x)).to(info.device, non_blocking=True)
@@ -258,13 +259,15 @@ class MeshPartitioner(Partitioner):
         first device and sliced back to the population.  Nothing is read
         back.  Named, each call records the layout card (population, pad,
         devices, the all-gather's bytes, the device names; on a process
-        mesh the ranks and the backend too).  On a process mesh each rank
-        runs its own shard and the outputs are all-gathered over the group;
-        ranks that hold different populations raise ``ValueError``."""
+        mesh the ranks, the local shards a rank and the backend too).  On a
+        process mesh each rank runs its own L shards and the outputs are
+        all-gathered over the group; ranks that hold different populations
+        raise ``ValueError``."""
         n_dev = self.device_count
         dev_names = tuple(str(d) for d in self.devices)
         spans = self.mesh.spans_processes
-        ranks = {"ranks": self.mesh.world, "backend": self.mesh.backend} if spans else {}
+        ranks = ({"ranks": self.mesh.world, "local_shards": self.mesh.local_count,
+                  "backend": self.mesh.backend} if spans else {})
 
         def sharded(pop_tree, *repl):
             if spans:
@@ -285,28 +288,30 @@ class MeshPartitioner(Partitioner):
 
     def trial_devices(self) -> list:
         """Round-robin devices for host-farmed trials (HPO); on a process
-        mesh this rank's device, which runs its trials (`models.hpo`)."""
-        if self.mesh.spans_processes:
-            return [self.home]
-        return list(np.ravel(self.mesh.devices))
+        mesh this rank's local devices, which run its trials
+        (`models.hpo`)."""
+        return self._device_list()
 
     def _device_list(self) -> list:
         if self.mesh.spans_processes:
-            return [self.home]           # another rank's card is not this process's to name
+            return list(self.mesh.local_devices)  # another rank's cards are not this one's
         return list(np.ravel(self.mesh.devices))
 
     def describe(self) -> dict:
         """`Partitioner.describe` with the axis, the mesh's shape and its
         devices' names; on a process mesh also the ranks, this rank, the
-        backend and what the transport has moved (`parallel.mesh.TRANSPORT`:
-        collectives, bytes, staging copies)."""
+        local shards a rank and this rank's devices, the backend and what
+        the transport has moved (`parallel.mesh.TRANSPORT`: collectives,
+        bytes, staging copies).  ``devices`` counts the global shards."""
         out = super().describe()
         out["axis"] = self.axis
         out["mesh_shape"] = {str(a): int(self.mesh.shape[a]) for a in self.mesh.axis_names}
         out["device_names"] = [str(d) for d in np.ravel(self.mesh.devices)]
         if self.mesh.spans_processes:
-            out.update(ranks=self.mesh.world, rank=self.mesh.rank, backend=self.mesh.backend,
-                       transport=TRANSPORT.counts())
+            out.update(ranks=self.mesh.world, rank=self.mesh.rank,
+                       local_shards=self.mesh.local_count,
+                       local_device_names=[str(d) for d in self.mesh.local_devices],
+                       backend=self.mesh.backend, transport=TRANSPORT.counts())
         return out
 
 
@@ -321,8 +326,9 @@ def _default_partitioner(n_devices: int, group: int | None = None) -> Partitione
 
 def get_partitioner(mesh: Mesh | None = None) -> Partitioner:
     """The default seam: a `MeshPartitioner` over every rank of the process
-    group once `parallel.initialize_distributed` has brought up one of
-    several ranks (as JAX counts ``jax.device_count()`` across processes),
+    group, each driving its own cards, once
+    `parallel.initialize_distributed` has brought up one of several ranks
+    (as JAX counts ``jax.device_count()`` across processes),
     else over every visible CUDA card when there is more than one, else
     `SingleDevicePartitioner` (the JAX package's rule: a mesh only over
     more than one device).  An explicit
@@ -336,7 +342,8 @@ def get_partitioner(mesh: Mesh | None = None) -> Partitioner:
         return MeshPartitioner(mesh)
     token = group_token()
     if token is not None:
-        return _default_partitioner(default_mesh().world, token)
+        mesh = default_mesh()
+        return _default_partitioner(mesh.shape[mesh.axis_names[0]], token)
     n = torch.cuda.device_count() if torch.cuda.is_available() else 1
     return _default_partitioner(n)
 

@@ -12,17 +12,22 @@ a shard's future (source block > its own).  No device ever holds more
 than one [H, T/n, T/n] block of scores; autograd follows the moves, so the
 ring's gradient is the dense one.
 
-On a process mesh (`parallel.mesh.ProcessMesh`) the shards are the ranks:
-each rank holds the whole q, k and v (computed alike on every rank), takes
-its own rows of the three stacked (`_Scatter`, whose backward all-gathers
-the gradient's rows), and the K/V block rotates as one tensor with
-point-to-point send/recv — to rank i + 1, from rank i − 1 — in `_Rotate`,
-whose backward rotates the gradient the other way.  The output blocks are
-all-gathered onto every rank (`_Gather`, whose backward takes this rank's
-rows of the gradient: every rank computes the same loss).  The last K/V
-block is tied to the output (`_Tie`, a zero gradient), so every rank runs
-every rotation's backward, in the same order, whatever causal masking
-skipped.
+On a process mesh (`parallel.mesh.ProcessMesh`) each rank runs its L
+local shards (global shards rank·L to rank·L + L − 1): it holds the whole
+q, k and v (computed alike on every rank) and takes its rows of the three
+stacked (`_Scatter`, whose backward all-gathers the gradient's rows).  A
+rotation (`_Rotate`, one autograd node over the rank's L K/V blocks)
+moves each local block to the next local shard's device, and at the rank
+boundary sends the last to rank + 1 and takes rank − 1's as block 0, by
+point-to-point send/recv on the home device; the backward hands the
+gradients back the other way.  The output blocks are all-gathered onto
+every rank (`_Gather`, whose backward takes this rank's rows of the
+gradient: every rank computes the same loss).  Each rotation takes the
+previous one's blocks whole, and the last blocks are tied to the output
+(`_Tie`, a zero gradient), so every rank runs every rotation's backward,
+in the same order, whatever causal masking skipped on its local shards.
+On one controller the rotation is the same node with no exchange: the
+last block goes to shard 0.
 
 `reference_attention` (:134-143) is the dense oracle that
 `models.long_context` runs without a mesh.  Both are explicit products,
@@ -67,34 +72,40 @@ def ring_self_attention(q, k, v, mesh, *, axis: str = "data", causal: bool = Tru
     output gathered on ``q``'s device, in ``q``'s dtype.  One device is
     flash-style attention over one block."""
     T, H, D = q.shape
-    devs = mesh.axis_devices(axis)
-    n = len(devs)
+    n = mesh.shape[axis]
     if T % n:
         raise ValueError(f"sequence length {T} not divisible by the "
                          f"{n}-way '{axis}' mesh axis")
     Tb = T // n
     scale = 1.0 / (D ** 0.5)
-    if mesh.spans_processes:
-        return _process_ring(q, k, v, mesh.info, Tb, scale, causal)
-    qs, k_cur, v_cur = (split_leading(x, devs) for x in (q, k, v))
+    own = mesh.own_shards(axis)
+    local = [d for _, d in own]
+    info = mesh.info if mesh.spans_processes else None
+    home = q.device if info is None else mesh.local_device
+    qkv = torch.stack([q, k, v]).to(home)
+    if info is not None:
+        qkv = _Scatter.apply(qkv, info, 1)                 # this rank's L·Tb rows
+    blocks = split_leading(qkv, local, dim=1)              # [3, Tb, H, D] a local shard
+    qs, kv = [b[0] for b in blocks], tuple(b[1:] for b in blocks)
     acc = [(torch.zeros((Tb, H, D), dtype=torch.float32, device=d),
             torch.full((H, Tb), NEG_BIG, dtype=torch.float32, device=d),
-            torch.zeros((H, Tb), dtype=torch.float32, device=d)) for d in devs]
+            torch.zeros((H, Tb), dtype=torch.float32, device=d)) for d in local]
     diag = torch.ones((Tb, Tb), dtype=torch.bool).tril()
-    masks = {d: diag.to(d) for d in dict.fromkeys(devs)}
+    masks = {d: diag.to(d) for d in dict.fromkeys(local)}
     for s in range(n):
-        for me, d in enumerate(devs):
+        for j, (me, d) in enumerate(own):
             src = (me - s) % n                 # the shard this K/V block came from
             if causal and src > me:
                 continue                       # wholly in this shard's future
             kmask = masks[d] if causal and src == me else None
-            acc[me] = _block_update(*acc[me], qs[me], k_cur[me], v_cur[me], kmask, scale)
+            acc[j] = _block_update(*acc[j], qs[j], kv[j][0], kv[j][1], kmask, scale)
         if s < n - 1:
-            # hand every block to the next shard (n − 1 rotations)
-            k_cur = [k_cur[(me - 1) % n].to(d, non_blocking=True) for me, d in enumerate(devs)]
-            v_cur = [v_cur[(me - 1) % n].to(d, non_blocking=True) for me, d in enumerate(devs)]
-    out = [o / torch.clamp_min(l, 1e-30).T[..., None] for o, _, l in acc]
-    return torch.cat([x.to(q.device, non_blocking=True) for x in out]).to(q.dtype)
+            kv = _Rotate.apply(info, local, *kv)   # n − 1 rotations
+    out = torch.cat([(o / torch.clamp_min(l, 1e-30).T[..., None]).to(home, non_blocking=True)
+                     for o, _, l in acc])
+    if info is not None:
+        out = _Gather.apply(_Tie.apply(out, *kv), info, 0)
+    return out.to(q.device, q.dtype)
 
 
 class _Scatter(torch.autograd.Function):
@@ -127,58 +138,47 @@ class _Gather(torch.autograd.Function):
         return g.narrow(ctx.dim, ctx.info.rank * ctx.blk, ctx.blk), None, None
 
 
+def _hand_on(x, info, shift: int):
+    """The block that leaves this rank's last local shard (``shift`` 1) or
+    its first (−1): handed to rank + ``shift`` and rank − ``shift``'s
+    received; itself on one controller (``info`` None)."""
+    return x if info is None else rotate(x.contiguous(), info, shift)
+
+
 class _Rotate(torch.autograd.Function):
-    """The ring's step: the block to rank i + 1, rank i − 1's received;
-    the backward hands the gradient back the other way."""
+    """The ring's step over a rank's L local K/V blocks, block j on
+    ``devices[j]``: block j to local shard j + 1, the last handed on
+    (`_hand_on`, on the first device) as block 0; the backward hands the
+    gradients back the other way."""
 
     @staticmethod
-    def forward(ctx, x, info):
-        ctx.info = info
-        return rotate(x, info, 1)
+    def forward(ctx, info, devices, *blocks):
+        ctx.info, ctx.devices = info, devices
+        first = _hand_on(blocks[-1].to(devices[0], non_blocking=True), info, 1)
+        return (first,) + tuple(b.to(d, non_blocking=True)
+                                for b, d in zip(blocks[:-1], devices[1:]))
 
     @staticmethod
-    def backward(ctx, g):
-        return rotate(g.contiguous(), ctx.info, -1), None
+    def backward(ctx, *grads):
+        info, devices = ctx.info, ctx.devices
+        last = _hand_on(grads[0], info, -1).to(devices[-1], non_blocking=True)
+        return (None, None) + tuple(g.to(d, non_blocking=True)
+                                    for g, d in zip(grads[1:], devices[:-1])) + (last,)
 
 
 class _Tie(torch.autograd.Function):
-    """``out`` unchanged, with ``block`` given a zero gradient: the last
-    K/V block then has a gradient on every rank, so every rank runs every
-    rotation's backward, whatever causal masking skipped."""
+    """``out`` unchanged, with ``blocks`` given a zero gradient: the last
+    K/V blocks then have a gradient on every rank, so every rank runs
+    every rotation's backward, whatever causal masking skipped."""
 
     @staticmethod
-    def forward(ctx, out, block):
-        ctx.shape, ctx.dtype, ctx.device = block.shape, block.dtype, block.device
+    def forward(ctx, out, *blocks):
+        ctx.like = [(b.shape, b.dtype, b.device) for b in blocks]
         return out.clone()
 
     @staticmethod
     def backward(ctx, g):
-        return g, torch.zeros(ctx.shape, dtype=ctx.dtype, device=ctx.device)
-
-
-def _process_ring(q, k, v, info, Tb: int, scale: float, causal: bool):
-    """`ring_self_attention` over the ranks of a process mesh: this rank's
-    Q block, the K/V block rotating between the ranks (n − 1 rotations,
-    the order and masking of the one-controller ring), the output blocks
-    gathered onto every rank."""
-    n, me = info.world, info.rank
-    qkv = _Scatter.apply(torch.stack([q, k, v]), info, 1)      # [3, Tb, H, D]
-    qb, kv = qkv[0], qkv[1:]
-    H, D = q.shape[1], q.shape[2]
-    acc = (torch.zeros((Tb, H, D), dtype=torch.float32, device=q.device),
-           torch.full((H, Tb), NEG_BIG, dtype=torch.float32, device=q.device),
-           torch.zeros((H, Tb), dtype=torch.float32, device=q.device))
-    diag = torch.ones((Tb, Tb), dtype=torch.bool, device=q.device).tril()
-    for s in range(n):
-        src = (me - s) % n                 # the rank this K/V block came from
-        if not (causal and src > me):
-            acc = _block_update(*acc, qb, kv[0], kv[1],
-                                diag if causal and src == me else None, scale)
-        if s < n - 1:
-            kv = _Rotate.apply(kv, info)
-    o, _, l = acc
-    out = _Tie.apply(o / torch.clamp_min(l, 1e-30).T[..., None], kv)
-    return _Gather.apply(out, info, 0).to(q.dtype)
+        return (g,) + tuple(torch.zeros(s, dtype=t, device=d) for s, t, d in ctx.like)
 
 
 def reference_attention(q, k, v, *, causal: bool = True):

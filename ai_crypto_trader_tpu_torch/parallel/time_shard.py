@@ -22,11 +22,14 @@ them on one device.
     `ops.indicators.rolling_mean` does unsplit.
 
 On a process mesh (`parallel.mesh.ProcessMesh`) each rank holds the whole
-series, keeps its own block, and the result is that block alone
-(``.gather()`` all-gathers the series onto every rank): the aggregates are
-all-gathered and every rank composes its own carry from its predecessors'
-in `_carries`' order (bit for bit the one-controller result), and the
-halo comes from rank i − 1 by point-to-point send/recv.
+series, keeps the blocks of its L local shards (global blocks rank·L to
+rank·L + L − 1), and the result is those blocks alone (``.gather()``
+all-gathers the series onto every rank): the aggregates of every block
+are all-gathered and every rank composes its blocks' carries from their
+predecessors' in `_carries`' order (bit for bit the one-controller
+result); a halo moves within the rank as on one controller, and across
+the rank boundary (the rank's first block from rank − 1's last) by
+point-to-point send/recv.
 """
 
 from __future__ import annotations
@@ -41,13 +44,13 @@ from ai_crypto_trader_tpu_torch.parallel.mesh import Shards, all_gather, exchang
 
 def _blocks(x, mesh, axis):
     """(blocks this process holds, the index of its first, the count of
-    all): every block on one controller, its own on a process mesh."""
+    all): every block on one controller, its L local shards' on a process
+    mesh."""
     n = mesh.shape[axis]
     if x.shape[-1] % n:
         raise ValueError(f"series of {x.shape[-1]} candles not divisible by the "
                          f"{n}-way '{axis}' mesh axis")
-    first = mesh.rank if mesh.spans_processes else 0
-    return mesh.split(x, -1, axis), first, n
+    return mesh.split(x, -1, axis), mesh.own_shards(axis)[0][0], n
 
 
 def _carries(As, Bs):
@@ -72,9 +75,13 @@ def sharded_first_order_recursion(a, b, mesh, axis: str = "data") -> Shards:
     prefix = [torch.cumprod(x, dim=-1) for x in a_blk]
     local = [first_order_recursion(x, y) for x, y in zip(a_blk, b_blk)]
     if mesh.spans_processes:
-        # every block's (A_i, B_i), then this rank's carry from its predecessors'
-        agg = all_gather(torch.stack([prefix[0][-1], local[0][-1]])[None], mesh.info)
-        carries = [_carries(list(agg[: first + 1, 0]), list(agg[: first + 1, 1]))[first]]
+        # every block's (A_i, B_i), then this rank's carries from their predecessors'
+        home = mesh.local_device
+        mine = torch.stack([torch.stack([p[-1], y[-1]]).to(home, non_blocking=True)
+                            for p, y in zip(prefix, local)])
+        agg = all_gather(mine, mesh.info)
+        last = first + len(local)
+        carries = _carries(list(agg[:last, 0]), list(agg[:last, 1]))[first:]
     else:
         carries = _carries([p[-1] for p in prefix], [y[-1] for y in local])
     return Shards((y + c.to(y.device, non_blocking=True) * p
@@ -92,8 +99,9 @@ def sharded_ema(x, window: int, mesh, axis: str = "data") -> Shards:
     a = torch.where(t == 0, 0.0, 1.0 - alpha).to(x.dtype)
     b = torch.where(t == 0, xs, alpha * xs)
     ys = sharded_first_order_recursion(a, b, mesh, axis)
-    blk = x.shape[-1] // mesh.shape[axis or mesh.axis_names[0]]
-    first = mesh.rank if mesh.spans_processes else 0
+    axis = axis or mesh.axis_names[0]
+    blk = x.shape[-1] // mesh.shape[axis]
+    first = mesh.own_shards(axis)[0][0]
     return Shards((torch.where(torch.arange(i * blk, (i + 1) * blk, device=y.device)
                                < window - 1, math.nan, y)
                    for i, y in enumerate(ys, first)), mesh=ys.mesh)
@@ -114,14 +122,14 @@ def sharded_rolling_mean(x, window: int, mesh, axis: str = "data") -> Shards:
         raise ValueError(
             f"window {window} needs a halo of {window - 1} candles but the "
             f"per-device block is only {blk}; use fewer shards or the unsharded kernel")
-    if mesh.spans_processes and n > 1:
-        # the tail goes to rank i + 1, the halo comes from rank i − 1
-        me, tail = first, blocks[0][-(window - 1):]
-        received = exchange(tail, mesh.info, me + 1 if me < n - 1 else None,
-                            me - 1 if me > 0 else None)
-        halos = [received]
-    else:
-        halos = [None] + [b[-(window - 1):] for b in blocks[:-1]]
+    halos = [None] + [b[-(window - 1):] for b in blocks[:-1]]
+    if mesh.spans_processes and mesh.world > 1:
+        # the last block's tail goes to rank + 1, the first block's halo
+        # comes from rank − 1
+        r, last = mesh.rank, first + len(blocks) - 1
+        tail = blocks[-1][-(window - 1):].to(mesh.local_device, non_blocking=True)
+        halos[0] = exchange(tail, mesh.info, r + 1 if last < n - 1 else None,
+                            r - 1 if first > 0 else None)
     out = []
     for i, (block, halo) in enumerate(zip(blocks, halos), first):
         if i == 0:

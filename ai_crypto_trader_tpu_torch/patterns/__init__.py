@@ -1,5 +1,6 @@
-"""The chart-pattern classifier of the port (`patterns.model`) and its
-synthetic training data (`patterns.synthetic`)."""
+"""The chart-pattern classifier of the port (`patterns.model`), its
+synthetic training data (`patterns.synthetic`) and the pattern service
+over it (`patterns.service`)."""
 
 from ai_crypto_trader_tpu_torch.patterns.synthetic import (  # noqa: F401
     PATTERN_CLASSES,
@@ -13,4 +14,8 @@ from ai_crypto_trader_tpu_torch.patterns.model import (  # noqa: F401
     pattern_completion,
     preprocess_window,
     train_pattern_model,
+)
+from ai_crypto_trader_tpu_torch.patterns.service import (  # noqa: F401
+    ChartPatternService,
+    pattern_trading_signals,
 )

@@ -171,6 +171,7 @@ class LayoutCard:
     collective_bytes: int = 0       # all-gather traffic per dispatch
     device_names: tuple = ()
     ranks: int = 0                  # a process mesh's ranks (0: one controller)
+    local_shards: int = 0           # its shards a rank
     backend: str = ""               # and its transport's backend
 
     @property
@@ -193,7 +194,7 @@ class LayoutCard:
                "members_per_device": self.members_per_device,
                "collective_bytes": self.collective_bytes}
         if self.ranks:
-            out.update(ranks=self.ranks, backend=self.backend)
+            out.update(ranks=self.ranks, local_shards=self.local_shards, backend=self.backend)
         return out
 
 
@@ -405,13 +406,14 @@ class MeshProf:
     # -- layout cards ---------------------------------------------------------
     def record_layout(self, program: str, *, population: int, pad: int,
                       devices: int, out_tree=None,
-                      device_names=(), ranks: int = 0, backend: str = "") -> LayoutCard:
+                      device_names=(), ranks: int = 0, local_shards: int = 0,
+                      backend: str = "") -> LayoutCard:
         """Record one population program's pad/mask layout.  Pure host and
         cheap; only the shapes and dtypes of ``out_tree``'s tensors are
         read: every output leaf carrying the padded population axis
         contributes its all-gather bytes (each of the ``devices`` cards
         receives the other ``devices-1`` shards).  A process mesh names
-        its ``ranks`` and ``backend``."""
+        its ``ranks``, its ``local_shards`` a rank and its ``backend``."""
         padded = population + pad
         collective = 0
         if out_tree is not None and devices > 1:
@@ -429,7 +431,8 @@ class MeshProf:
                           pad=int(pad), devices=int(devices),
                           collective_bytes=int(collective),
                           device_names=tuple(str(d) for d in device_names),
-                          ranks=int(ranks), backend=str(backend))
+                          ranks=int(ranks), local_shards=int(local_shards),
+                          backend=str(backend))
         with self._lock:
             self.layouts[program] = card
         m = self.metrics
@@ -604,7 +607,7 @@ def allow_transfers():
 
 def record_population_layout(name: str, *, population: int, pad: int,
                              devices: int, out_tree=None,
-                             device_names=(), ranks: int = 0,
+                             device_names=(), ranks: int = 0, local_shards: int = 0,
                              backend: str = "") -> LayoutCard | None:
     mp = _ACTIVE
     if mp is None:
@@ -612,7 +615,7 @@ def record_population_layout(name: str, *, population: int, pad: int,
     return mp.record_layout(name, population=population, pad=pad,
                             devices=devices, out_tree=out_tree,
                             device_names=device_names, ranks=ranks,
-                            backend=backend)
+                            local_shards=local_shards, backend=backend)
 
 
 def record_trial(device) -> None:

@@ -396,7 +396,8 @@ imports nothing of JAX or of the JAX package.  Phases, one JSON line each:
                 and peak memory; (f) `initialize_distributed` over NCCL at
                 world size 1 in a subprocess started at the phase's start,
                 with one `population_eval` and one ring step (forward and
-                gradient) through the process mesh over NCCL; (g) after
+                gradient) through the process mesh over NCCL, then the
+                same two on the hybrid mesh of the card twice; (g) after
                 the timed parts, 2 rank processes that share the card over
                 gloo (a process mesh, `python3 chip_smoke.py --mesh-rank
                 RANK PORT DIR` each): the main path's sweep as 2 K1
@@ -405,10 +406,14 @@ imports nothing of JAX or of the JAX package.  Phases, one JSON line each:
                 bit against (b)-(c)'s single device, `time_shard` over the
                 year bit for bit against a one-controller mesh of 2, the
                 long-context ring within (e)'s tolerances of the dense run;
-                each rank's parts' seconds, K1/K2 launches (and their
-                times, the two ranks contending), the transport's
-                collectives, bytes and staging copies, the ring's peak
-                memory;
+                then in the same ranks the hybrid mesh over the same group,
+                each rank driving the card twice (4 shards): the sweep as 2
+                K1 launches of 1,024 a rank, the GA, pbt, HPO farm bit for
+                bit as before, `time_shard` bit for bit against (d)'s
+                one-controller mesh of 4, the ring as before; each rank's
+                parts' seconds, K1/K2 launches (and their times, the two
+                ranks contending), the transport's collectives, bytes and
+                staging copies, the ring's peak memory;
  24. kernels  — one line with each kernel's launches, error, times and
                 bound, at the main path's shapes, and each kernel's GA,
                 tick, portfolio, tenant, `cli train`, training, RL,
@@ -8865,11 +8870,14 @@ MESH_LC_GRAD_RTOL, MESH_LC_GRAD_ATOL = 5e-3, 5e-4   # and its gradients'
 MESH_HPO_KW = dict(n_trials=MESH_HPO_TRIALS, rung_epochs=(1, 1), survivor_fraction=0.25,
                    seq_len=16, n_startup=MESH_HPO_TRIALS, device="cuda")
 MESH_RANKS = 2               # (g): rank processes that share the card over gloo
+MESH_LOCAL = 2               # (g), (f): local shards a rank drives on the hybrid mesh (the
+                             # card twice); (g)'s MESH_RANKS × MESH_LOCAL is (d)'s MESH_N
 MESH_RANK_TIMEOUT_S = 300    # (g): each rank's limit (the group's collectives time out too)
 
 # (f): NCCL at world size 1 — an all_reduce on the data group, one
 # population_eval and one ring step (forward and gradient) through the
-# process-mesh code, held against the plain results at argv's tolerances
+# process-mesh code, held against the plain results at argv's tolerances;
+# then the same two on the hybrid mesh of the card argv[4] times a rank
 _DIST_PROBE = r"""
 import json, socket, sys, torch, torch.distributed as dist
 from ai_crypto_trader_tpu_torch.parallel import MeshPartitioner, initialize_distributed
@@ -8899,8 +8907,22 @@ mesh = {"population_eval": bool(torch.equal(out["sq"], pop * pop)
                          for a, b in zip(grads, ref_grads)),
         "ring_max_abs_err": float((o - ref).abs().max()),
         "transport": TRANSPORT.counts(), "describe": part.describe()}
+TRANSPORT.reset()
+hpart = MeshPartitioner(process_mesh(local_devices=["cuda:0"] * int(sys.argv[4])))
+hout = hpart.population_eval(lambda t: {"sq": t * t, "sum": t.sum(-1)}, name="hybrid")(pop)
+ho = ring_self_attention(q, k, v, hpart.mesh)
+hgrads = torch.autograd.grad(ho.square().sum(), [q, k, v])
+torch.cuda.synchronize()
+hybrid = {"population_eval": bool(torch.equal(hout["sq"], pop * pop)
+                                  and torch.equal(hout["sum"], pop.sum(-1))),
+          "ring_forward": bool(((ho - ref).abs() <= tol + tol * ref.abs()).all()),
+          "ring_grad": all(bool(((a - b).abs() <= grad_atol + grad_rtol * b.abs()).all())
+                           for a, b in zip(hgrads, ref_grads)),
+          "ring_max_abs_err": float((ho - ref).abs().max()),
+          "transport": TRANSPORT.counts(), "describe": hpart.describe()}
 print("DIST_OK", backend, dist.get_world_size(), dist.get_rank(), x.tolist(), flush=True)
 print("DIST_MESH", json.dumps(mesh), flush=True)
+print("DIST_HYBRID", json.dumps(hybrid), flush=True)
 dist.destroy_process_group()
 """
 
@@ -9252,10 +9274,11 @@ def mesh_time_shard(part, d_year):
 
     x = torch.as_tensor(d_year["close"], dtype=torch.float32).cuda()
     mesh, worst = part.mesh, {}
+    ctl = {}                 # the one-controller results (g)'s hybrid mesh is held against
     with recording_ewma([]) as recorded:
         refs = {w: ind.ema(x, w) for w in MESH_EMA_WINDOWS}
     for w, want in refs.items():
-        got = sharded_ema(x, w, mesh).gather()
+        got = ctl[f"ema_{w}"] = sharded_ema(x, w, mesh).gather()
         if not torch.equal(torch.isnan(got), torch.isnan(want)):
             fail(f"mesh: sharded_ema({w}) has other NaNs than ops.indicators.ema")
         ok = ~torch.isnan(want)
@@ -9270,7 +9293,8 @@ def mesh_time_shard(part, d_year):
                 torch.isnan(got), torch.isnan(want)):
             fail(f"mesh: sharded_rolling_mean({w}) is not bit for bit rolling_mean")
         worst[f"rolling_mean_{w}"] = "bit for bit"
-    SHARED["mesh_ema_refs"] = refs
+        ctl[f"mean_{w}"] = got
+    SHARED["mesh_ema_refs"], SHARED["mesh_ts_ctl"] = refs, ctl
     ms = cuda_ms(lambda: sharded_ema(x, 26, mesh), 5)
     ref_ms = cuda_ms(lambda: ind.ema(x, 26), 5)
     return {"T": int(x.shape[-1]), "shards": MESH_N, "errors": worst,
@@ -9342,29 +9366,38 @@ def mesh_dist_finish(probe):
     """(f) the `initialize_distributed` subprocess: NCCL, world size 1, an
     all_reduce on the card, DIST_OK; one `population_eval` and one ring
     step (forward and gradient) through the process mesh over the NCCL
-    transport, against the plain results, nothing staged."""
+    transport, against the plain results, nothing staged; the same on the
+    hybrid mesh of the card MESH_LOCAL times (the one way to put NCCL under
+    the hybrid mesh on one card)."""
     rc, out, err, wall = probe.finish(timeout=300)
     line = next((ln for ln in out.splitlines() if ln.startswith("DIST_OK")), None)
     if rc != 0 or line is None or line.split()[1:4] != ["nccl", "1", "0"]:
         fail(f"mesh: initialize_distributed's probe exited {rc}: {out[-500:]} {err[-1500:]}")
-    mesh = json.loads(next(ln for ln in out.splitlines()
-                           if ln.startswith("DIST_MESH")).split(" ", 1)[1])
-    t = mesh["transport"]
-    if not (mesh["population_eval"] and mesh["ring_forward"] and mesh["ring_grad"]) \
-            or t["collectives"] < 1 or t["staging_copies"] or mesh["describe"]["backend"] != "nccl":
-        fail(f"mesh: the NCCL process mesh's probe gave {mesh}")
-    return {"line": line, "process_mesh": mesh, "wall_s": wall}
+    got = {}
+    for key, tag, local in (("process_mesh", "DIST_MESH", 1),
+                            ("hybrid", "DIST_HYBRID", MESH_LOCAL)):
+        mesh = got[key] = json.loads(next(ln for ln in out.splitlines()
+                                          if ln.startswith(tag + " ")).split(" ", 1)[1])
+        t, d = mesh["transport"], mesh["describe"]
+        if not (mesh["population_eval"] and mesh["ring_forward"] and mesh["ring_grad"]) \
+                or t["collectives"] < 1 or t["staging_copies"] or d["backend"] != "nccl" \
+                or (d["local_shards"], d["devices"]) != (local, local):
+            fail(f"mesh: the NCCL {key} probe gave {mesh}")
+    return {"line": line, **got, "wall_s": wall}
 
 
 def mesh_rank(rank, port, workdir):
     """(g), one rank: the group over the card (``initialize_distributed``
     with no device: the two ranks share the card, so gloo), the seams
-    through `get_partitioner()` on the inputs the parent saved, each
-    part's seconds, K1/K2 launches and transport counts read after it,
-    the outputs written to ``workdir/rank{rank}.pt``.  The kernels build
-    at first use into one empty directory for both ranks, which reach
-    their first launch together (the bring-up's exchange has just
-    synchronised them): each rank's builds are recorded."""
+    through `get_partitioner()` (one shard a rank) and then through the
+    hybrid mesh over the same group (`process_mesh` with the card
+    MESH_LOCAL times a rank: G = MESH_RANKS × MESH_LOCAL shards) on the
+    inputs the parent saved, each part's seconds, K1/K2 launches and
+    transport counts read after it, the outputs written to
+    ``workdir/rank{rank}.pt``.  The kernels build at first use into one
+    empty directory for both ranks, which reach their first launch
+    together (the bring-up's exchange has just synchronised them): each
+    rank's builds are recorded."""
     import os
 
     import torch
@@ -9377,8 +9410,9 @@ def mesh_rank(rank, port, workdir):
     from ai_crypto_trader_tpu_torch.ops import dynamic
     from ai_crypto_trader_tpu_torch.ops.ewma import fused_ewma, fused_ewma_jobs
     from ai_crypto_trader_tpu_torch.ops.replay import sweep_kernel
-    from ai_crypto_trader_tpu_torch.parallel import get_partitioner, initialize_distributed
-    from ai_crypto_trader_tpu_torch.parallel.mesh import TRANSPORT
+    from ai_crypto_trader_tpu_torch.parallel import (
+        MeshPartitioner, get_partitioner, initialize_distributed)
+    from ai_crypto_trader_tpu_torch.parallel.mesh import TRANSPORT, process_mesh
     from ai_crypto_trader_tpu_torch.parallel.time_shard import (
         sharded_ema, sharded_rolling_mean)
     from ai_crypto_trader_tpu_torch.rl import dqn, population
@@ -9411,20 +9445,77 @@ def mesh_rank(rank, port, workdir):
     def cuda(tree):
         return type(tree)(*(x.cuda() if torch.is_tensor(x) else x for x in tree))
 
-    inp, params, calls = cuda(src["inputs"]), cuda(src["params"]), []
+    inp, params = cuda(src["inputs"]), cuda(src["params"])
 
-    def swept():
-        with recording_k1(calls):
-            return sweep(inp, params, partitioner=part, device="cuda")
+    def sweep_part(prefix, p):
+        """The main path's sweep through ``p``: the stats, each K1 launch's
+        B, and the rank's first launch timed alone after the counted run
+        (the other rank times its own at about the same moment: contended)."""
+        calls = []
 
-    stats = run("sweep", swept)
-    shard_in, shard_params, shard_kw, _ = calls[0]
-    # the rank's launch timed alone, after the counted run (the other rank
-    # times its own at about the same moment: contended)
-    res["sweep"] = {"stats": type(stats)(*(x.cpu() for x in stats)),
-                    "launch_B": [int(p.stop_loss.numel()) for _, p, _, _ in calls],
-                    "k1_ms": cuda_ms(lambda: sweep_kernel(shard_in, shard_params, **shard_kw), 3)}
-    del calls, shard_in, shard_params
+        def swept():
+            with recording_k1(calls):
+                return sweep(inp, params, partitioner=p, device="cuda")
+
+        stats = run(f"{prefix}sweep", swept)
+        shard_in, shard_params, shard_kw, _ = calls[0]
+        return {"stats": type(stats)(*(x.cpu() for x in stats)),
+                "launch_B": [int(q.stop_loss.numel()) for _, q, _, _ in calls],
+                "k1_ms": cuda_ms(lambda: sweep_kernel(shard_in, shard_params, **shard_kw), 3)}
+
+    def seam_parts(prefix, p, fit):
+        """The GA (on the rank's tables ``fit``), the pbt generation, the
+        HPO farm, `time_shard` and the long-context model's ring through
+        ``p``."""
+        out = {"ga": {}}
+        for pop in (POP_GA, MESH_GA_RAGGED):
+            cfg = GAParams(population_size=pop, generations=GENS_GA)
+            with counted(ga, "host_read") as reads:
+                best, history = run(f"{prefix}ga_{pop}", lambda: ga.run_ga(
+                    torch.Generator(device="cuda").manual_seed(11), fit, cfg,
+                    seed_params=default_params(device="cuda"), partitioner=p, device="cuda"))
+            out["ga"][pop] = {"best": tuple(best), "history": history, "reads": len(reads)}
+        env = cuda(src["pbt_env"])
+        cfg, pcfg = mesh_pbt_configs(env)
+        with counted(population, "host_read") as reads:
+            r = run(f"{prefix}pbt", lambda: population.train_pbt(
+                torch.Generator(device="cuda").manual_seed(21), env, cfg, pcfg, partitioner=p))
+        out["pbt"] = {"fitness": r.fitness, "history": r.history, "reads": len(reads),
+                      "members": {k: v.cpu() for k, v in
+                                  dqn.tensor_leaves(dqn._drop(r.state.members)).items()}}
+        mp = meshprof.MeshProf()
+        with meshprof.use(mp):
+            out["hpo"] = run(f"{prefix}hpo", lambda: hpo.optimize_hyperparameters(
+                torch.Generator(device="cuda").manual_seed(23), src["hpo_features"],
+                partitioner=p, **MESH_HPO_KW))
+        out["hpo_trials_here"] = sum(mp.trial_assignments.values())
+        x = torch.as_tensor(src["close"]).cuda()
+        out["time_shard"] = {k: v.cpu() for k, v in run(f"{prefix}time_shard", lambda: {
+            **{f"ema_{w}": sharded_ema(x, w, p.mesh).gather() for w in MESH_EMA_WINDOWS},
+            **{f"mean_{w}": sharded_rolling_mean(x, w, p.mesh).gather()
+               for w in MESH_MEAN_WINDOWS}}).items()}
+        lx, ly = (torch.from_numpy(a).cuda() for a in src["lc"])
+        model = LongContextTransformer(LC_F, mesh=p.mesh, device="cuda",
+                                       generator=torch.Generator().manual_seed(29))
+        params_lc = dict(model.named_parameters())
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            fwd = run(f"{prefix}long_context_forward", lambda: model(lx)["mean"])
+        peak_fwd = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+
+        def loss_and_grad():
+            loss = long_context_loss(model, params_lc, lx, ly)
+            return loss, torch.autograd.grad(loss, list(params_lc.values()))
+
+        loss, grads = run(f"{prefix}long_context_loss_and_grad", loss_and_grad)
+        out["long_context"] = {"forward": fwd.cpu(), "loss": float(loss),
+                               "grads": [g.cpu() for g in grads],
+                               "peak_gb": {"forward": peak_fwd, "loss_and_grad":
+                                           torch.cuda.max_memory_allocated() / 1e9}}
+        return out
+
+    res["sweep"] = sweep_part("", part)
     tables_jobs, kernel_entry = [], dynamic.fused_ewma_jobs
 
     def recording(jobs, device=None):
@@ -9439,56 +9530,90 @@ def mesh_rank(rank, port, workdir):
     res["k2_ms"] = [cuda_ms(lambda: fused_ewma_jobs(jobs, device="cuda"), 5)
                     for jobs in tables_jobs]
     del tables_jobs
-    res["ga"] = {}
-    for pop in (POP_GA, MESH_GA_RAGGED):
-        cfg = GAParams(population_size=pop, generations=GENS_GA)
-        with counted(ga, "host_read") as reads:
-            best, history = run(f"ga_{pop}", lambda: ga.run_ga(
-                torch.Generator(device="cuda").manual_seed(11), fit, cfg,
-                seed_params=default_params(device="cuda"), partitioner=part, device="cuda"))
-        res["ga"][pop] = {"best": tuple(best), "history": history, "reads": len(reads)}
-    env = cuda(src["pbt_env"])
-    cfg, pcfg = mesh_pbt_configs(env)
-    with counted(population, "host_read") as reads:
-        r = run("pbt", lambda: population.train_pbt(
-            torch.Generator(device="cuda").manual_seed(21), env, cfg, pcfg, partitioner=part))
-    res["pbt"] = {"fitness": r.fitness, "history": r.history, "reads": len(reads),
-                  "members": {k: v.cpu() for k, v in
-                              dqn.tensor_leaves(dqn._drop(r.state.members)).items()}}
-    mp = meshprof.MeshProf()
-    with meshprof.use(mp):
-        res["hpo"] = run("hpo", lambda: hpo.optimize_hyperparameters(
-            torch.Generator(device="cuda").manual_seed(23), src["hpo_features"],
-            partitioner=part, **MESH_HPO_KW))
-    res["hpo_trials_here"] = sum(mp.trial_assignments.values())
-    x = torch.as_tensor(src["close"]).cuda()
-    res["time_shard"] = {k: v.cpu() for k, v in run("time_shard", lambda: {
-        **{f"ema_{w}": sharded_ema(x, w, part.mesh).gather() for w in MESH_EMA_WINDOWS},
-        **{f"mean_{w}": sharded_rolling_mean(x, w, part.mesh).gather()
-           for w in MESH_MEAN_WINDOWS}}).items()}
-    lx, ly = (torch.from_numpy(a).cuda() for a in src["lc"])
-    model = LongContextTransformer(LC_F, mesh=part.mesh, device="cuda",
-                                   generator=torch.Generator().manual_seed(29))
-    params_lc = dict(model.named_parameters())
-    torch.cuda.reset_peak_memory_stats()
-    with torch.no_grad():
-        fwd = run("long_context_forward", lambda: model(lx)["mean"])
-    peak_fwd = torch.cuda.max_memory_allocated() / 1e9
-    torch.cuda.reset_peak_memory_stats()
-
-    def loss_and_grad():
-        loss = long_context_loss(model, params_lc, lx, ly)
-        return loss, torch.autograd.grad(loss, list(params_lc.values()))
-
-    loss, grads = run("long_context_loss_and_grad", loss_and_grad)
-    res["long_context"] = {"forward": fwd.cpu(), "loss": float(loss),
-                           "grads": [g.cpu() for g in grads],
-                           "peak_gb": {"forward": peak_fwd,
-                                       "loss_and_grad": torch.cuda.max_memory_allocated() / 1e9}}
+    res.update(seam_parts("", part, fit))
+    # the hybrid mesh over the same group: the card MESH_LOCAL times a rank
+    hybrid = MeshPartitioner(process_mesh(local_devices=["cuda:0"] * MESH_LOCAL))
+    res["hybrid"] = {"describe": hybrid.describe(), "sweep": sweep_part("hybrid_", hybrid),
+                     **seam_parts("hybrid_", hybrid, fit)}
     res["rank_s"] = time.perf_counter() - t_rank
     res["builds"] = builds
     torch.save(res, os.path.join(workdir, f"rank{rank}.pt"))
     dist.destroy_process_group()
+
+
+def held_rank(got, parts, r, label, shards, ctl_ts, stats):
+    """(g): one rank's outputs on a mesh of ``shards`` shards (``got``: the
+    one-shard parts' or the hybrid's; ``parts``: the rank's counts by part)
+    held against the single device: the
+    sweep's stats bit for bit against phase main's single launch, in
+    ``shards`` // MESH_RANKS K1 launches of B / ``shards`` here; the GA at
+    256 and 250 (one read a run, G + 1 evaluations of as many launches
+    each), the pbt generation and the HPO farm bit for bit against (b)-(c)'s
+    single device; `time_shard` bit for bit against ``ctl_ts`` (a
+    one-controller mesh of as many shards of the card: {name: series}) and
+    its EMA within MESH_TS_* of `ops.indicators.ema`.  Returns the sweep's
+    max abs error against phase main."""
+    import torch
+
+    from ai_crypto_trader_tpu_torch.rl import dqn
+
+    local = shards // MESH_RANKS
+    pre = "hybrid_" if label == "hybrid" else ""
+    s = got["sweep"]
+    if s["launch_B"] != [B_FULL // shards] * local or parts[f"{pre}sweep"]["k1"] != local:
+        fail(f"mesh: rank {r}'s {label} sweep made launches of {s['launch_B']}")
+    s["max_abs_err"] = compare_stats(type(stats)(*(x.cuda() for x in s["stats"])), stats,
+                                     f"mesh_rank{r}_{label}_sweep")["max_abs_err"]
+    for pop, one in SHARED["mesh_single_ga"].items():
+        g, k1 = got["ga"][pop], parts[f"{pre}ga_{pop}"]["k1"]
+        if g["history"] != one[1] or g["reads"] != 1 or k1 != (GENS_GA + 1) * local:
+            fail(f"mesh: rank {r}'s {label} GA at {pop}: {g['reads']} reads, {k1} K1 "
+                 f"launches, history {'equal' if g['history'] == one[1] else 'not equal'}")
+        same_tree(g["best"], tuple(one[0]), f"rank {r}'s {label} GA best genome at {pop}")
+    one = SHARED["mesh_single_pbt"]
+    lb = dqn.tensor_leaves(dqn._drop(one.state.members))
+    p = got["pbt"]
+    if p["reads"] != 1 or p["history"] != one.history \
+            or not same_host_bits(p["fitness"], one.fitness):
+        fail(f"mesh: rank {r}'s {label} pbt generation is not the single device's")
+    same_tree(p["members"], {k: lb[k] for k in p["members"]}, f"rank {r}'s {label} pbt fleet")
+    if got["hpo"] != SHARED["mesh_single_hpo"]:
+        fail(f"mesh: rank {r}'s {label} HPO farm gave {got['hpo']['trials']}, the single "
+             f"device {SHARED['mesh_single_hpo']['trials']}")
+    ts = got["time_shard"]
+    for w in MESH_EMA_WINDOWS:
+        same_tree(ts[f"ema_{w}"], ctl_ts[f"ema_{w}"], f"rank {r}'s {label} sharded_ema({w})")
+        want = SHARED["mesh_ema_refs"][w].cpu()
+        ok = ~torch.isnan(want)
+        if not torch.equal(torch.isnan(ts[f"ema_{w}"]), ~ok) or bool(
+                (torch.abs(ts[f"ema_{w}"][ok] - want[ok])
+                 > MESH_TS_ATOL + MESH_TS_RTOL * torch.abs(want[ok])).any()):
+            fail(f"mesh: rank {r}'s {label} sharded_ema({w}) is off ops.indicators.ema")
+    for w in MESH_MEAN_WINDOWS:
+        same_tree(ts[f"mean_{w}"], ctl_ts[f"mean_{w}"],
+                  f"rank {r}'s {label} sharded_rolling_mean({w})")
+    return s["max_abs_err"]
+
+
+def held_ring(lc, label):
+    """(g): the ranks' ring (rank 0's outputs; the others equal it) within
+    (e)'s tolerances of the dense model.  Returns the forward's and the
+    gradient's max abs errors."""
+    import torch
+
+    dense_fwd, _, dense_grads = SHARED["mesh_dense_lc"]
+    a, b = lc["forward"].cuda(), dense_fwd
+    fwd_err = float(torch.abs(a - b).max())
+    flat_r = torch.cat([g.reshape(-1) for g in lc["grads"]]).cuda()
+    flat_d = torch.cat([g.reshape(-1) for g in dense_grads])
+    grad_err = float(torch.abs(flat_r - flat_d).max())
+    if not bool(torch.isfinite(a).all()) or bool(
+            (torch.abs(a - b) > MESH_LC_TOL + MESH_LC_TOL * torch.abs(b)).any()) or bool(
+            (torch.abs(flat_r - flat_d) > MESH_LC_GRAD_ATOL
+             + MESH_LC_GRAD_RTOL * torch.abs(flat_d)).any()):
+        fail(f"mesh: the ranks' {label} ring is {fwd_err:.3g} (forward) and {grad_err:.3g} "
+             "(gradient) off the dense model")
+    return fwd_err, grad_err
 
 
 def mesh_ranks(d_year, inp, params, stats):
@@ -9496,14 +9621,14 @@ def mesh_ranks(d_year, inp, params, stats):
     (`mesh_rank`), started after the phase's timed parts: the inputs saved
     once (the main path's inputs and strategies, the GA's candles, the pbt
     markets, the HPO features, the year's close, the long-context inputs),
-    and each rank's outputs held here: the sweep's stats bit for bit against
-    phase main's single launch, in one K1 launch of B / MESH_RANKS a rank;
-    the GA at 256 and 250, the pbt generation and the HPO farm bit for bit
-    against the single device's runs of (b)-(c); `time_shard` bit for bit
-    against a one-controller mesh of MESH_RANKS shards (its EMA within
-    MESH_TS_* of `ops.indicators.ema`); the ring's forward and gradient
-    within MESH_LC_* of (e)'s dense run.  Returns (report, K1 launches of
-    each rank, K2 launches of each rank)."""
+    and each rank's outputs held here (`held_rank`, `held_ring`): first on
+    one shard a rank (the sweep in one K1 launch of B / MESH_RANKS a rank,
+    `time_shard` against a one-controller mesh of MESH_RANKS shards), then
+    on the hybrid mesh of MESH_LOCAL shards a rank (the sweep in MESH_LOCAL
+    launches of B / MESH_N a rank, `time_shard` against (d)'s one-controller
+    mesh of MESH_N shards); the ring's forward and gradient within
+    MESH_LC_* of (e)'s dense run on both.  Returns (report, K1 launches of
+    each rank by path, K2 launches of each rank by path)."""
     import os
     import socket
     import tempfile
@@ -9515,7 +9640,6 @@ def mesh_ranks(d_year, inp, params, stats):
     from ai_crypto_trader_tpu_torch.parallel import make_mesh
     from ai_crypto_trader_tpu_torch.parallel.time_shard import (
         sharded_ema, sharded_rolling_mean)
-    from ai_crypto_trader_tpu_torch.rl import dqn
 
     def cpu(tree):
         return type(tree)(*(x.cpu() if torch.is_tensor(x) else x for x in tree))
@@ -9555,88 +9679,71 @@ def mesh_ranks(d_year, inp, params, stats):
             for g in res):
         fail(f"mesh: the ranks' kernel builds left {built}: "
              f"{[g['builds'] for g in res]}")
-    for r, got in enumerate(res):
-        if got["backend"] != "gloo" or got["describe"]["ranks"] != MESH_RANKS:
-            fail(f"mesh: rank {r} brought up {got['backend']} over "
-                 f"{got['describe'].get('ranks')} ranks")
-        # the sweep: one launch of B / MESH_RANKS here, phase main's stats bit for bit
-        if got["sweep"]["launch_B"] != [B_FULL // MESH_RANKS] or got["parts"]["sweep"]["k1"] != 1:
-            fail(f"mesh: rank {r}'s sweep made launches of {got['sweep']['launch_B']}")
-        err = compare_stats(type(stats)(*(x.cuda() for x in got["sweep"]["stats"])), stats,
-                            f"mesh_rank{r}_sweep")["max_abs_err"]
-        got["sweep"]["max_abs_err"] = err
-        for pop, one in SHARED["mesh_single_ga"].items():
-            g = got["ga"][pop]
-            if g["history"] != one[1] or g["reads"] != 1 \
-                    or got["parts"][f"ga_{pop}"]["k1"] != GENS_GA + 1:
-                fail(f"mesh: rank {r}'s GA at {pop}: {g['reads']} reads, "
-                     f"{got['parts'][f'ga_{pop}']['k1']} K1 launches, history "
-                     f"{'equal' if g['history'] == one[1] else 'not equal'}")
-            same_tree(g["best"], tuple(one[0]), f"rank {r}'s GA best genome at {pop}")
-        one = SHARED["mesh_single_pbt"]
-        lb = dqn.tensor_leaves(dqn._drop(one.state.members))
-        p = got["pbt"]
-        if p["reads"] != 1 or p["history"] != one.history \
-                or not same_host_bits(p["fitness"], one.fitness):
-            fail(f"mesh: rank {r}'s pbt generation is not the single device's")
-        same_tree(p["members"], {k: lb[k] for k in p["members"]}, f"rank {r}'s pbt fleet")
-        if got["hpo"] != SHARED["mesh_single_hpo"]:
-            fail(f"mesh: rank {r}'s HPO farm gave {got['hpo']['trials']}, the single device "
-                 f"{SHARED['mesh_single_hpo']['trials']}")
-        if r:
-            same_tree(got["sweep"]["stats"], res[0]["sweep"]["stats"], "the ranks' sweeps")
-            same_tree(got["time_shard"], res[0]["time_shard"], "the ranks' time_shard")
-            same_tree(got["long_context"]["forward"], res[0]["long_context"]["forward"],
-                      "the ranks' long-context forward")
-    # time_shard: a one-controller mesh of as many shards, bit for bit
+    # time_shard's references: one-controller meshes of as many shards of
+    # the card (the hybrid's is (d)'s), whose rolling means are rolling_mean's
     x = torch.as_tensor(np.asarray(d_year["close"], np.float32)).cuda()
     ctl = make_mesh(MESH_RANKS, devices=["cuda:0"] * MESH_RANKS)
-    ts = res[0]["time_shard"]
-    for w in MESH_EMA_WINDOWS:
-        same_tree(ts[f"ema_{w}"], sharded_ema(x, w, ctl).gather(), f"the ranks' sharded_ema({w})")
-        want = SHARED["mesh_ema_refs"][w].cpu()
-        ok = ~torch.isnan(want)
-        if not torch.equal(torch.isnan(ts[f"ema_{w}"]), ~ok) or bool(
-                (torch.abs(ts[f"ema_{w}"][ok] - want[ok])
-                 > MESH_TS_ATOL + MESH_TS_RTOL * torch.abs(want[ok])).any()):
-            fail(f"mesh: the ranks' sharded_ema({w}) is off ops.indicators.ema")
+    ctl_ts = {**{f"ema_{w}": sharded_ema(x, w, ctl).gather() for w in MESH_EMA_WINDOWS},
+              **{f"mean_{w}": sharded_rolling_mean(x, w, ctl).gather()
+                 for w in MESH_MEAN_WINDOWS}}
     for w in MESH_MEAN_WINDOWS:
-        same_tree(ts[f"mean_{w}"], sharded_rolling_mean(x, w, ctl).gather(),
-                  f"the ranks' sharded_rolling_mean({w})")
-        same_tree(ts[f"mean_{w}"], ind.rolling_mean(x, w), f"the ranks' rolling_mean({w})")
-    # the ring: within (e)'s tolerances of the dense model
-    dense_fwd, dense_loss, dense_grads = SHARED["mesh_dense_lc"]
-    lc = res[0]["long_context"]
-    a, b = lc["forward"].cuda(), dense_fwd
-    fwd_err = float(torch.abs(a - b).max())
-    flat_r = torch.cat([g.reshape(-1) for g in lc["grads"]]).cuda()
-    flat_d = torch.cat([g.reshape(-1) for g in dense_grads])
-    grad_err = float(torch.abs(flat_r - flat_d).max())
-    if not bool(torch.isfinite(a).all()) or bool(
-            (torch.abs(a - b) > MESH_LC_TOL + MESH_LC_TOL * torch.abs(b)).any()) or bool(
-            (torch.abs(flat_r - flat_d) > MESH_LC_GRAD_ATOL
-             + MESH_LC_GRAD_RTOL * torch.abs(flat_d)).any()):
-        fail(f"mesh: the ranks' ring is {fwd_err:.3g} (forward) and {grad_err:.3g} (gradient) "
-             "off the dense model")
+        same_tree(ctl_ts[f"mean_{w}"], ind.rolling_mean(x, w), f"rolling_mean({w})")
+    for r, got in enumerate(res):
+        h = got["hybrid"]
+        if got["backend"] != "gloo" or got["describe"]["ranks"] != MESH_RANKS or (
+                h["describe"]["devices"], h["describe"]["local_shards"]) != (
+                MESH_RANKS * MESH_LOCAL, MESH_LOCAL):
+            fail(f"mesh: rank {r} brought up {got['backend']} over "
+                 f"{got['describe'].get('ranks')} ranks; the hybrid mesh {h['describe']}")
+        held_rank(got, got["parts"], r, "one shard a rank", MESH_RANKS, ctl_ts, stats)
+        held_rank(h, got["parts"], r, "hybrid", MESH_RANKS * MESH_LOCAL, SHARED["mesh_ts_ctl"],
+                  stats)
+        for what, a, b in (("", got, res[0]), ("hybrid ", h, res[0]["hybrid"])):
+            if r:
+                same_tree(a["sweep"]["stats"], b["sweep"]["stats"], f"the ranks' {what}sweeps")
+                same_tree(a["time_shard"], b["time_shard"], f"the ranks' {what}time_shard")
+                same_tree(a["long_context"]["forward"], b["long_context"]["forward"],
+                          f"the ranks' {what}long-context forward")
+    rings = {label: held_ring(lc, label) for label, lc in (
+        ("one shard a rank", res[0]["long_context"]),
+        ("hybrid", res[0]["hybrid"]["long_context"]))}
+    _, dense_loss, _ = SHARED["mesh_dense_lc"]
+
+    def launches(g, hybrid, kernel):
+        return sum(v[kernel] for k, v in g["parts"].items()
+                   if k.startswith("hybrid_") == hybrid)
+
     report = {"ranks": MESH_RANKS, "backend": "gloo", "wall_s": wall,
-              "describe": res[0]["describe"], "builds": [g["builds"] for g in res],
-              "build_dir": built,
+              "describe": res[0]["describe"], "hybrid_describe": res[0]["hybrid"]["describe"],
+              "builds": [g["builds"] for g in res], "build_dir": built,
               "by_rank": [{"rank": g["rank"], "start_s": g["start_s"], "rank_s": g["rank_s"],
                            "parts": g["parts"], "hpo_trials_here": g["hpo_trials_here"],
+                           "hybrid_hpo_trials_here": g["hybrid"]["hpo_trials_here"],
                            "k1_ms_contended": g["sweep"]["k1_ms"],
+                           "hybrid_k1_ms_contended": g["hybrid"]["sweep"]["k1_ms"],
                            "k2_ms_contended": g["k2_ms"],
                            "long_context_peak_gb": g["long_context"]["peak_gb"],
-                           "sweep_max_abs_err": g["sweep"]["max_abs_err"]} for g in res],
-              "sweep": f"{MESH_RANKS} K1 launches of B={B_FULL // MESH_RANKS} x T={T_FULL}, "
+                           "hybrid_long_context_peak_gb": g["hybrid"]["long_context"]["peak_gb"],
+                           "sweep_max_abs_err": g["sweep"]["max_abs_err"],
+                           "hybrid_sweep_max_abs_err": g["hybrid"]["sweep"]["max_abs_err"]}
+                          for g in res],
+              "sweep": f"{MESH_RANKS} K1 launches of B={B_FULL // MESH_RANKS} x T={T_FULL} "
+                       f"(one shard a rank), then {MESH_RANKS * MESH_LOCAL} of "
+                       f"B={B_FULL // (MESH_RANKS * MESH_LOCAL)} (hybrid, {MESH_LOCAL} a rank), "
                        "stats bit for bit against phase main's single launch",
               "ga": {str(pop): one[1][-1]["best_fitness"]
                      for pop, one in SHARED["mesh_single_ga"].items()},
-              "long_context": {"loss": [lc["loss"], float(dense_loss.detach())],
-                               "forward_max_abs_err": fwd_err, "grad_max_abs_err": grad_err},
-              "bit_for_bit": "sweep, GA 256 and 250, pbt, HPO farm, time_shard"}
-    k1 = [sum(v["k1"] for v in g["parts"].values()) for g in res]
-    k2 = [sum(v["k2"] for v in g["parts"].values()) for g in res]
-    return report, {"launches": k1, "sweep_ms": [g["sweep"]["k1_ms"] for g in res]}, \
+              "long_context": {label: {"loss": [lc["loss"], float(dense_loss.detach())],
+                                       "forward_max_abs_err": fwd, "grad_max_abs_err": grad}
+                               for (label, (fwd, grad)), lc in zip(rings.items(), (
+                                   res[0]["long_context"],
+                                   res[0]["hybrid"]["long_context"]))},
+              "bit_for_bit": "sweep, GA 256 and 250, pbt, HPO farm, time_shard; one shard a "
+                             "rank and hybrid"}
+    k1 = {path: [launches(g, path == "hybrid", "k1") for g in res] for path in ("ranks", "hybrid")}
+    k2 = {path: [launches(g, path == "hybrid", "k2") for g in res] for path in ("ranks", "hybrid")}
+    return report, {"launches": k1, "sweep_ms": [g["sweep"]["k1_ms"] for g in res],
+                    "hybrid_sweep_ms": [g["hybrid"]["sweep"]["k1_ms"] for g in res]}, \
         {"launches": k2, "ga_tables_ms": [sum(g["k2_ms"]) for g in res]}
 
 
@@ -9647,11 +9754,14 @@ def phase_mesh(info, d_year, inp, params, stats, main_plain_ms):
     tenant engine, the LOB sweep, one PBT generation, the structure pool
     and an HPO farm, (d) `time_shard`, (e) the ring in the long-context
     model, (f) `initialize_distributed` in a subprocess started at the
-    phase's start.  Returns the kernels line's entries (K1, K2)."""
+    phase's start (the process mesh and the hybrid mesh over NCCL at world
+    size 1), (g) 2 ranks sharing the card, on one shard a rank and on the
+    hybrid mesh of MESH_LOCAL shards a rank.  Returns the kernels line's
+    entries (K1, K2)."""
     t_phase = time.perf_counter()
     root, _ = research_env()
     probe = Beside([sys.executable, "-c", _DIST_PROBE, str(MESH_LC_TOL),
-                    str(MESH_LC_GRAD_RTOL), str(MESH_LC_GRAD_ATOL)], root)
+                    str(MESH_LC_GRAD_RTOL), str(MESH_LC_GRAD_ATOL), str(MESH_LOCAL)], root)
     try:
         parts = mesh_partitioners()
         part = parts["virtual"]
@@ -9691,10 +9801,11 @@ def phase_mesh(info, d_year, inp, params, stats, main_plain_ms):
     emit(report)
     bound_ms, bound_by, _ = replay_bound_ms(stats, B_FULL, T_FULL)
     sweep_r = report["sweep"]
-    k1 = {"launches": sweep_r["launches"] + ga_k1 + sum(ranks_k1["launches"]),
-          "launches_by_path": {"sweep": sweep_r["launches"], "ga": ga_k1,
-                               "ranks": ranks_k1["launches"]},
+    by_rank_k1, by_rank_k2 = ranks_k1["launches"], ranks_k2["launches"]
+    k1 = {"launches": sweep_r["launches"] + ga_k1 + sum(map(sum, by_rank_k1.values())),
+          "launches_by_path": {"sweep": sweep_r["launches"], "ga": ga_k1, **by_rank_k1},
           "ranks_sweep_launch_ms_contended": ranks_k1["sweep_ms"],
+          "hybrid_sweep_launch_ms_contended": ranks_k1["hybrid_sweep_ms"],
           "ms": sweep_r["ms"], "single_launch_ms": sweep_r["single_launch_ms"],
           "plain_ms": main_plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
           "library_ms": None,
@@ -9702,9 +9813,11 @@ def phase_mesh(info, d_year, inp, params, stats, main_plain_ms):
           "shape": f"{MESH_N} launches of B={B_FULL // MESH_N} x T={T_FULL} (ms, bound and "
                    f"plain_ms: the {MESH_N} together, the same work as phase main's single "
                    f"launch, which they equal bit for bit and whose plain loop plain_ms is)"}
-    k2 = {"launches": len(ts_k2["ms_per_launch"]) + ga_k2 + sum(ranks_k2["launches"]),
+    k2 = {"launches": len(ts_k2["ms_per_launch"]) + ga_k2 + sum(map(sum, by_rank_k2.values())),
           "launches_by_path": {"time_shard_reference_ema": len(ts_k2["ms_per_launch"]),
-                               "ga_tables": ga_k2, "ranks": ranks_k2["launches"]},
+                               "ga_tables": ga_k2, **by_rank_k2},
+          "hybrid_launches": "none of its own: the hybrid GA runs on the tables each rank "
+                             "built for its one-shard parts (the ranks' launches)",
           "ranks_ga_tables_ms_contended": ranks_k2["ga_tables_ms"],
           **{k: ts_k2[k] for k in ("ms", "ms_per_launch", "plain_ms", "bound_ms", "bound_by",
                                    "max_abs_err", "max_rel_err")},

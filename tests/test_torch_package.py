@@ -637,10 +637,17 @@ def test_new_entry_points_run_on_the_cpu(entry):
     assert check(call())
 
 
-@pytest.mark.parametrize("package", ["social", "strategy"])
+_JAX_PACKAGES = [""] + sorted(
+    d for d in os.listdir(os.path.join(ROOT, "ai_crypto_trader_tpu"))
+    if os.path.exists(os.path.join(ROOT, "ai_crypto_trader_tpu", d, "__init__.py")))
+
+
+@pytest.mark.parametrize("package", _JAX_PACKAGES, ids=lambda p: p or "top-level")
 def test_package_exports_are_the_jax_package_exports(package):
-    """The port's `social` and `strategy` packages export exactly the JAX
-    package's names."""
+    """The port's top-level package and each of its subpackages export at
+    least the JAX package's public names (the port may add its own);
+    `social` and `strategy` exactly the JAX package's.  The top level has
+    the JAX package's `__version__`."""
     import importlib
     import inspect
 
@@ -648,9 +655,15 @@ def test_package_exports_are_the_jax_package_exports(package):
         return {n for n in dir(mod) if not n.startswith("_")
                 and not inspect.ismodule(getattr(mod, n))}
 
-    ref = public(importlib.import_module(f"ai_crypto_trader_tpu.{package}"))
-    got = public(importlib.import_module(f"ai_crypto_trader_tpu_torch.{package}"))
-    assert got == ref
+    suffix = f".{package}" if package else ""
+    jax_mod = importlib.import_module(f"ai_crypto_trader_tpu{suffix}")
+    port_mod = importlib.import_module(f"ai_crypto_trader_tpu_torch{suffix}")
+    ref, got = public(jax_mod), public(port_mod)
+    assert sorted(ref - got) == []
+    if package in ("social", "strategy"):
+        assert got == ref
+    if not package:
+        assert port_mod.__version__ == jax_mod.__version__
 
 
 def test_cli_subcommands_are_the_jax_clis():

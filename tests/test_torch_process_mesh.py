@@ -303,10 +303,18 @@ def _start_group(argv_of, world: int, attempts: int = 3) -> list:
 
 @pytest.fixture(scope="module")
 def inputs():
+    yield _make_inputs(_REFS)
+    # the JAX references hold arrays on the virtual devices: free them with
+    # the module, or a later file's live-array walk in this process sees them
+    _REFS.clear()
+
+
+def _make_inputs(refs):
     """Every seam's inputs, made once by the port from numpy and torch
     seeds, the same values as JAX arrays for the JAX references, and the
     JAX draws of the GA, `lob_sweep` and the PBT fleet recorded in the
-    single device's run (which is kept as that seam's reference)."""
+    single device's run (which is kept in ``refs`` as that seam's
+    reference)."""
     jax = pytest.importorskip("jax")
     import jax.numpy as jnp
     from test_torch_ga import JaxDraws
@@ -370,7 +378,7 @@ def inputs():
                        ("lob", JaxMarketDraws(jax.random.PRNGKey(6))),
                        ("pbt", _jax_pop_draws(jax.random.PRNGKey(6), tcfg, POP))):
         rec = _Recorder(base)
-        _REFS[(name, None)] = SEAMS[name](SingleDevicePartitioner(), port, rec)
+        refs[(name, None)] = SEAMS[name](SingleDevicePartitioner(), port, rec)
         port["draws"][name] = rec.calls
     jaxside = {"inputs": as_jax(jengine.BacktestInputs, sweep_inputs),
                "params": as_jax(jstrategy.StrategyParams, sweep_params),
@@ -406,18 +414,19 @@ def groups(inputs):
 _REFS: dict = {}
 
 
-def _ref(name, world, inputs):
+def _ref(name, world, inputs, refs=_REFS):
     """The seam on the port's single device (world None) or on its
-    one-controller mesh of ``world`` CPU shards, computed once."""
+    one-controller mesh of ``world`` CPU shards, computed once (kept in
+    ``refs``)."""
     from ai_crypto_trader_tpu_torch.parallel import (
         MeshPartitioner, SingleDevicePartitioner, make_mesh)
 
     key = (name, world)
-    if key not in _REFS:
+    if key not in refs:
         part = (SingleDevicePartitioner() if world is None
                 else MeshPartitioner(make_mesh(world, devices=["cpu"] * world)))
-        _REFS[key] = SEAMS[name](part, inputs[0])
-    return _REFS[key]
+        refs[key] = SEAMS[name](part, inputs[0])
+    return refs[key]
 
 
 def _leaves(tree, path=""):
@@ -473,6 +482,7 @@ def test_the_group_is_the_default_mesh(groups, world):
         d = res["describe"]
         assert (d["kind"], d["ranks"], d["rank"], d["backend"]) == \
             ("MeshPartitioner", world, r, "gloo")
+        assert (d["local_shards"], d["local_device_names"]) == (1, ["cpu"])
         assert d["device_names"] == ["cpu"] * world and d["platform"] == "cpu"
         t = res["transport"]
         assert t["collectives"] > 0 and t["bytes"] > 0 and t["staging_copies"] == 0
@@ -482,7 +492,7 @@ def test_the_group_is_the_default_mesh(groups, world):
             "devices": world, "pad_fraction": round(pad / (10 + pad), 6),
             "members_per_device": (10 + pad) / world,
             "collective_bytes": (10 + pad) * 4 * 4 * (world - 1), "ranks": world,
-            "backend": "gloo"}
+            "local_shards": 1, "backend": "gloo"}
 
 
 @pytest.mark.parametrize("world", WORLDS)
@@ -825,22 +835,63 @@ def test_plan_gives_each_rank_its_card_and_backend():
     assert _plan(["a", "a"], 1, True, 2) == (1, 2, dev("cuda", 1), "nccl")
     assert _plan(["a", "b", "a"], 2, True, 2) == (1, 2, dev("cuda", 1), "nccl")
     assert _plan(["a", "a", "a"], 2, True, 2) == (2, 3, dev("cuda", 0), "gloo")
+    # several cards a rank: the home card is the first of the rank's block
+    assert _plan(["a", "a"], 1, True, 4) == (1, 2, dev("cuda", 2), "nccl")
+    assert _plan(["a"], 0, True, 8) == (0, 1, dev("cuda", 0), "nccl")
+    with pytest.raises(ValueError, match="3 CUDA cards do not split evenly among the 2"):
+        _plan(["a", "a"], 1, True, 3)
 
 
-def test_a_rank_with_several_local_cards_raises(monkeypatch):
+@pytest.mark.parametrize("local_rank", [0, 1])
+def test_a_rank_with_several_local_cards_takes_its_block(monkeypatch, local_rank):
+    """The default plan (no group needed: the group's record is patched):
+    4 cards among a host's 2 ranks give each rank a contiguous block of 2,
+    numbered rank-major, and `default_mesh()` builds it with no collective
+    (every exchange raises); 3 cards among 2 raise; ranks that share a
+    card keep one shard a rank over gloo; an explicit list is exchanged."""
+    import torch.distributed as dist
+
     from ai_crypto_trader_tpu_torch.parallel import mesh as tmesh
 
-    info = tmesh.ProcessGroupInfo(
-        rank=0, world=2, local_rank=0, local_world=2, backend="nccl",
-        device=torch.device("cuda", 0), devices=("cuda:0", "cuda:1"), cards=4, group=None,
-        world_group=None, token=-1)
-    monkeypatch.setattr(tmesh, "process_group", lambda: info)
-    with pytest.raises(ValueError, match="ROADMAP item 35"):
-        tmesh.process_mesh()
-    mesh = tmesh.ProcessMesh(info._replace(cards=2))
-    assert mesh.spans_processes and mesh.world == 2 and mesh.local_device == info.device
-    assert mesh != tmesh.make_mesh(2, devices=["cuda:0", "cuda:1"])
+    def no_collective(*args, **kwargs):
+        raise AssertionError("the default mesh ran a collective")
 
+    assert [tmesh.local_cards(r, 2, 4) for r in range(2)] == \
+        [[torch.device("cuda", 2 * r + j) for j in range(2)] for r in range(2)]
+    with pytest.raises(ValueError, match="3 CUDA cards do not split evenly among the 2"):
+        tmesh.local_cards(local_rank, 2, 3)
+    info = tmesh.ProcessGroupInfo(
+        rank=local_rank, world=2, local_rank=local_rank, local_world=2, backend="nccl",
+        device=torch.device("cuda", 2 * local_rank),
+        rank_devices=(("cuda:0", "cuda:1"), ("cuda:2", "cuda:3")), cards=4,
+        group=None, world_group=None, token=-1 - local_rank)
+    group = {"info": info}
+    monkeypatch.setattr(tmesh, "process_group", lambda: group["info"])
+    monkeypatch.setattr(tmesh, "all_gather_object", no_collective)
+    monkeypatch.setattr(dist, "all_gather_object", no_collective)
+    tmesh.default_mesh.cache_clear()
+    mesh = tmesh.default_mesh()
+    tmesh.default_mesh.cache_clear()
+    mine = [torch.device("cuda", 2 * local_rank + j) for j in range(2)]
+    assert mesh.spans_processes and mesh.world == 2 and mesh.local_count == 2
+    assert mesh == tmesh.process_mesh() and info.devices == ("cuda:0", "cuda:2")
+    assert mesh.local_devices == mine and mesh.local_device == info.device
+    assert mesh.shape == {"data": 4, "model": 1} and mesh.first_shard == 2 * local_rank
+    assert [str(d) for d in mesh.axis_devices()] == [f"cuda:{i}" for i in range(4)]
+    assert mesh.own_shards() == list(zip(range(2 * local_rank, 2 * local_rank + 2), mine))
+    assert mesh != tmesh.make_mesh(4, devices=[f"cuda:{i}" for i in range(4)])
+    with pytest.raises(ValueError, match="list cuda"):      # NCCL runs on the home card
+        tmesh.process_mesh(local_devices=["cuda:3", "cuda:2"])
+    monkeypatch.setattr(tmesh, "all_gather_object", lambda obj, info: [
+        [f"cuda:{2 * r + j}" for j in range(len(obj))] if r != info.rank else obj
+        for r in range(info.world)])
+    named = tmesh.process_mesh(local_devices=[info.device])
+    assert named.local_count == 1 and named.shape["data"] == 2
+    group["info"] = info._replace(cards=1, backend="gloo", device=torch.device("cuda", 0),
+                                  rank_devices=(("cuda:0",), ("cuda:0",)))
+    shared = tmesh.process_mesh()
+    assert shared.local_count == 1 and shared.local_devices == [torch.device("cuda", 0)]
+    assert shared.backend == "gloo" and shared.shape["data"] == 2
 
 if __name__ == "__main__":
     _rank_main(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
