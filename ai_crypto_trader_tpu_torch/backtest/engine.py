@@ -339,14 +339,15 @@ def launches_kernel(dev: torch.device) -> bool:
     return dev.type == "cuda"
 
 
-def _traced_entry(name: str, attrs_fn, call):
+def _traced_entry(name: str, attrs_fn, call, device=None):
     """Host-side span around an entry point (`utils.tracing.
-    traced_dispatch`, with the kernel-build-vs-execute breakdown); a plain
-    ``call()`` when tracing is off — no span, no sync."""
+    traced_dispatch`, with the kernel-build-vs-execute breakdown and, on
+    the card, its device time); a plain ``call()`` when tracing is off."""
     if tracing.active() is None:
         return call()
     return tracing.traced_dispatch(name, call, service="backtest",
-                                   attrs_fn=attrs_fn)
+                                   attrs_fn=attrs_fn,
+                                   device="cuda" if device is None else device)
 
 
 def run_backtest(inputs: BacktestInputs, params: StrategyParams | None = None,
@@ -356,7 +357,7 @@ def run_backtest(inputs: BacktestInputs, params: StrategyParams | None = None,
     JAX package's host entry."""
     return _traced_entry(
         "backtest.run", lambda: {"candles": int(inputs.close.shape[-1])},
-        lambda: _run_backtest(inputs, params, **kw))
+        lambda: _run_backtest(inputs, params, **kw), kw.get("device"))
 
 
 def _run_backtest(inputs: BacktestInputs, params: StrategyParams | None = None, *,
@@ -439,7 +440,7 @@ def sweep(inputs: BacktestInputs, params: StrategyParams, *args, **kw):
         lambda: {"candles": int(inputs.close.shape[-1]),
                  "population": int(params.stop_loss.shape[0]),
                  "devices": getattr(kw.get("partitioner"), "device_count", 1)},
-        call)
+        call, kw.get("device") or getattr(kw.get("partitioner"), "home", None))
 
 
 # (pop, T, args, kw) combinations already swept once — the sweep's

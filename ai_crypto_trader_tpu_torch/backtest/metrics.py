@@ -15,6 +15,7 @@ import torch
 
 from ai_crypto_trader_tpu_torch.backtest.engine import BacktestStats, _on
 from ai_crypto_trader_tpu_torch.device import resolve_device
+from ai_crypto_trader_tpu_torch.utils import tracing
 
 
 def _safe(x, cond):
@@ -24,6 +25,13 @@ def _safe(x, cond):
 
 def compute_metrics(s: BacktestStats, annualization: float = 252.0,
                     device=None) -> dict:
+    """The metric suite of ``s``, a ``backtest.metrics`` span under
+    tracing."""
+    with tracing.span("backtest.metrics", service="backtest"):
+        return _compute_metrics(s, annualization, device)
+
+
+def _compute_metrics(s: BacktestStats, annualization: float, device) -> dict:
     dev = resolve_device(device)
     s = _on(s, dev)
     n = torch.clamp_min(s.n_r, 1).to(torch.float32)

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ai_crypto_trader_tpu_torch.device import resolve_device, upload
+from ai_crypto_trader_tpu_torch.utils import tracing
 
 
 class StrategyParams(NamedTuple):
@@ -88,14 +89,16 @@ def default_params(batch: tuple[int, ...] = (), device=None) -> StrategyParams:
 
 def sample_params(generator: torch.Generator, n: int, device=None) -> StrategyParams:
     """Uniform population sample within ranges (GA seeding).  The uniforms
-    are drawn on the generator's device and moved to ``device``."""
-    dev = resolve_device(device)
-    u = torch.rand((n, N_PARAMS), generator=generator,
-                   device=generator.device).to(dev)
-    lows, highs, is_int = _ranges(dev)
-    vals = lows + u * (highs - lows)
-    vals = torch.where(is_int, torch.round(vals), vals)
-    return StrategyParams(*vals.unbind(-1))
+    are drawn on the generator's device and moved to ``device``; a
+    ``strategy.sample`` span under tracing."""
+    with tracing.span("strategy.sample", service="backtest"):
+        dev = resolve_device(device)
+        u = torch.rand((n, N_PARAMS), generator=generator,
+                       device=generator.device).to(dev)
+        lows, highs, is_int = _ranges(dev)
+        vals = lows + u * (highs - lows)
+        vals = torch.where(is_int, torch.round(vals), vals)
+        return StrategyParams(*vals.unbind(-1))
 
 
 def clamp_params(p: StrategyParams) -> StrategyParams:

@@ -129,7 +129,7 @@ class PredictionService:
         (`utils.tracing.traced_dispatch`); a plain ``fn()`` when tracing is
         off."""
         return tracing.traced_dispatch(name, fn, service=self.name,
-                                       attrs_fn=lambda: attrs)
+                                       attrs_fn=lambda: attrs, device=self.device)
 
     # -- training ------------------------------------------------------------
     def _train_one(self, symbol: str, interval: str) -> TrainResult | None:

@@ -26,6 +26,7 @@ import ctypes
 
 import torch
 
+from ai_crypto_trader_tpu_torch.backtest import engine
 from ai_crypto_trader_tpu_torch.backtest.engine import (
     BacktestInputs,
     BacktestStats,
@@ -35,7 +36,7 @@ from ai_crypto_trader_tpu_torch.backtest.engine import (
 from ai_crypto_trader_tpu_torch.backtest.strategy import StrategyParams
 from ai_crypto_trader_tpu_torch.device import resolve_device
 from ai_crypto_trader_tpu_torch.ops import _cuda
-from ai_crypto_trader_tpu_torch.utils import devprof
+from ai_crypto_trader_tpu_torch.utils import devprof, tracing
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
@@ -181,18 +182,23 @@ def sweep_kernel(inputs: BacktestInputs, params: StrategyParams,
     stream [T] or, but close and volume, [B, T] rows), from the kernel on
     the card, and with ``return_curve`` the [B, T] curve as
     ``(stats, curve)``.  Raises on any other device: the CPU's plain loop
-    is `backtest.sweep`'s to choose."""
+    is `backtest.sweep`'s to choose.  Under tracing the operands' staging
+    is a ``replay.stage`` span and the two launches a ``replay.launch``
+    span (``k1_launches``, and ``device_ms`` from two timing events)."""
     dev = resolve_device(device)
-    if dev.type != "cuda":
+    if not engine.launches_kernel(dev):
         raise ValueError(f"sweep_kernel runs on a CUDA device, not {dev}; "
                          "backtest.sweep runs the plain loop on the CPU")
-    lib, s, stop_loss, take_profit, T = kernel_operands(inputs, params, dev)
-    with torch.cuda.device(dev):
-        mask = launch_gate(lib, s, T, warmup, ai_confidence_threshold,
-                            min_signal_strength, dev)
-        out_f, out_i, curve = launch_walk(lib, s, mask, stop_loss, take_profit, T,
-                                           warmup, initial_balance, return_curve, dev)
-    sweep_kernel.launches += 1
+    with tracing.span("replay.stage", service="backtest"):
+        lib, s, stop_loss, take_profit, T = kernel_operands(inputs, params, dev)
+    with tracing.span("replay.launch", service="backtest", device=dev) as sp:
+        with torch.cuda.device(dev):
+            mask = launch_gate(lib, s, T, warmup, ai_confidence_threshold,
+                                min_signal_strength, dev)
+            out_f, out_i, curve = launch_walk(lib, s, mask, stop_loss, take_profit, T,
+                                               warmup, initial_balance, return_curve, dev)
+        sweep_kernel.launches += 1
+        sp.set_attribute("k1_launches", 1)
     if devprof.cards_open():
         B = int(stop_loss.shape[0])
         streams = {x.data_ptr(): x.nbytes for x in s.values()}

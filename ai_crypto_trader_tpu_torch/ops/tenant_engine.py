@@ -52,7 +52,13 @@ cost card and the state's donation check (the decide returns the state
 anew; the old one must be released once replaced); with `utils.meshprof`
 active the decide through its one host read runs in a ``tenant_engine``
 watch window, the first decide of a shape cold.  The JAX engine's
-tick-path seam (`obs.tickpath`) is not part of the port yet.
+tick-path seam (`obs.tickpath`) is not part of the port yet; with
+`utils.tracing` active `feats_from_tick` is a ``tenant.feats`` span and a
+decide a ``tenant.decide`` span (attributes ``lanes``, ``full_seed``,
+``upload_bytes``) holding ``tenant.upload`` (the state's seed and the
+features' staging), ``tenant.dispatch`` (the program's enqueue and its
+read-back copy; ``device_ms`` on the card) and ``tenant.read`` (the one
+read).
 """
 
 from __future__ import annotations
@@ -76,7 +82,7 @@ from ai_crypto_trader_tpu_torch.obs.flightrec import GATES, VETO_ORDER
 from ai_crypto_trader_tpu_torch.ops.tick_engine import Readback, read_packed
 from ai_crypto_trader_tpu_torch.ops.tick_engine import _pad_symbols as _pad_pow2
 from ai_crypto_trader_tpu_torch.parallel.partitioner import resolve_partitioner
-from ai_crypto_trader_tpu_torch.utils import devprof, meshprof
+from ai_crypto_trader_tpu_torch.utils import devprof, meshprof, tracing
 from ai_crypto_trader_tpu_torch.utils.journal import pack_array, unpack_array
 
 #: gate id for "no gate fired: the decision is executable"
@@ -503,18 +509,20 @@ class TenantEngine:
         (`TickEngine.last_out` / `last_valid`).  ``due_mask`` marks the
         symbols the monitor published this tick."""
         S = self.S
-        take = lambda a: np.asarray(a[:S, frame], np.float32)  # noqa: E731
-        valid = np.asarray(tick_valid[:S, frame], bool)
-        if due_mask is not None:
-            valid = valid & np.asarray(due_mask[:S], bool)
-        return {
-            "price": take(tick_out["current_price"]),
-            "signal": np.asarray(tick_out["signal"][:S, frame], np.int32),
-            "strength": take(tick_out["signal_strength"]),
-            "volatility": take(tick_out["volatility"]),
-            "avg_volume": take(tick_out["avg_volume"]),
-            "valid": valid,
-        }
+        with tracing.span("tenant.feats", service="tenant") as sp:
+            take = lambda a: np.asarray(a[:S, frame], np.float32)  # noqa: E731
+            valid = np.asarray(tick_valid[:S, frame], bool)
+            if due_mask is not None:
+                valid = valid & np.asarray(due_mask[:S], bool)
+            sp.set_attribute("symbols", int(valid.sum()))
+            return {
+                "price": take(tick_out["current_price"]),
+                "signal": np.asarray(tick_out["signal"][:S, frame], np.int32),
+                "strength": take(tick_out["signal_strength"]),
+                "volatility": take(tick_out["volatility"]),
+                "avg_volume": take(tick_out["avg_volume"]),
+                "valid": valid,
+            }
 
     def feats_from_updates(self, updates: dict) -> dict:
         """[S] feature columns from per-symbol market_update payloads."""
@@ -597,14 +605,23 @@ class TenantEngine:
         the device state stays resident for the next decide.  When the
         fleet observatory is active the same read carries its aggregates
         (``last_fleet``)."""
+        with tracing.span("tenant.decide", service="tenant") as sp:
+            out = self._decide(feats)
+            sp.set_attribute("lanes", self.last_stats["lanes"])
+            sp.set_attribute("full_seed", self.last_stats["full_seed"])
+            sp.set_attribute("upload_bytes", self.last_stats["upload_bytes"])
+        return out
+
+    def _decide(self, feats: dict) -> dict:
         t_step0 = time.perf_counter()
         fs = fleetscope.active()
         upload_bytes = 0
         seeded = self._dev_state is None or self._need_seed
         try:
-            if seeded:
-                upload_bytes += self._seed()
-            feats_dev = self._upload_feats(feats)
+            with tracing.span("tenant.upload", service="tenant"):
+                if seeded:
+                    upload_bytes += self._seed()
+                feats_dev = self._upload_feats(feats)
             upload_bytes += sum(int(np.asarray(v).nbytes) for v in feats.values())
             # the cost card and the state's donation check on the first
             # carded decide (the state comes back anew: the old one must be
@@ -613,19 +630,21 @@ class TenantEngine:
                         if not devprof.has_card("tenant_engine") else None)
             # a fresh engine's (or a resized tenant axis's) first decide is cold
             with meshprof.watch("tenant_engine", cold=self._cold):
-                args = (self._dev_state, self._dev_params, feats_dev)
-                program = (_decide_program if self.partitioner.device_count == 1
-                           else functools.partial(_mesh_decide, self.partitioner))
-                with devprof.carding("tenant_engine", args) as card:
-                    out, new_state, fleet = card.result(program(
-                        *args, containment=self.containment,
-                        fleet_k=fs.top_k if fs is not None else None,
-                        s_real=len(self.symbols)))
-                del args
-                groups = {"out": out, "state": new_state}
-                if fleet is not None:
-                    groups["fleet"] = fleet
-                readback = self._readback(*_pack(groups))
+                with tracing.span("tenant.dispatch", service="tenant",
+                                  device=self.device):
+                    args = (self._dev_state, self._dev_params, feats_dev)
+                    program = (_decide_program if self.partitioner.device_count == 1
+                               else functools.partial(_mesh_decide, self.partitioner))
+                    with devprof.carding("tenant_engine", args) as card:
+                        out, new_state, fleet = card.result(program(
+                            *args, containment=self.containment,
+                            fleet_k=fs.top_k if fs is not None else None,
+                            s_real=len(self.symbols)))
+                    del args
+                    groups = {"out": out, "state": new_state}
+                    if fleet is not None:
+                        groups["fleet"] = fleet
+                    readback = self._readback(*_pack(groups))
                 self._dev_state = new_state
                 if donation is not None:
                     devprof.verify_donation("tenant_engine", donation,
@@ -634,7 +653,8 @@ class TenantEngine:
                 self.dispatch_count += 1
                 self._need_seed = False
                 t_hr = time.perf_counter()
-                host = host_read(readback)
+                with tracing.span("tenant.read", service="tenant"):
+                    host = host_read(readback)
                 host_read_s = time.perf_counter() - t_hr
         except Exception:
             # a mid-step abort leaves the device state unknown: the host

@@ -56,7 +56,13 @@ ring's first dispatch is checked).  With `utils.meshprof` active the
 dispatch through the one host read runs in a ``tick_engine`` watch window
 (kernel builds attributed, synchronizing calls refused and counted); the
 read itself is the sanctioned one (`host_read`), timed into the
-``host_read`` SLO.  Off, each is one module-global check.
+``host_read`` SLO.  With `utils.tracing` active the step opens
+``tick.stage`` (the scatter list built and its uploads started; attributes
+``rows``, ``bytes``), ``tick.dispatch`` (the program's enqueue;
+``k2_launches``, the fused-EWMA launches it made, and ``device_ms`` from
+the same two timing events) and ``tick.read`` (the one read; ``wait_s``,
+its wait on the card); in pipelined mode ``tick.read`` is the drain's.
+Off, each is one module-global check.
 """
 
 from __future__ import annotations
@@ -74,13 +80,14 @@ from ai_crypto_trader_tpu_torch.backtest.signals import (
 from ai_crypto_trader_tpu_torch.device import canonical_precision, div_const, resolve_device
 from ai_crypto_trader_tpu_torch.obs import tickpath
 from ai_crypto_trader_tpu_torch.obs.drift import DRIFT_FEATURES, N_BINS, PSI_EPS
+from ai_crypto_trader_tpu_torch.ops import ewma
 from ai_crypto_trader_tpu_torch.ops.combinations import (
     combination_signal,
     combined_indicators,
 )
 from ai_crypto_trader_tpu_torch.ops.indicators import compute_indicators
 from ai_crypto_trader_tpu_torch.ops.volume_profile import volume_profile
-from ai_crypto_trader_tpu_torch.utils import devprof, meshprof
+from ai_crypto_trader_tpu_torch.utils import devprof, meshprof, tracing
 
 _NP_DTYPES = {torch.float32: np.float32, torch.int32: np.int32,
               torch.int8: np.int8, torch.bool: np.bool_}
@@ -492,6 +499,11 @@ class TickEngine:
         self._ts[s, f] = ts
         self._synced[s, f] = True
 
+    @property
+    def queued_rows(self) -> int:
+        """Row writes queued for the next step."""
+        return len(self._pending)
+
     def lane_synced(self, symbol: str, interval: str) -> bool:
         """True iff this lane's window already reflects every row offered
         since its last full ingest — a full-window re-ingest of the same
@@ -588,6 +600,24 @@ class TickEngine:
         readback.span = span
         return readback
 
+    def _traced_dispatch(self, i: int, timed: bool) -> Readback:
+        """`_dispatch` under the ``tick.dispatch`` span."""
+        with tracing.span("tick.dispatch", service="tick") as sp:
+            launches = ewma.fused_ewma.launches
+            readback = self._dispatch(i, timed=timed)
+            sp.set_attribute("k2_launches", ewma.fused_ewma.launches - launches)
+            if readback.span is not None:
+                sp.on_device(*readback.span)
+        return readback
+
+    @staticmethod
+    def _traced_read(readback: Readback) -> dict:
+        """`host_read` under the ``tick.read`` span."""
+        with tracing.span("tick.read", service="tick") as sp:
+            host = host_read(readback)
+            sp.set_attribute("wait_s", readback.wait_s)
+        return host
+
     # -- step -----------------------------------------------------------------
     def step(self) -> dict | None:
         """One program over every (symbol, frame) lane.
@@ -605,23 +635,28 @@ class TickEngine:
         t_step0 = time.perf_counter()
         S, F, T = self._ring_np.shape[:3]
         W = self._scatter_capacity()
-        if len(self._pending) > W:             # paranoia: spilled capacity
-            self._need_seed = True
-        seeded = self._bufs[0] is None or self._need_seed
-        upload_bytes = 0
-        if seeded:
-            self._seed_ring(0)                 # a transfer
-            upload_bytes += self._ring_np.nbytes
-            self._pending.clear()              # already inside the seed
-        n_writes = len(self._pending)
-        scatter_bytes = self._stage(0, self._pending, W)
-        self._pending.clear()
-        if not seeded:
-            upload_bytes += scatter_bytes
-        valid = self._count >= T
-        if self._drift_ref is None:
-            self._upload_drift_ref()
+        with tracing.span("tick.stage", service="tick") as sp:
+            if len(self._pending) > W:         # paranoia: spilled capacity
+                self._need_seed = True
+            seeded = self._bufs[0] is None or self._need_seed
+            upload_bytes = 0
+            if seeded:
+                self._seed_ring(0)             # a transfer
+                upload_bytes += self._ring_np.nbytes
+                self._pending.clear()          # already inside the seed
+            n_writes = len(self._pending)
+            scatter_bytes = self._stage(0, self._pending, W)
+            self._pending.clear()
+            if not seeded:
+                upload_bytes += scatter_bytes
+            valid = self._count >= T
+            if self._drift_ref is None:
+                self._upload_drift_ref()
+            sp.set_attribute("rows", n_writes)
+            sp.set_attribute("bytes", upload_bytes)
         tp = tickpath.active()
+        # the program's two timing events: read after the one host read
+        timed = tp is not None or tracing.active() is not None
         # the ring's donation check on the first carded dispatch
         donation = (devprof.donated(inplace=self._bufs[:1])
                     if not devprof.has_card("tick_engine") else None)
@@ -630,7 +665,7 @@ class TickEngine:
             with tickpath.coldstart("tick_engine", cold=cold), \
                     meshprof.watch("tick_engine", cold=cold):
                 t_d0 = time.perf_counter()
-                readback = self._dispatch(0, timed=tp is not None)
+                readback = self._traced_dispatch(0, timed)
                 t_d1 = time.perf_counter()
                 if donation is not None:
                     devprof.verify_donation("tick_engine", donation,
@@ -639,7 +674,7 @@ class TickEngine:
                 self._need_seed = False
                 self.last_valid = valid
                 t_hr = time.perf_counter()
-                host = host_read(readback)
+                host = self._traced_read(readback)
                 host_read_s = time.perf_counter() - t_hr
         except Exception:
             # a mid-step abort leaves the ring in an unknown state; the host
@@ -710,34 +745,38 @@ class TickEngine:
         t_step0 = time.perf_counter()
         S, F, T = self._ring_np.shape[:3]
         W = self._scatter_capacity()
-        # fan this poll's writes into BOTH rings' pending maps (latest write
-        # wins per ring slot, so merging across ticks is safe)
-        if self._pending:
-            self._buf_pending[0].update(self._pending)
-            self._buf_pending[1].update(self._pending)
-            self._pending.clear()
         cur = self._cur
-        if len(self._buf_pending[cur]) > W:    # paranoia: spilled capacity
-            self._need_seed = True
-        seeded = self._bufs[cur] is None or self._need_seed
-        upload_bytes = 0
-        if seeded:
-            # re-seed BOTH rings: their accumulated deltas are in the seed
-            self._seed_ring(0)
-            self._seed_ring(1)
-            upload_bytes += 2 * self._ring_np.nbytes
-            self._buf_pending[0].clear()
-            self._buf_pending[1].clear()
-        pending = self._buf_pending[cur]
-        n_writes = len(pending)
-        scatter_bytes = self._stage(cur, pending, W)
-        pending.clear()                        # consumed by this dispatch
-        if not seeded:
-            upload_bytes += scatter_bytes
-        valid = self._count >= T
-        if self._drift_ref is None:
-            self._upload_drift_ref()
+        with tracing.span("tick.stage", service="tick") as sp:
+            # fan this poll's writes into BOTH rings' pending maps (latest
+            # write wins per ring slot, so merging across ticks is safe)
+            if self._pending:
+                self._buf_pending[0].update(self._pending)
+                self._buf_pending[1].update(self._pending)
+                self._pending.clear()
+            if len(self._buf_pending[cur]) > W:    # paranoia: spilled capacity
+                self._need_seed = True
+            seeded = self._bufs[cur] is None or self._need_seed
+            upload_bytes = 0
+            if seeded:
+                # re-seed BOTH rings: their accumulated deltas are in the seed
+                self._seed_ring(0)
+                self._seed_ring(1)
+                upload_bytes += 2 * self._ring_np.nbytes
+                self._buf_pending[0].clear()
+                self._buf_pending[1].clear()
+            pending = self._buf_pending[cur]
+            n_writes = len(pending)
+            scatter_bytes = self._stage(cur, pending, W)
+            pending.clear()                    # consumed by this dispatch
+            if not seeded:
+                upload_bytes += scatter_bytes
+            valid = self._count >= T
+            if self._drift_ref is None:
+                self._upload_drift_ref()
+            sp.set_attribute("rows", n_writes)
+            sp.set_attribute("bytes", upload_bytes)
         tp = tickpath.active()
+        timed = tp is not None or tracing.active() is not None
         # each ring's donation check on its first dispatch under devprof
         donation = (devprof.donated(inplace=self._bufs[cur:cur + 1])
                     if not self._donation_checked[cur] else None)
@@ -746,7 +785,7 @@ class TickEngine:
         try:
             with tickpath.coldstart("tick_engine", cold=cold), \
                     meshprof.watch("tick_engine", cold=cold):
-                readback = self._dispatch(cur, timed=tp is not None)
+                readback = self._traced_dispatch(cur, timed)
                 if donation is not None:
                     devprof.verify_donation("tick_engine", donation,
                                             after=self._bufs[cur:cur + 1])
@@ -790,7 +829,7 @@ class TickEngine:
         program's span on the card, read after the wait."""
         t_drain0 = time.perf_counter()
         try:
-            host = host_read(inflight["readback"])
+            host = self._traced_read(inflight["readback"])
         except Exception:
             # a failed drain must not wedge the rings: drop the in-flight
             # outputs (this one AND the dispatch just issued) and re-seed

@@ -338,8 +338,13 @@ class MarketMonitor:
 
         Fetching stays per (symbol × frame) — a real venue serves native
         frames — but ALL device work for the batch is a single program and
-        the only device→host sync is the engine's host_read."""
+        the only device→host sync is the engine's host_read.  Under tracing
+        the batch's fetch and ingest is one ``monitor.ingest`` span; a
+        symbol's fetches get a ``monitor.fetch`` span of their own only
+        when they go to the venue (the monitor's REST `_fetch`), not when a
+        stream serves them from its candle books."""
         eng = self._get_engine()
+        venue = fetch is None
         fetch = fetch or self._fetch
         iv0 = self.intervals[0]
         fetched: dict = {}
@@ -350,45 +355,28 @@ class MarketMonitor:
         # after the batch so the launcher's skip-and-alert path still fires.
         fetch_error: Exception | None = None
         t_parse0 = time.perf_counter()
-        for symbol in due:
-            # unlike the per-symbol path's primary-only fetch span, this one
-            # covers ALL the symbol's frames + ring ingest (hence "frames",
-            # not "interval" — see docs/OBSERVABILITY.md)
-            with tracing.span("monitor.fetch", service="monitor",
-                              attributes={"symbol": symbol,
-                                          "frames": len(self.intervals)}):
-                try:
-                    kl = fetch(symbol, iv0)
-                    if kl is None:
-                        fetched[(symbol, iv0)] = None
-                        continue
-                    # stream-served windows carry provenance: the engine
-                    # ring already holds every row (applied one-by-one via
-                    # ingest_row as the frames landed), so the full-window
-                    # re-diff below would find zero changes — skip the
-                    # re-parse + re-diff for that lane entirely.  Any
-                    # plain list (REST, tests) still takes the full path.
-                    current = getattr(kl, "engine_current", False)
-                    kl = kl[-self.kline_limit:]
-                    fetched[(symbol, iv0)] = kl
-                    self._note_warmup(symbol, iv0, len(kl))
-                    if kl and not current:
-                        eng.ingest(symbol, iv0, kl)
-                    if len(kl) < self.kline_limit:
-                        continue        # warming: no publish, like the
-                        #                 per-symbol path — skip secondaries
-                    for iv in self.intervals[1:]:
-                        res = fetch(symbol, iv)
-                        if res:
-                            cur = getattr(res, "engine_current", False)
-                            res = res[-self.kline_limit:]
-                            if not cur:
-                                eng.ingest(symbol, iv, res)
-                        fetched[(symbol, iv)] = res
-                except Exception as e:   # noqa: BLE001 — re-raised below
-                    fetch_error = e
-                    fetched[(symbol, iv0)] = None   # this symbol: no publish
+        with tracing.span("monitor.ingest", service="monitor") as sp:
+            counts = {"windows": 0, "rest_fetches": 0}
+            rows0 = eng.queued_rows
+            for symbol in due:
+                # a venue fetch span covers ALL the symbol's frames + ring
+                # ingest (hence "frames", not "interval" — see
+                # docs/OBSERVABILITY.md)
+                with tracing.span_if(venue, "monitor.fetch", service="monitor",
+                                     attributes={"symbol": symbol,
+                                                 "frames": len(self.intervals)}):
+                    try:
+                        self._fetch_lanes(eng, symbol, fetch, fetched, counts)
+                    except Exception as e:   # noqa: BLE001 — re-raised below
+                        fetch_error = e
+                        fetched[(symbol, iv0)] = None   # this symbol: no publish
+                if fetch_error is not None:
                     break
+            sp.set_attribute("symbols", len(due))
+            sp.set_attribute("frames", len(self.intervals))
+            sp.set_attribute("rows", eng.queued_rows - rows0)
+            for k, v in counts.items():
+                sp.set_attribute(k, v)
         # parse/backfill phase (obs/tickpath.py): the whole fetch + ingest
         # diffing window for the batch — one fold per poll, one module check
         tickpath.observe_phase("parse", time.perf_counter() - t_parse0)
@@ -443,6 +431,44 @@ class MarketMonitor:
             raise fetch_error
         return published
 
+    def _fetch_lanes(self, eng: TickEngine, symbol: str, fetch, fetched: dict,
+                     counts: dict) -> None:
+        """One symbol's windows of every frame into ``fetched``, each that
+        the engine's ring does not already hold diffed into it.  A window
+        without a stream's provenance (``engine_current``) came from the
+        venue: counted in ``counts["rest_fetches"]``."""
+        iv0 = self.intervals[0]
+        kl = fetch(symbol, iv0)
+        if kl is None:
+            fetched[(symbol, iv0)] = None
+            return
+        # stream-served windows carry provenance: the engine ring already
+        # holds every row (applied one-by-one via ingest_row as the frames
+        # landed), so the full-window re-diff below would find zero
+        # changes — skip the re-parse + re-diff for that lane entirely.
+        # Any plain list (REST, tests) still takes the full path.
+        current = getattr(kl, "engine_current", None)
+        counts["rest_fetches"] += current is None
+        kl = kl[-self.kline_limit:]
+        fetched[(symbol, iv0)] = kl
+        self._note_warmup(symbol, iv0, len(kl))
+        if kl and not current:
+            eng.ingest(symbol, iv0, kl)
+            counts["windows"] += 1
+        if len(kl) < self.kline_limit:
+            return              # warming: no publish, like the per-symbol
+            #                     path — skip secondaries
+        for iv in self.intervals[1:]:
+            res = fetch(symbol, iv)
+            if res:
+                cur = getattr(res, "engine_current", None)
+                counts["rest_fetches"] += cur is None
+                res = res[-self.kline_limit:]
+                if not cur:
+                    eng.ingest(symbol, iv, res)
+                    counts["windows"] += 1
+            fetched[(symbol, iv)] = res
+
     async def flush_pipeline(self) -> int:
         """Drain seam: collect + publish the in-flight pipelined tick, if
         any — the last tick's output at shutdown, the parity tests'
@@ -471,11 +497,24 @@ class MarketMonitor:
         at the tick's DISPATCH (serial passes None and reads the engine
         live — same values, the snapshot just pins them across the one
         -poll carry)."""
+        t_pub0 = time.perf_counter()
+        with tracing.span("monitor.publish", service="monitor") as sp:
+            published = await self._publish_symbols(eng, out, due, fetched,
+                                                    now, event_ms)
+            sp.set_attribute("updates", published)
+        # publish/fan-out phase: per-symbol feature extraction + bus set
+        # + market_updates publish for the whole batch
+        tickpath.observe_phase("publish", time.perf_counter() - t_pub0)
+        return published
+
+    async def _publish_symbols(self, eng: TickEngine, out: dict, due: list,
+                               fetched: dict, now: float,
+                               event_ms: dict | None) -> int:
+        """`_publish_batch`'s loop: one ``monitor.poll`` span a symbol."""
         iv0 = self.intervals[0]
         ev_src = event_ms if event_ms is not None else eng.last_event_ms
         blend_iv = self._blend_iv()
         published = 0
-        t_pub0 = time.perf_counter()
         for symbol in due:
             kl = fetched.get((symbol, iv0))
             if not kl:
@@ -525,9 +564,6 @@ class MarketMonitor:
                 await self.bus.publish("market_updates", update)
                 self._last_pub[symbol] = now
                 published += 1
-        # publish/fan-out phase: per-symbol feature extraction + bus set
-        # + market_updates publish for the whole batch
-        tickpath.observe_phase("publish", time.perf_counter() - t_pub0)
         return published
 
     def _expose_drift(self, eng: TickEngine, due: list) -> None:

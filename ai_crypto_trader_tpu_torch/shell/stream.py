@@ -933,7 +933,10 @@ class StreamSupervisor:
     async def step(self) -> int:
         """One supervised drain: watchdog → queued frames → ONE batched
         monitor refresh (one fused dispatch) → alert flush + gauge export.
-        Returns #updates published."""
+        Returns #updates published.  Under tracing a ``stream.step`` span
+        holds ``stream.parse`` (the queued frames into the candle books and
+        the engine's scatter list; attributes ``frames``, ``rows`` applied,
+        ``malformed``) and ``stream.drain`` (the monitor's refresh)."""
         now = self.now_fn()
         if (self.connected and self._last_frame_at is not None
                 and now - self._last_frame_at > self.max_silence_s):
@@ -944,15 +947,21 @@ class StreamSupervisor:
                 f"{now - self._last_frame_at:.0f}s")
         depth = len(self._q)
         published = 0
+        st = self.stream
         with tracing.span("stream.step", service="stream") as sp:
-            while self._q:
-                self.stream.ingest_frame(self._q.popleft())
-            # a healthy stream must not starve universe lanes its
-            # subscription isn't feeding — route them through the drain
-            self.stream.mark_starved(now)
-            if self.stream._pending:
-                published = await self.stream.drain(
-                    limit=len(self.stream._pending))
+            with tracing.span("stream.parse", service="stream") as parse:
+                rows, malformed = st.streamed_rows, st.malformed_frames
+                while self._q:
+                    st.ingest_frame(self._q.popleft())
+                parse.set_attribute("frames", depth)
+                parse.set_attribute("rows", st.streamed_rows - rows)
+                parse.set_attribute("malformed", st.malformed_frames - malformed)
+            with tracing.span("stream.drain", service="stream"):
+                # a healthy stream must not starve universe lanes its
+                # subscription isn't feeding — route them through the drain
+                st.mark_starved(now)
+                if st._pending:
+                    published = await st.drain(limit=len(st._pending))
             sp.set_attribute("frames", depth)
             sp.set_attribute("published", published)
         if self.bus is not None:

@@ -18,15 +18,30 @@ Three correlated signals, one id:
 
 Tracing is OFF by default.  The module-level `span()` / `inject()` helpers
 check one module global and return pre-allocated no-ops when no tracer is
-configured, so the disabled hot path allocates nothing.  All clocks are
-injectable (`now_fn`) like everything else in the framework.
+configured, so the disabled hot path allocates nothing: no span, no CUDA
+event, no profiler range.  All clocks are injectable (`now_fn`) like
+everything else in the framework.
 
 The port's own copy of `ai_crypto_trader_tpu/utils/tracing.py`: spans,
 the tracer and the module-level helpers are the JAX package's.  Where the
 JAX package samples XLA compiles (`JitCompileMonitor`), the port samples
-its kernel builds (`KernelBuildMonitor`: nvcc runs of `ops._cuda.build`),
-and where it blocks on a result (`block_until_ready`), `traced_dispatch`
-synchronizes the current CUDA stream — only while tracing is on.
+its kernel builds (`KernelBuildMonitor`: nvcc runs of `ops._cuda.build`).
+Two additions of the port:
+
+  * ``Tracer(profiler_ranges=True)`` enters
+    ``torch.profiler.record_function(<span name>)`` for the extent of each
+    span that starts while a `torch.profiler` records, so its trace holds
+    those spans as ``user_annotation`` ranges, nested as the spans nest, on
+    the profiler's clock beside the kernels and the CUDA runtime's calls;
+  * a span given a CUDA ``device`` (and `traced_dispatch` on the card)
+    records two timing events around its work.  Nothing waits on them: the
+    span's ``device_ms`` is filled once its end event has completed — seen
+    when a later span ends, typically right after the program's own host
+    read — or by `Tracer.resolve()`, one synchronize for every span still
+    pending.  A span is written to the JSONL once its device time is in.
+    Where the JAX package blocks on a result (`block_until_ready`),
+    `traced_dispatch` on the card therefore returns as the program does,
+    without waiting, and its ``execute_s`` is the events' device time.
 """
 
 from __future__ import annotations
@@ -35,9 +50,9 @@ import contextlib
 import contextvars
 import json
 import os
+import random
 import threading
 import time
-import uuid
 from collections import deque
 from dataclasses import dataclass, field
 
@@ -50,7 +65,10 @@ _ACTIVE: "Tracer | None" = None
 
 
 def _new_id() -> str:
-    return uuid.uuid4().hex[:16]
+    """16 random hex digits from the process's generator, which `random`
+    reseeds in a forked child: no syscall a span (uuid4 reads the OS's
+    randomness, a syscall that costs tens of µs on some hosts)."""
+    return f"{random.getrandbits(64):016x}"
 
 
 @dataclass
@@ -68,9 +86,26 @@ class Span:
     attributes: dict = field(default_factory=dict)
     events: list = field(default_factory=list)
     status: str = "ok"
+    # (start event, end event, fill) while the span's device time is unread
+    device_events: tuple | None = field(default=None, repr=False, compare=False)
 
     def set_attribute(self, key: str, value) -> None:
         self.attributes[key] = value
+
+    def on_device(self, start, end, fill=None) -> None:
+        """Two CUDA timing events around the span's work on the card, the
+        second recorded (or to be recorded) before the span ends: its
+        ``device_ms`` — and whatever ``fill(span, seconds)`` sets — is
+        filled once they have completed, without a wait."""
+        self.device_events = (start, end, fill)
+
+    def _fill_device(self) -> None:
+        start, end, fill = self.device_events
+        self.device_events = None
+        ms = start.elapsed_time(end)
+        self.attributes["device_ms"] = ms
+        if fill is not None:
+            fill(self, ms / 1e3)
 
     def add_event(self, name: str, ts: float | None = None, **attrs) -> None:
         self.events.append({"name": name, "ts": ts, **attrs})
@@ -110,6 +145,9 @@ class _NoopSpan:
     def add_event(self, name, ts=None, **attrs):
         pass
 
+    def on_device(self, start, end, fill=None):
+        pass
+
     def context(self):
         return None
 
@@ -134,18 +172,22 @@ class Tracer:
     ``ring_size`` bounds memory for the dashboard's /traces endpoint;
     ``jsonl_path`` appends every finished span as one JSON line (the
     artifact the acceptance criteria replay); ``metrics`` (a
-    MetricsRegistry) receives `span_duration_seconds{stage=<span name>}`.
+    MetricsRegistry) receives `span_duration_seconds{stage=<span name>}`;
+    ``profiler_ranges`` puts each span in `torch.profiler` traces as a
+    ``user_annotation`` range of its name (module docstring).
     """
 
     def __init__(self, service: str = "trader", now_fn=time.time,
                  ring_size: int = 512, jsonl_path: str | None = None,
-                 metrics=None, id_fn=_new_id):
+                 metrics=None, id_fn=_new_id, profiler_ranges: bool = False):
         self.service = service
         self.now_fn = now_fn
         self.jsonl_path = jsonl_path
         self.metrics = metrics
+        self.profiler_ranges = bool(profiler_ranges)
         self._id_fn = id_fn
         self.finished: deque[Span] = deque(maxlen=ring_size)
+        self._pending: list[Span] = []    # ended, device time not read yet
         self._lock = threading.Lock()     # offloaded model work ends spans
         self._fh = None                   # from worker threads
 
@@ -173,23 +215,61 @@ class Tracer:
         span.end = self.now_fn()
         with self._lock:
             self.finished.append(span)
-            if self.jsonl_path:
-                if self._fh is None:
-                    os.makedirs(os.path.dirname(self.jsonl_path) or ".",
-                                exist_ok=True)
-                    self._fh = open(self.jsonl_path, "a", encoding="utf-8")
-                self._fh.write(json.dumps(span.to_dict(), default=str) + "\n")
-                self._fh.flush()
+            # device times that completed meanwhile: filled, no wait
+            ready = [sp for sp in self._pending if sp.device_events[1].query()]
+            for sp in ready:
+                self._pending.remove(sp)
+                sp._fill_device()
+                self._write(sp)
+            if span.device_events is not None:
+                self._pending.append(span)
+            else:
+                self._write(span)
         if self.metrics is not None:
             self.metrics.observe("span_duration_seconds",
                                  span.end - span.start, stage=span.name)
 
+    def _write(self, span: Span) -> None:
+        """One JSONL line for ``span`` (under the lock)."""
+        if self.jsonl_path:
+            if self._fh is None:
+                os.makedirs(os.path.dirname(self.jsonl_path) or ".",
+                            exist_ok=True)
+                self._fh = open(self.jsonl_path, "a", encoding="utf-8")
+            self._fh.write(json.dumps(span.to_dict(), default=str) + "\n")
+            self._fh.flush()
+
+    def resolve(self) -> int:
+        """Fill the device time of every span still pending: one
+        synchronize for all of them.  Returns how many were filled."""
+        with self._lock:
+            pending, self._pending = self._pending, []
+        if pending:
+            _synchronize()
+        with self._lock:
+            for sp in pending:
+                sp._fill_device()
+                self._write(sp)
+        return len(pending)
+
     @contextlib.contextmanager
     def span(self, name: str, service: str | None = None,
-             attributes: dict | None = None, parent=None):
+             attributes: dict | None = None, parent=None, device=None):
+        """A span around the block.  ``device``: where the block's work
+        runs; on a CUDA device two timing events around it give the span's
+        ``device_ms`` (`Span.on_device`)."""
         sp = self.start_span(name, service=service, attributes=attributes,
                              parent=parent)
         token = _current_span.set(sp)
+        rng = None
+        if self.profiler_ranges:
+            import torch
+
+            # a range costs ~10 µs: entered only while a profiler records
+            if torch.autograd._profiler_enabled():
+                rng = torch.profiler.record_function(name)
+                rng.__enter__()
+        events = _event_pair(device)
         try:
             yield sp
         except BaseException as exc:
@@ -197,6 +277,11 @@ class Tracer:
             sp.attributes.setdefault("error", repr(exc))
             raise
         finally:
+            if events is not None:
+                events[1].record(events[2])
+                sp.on_device(events[0], events[1])
+            if rng is not None:
+                rng.__exit__(None, None, None)
             _current_span.reset(token)
             self.end_span(sp)
 
@@ -239,7 +324,9 @@ class Tracer:
         return out
 
     def export(self, path: str) -> str:
-        """Dump the ring to a JSONL file (one span per line)."""
+        """Dump the ring to a JSONL file (one span per line), device times
+        resolved."""
+        self.resolve()
         with self._lock:
             spans = list(self.finished)
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
@@ -249,6 +336,7 @@ class Tracer:
         return path
 
     def close(self) -> None:
+        self.resolve()
         with self._lock:
             if self._fh is not None:
                 self._fh.close()
@@ -302,6 +390,14 @@ def span(name: str, **kw):
     instrumentation site rides."""
     t = _ACTIVE
     if t is None:
+        return _NOOP_CTX
+    return t.span(name, **kw)
+
+
+def span_if(cond: bool, name: str, **kw):
+    """`span` where ``cond`` holds, else the shared no-op."""
+    t = _ACTIVE
+    if t is None or not cond:
         return _NOOP_CTX
     return t.span(name, **kw)
 
@@ -397,21 +493,44 @@ class KernelBuildMonitor:
 
 
 def _synchronize() -> None:
-    """Wait for the current CUDA stream, where the port's work is enqueued
-    (nothing when CUDA was never used in this process)."""
+    """Wait for every CUDA stream (nothing when CUDA was never used in this
+    process): `Tracer.resolve`'s one wait."""
     import torch
 
     if torch.cuda.is_initialized():
-        torch.cuda.current_stream().synchronize()
+        torch.cuda.synchronize()
+
+
+def _event_pair(device):
+    """(start, end, stream) for timing work on ``device``, the start
+    recorded on its current stream; None off a CUDA device."""
+    if device is None:
+        return None
+    import torch
+
+    device = torch.device(device)
+    if device.type != "cuda" or not torch.cuda.is_available():
+        return None
+    stream = torch.cuda.current_stream(device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record(stream)
+    return start, end, stream
+
+
+def _execute_on_device(span_obj, seconds: float) -> None:
+    span_obj.set_attribute("execute_s", round(seconds, 6))
 
 
 def traced_dispatch(name: str, call, *, service: str | None = None,
-                    attrs_fn=None):
-    """Run one synchronous dispatch under a span carrying the
-    kernel-build-vs-execute breakdown: nvcc seconds are sampled from the
-    process-wide KernelBuildMonitor around the call, and the CUDA stream the
-    result was made on is synchronized so wall time is honest.  A plain ``call()``
-    when tracing is off — no sync.  The shared body behind the model
+                    attrs_fn=None, device=None):
+    """Run one dispatch under a span carrying the kernel-build-vs-execute
+    breakdown: nvcc seconds are sampled from the process-wide
+    KernelBuildMonitor around the call.  On a CUDA ``device`` two timing
+    events around the call give ``device_ms`` and ``execute_s`` once they
+    have completed (`Tracer.resolve`); nothing waits for the card.  Off the
+    card ``execute_s`` is the call's wall time less its builds.  A plain
+    ``call()`` when tracing is off.  The shared body behind the model
     service's and backtest engine's traced entry points."""
     if _ACTIVE is None:
         return call()
@@ -420,11 +539,12 @@ def traced_dispatch(name: str, call, *, service: str | None = None,
     t0 = time.perf_counter()
     with span(name, service=service,
               attributes=attrs_fn() if attrs_fn is not None else None) as sp:
+        events = _event_pair(device)
         out = call()
-        # a CUDA error of the dispatch must propagate here (the span
-        # records status=error) rather than resurface at a later call
-        _synchronize()
         attribute_dispatch(sp, monitor, before, time.perf_counter() - t0)
+        if events is not None:
+            events[1].record(events[2])
+            sp.on_device(events[0], events[1], fill=_execute_on_device)
     return out
 
 
